@@ -9,9 +9,11 @@ Run from the root of a checkout on a machine with a CUDA card and
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build every kernel of the generative serving path from ``csrc/``;
+2. build every kernel of the port from ``csrc/``, one ``nvcc`` per
+   source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (stated tolerances);
+   its main path's shapes (stated tolerances; the INT8 epilogue
+   bitwise, on ties, clip edges and an odd size too);
 4. time each kernel, its plain version and, where one exists, the
    PyTorch library call that computes the same function; print one
    JSON line per kernel and the flash-vs-dense sweep over the prompt
@@ -24,7 +26,16 @@ Phases (any failure exits non-zero and prints no result line):
    kernels' launch counts equal one per layer per prefill / decode step;
    print throughput and latencies, then serve the same requests again
    under torch.profiler for the device's time by kernel and idle share;
-6. one ``{"kernels": [...]}`` line, then the result line
+6. drive the INT8 inference path at full width: a seeded random
+   ResNet-50 v1 checkpoint (``model.save_checkpoint``), then
+   ``load_checkpoint`` → ``quantize_model`` (naive calibration on 8
+   seeded images) → ``get_backend_symbol("XLA")`` → ``simple_bind`` at
+   batch 128 x 3x224x224 → ``forward``; check the 53 fused quantized
+   convolutions, exactly 53 epilogue-kernel launches in one forward and
+   no plain epilogue on the card, and the first 2 images' logits
+   bitwise against the same graph run on the CPU; print fp32 and int8
+   images/s and the int8 forward's device time by group and idle share;
+7. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -56,6 +67,15 @@ TABLE_WIDTH = (MAX_PROMPT + MAX_NEW) // BLOCK_TOKENS
 
 PAGED_TOL = 2e-5
 FLASH_TOL = 1e-4
+
+# the repo's INT8 cell: ResNet-50 v1 at batch 128 (bench.py BATCH)
+R50_SHAPE = (128, 3, 224, 224)
+R50_QUANT_CONVS = 53
+CALIB_IMAGES = 8
+CPU_IMAGES = 2
+# the smallest and largest of the 53 conv accumulators at batch 128
+EPI_SMALLEST = (128, 512, 7, 7)      # 3,211,264 int32
+EPI_LARGEST = (128, 256, 56, 56)     # 102,760,448 int32
 
 
 def log(*a):
@@ -387,6 +407,240 @@ def profile_traffic(gw, prompts, new):
                 for ms, c, n in rows[:12]]}))
 
 
+# -- phase 3/4: INT8 requantize epilogue -----------------------------------
+def epilogue_acc(shape, dev, gen, bound=2 ** 20):
+    """int32 accumulators in the order the int8 convolution writes
+    them: NCHW in shape, channels-last in memory."""
+    n, c, h, w = shape
+    acc = torch.randint(-bound, bound, (n, h, w, c), dtype=torch.int32,
+                        device=dev, generator=gen)
+    return acc.permute(0, 3, 1, 2)
+
+
+def phase_int8(i8, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    # realistic scales: in * out ~ 1.9e-4, so |acc| < 2^20 spans about
+    # +-200 and part of it clips; 0.125 * 4 = 1/2 puts every odd
+    # accumulator on an exact .5 tie and +-255 on the clip edges
+    s_in = torch.tensor(1.1e-4, dtype=torch.float32, device=dev)
+    s_out = np.float32(1.7)
+    cases = [
+        ("ties_and_clip_edges", torch.arange(-300, 301, dtype=torch.int32,
+                                             device=dev),
+         torch.tensor(0.125, device=dev), np.float32(4.0)),
+        ("odd_size_1000003", torch.randint(
+            -2 ** 20, 2 ** 20, (1_000_003,), dtype=torch.int32,
+            device=dev, generator=gen), s_in, s_out),
+        ("smallest", epilogue_acc(EPI_SMALLEST, dev, gen), s_in, s_out),
+        ("largest", epilogue_acc(EPI_LARGEST, dev, gen), s_in, s_out),
+        ("largest_both_scales_on_device",
+         epilogue_acc(EPI_LARGEST, dev, gen), s_in,
+         torch.tensor(s_out, device=dev)),
+    ]
+    err = 0
+    for name, acc, a, b in cases:
+        for relu in (False, True):
+            got = i8.int8_conv_epilogue(acc, a, b, relu)
+            want = i8.int8_conv_epilogue_plain(acc, a, b, relu)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int8 and got.shape == acc.shape,
+                  f"int8_epilogue {name}: {got.dtype} {tuple(got.shape)}")
+            check(torch.equal(got, want),
+                  f"int8_epilogue {name} relu={relu}: differs from the "
+                  "plain version")
+            err = max(err, (got.int() - want.int()).abs().max().item())
+        log(f"int8_epilogue {name} {tuple(acc.shape)}: bitwise equal")
+    acc = cases[3][1]
+    ms, launch_ms = measure(lambda: i8.int8_conv_epilogue(acc, s_in, s_out,
+                                                         True))
+    plain_ms, _ = measure(lambda: i8.int8_conv_epilogue_plain(
+        acc, s_in, s_out, True), iters=10)
+    nbytes = acc.numel() * 5          # int32 read once, int8 written once
+    ops = acc.numel() * 5             # mul, mul, round, clamp, relu
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S) * 1e3
+    del cases, acc
+    torch.cuda.empty_cache()
+    return {"name": "int8_epilogue", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/int8_epilogue.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:364",
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / FP32_FLOPS_PER_S else "operations"),
+            "library_ms": None, "launch_ms": launch_ms,
+            "shape": {"acc": list(EPI_LARGEST), "relu": True}}
+
+
+# -- phase 6: the INT8 inference path ----------------------------------------
+def resnet_params(sym, rng):
+    """Seeded fp32 weights (He-normal) and BatchNorm parameters and
+    statistics away from the identity, as numpy."""
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=(1,) + R50_SHAPE[1:])
+    arg, aux = {}, {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name == "data":
+            continue
+        if name.endswith("gamma"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("beta"):
+            v = rng.uniform(-0.2, 0.2, shape)
+        else:
+            v = rng.standard_normal(shape) * np.sqrt(
+                2.0 / np.prod(shape[1:]))
+        arg[name] = v.astype(np.float32)
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        v = (rng.uniform(-0.1, 0.1, shape) if "mean" in name
+             else rng.uniform(0.5, 2.0, shape))
+        aux[name] = v.astype(np.float32)
+    return arg, aux
+
+
+def time_forward(ex, data, iters=5):
+    """Seconds per forward at steady state (host clock to a sync)."""
+    ex.forward(data=data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ex.forward(data=data)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def profile_forward(ex, data):
+    """One int8 forward under torch.profiler: device time by group and
+    the device's idle share of the forward's wall time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.forward(data=data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    groups = {}
+    for ms, _, name in rows:
+        low = name.lower()
+        g = ("int8_epilogue" if "int8_epilogue_kernel" in name else
+             "int8_conv_gemm" if any(w in low for w in (
+                 "gemm", "xmma", "cutlass", "imma")) else
+             "int8_conv_im2col" if "im2col" in low else "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "by_group_ms": groups,
+            "top": [{"ms": ms, "count": c, "name": n[:90]}
+                    for ms, c, n in rows[:12]]}
+
+
+def phase_resnet(i8, dev, rng, here):
+    import collections
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+
+    t0 = time.perf_counter()
+    sym = mx.model_zoo.load_symbol("resnet50_v1")
+    arg, aux = resnet_params(sym, rng)
+    prefix = os.path.join(here, "build", "chip_smoke", "resnet50_v1")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    with mx.cpu():
+        mx.model.save_checkpoint(
+            prefix, 0, sym, {k: mx.nd.array(v) for k, v in arg.items()},
+            {k: mx.nd.array(v) for k, v in aux.items()})
+    sym, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0)
+    check(all(v.context == mx.gpu(0) for v in arg_p.values()),
+          "load_checkpoint did not put the parameters on cuda:0")
+    n_params = sum(v.size for v in arg_p.values())
+    log(f"resnet50_v1: {n_params} parameters, checkpoint written and "
+        f"loaded ({time.perf_counter() - t0:.2f}s)")
+    x = rng.standard_normal(R50_SHAPE, dtype=np.float32)
+    calib = rng.standard_normal((CALIB_IMAGES,) + R50_SHAPE[1:],
+                                dtype=np.float32)
+    data = mx.nd.array(x)
+
+    ex32 = sym.simple_bind(grad_req="null", data=R50_SHAPE)
+    ex32.copy_params_from(arg_p, aux_p)
+    fp32_s = time_forward(ex32, data)
+    logits32 = ex32.outputs[0].asnumpy()
+    del ex32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qsym, qarg, qaux = quantize_model(
+        sym, arg_p, aux_p, calib_mode="naive",
+        calib_data=mx.io.NDArrayIter(calib, batch_size=CALIB_IMAGES),
+        num_calib_examples=CALIB_IMAGES)
+    quant_s = time.perf_counter() - t0
+    fused = qsym.get_backend_symbol("XLA")
+    counts = collections.Counter(n.op for n in fused._topo() if n.op)
+    check(counts["_sg_xla_quant_conv"] == R50_QUANT_CONVS,
+          f"partition: {dict(counts)}")
+    ex8 = fused.simple_bind(grad_req="null", data=R50_SHAPE,
+                            **{k: v.shape for k, v in qarg.items()})
+    ex8.copy_params_from(qarg, qaux, allow_extra_params=True)
+
+    # the main path's counted run: one forward, counts zeroed before it;
+    # the plain epilogue is watched for any call with a CUDA tensor
+    plain = i8.int8_conv_epilogue_plain
+    plain_on_card = [0]
+
+    def watched(acc, *a, **k):
+        plain_on_card[0] += acc.is_cuda
+        return plain(acc, *a, **k)
+
+    i8.int8_conv_epilogue_plain = watched
+    try:
+        i8.reset_launches()
+        out = ex8.forward(data=data)[0]
+        torch.cuda.synchronize()
+        launches = i8.int8_conv_epilogue.launches
+    finally:
+        i8.int8_conv_epilogue_plain = plain
+    check(launches == R50_QUANT_CONVS,
+          f"int8_epilogue launches {launches} != {R50_QUANT_CONVS}")
+    check(plain_on_card[0] == 0, "the plain epilogue ran on the card")
+    logits8 = out.asnumpy()
+    check(logits8.shape == (R50_SHAPE[0], 1000) and
+          np.isfinite(logits8).all(), f"int8 logits {logits8.shape}")
+    int8_s = time_forward(ex8, data)
+    prof = profile_forward(ex8, data)
+    del ex8, out
+    torch.cuda.empty_cache()
+
+    # the same fused graph on the CPU (plain versions) for the first
+    # images: every range is a calibrated constant and every op acts per
+    # image, so the batch does not change a row
+    t0 = time.perf_counter()
+    with mx.cpu():
+        args = {k: v.as_in_context(mx.cpu()) for k, v in qarg.items()}
+        args["data"] = mx.nd.array(x[:CPU_IMAGES])
+        cpu = fused.bind(args=args, grad_req="null").forward()[0]
+        cpu_logits = cpu.asnumpy()
+    check(np.array_equal(cpu_logits, logits8[:CPU_IMAGES]),
+          "int8 logits on the card differ from the CPU plain path: max "
+          f"{np.abs(cpu_logits - logits8[:CPU_IMAGES]).max()}")
+    cpu_s = time.perf_counter() - t0
+    log(f"int8 logits: first {CPU_IMAGES} images bitwise equal to the "
+        f"CPU plain path ({cpu_s:.1f}s)")
+
+    top1 = float((logits8.argmax(1) == logits32.argmax(1)).mean())
+    rel = float(np.abs(logits8 - logits32).mean()
+                / np.abs(logits32).mean())
+    main = {"batch": R50_SHAPE[0], "fp32_images_per_s": R50_SHAPE[0] / fp32_s,
+            "int8_images_per_s": R50_SHAPE[0] / int8_s,
+            "fp32_forward_ms": fp32_s * 1e3, "int8_forward_ms": int8_s * 1e3,
+            "quantize_model_s": quant_s, "partition": dict(counts),
+            "int8_epilogue_launches": launches,
+            "int8_vs_fp32": {"top1_agreement": top1,
+                             "mean_rel_abs_err": rel},
+            "int8_profile": prof}
+    log("resnet50_int8 " + json.dumps(main))
+    return {"int8_epilogue": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -397,6 +651,7 @@ def main():
     sys.path.insert(0, here)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import int8 as i8
 
     # fp32 comparisons: no TF32 in cuBLAS or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -414,9 +669,11 @@ def main():
     log(f"build: {build_s:.1f}s for {', '.join(_build.KERNELS)}")
 
     kernels = [phase_flash(att, dev, rng),
-               phase_paged(att, dev, rng)]
+               phase_paged(att, dev, rng),
+               phase_int8(i8, dev)]
 
     launches = phase_serve(att, dev, rng)
+    launches.update(phase_resnet(i8, dev, rng, here))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))

@@ -3,15 +3,35 @@ Hopper (H100), grown slice by slice beside the JAX package, which stays
 the reference.
 
 This package imports torch and numpy, never ``jax`` or ``mxnet_tpu``.
-Its entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``; on a host without CUDA they raise instead. Ported so
-far: generative serving (``serving.Gateway.generate``) with the
-hand-written flash (prefill) and paged (decode) attention kernels in
-``csrc/``.
+Its entry points run on ``cuda:0`` unless the caller asks for the CPU
+(``ctx=mx.cpu()``, ``with mx.cpu():`` or ``device="cpu"``); on a host
+without CUDA they raise instead. TF32 is off for cuBLAS and cuDNN: a
+float32 product here is a float32 product. Ported so far:
+
+- generative serving (``serving.Gateway.generate``) with the
+  hand-written flash (prefill) and paged (decode) attention kernels;
+- symbolic INT8 inference: ``model.load_checkpoint`` →
+  ``contrib.quantization.quantize_model`` →
+  ``Symbol.get_backend_symbol("XLA")`` → ``simple_bind`` →
+  ``Executor.forward``, whose fused ``_sg_xla_quant_conv`` nodes end in
+  the hand-written INT8 requantize epilogue kernel.
+
+Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
 from __future__ import annotations
 
-from .base import MXNetError, get_env
-from .context import cpu, gpu, resolve_device
+import torch
 
-__all__ = ["MXNetError", "cpu", "get_env", "gpu", "resolve_device"]
+from .base import MXNetError, get_env
+from .context import Context, cpu, current_context, gpu, resolve_device
+from . import ops  # noqa: F401  registers every op
+from . import ndarray as nd
+from . import symbol as sym
+from . import executor, io, model, model_zoo, subgraph, contrib  # noqa: F401
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["Context", "MXNetError", "contrib", "cpu", "current_context",
+           "executor", "get_env", "gpu", "io", "model", "model_zoo", "nd",
+           "resolve_device", "subgraph", "sym"]

@@ -1,6 +1,6 @@
-"""Framework-wide error type and environment reader (the port's own
-copies of ``mxnet_tpu/base.py``'s, so this package never imports the
-JAX one)."""
+"""Framework-wide error type, environment reader and attr helpers (the
+port's own copies of ``mxnet_tpu/base.py``'s, so this package never
+imports the JAX one)."""
 from __future__ import annotations
 
 import os
@@ -18,3 +18,19 @@ def get_env(name, default=None, dtype=str):
     if dtype is bool:
         return val not in ("0", "false", "False", "")
     return dtype(val)
+
+
+def attr_bool(val, default=False):
+    """A graph-attr boolean that may arrive as bool, int or a string
+    spelling from symbol JSON ("True", "true", "1", "False", "false",
+    "0"): plain truthiness would read "false" as True."""
+    if val is None:
+        return default
+    if isinstance(val, str):
+        s = val.strip().lower()
+        if s in ("true", "1"):
+            return True
+        if s in ("false", "0", ""):
+            return False
+        raise MXNetError(f"cannot parse boolean attr {val!r}")
+    return bool(val)

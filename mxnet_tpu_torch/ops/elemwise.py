@@ -1,0 +1,34 @@
+"""The elementwise families of ``mxnet_tpu/ops/elemwise.py`` the port
+has reached: the residual add of the vision models and the arithmetic
+behind NDArray's operators (MXNet op names preserved)."""
+from __future__ import annotations
+
+import torch
+
+from .registry import register_op
+
+_BINARY = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+           "div": torch.div}
+
+for _name, _fn in _BINARY.items():
+    register_op("broadcast_" + _name,
+                (lambda f: lambda lhs, rhs: f(lhs, rhs))(_fn))
+    register_op("elemwise_" + _name,
+                (lambda f: lambda lhs, rhs: f(lhs, rhs))(_fn),
+                aliases=("_" + _name,))
+
+_SCALAR = {
+    "_plus_scalar": lambda x, s: x + s,
+    "_minus_scalar": lambda x, s: x - s,
+    "_rminus_scalar": lambda x, s: s - x,
+    "_mul_scalar": lambda x, s: x * s,
+    "_div_scalar": lambda x, s: x / s,
+    "_rdiv_scalar": lambda x, s: torch.div(torch.full_like(x, s), x),
+}
+
+for _name, _fn in _SCALAR.items():
+    register_op(_name, (lambda f: lambda data, scalar=1.0: f(data, scalar))(
+        _fn))
+
+register_op("negative", lambda data: torch.neg(data))
+register_op("abs", lambda data: torch.abs(data))

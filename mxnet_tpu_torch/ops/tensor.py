@@ -1,7 +1,9 @@
-"""The subset of ``mxnet_tpu/ops/tensor.py`` the decoder reaches."""
+"""The subset of ``mxnet_tpu/ops/tensor.py`` the port reaches."""
 from __future__ import annotations
 
 import torch.nn.functional as F
+
+from .registry import register
 
 
 def embedding(data, weight):
@@ -9,3 +11,8 @@ def embedding(data, weight):
     reference does; a bare ``F.embedding`` would raise on them."""
     idx = data.long().clamp(0, weight.shape[0] - 1)
     return F.embedding(idx, weight)
+
+
+@register("Flatten", aliases=("flatten",))
+def flatten(data):
+    return data.reshape(data.shape[0], -1)

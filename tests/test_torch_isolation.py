@@ -1,8 +1,9 @@
 """The port stands alone and never runs on the CPU unasked:
 ``mxnet_tpu_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor
-``mxnet_tpu``, its entry points default to the first CUDA card and
-raise on a host without one, and its kernel build raises instead of
-falling back when ``nvcc`` is missing."""
+``mxnet_tpu``, its entry points (serving, ``nd.array``, ``bind`` /
+``simple_bind``, ``load_checkpoint``) default to the first CUDA card and
+raise on a host without one unless the caller asks for the CPU, and its
+kernel build raises instead of falling back when ``nvcc`` is missing."""
 import ast
 import os
 import subprocess
@@ -36,6 +37,12 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
         "import mxnet_tpu_torch.serving.generate\n"
         "import mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops._build\n"
+        "import mxnet_tpu_torch.ops.int8, mxnet_tpu_torch.ops.quantized\n"
+        "import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.symbol\n"
+        "import mxnet_tpu_torch.executor, mxnet_tpu_torch.io\n"
+        "import mxnet_tpu_torch.model, mxnet_tpu_torch.model_zoo\n"
+        "import mxnet_tpu_torch.subgraph\n"
+        "import mxnet_tpu_torch.contrib.quantization\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n")
     # -I: no PYTHONPATH or user site, so nothing outside the port can
@@ -117,3 +124,55 @@ def test_unsupported_dtype_raises():
     with pytest.raises(MXNetError):
         GenerativeDecoder(vocab_size=10, d_model=8, num_layers=1,
                           num_heads=2, dtype="bfloat16", device="cpu")
+
+
+def _tiny_symbol():
+    import mxnet_tpu_torch as tmx
+    data = tmx.sym.var("data")
+    return tmx.sym.FullyConnected(data, name="fc", num_hidden=2)
+
+
+def test_symbolic_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    _require_no_cuda()
+    assert tmx.current_context() == tmx.gpu(0)
+    net = _tiny_symbol()
+    with pytest.raises(MXNetError):
+        tmx.nd.array([1.0, 2.0])
+    with pytest.raises(MXNetError):
+        tmx.nd.zeros((2, 2))
+    with pytest.raises(MXNetError):
+        net.simple_bind(grad_req="null", data=(3, 4))
+    with tmx.cpu():
+        ex = net.simple_bind(grad_req="null", data=(3, 4))
+        args = dict(ex.arg_dict)
+    with pytest.raises(MXNetError):
+        net.bind(args=args)
+    prefix = str(tmp_path / "tiny")
+    tmx.model.save_checkpoint(prefix, 0, net, args, {})
+    with pytest.raises(MXNetError):
+        tmx.model.load_checkpoint(prefix, 0)
+    with pytest.raises(MXNetError):
+        list(tmx.io.NDArrayIter(np.zeros((4, 4), np.float32),
+                                batch_size=2))
+
+
+def test_cpu_scope_and_ctx_put_the_symbolic_path_on_the_cpu(tmp_path):
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    net = _tiny_symbol()
+    with tmx.cpu():
+        assert tmx.current_context() == tmx.cpu()
+        ex = net.simple_bind(grad_req="null", data=(3, 4))
+        out = ex.forward(data=tmx.nd.array(np.ones((3, 4), np.float32)))
+        assert out[0].context == tmx.cpu()
+        assert out[0]._data.device == torch.device("cpu")
+        prefix = str(tmp_path / "tiny")
+        tmx.model.save_checkpoint(prefix, 0, net, ex.arg_dict, {})
+    _, arg, _ = tmx.model.load_checkpoint(prefix, 0, ctx=tmx.cpu())
+    assert all(v.context == tmx.cpu() for v in arg.values())
+    assert tmx.nd.array([1.0], ctx=tmx.cpu()).context == tmx.cpu()
