@@ -35,7 +35,24 @@ Phases (any failure exits non-zero and prints no result line):
    no plain epilogue on the card, and the first 2 images' logits
    bitwise against the same graph run on the CPU; print fp32 and int8
    images/s and the int8 forward's device time by group and idle share;
-7. one ``{"kernels": [...]}`` line, then the result line
+7. K2, the fused optimizer kernels: ``fused_sgd_mom`` and ``fused_adam``
+   bitwise against their plain versions at sizes 1, 7, 64, 1,000,003 and
+   ResNet-50's largest tensor (2,359,296), clip on and off, ``wd`` 0 and
+   not, ``rescale`` not 1, Adam variances with zeros, in place; timed
+   per call at the largest tensor (cold L2) and per step over the 161
+   trainable ResNet-50 tensors;
+8. drive the symbolic training path at full width: the same seeded
+   checkpoint, ``SoftmaxOutput`` on top, ``simple_bind(grad_req="write")``
+   at batch 128 x 3x224x224, then 10 steps of ``forward(is_train=True)``
+   → ``backward`` → ``nd.sgd_mom_update`` on each of the 161 trainable
+   tensors, on one seeded batch; check exactly 161 K2 launches per step,
+   finite losses that fall, and no plain update on the card; print the
+   step time, images/s and one step's device time by group and idle
+   share; then one step at batch 4 on the card against the CPU plain
+   path (loss, two gradients, an updated weight);
+9. 3 Adam steps at batch 32 through ``nd.adam_update`` (bias correction
+   folded into lr): 161 launches per step, finite, falling loss;
+10. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -76,6 +93,29 @@ CPU_IMAGES = 2
 # the smallest and largest of the 53 conv accumulators at batch 128
 EPI_SMALLEST = (128, 512, 7, 7)      # 3,211,264 int32
 EPI_LARGEST = (128, 256, 56, 56)     # 102,760,448 int32
+
+# the training path: the classic symbolic loop of the reference's
+# example/image-classification at ResNet-50 v1's full width and depth
+TRAIN_BATCH, TRAIN_STEPS, R50_TRAINABLE = 128, 10, 161
+# lr 0.1 (the reference's for batch 256 with a warm-up) overshoots on one
+# fixed batch from random weights and ends above the first loss; 0.01
+# brings the loss down step by step
+SGD_HYPER = dict(lr=0.01, momentum=0.9, wd=1e-4)
+ADAM_BATCH, ADAM_STEPS = 32, 3
+ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=1e-4)
+PARITY_BATCH = 4
+# one training step on the card vs the CPU plain path. In f64 the two
+# run the same algorithm and agree to rounding (1e-9 of each tensor's
+# largest value). In f32 their sums run in another order (cuDNN vs the
+# CPU's kernels): the loss to rtol 1e-5 and the FC weight's gradient and
+# update to 1e-4 of their largest value, as the CPU tests against the
+# JAX package hold them. The stem's weight gradient, under 53
+# BatchNorms at batch 4, is ill-conditioned in f32 (both devices are
+# some 3% of its largest value off the f64 run), so it is held to the
+# f64 run: the card no further from it than twice the CPU.
+PARITY_LOSS_RTOL, PARITY_TENSOR_TOL, PARITY_F64_TOL = 1e-5, 1e-4, 1e-9
+PARITY_STEM_RATIO = 2.0
+K2_LARGEST = 512 * 512 * 3 * 3       # stage 4's 3x3 convolution weight
 
 
 def log(*a):
@@ -641,6 +681,442 @@ def phase_resnet(i8, dev, rng, here):
     return {"int8_epilogue": launches}
 
 
+# -- phase 7: K2, the fused optimizer kernels --------------------------------
+SGD_CASES = (dict(lr=0.1, momentum=0.9, wd=1e-4, rescale_grad=1 / 128),
+             dict(lr=0.037, momentum=0.87, wd=3e-4, rescale_grad=1 / 3,
+                  clip_gradient=0.25),
+             dict(lr=0.05, momentum=1.0, wd=0.0, rescale_grad=1.0))
+ADAM_CASES = (dict(lr=0.01, wd=1e-4, rescale_grad=1 / 32),
+              dict(lr=0.0037, beta1=0.85, beta2=0.99, epsilon=1e-6, wd=3e-4,
+                   rescale_grad=1 / 3, clip_gradient=0.25),
+              dict(lr=0.002, wd=0.0, rescale_grad=0.7))
+SGD_BYTES, ADAM_BYTES = 20, 28       # per element: each array once
+SGD_OPS, ADAM_OPS = 6, 15            # flops per element
+
+
+def k2_arrays(n, dev, gen):
+    """weight, grad, momentum / mean, variance (non-negative, zeros) at
+    the scales training gives them."""
+    w, g, m, v = (torch.randn(n, device=dev, generator=gen) * s
+                  for s in (0.05, 3.0, 0.01, 1e-3))
+    v = v.abs()
+    v[::7] = 0
+    return w, g, m, v
+
+
+def resnet_trainable_shapes():
+    import mxnet_tpu_torch as mx
+    sym = mx.model_zoo.load_symbol("resnet50_v1")
+    shapes = sym.infer_shape(data=(1,) + R50_SHAPE[1:])[0]
+    return [s for n, s in zip(sym.list_arguments(), shapes) if n != "data"]
+
+
+def k2_bound_ms(n, per_elem_bytes, per_elem_ops):
+    return max(n * per_elem_bytes / HBM_BYTES_PER_S,
+               n * per_elem_ops / FP32_FLOPS_PER_S) * 1e3
+
+
+def phase_fused_opt(fo, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    err = {"fused_sgd_mom": 0.0, "fused_adam": 0.0}
+
+    def same(name, what, got, want):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"{name} {what}: differs from the "
+                  f"plain version by {(a - b).abs().max().item()}")
+            err[name] = max(err[name], (a - b).abs().max().item())
+
+    for n in (1, 7, 64, 1_000_003, K2_LARGEST):
+        w, g, m, v = k2_arrays(n, dev, gen)
+        for hp in SGD_CASES:
+            want = fo.sgd_mom_plain(w, g, m, **hp)
+            same("fused_sgd_mom", f"n={n} {hp}",
+                 fo.fused_sgd_mom(w, g, m, **hp), want)
+            w2, m2 = w.clone(), m.clone()
+            same("fused_sgd_mom", f"n={n} {hp} in place",
+                 fo.fused_sgd_mom(w2, g, m2, **hp, out=(w2, m2)), want)
+        for hp in ADAM_CASES:
+            want = fo.adam_plain(w, g, m, v, **hp)
+            same("fused_adam", f"n={n} {hp}",
+                 fo.fused_adam(w, g, m, v, **hp), want)
+            w2, m2, v2 = w.clone(), m.clone(), v.clone()
+            same("fused_adam", f"n={n} {hp} in place",
+                 fo.fused_adam(w2, g, m2, v2, **hp, out=(w2, m2, v2)), want)
+        log(f"fused_opt n={n}: sgd_mom and adam bitwise equal to their "
+            "plain versions (every case, in place too)")
+
+    # per call at the largest tensor: eight sets of arrays in turn, so
+    # each call finds the 50 MB L2 cold, as consecutive tensors of a step do
+    sets = [k2_arrays(K2_LARGEST, dev, gen) for _ in range(8)]
+    turn = [0]
+
+    def rotating(fn):
+        def go():
+            w, g, m, v = sets[turn[0] % len(sets)]
+            turn[0] += 1
+            fn(w, g, m, v)
+        return go
+
+    # (name, kernel, plain version, hyperparameters, bytes and flops per
+    # element, state arrays)
+    specs = (("fused_sgd_mom", fo.fused_sgd_mom, fo.sgd_mom_plain,
+              dict(SGD_HYPER, rescale_grad=1.0 / TRAIN_BATCH), SGD_BYTES,
+              SGD_OPS, 1),
+             ("fused_adam", fo.fused_adam, fo.adam_plain,
+              dict(ADAM_HYPER, rescale_grad=1.0 / TRAIN_BATCH), ADAM_BYTES,
+              ADAM_OPS, 2))
+    rows = {}
+    for name, kernel, plain, hp, nbytes, ops, nstates in specs:
+        def call(w, g, m, v, f=kernel, k=nstates, hp=hp):
+            st = (m, v)[:k]
+            f(w, g, *st, **hp, out=(w, *st))
+
+        def call_plain(w, g, m, v, f=plain, k=nstates, hp=hp):
+            f(w, g, *(m, v)[:k], **hp)
+
+        ms, launch_ms = measure(rotating(call))
+        plain_ms, _ = measure(rotating(call_plain), iters=10)
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/fused_opt.cu",
+            "replaces": ("mxnet_tpu/ops/pallas_kernels.py:498"
+                         if name == "fused_sgd_mom" else
+                         "mxnet_tpu/ops/pallas_kernels.py:507"),
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": k2_bound_ms(K2_LARGEST, nbytes, ops),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / FP32_FLOPS_PER_S else "operations"),
+            # torch.optim's fused SGD / Adam apply wd and the bias
+            # correction otherwise: no PyTorch call computes this function
+            "library_ms": None, "launch_ms": launch_ms,
+            "shape": {"n": K2_LARGEST, "hyper": hp}}
+    del sets
+
+    # per step: one call per trainable ResNet-50 tensor
+    shapes = resnet_trainable_shapes()
+    total = sum(int(np.prod(s)) for s in shapes)
+    arrays = [k2_arrays(int(np.prod(s)), dev, gen) for s in shapes]
+    step = {"tensors": len(shapes), "values": total}
+    for name, kernel, plain, hp, nbytes, ops, nstates in specs:
+        def all_kernel(f=kernel, k=nstates, hp=hp):
+            for w, g, m, v in arrays:
+                st = (m, v)[:k]
+                f(w, g, *st, **hp, out=(w, *st))
+
+        def all_plain(f=plain, k=nstates, hp=hp):
+            for w, g, m, v in arrays:
+                f(w, g, *(m, v)[:k], **hp)
+
+        ms, launch_ms = measure(all_kernel, iters=20)
+        plain_ms, _ = measure(all_plain, iters=2, warmup=1)
+        step[name] = {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+                      "bound_ms": k2_bound_ms(total, nbytes, ops)}
+        rows[name]["step"] = step[name]
+    log("fused_opt_step " + json.dumps(step))
+    del arrays
+    torch.cuda.empty_cache()
+    return [rows["fused_sgd_mom"], rows["fused_adam"]]
+
+
+# -- phase 8/9: the symbolic training path -----------------------------------
+def cross_entropy(prob, label, eps=1e-12):
+    """Mean -log(p[label] + eps) of SoftmaxOutput's probabilities, as the
+    repo's ``metric.CrossEntropy`` computes it (a 0-d tensor on their
+    device)."""
+    picked = prob.gather(1, label.long().reshape(-1, 1))
+    return -torch.log(picked + eps).mean()
+
+
+class PlainOnCard:
+    """Counts calls of the K2 plain versions with CUDA tensors while
+    active: the main path must take the kernels."""
+
+    def __init__(self, fo):
+        self.fo, self.calls = fo, 0
+
+    def __enter__(self):
+        self.saved = (self.fo.sgd_mom_plain, self.fo.adam_plain)
+
+        def watch(fn):
+            def watched(weight, *a, **k):
+                self.calls += weight.is_cuda
+                return fn(weight, *a, **k)
+            return watched
+
+        self.fo.sgd_mom_plain, self.fo.adam_plain = map(watch, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.fo.sgd_mom_plain, self.fo.adam_plain = self.saved
+        return False
+
+
+def train_net(mx, here):
+    """The seeded checkpoint the INT8 phase wrote, with SoftmaxOutput on
+    top: (net, trainable names, arg_params, aux_params) on cuda:0."""
+    prefix = os.path.join(here, "build", "chip_smoke", "resnet50_v1")
+    sym, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0)
+    net = mx.sym.SoftmaxOutput(sym, name="softmax")
+    params = [n for n in net.list_arguments()
+              if n not in ("data", "softmax_label")]
+    check(len(params) == R50_TRAINABLE,
+          f"{len(params)} trainable tensors, want {R50_TRAINABLE}")
+    return net, params, arg_p, aux_p
+
+
+def train_executor(mx, net, batch, arg_p, aux_p, ctx):
+    ex = net.simple_bind(ctx, grad_req="write",
+                         data=(batch,) + R50_SHAPE[1:],
+                         softmax_label=(batch,))
+    ex.copy_params_from(arg_p, aux_p)
+    return ex
+
+
+def train_step(mx, ex, params, states, x, y, hp, adam_t=None):
+    """forward(is_train=True) -> backward -> one update op per trainable
+    tensor; returns the forward's loss (a device tensor)."""
+    out = ex.forward(is_train=True, data=x, softmax_label=y)[0]
+    ex.backward()
+    for n in params:
+        w = ex.arg_dict[n]
+        if adam_t is None:
+            mx.nd.sgd_mom_update(w, ex.grad_dict[n], states[n][0], out=w,
+                                 **hp)
+        else:
+            # optimizer.Adam's bias correction, folded into lr
+            b1, b2 = hp["beta1"], hp["beta2"]
+            lr_t = hp["lr"] * np.sqrt(1 - b2 ** adam_t) / (1 - b1 ** adam_t)
+            mx.nd.adam_update(w, ex.grad_dict[n], *states[n], out=w,
+                              **dict(hp, lr=lr_t))
+    return cross_entropy(out._data, y._data)
+
+
+def kernel_group(name):
+    low = name.lower()
+    if "sgd_mom" in low or "adam<" in low or "::adam" in low:
+        return "k2"
+    if "wgrad" in low or "dgrad" in low or ("conv" in low and (
+            "bwd" in low or "backward" in low)):
+        return "conv_backward"
+    if "fprop" in low or "conv" in low or "implicit" in low:
+        return "conv_forward"
+    if "bn_" in low or "batch_norm" in low or "batchnorm" in low \
+            or "welford" in low:
+        return "batchnorm"
+    if "gemm" in low or "gemv" in low:
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "elementwise_other"
+
+
+def profile_step(fn):
+    """One training step under torch.profiler: device time by group and
+    the device's idle share of the step's wall time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    groups, counts = {}, {}
+    for ms, c, name in rows:
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + c
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "by_group_ms": groups, "by_group_launches": counts,
+            "top": [{"ms": ms, "count": c, "name": n[:90]}
+                    for ms, c, n in rows[:15]]}
+
+
+def forward_flops(sym, batch):
+    """Floating-point operations of the convolutions and the FC layer in
+    one forward at ``batch`` (2 per multiply-add)."""
+    shape = (batch,) + R50_SHAPE[1:]
+    arg_shapes = dict(zip(sym.list_arguments(),
+                          sym.infer_shape(data=shape)[0]))
+    internals = sym.get_internals()
+    out_shapes = dict(zip(internals.list_outputs(),
+                          internals.infer_shape(data=shape)[1]))
+    flops = 0
+    for node in sym._topo():
+        if node.op in ("Convolution", "FullyConnected"):
+            weight = arg_shapes[node.inputs[1][0].name]
+            out = out_shapes[node.name + "_output"]
+            flops += 2 * int(np.prod(out)) * int(np.prod(weight[1:]))
+    return flops
+
+
+def phase_train(fo, dev, rng, here):
+    import mxnet_tpu_torch as mx
+
+    net, params, arg_p, aux_p = train_net(mx, here)
+    t0 = time.perf_counter()
+    ex = train_executor(mx, net, TRAIN_BATCH, arg_p, aux_p, mx.gpu(0))
+    states = {n: [mx.nd.zeros(ex.arg_dict[n].shape, ctx=mx.gpu(0))]
+              for n in params}
+    x_np = rng.standard_normal((TRAIN_BATCH,) + R50_SHAPE[1:],
+                               dtype=np.float32)
+    y_np = rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32)
+    x, y = mx.nd.array(x_np), mx.nd.array(y_np)
+    hp = dict(SGD_HYPER, rescale_grad=1.0 / TRAIN_BATCH)
+    log(f"train: simple_bind + copy_params_from at batch {TRAIN_BATCH} "
+        f"({time.perf_counter() - t0:.2f}s)")
+
+    # the main path's counted run: counts zeroed just before it
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    with PlainOnCard(fo) as plain:
+        fo.reset_launches()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(train_step(mx, ex, params, states, x, y, hp))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = fo.fused_sgd_mom.launches
+        adam_launches = fo.fused_adam.launches
+    check(plain.calls == 0, "a plain K2 update ran on the card")
+    check(launches == R50_TRAINABLE * TRAIN_STEPS and adam_launches == 0,
+          f"fused_sgd_mom launches {launches} != {R50_TRAINABLE} x "
+          f"{TRAIN_STEPS} (adam {adam_launches})")
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = float(np.median(secs[-5:]))
+    prof = profile_step(lambda: train_step(mx, ex, params, states, x, y,
+                                           hp))
+    check(all(torch.isfinite(ex.arg_dict[n]._data).all() for n in params),
+          "non-finite weights after training")
+    del ex, states, x
+    torch.cuda.empty_cache()
+
+    parity = train_parity(mx, net, params, arg_p, aux_p, x_np, y_np, hp)
+    # forward, data gradient and weight gradient: three products each
+    step_flops = 3 * forward_flops(net, TRAIN_BATCH)
+    main = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in secs],
+            "images_per_s": TRAIN_BATCH / step_s,
+            "conv_fc_flops_per_step": step_flops,
+            "conv_fc_fp32_bound_ms": step_flops / FP32_FLOPS_PER_S * 1e3,
+            "fused_sgd_mom_launches": launches,
+            "launches_per_step": launches / TRAIN_STEPS,
+            "peak_memory_gb": peak_gb, "step_profile": prof,
+            "parity_batch4": parity}
+    log("resnet50_train " + json.dumps(main))
+    return launches
+
+
+def train_parity(mx, net, params, arg_p, aux_p, x_np, y_np, hp):
+    """One step at PARITY_BATCH from the checkpoint on the card and on
+    the CPU plain path, in f32 (with the FC weight's update) and in f64
+    (forward and backward only: K2 takes f32): the loss, the stem's and
+    the FC's weight gradients, the FC weight after its update."""
+    conv_w = params[0]
+    fc_w = next(n for n in params if n.endswith("dense0_weight"))
+    hp = dict(hp, rescale_grad=1.0 / PARITY_BATCH)
+    got = {}
+    for dt in ("float32", "float64"):
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            t0 = time.perf_counter()
+            with ctx:
+                ex = train_executor(
+                    mx, net, PARITY_BATCH,
+                    {k: v.astype(dt) for k, v in arg_p.items()},
+                    {k: v.astype(dt) for k, v in aux_p.items()}, ctx)
+                x = mx.nd.array(x_np[:PARITY_BATCH], dtype=dt)
+                y = mx.nd.array(y_np[:PARITY_BATCH], dtype=dt)
+                if dt == "float32":
+                    states = {fc_w: [mx.nd.zeros(ex.arg_dict[fc_w].shape)]}
+                    loss = train_step(mx, ex, [fc_w], states, x, y, hp)
+                else:
+                    out = ex.forward(is_train=True, data=x,
+                                     softmax_label=y)[0]
+                    ex.backward()
+                    loss = cross_entropy(out._data, y._data)
+                got[where, dt] = {
+                    "loss": float(loss),
+                    "stem_grad": ex.grad_dict[conv_w].asnumpy(),
+                    "fc_grad": ex.grad_dict[fc_w].asnumpy(),
+                    "fc_updated": ex.arg_dict[fc_w].asnumpy(),
+                    "s": time.perf_counter() - t0}
+            del ex
+
+    def rel(a, b, key):
+        return float(np.abs(a[key].astype(np.float64) - b[key]).max()
+                     / np.abs(b[key]).max())
+
+    card32, cpu32 = got["card", "float32"], got["cpu", "float32"]
+    card64, cpu64 = got["card", "float64"], got["cpu", "float64"]
+    res = {"loss_card": card32["loss"], "loss_cpu": cpu32["loss"],
+           "loss_f64": cpu64["loss"],
+           "cpu_s": cpu32["s"] + cpu64["s"]}
+    check(abs(card64["loss"] - cpu64["loss"]) <= PARITY_F64_TOL
+          * abs(cpu64["loss"]), "f64 loss card vs CPU")
+    for key in ("stem_grad", "fc_grad"):
+        res[key + "_f64_rel"] = r = rel(card64, cpu64, key)
+        check(r <= PARITY_F64_TOL, f"f64 {key}: card vs CPU {r}")
+    check(abs(card32["loss"] - cpu32["loss"]) <= PARITY_LOSS_RTOL
+          * abs(cpu32["loss"]), f"batch-{PARITY_BATCH} loss card "
+          f"{card32['loss']} vs CPU {cpu32['loss']}")
+    for key in ("fc_grad", "fc_updated"):
+        res[key + "_rel"] = r = rel(card32, cpu32, key)
+        check(r <= PARITY_TENSOR_TOL, f"f32 {key}: card vs CPU differ by "
+              f"{r} of the largest (> {PARITY_TENSOR_TOL})")
+    res["stem_grad_card_vs_f64"] = card_err = rel(card32, cpu64,
+                                                  "stem_grad")
+    res["stem_grad_cpu_vs_f64"] = cpu_err = rel(cpu32, cpu64, "stem_grad")
+    check(card_err <= PARITY_STEM_RATIO * cpu_err,
+          f"f32 stem gradient: card {card_err} vs CPU {cpu_err} of the "
+          "largest off the f64 run")
+    log(f"train parity: batch {PARITY_BATCH} step on the card matches the "
+        f"CPU plain path in f64 and f32 ({res['cpu_s']:.1f}s on the CPU)")
+    return res
+
+
+def phase_train_adam(fo, dev, rng, here):
+    import mxnet_tpu_torch as mx
+
+    net, params, arg_p, aux_p = train_net(mx, here)
+    ex = train_executor(mx, net, ADAM_BATCH, arg_p, aux_p, mx.gpu(0))
+    states = {n: [mx.nd.zeros(ex.arg_dict[n].shape) for _ in range(2)]
+              for n in params}
+    x = mx.nd.array(rng.standard_normal((ADAM_BATCH,) + R50_SHAPE[1:],
+                                        dtype=np.float32))
+    y = mx.nd.array(rng.integers(0, 1000, ADAM_BATCH).astype(np.float32))
+    hp = dict(ADAM_HYPER, rescale_grad=1.0 / ADAM_BATCH)
+    losses = []
+    with PlainOnCard(fo) as plain:
+        fo.reset_launches()
+        for t in range(1, ADAM_STEPS + 1):
+            losses.append(train_step(mx, ex, params, states, x, y, hp,
+                                     adam_t=t))
+        torch.cuda.synchronize()
+        launches = fo.fused_adam.launches
+        sgd_launches = fo.fused_sgd_mom.launches
+    check(plain.calls == 0, "a plain K2 update ran on the card")
+    check(launches == R50_TRAINABLE * ADAM_STEPS and sgd_launches == 0,
+          f"fused_adam launches {launches} != {R50_TRAINABLE} x "
+          f"{ADAM_STEPS} (sgd {sgd_launches})")
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite Adam loss: {losses}")
+    check(losses[-1] < losses[0], f"Adam loss did not fall: {losses}")
+    log("resnet50_train_adam " + json.dumps({
+        "batch": ADAM_BATCH, "steps": ADAM_STEPS, "losses": losses,
+        "fused_adam_launches": launches}))
+    del ex, states, x
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -651,6 +1127,7 @@ def main():
     sys.path.insert(0, here)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import fused_opt as fo
     from mxnet_tpu_torch.ops import int8 as i8
 
     # fp32 comparisons: no TF32 in cuBLAS or cuDNN
@@ -670,15 +1147,18 @@ def main():
 
     kernels = [phase_flash(att, dev, rng),
                phase_paged(att, dev, rng),
-               phase_int8(i8, dev)]
+               phase_int8(i8, dev),
+               *phase_fused_opt(fo, dev)]
 
     launches = phase_serve(att, dev, rng)
     launches.update(phase_resnet(i8, dev, rng, here))
+    launches["fused_sgd_mom"] = phase_train(fo, dev, rng, here)
+    launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))
-        k.pop("shape")
-        k.pop("launch_ms")
+        for extra in ("shape", "launch_ms", "step"):
+            k.pop(extra, None)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

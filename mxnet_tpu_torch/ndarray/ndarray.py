@@ -5,8 +5,10 @@ and pushes every op to its threaded engine; here it holds a
 ``torch.Tensor``, whose CUDA work is already asynchronous on the current
 stream. ``wait_to_read`` is a stream synchronisation (deferred CUDA
 errors surface there) and ``asnumpy()`` the explicit copy to the host.
-Ops dispatch through the registry under ``torch.inference_mode()``: the
-port has no autograd yet.
+Ops dispatch through the registry under ``torch.no_grad()``: ``mx.nd``
+records nothing (the port has no ``autograd.record`` yet), and its
+results stay ordinary tensors that a training forward of the executor
+may take as inputs, which inference-mode tensors could not be.
 """
 from __future__ import annotations
 
@@ -223,7 +225,7 @@ def invoke(op_name, inputs, attrs, out=None):
     attrs.pop("num_args", None)
     tensors = [as_tensor(i) for i in inputs if i is not None]
     device = tensors[0].device if tensors else resolve_device(None)
-    with torch.inference_mode():
+    with torch.no_grad():
         raw = op(*tensors, **attrs)
     multi = isinstance(raw, (tuple, list))
     outs = [NDArray(as_tensor(r, device)) for r in (raw if multi else [raw])]

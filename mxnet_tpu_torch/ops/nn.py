@@ -2,15 +2,15 @@
 as plain torch ops: the JAX package leaves them to XLA, the port to
 cuBLAS, cuDNN and PyTorch's elementwise kernels. Layouts follow the
 JAX package (NCHW data, OIHW weights, (num_hidden, in_units) FC
-weights). The symbolic executor runs BatchNorm in inference mode only;
-training arrives with the training slice."""
+weights). Gradients are autograd's, except SoftmaxOutput's, which is
+the reference's loss-layer rule (a ``torch.autograd.Function``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, attr_bool
 from .registry import register
 
 
@@ -110,20 +110,38 @@ def activation(data, act_type="relu"):
     raise MXNetError(f"act_type {act_type!r} unsupported")
 
 
+def batch_moments(data, axis=1):
+    """Batch mean and biased variance (``jnp.var``'s) over every axis
+    but ``axis``."""
+    axis = int(axis) % data.ndim
+    dims = tuple(i for i in range(data.ndim) if i != axis)
+    var, mean = torch.var_mean(data, dim=dims, correction=0)
+    return mean, var
+
+
 @register("BatchNorm")
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False,
                training=False):
-    """Inference BatchNorm over the moving statistics, in the JAX op's
-    arithmetic: ``(x - mean) * (rsqrt(var + eps) * g) + beta``."""
-    if training and not use_global_stats:
-        raise MXNetError("BatchNorm: training mode arrives with the "
-                         "training slice of the port")
+    """Inference: BatchNorm over the moving statistics, in the JAX op's
+    arithmetic, ``(x - mean) * (rsqrt(var + eps) * g) + beta``.
+    Training: over the batch mean and biased variance, through cuDNN's
+    batch norm (its backward differentiates through the batch
+    statistics, as ``jax.vjp`` of the JAX op does). The op keeps no
+    running statistics: the executor updates the moving ones
+    (``executor.py``), from :func:`batch_moments`."""
     axis = int(axis) % data.ndim
+    g = torch.ones_like(gamma) if attr_bool(fix_gamma, True) else gamma
+    if attr_bool(training) and not attr_bool(use_global_stats):
+        x = data.movedim(axis, 1)
+        out = F.batch_norm(x, None, None, g, beta, training=True,
+                           eps=float(eps)).movedim(1, axis)
+        if attr_bool(output_mean_var):
+            return (out,) + batch_moments(data, axis)
+        return out
     bshape = tuple(data.shape[axis] if i == axis else 1
                    for i in range(data.ndim))
-    g = torch.ones_like(gamma) if fix_gamma else gamma
     inv = torch.rsqrt(moving_var + eps)
     out = (data - moving_mean.reshape(bshape)) * (inv * g).reshape(bshape) \
         + beta.reshape(bshape)
@@ -131,6 +149,68 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if output_mean_var:
         return out, moving_mean, moving_var
     return out
+
+
+def softmax_output_grad(out, label, axis=-1, grad_scale=1.0,
+                        ignore_label=-1.0, use_ignore=False,
+                        normalization="null", smooth_alpha=0.0):
+    """The reference's SoftmaxOutput gradient wrt its data,
+    ``(softmax - onehot(label)) * scale``, whatever the head gradient
+    (src/operator/softmax_output-inl.h; the JAX op's ``f_bwd``)."""
+    axis = axis % out.ndim
+    nclass = out.shape[axis]
+    classes = torch.arange(nclass, device=out.device).reshape(
+        [nclass if i == axis else 1 for i in range(out.ndim)])
+    # a label outside [0, nclass) (ignore_label -1) has an all-zero row,
+    # as jax.nn.one_hot gives it
+    onehot = (label.to(torch.int32).unsqueeze(axis) == classes).to(out.dtype)
+    if smooth_alpha:
+        onehot = onehot * (1 - smooth_alpha) \
+            + smooth_alpha / (nclass - 1) * (1 - onehot)
+    grad = out - onehot
+    if use_ignore:
+        keep = (label != ignore_label).to(out.dtype)
+        grad = grad * keep.unsqueeze(axis)
+    if normalization == "batch":
+        return grad * (grad_scale / out.shape[0])
+    if normalization == "valid" and use_ignore:
+        nvalid = torch.clamp_min((label != ignore_label).sum(), 1)
+        scale = torch.tensor(grad_scale, dtype=torch.float32,
+                             device=out.device) / nvalid.to(torch.float32)
+        return grad * scale
+    return grad * grad_scale
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward, the loss layer's gradient backward; the label
+    gets none (the JAX op returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, cfg):
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.axis, ctx.cfg = axis, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, head_grad):
+        out, label = ctx.saved_tensors
+        grad = softmax_output_grad(out, label, ctx.axis, *ctx.cfg)
+        return grad, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   use_ignore=False, multi_output=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax over the last axis (axis 1 with ``multi_output``); its
+    gradient is :func:`softmax_output_grad`."""
+    multi = attr_bool(multi_output)
+    if not multi and label.ndim == data.ndim and label.shape[-1] == 1:
+        label = label.reshape(label.shape[:-1])  # (N, 1) labels, as CSVIter
+    cfg = (float(grad_scale), float(ignore_label), attr_bool(use_ignore),
+           str(normalization), float(smooth_alpha))
+    return _SoftmaxOutput.apply(data, label, 1 if multi else -1, cfg)
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):

@@ -260,15 +260,18 @@ class Symbol:
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         from ..executor import Executor
-        return Executor(self, ctx, args=args, grad_req=grad_req,
-                        aux_states=aux_states)
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     shared_exec=None, group2ctx=None, **kwargs):
         """Allocate argument and auxiliary arrays from the inferred
-        shapes and bind. An inference bind (every grad_req "null")
-        applies the subgraph backend ``MXNET_SUBGRAPH_BACKEND`` names,
-        as the reference does at bind."""
+        shapes and bind; ``grad_req`` is one of "null", "write", "add"
+        or a dict of them by argument name ("null" for the rest), and
+        the executor allocates a gradient array for every argument that
+        is not "null". An inference bind (every grad_req "null") applies
+        the subgraph backend ``MXNET_SUBGRAPH_BACKEND`` names, as the
+        reference does at bind."""
         from ..executor import Executor
         from ..ndarray import zeros
         req_all_null = (grad_req == "null" if isinstance(grad_req, str)
@@ -368,6 +371,17 @@ def _norm_shapes(ins, attrs):
     return [None] + [(int(data[axis % len(data)]),)] * (len(ins) - 1)
 
 
+def _softmax_label_shapes(ins, attrs):
+    """The label of SoftmaxOutput: one class index per row (per pixel
+    with ``multi_output``), as the reference's SoftmaxOutput infers it."""
+    data = ins[0]
+    if data is None:
+        return None
+    if attr_bool(attrs.get("multi_output")):
+        return [None, (data[0],) + tuple(data[2:])]
+    return [None, tuple(data[:-1])]
+
+
 # op name -> fn(input shapes (None when unknown), attrs) -> shapes of the
 # inputs (None to leave one alone), in positional order; the fused
 # subgraph ops add theirs when their modules load
@@ -375,6 +389,8 @@ _PARAM_SHAPE_INFER = {
     "FullyConnected": _fc_shapes,
     "Convolution": _conv_shapes,
     "BatchNorm": _norm_shapes,
+    "SoftmaxOutput": _softmax_label_shapes,
+    "Softmax": _softmax_label_shapes,
 }
 
 

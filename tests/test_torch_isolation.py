@@ -43,6 +43,8 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.model, mxnet_tpu_torch.model_zoo\n"
         "import mxnet_tpu_torch.subgraph\n"
         "import mxnet_tpu_torch.contrib.quantization\n"
+        "import mxnet_tpu_torch.ops.fused_opt\n"
+        "import mxnet_tpu_torch.ops.optimizer_ops\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n")
     # -I: no PYTHONPATH or user site, so nothing outside the port can
@@ -176,3 +178,47 @@ def test_cpu_scope_and_ctx_put_the_symbolic_path_on_the_cpu(tmp_path):
     _, arg, _ = tmx.model.load_checkpoint(prefix, 0, ctx=tmx.cpu())
     assert all(v.context == tmx.cpu() for v in arg.values())
     assert tmx.nd.array([1.0], ctx=tmx.cpu()).context == tmx.cpu()
+
+
+def _tiny_loss_symbol():
+    import mxnet_tpu_torch as tmx
+    return tmx.sym.SoftmaxOutput(_tiny_symbol(), name="softmax")
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it():
+    import mxnet_tpu_torch as tmx
+    _require_no_cuda()
+    net = _tiny_loss_symbol()
+    with pytest.raises(MXNetError):
+        net.simple_bind(grad_req="write", data=(3, 4))
+    with tmx.cpu():
+        ex = net.simple_bind(grad_req="write", data=(3, 4))
+    with pytest.raises(MXNetError):
+        tmx.nd.zeros(ex.arg_dict["fc_weight"].shape)   # a momentum buffer
+
+
+def test_training_path_runs_on_the_cpu_when_asked():
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.ops import fused_opt
+    net = _tiny_loss_symbol()
+    fused_opt.reset_launches()
+    with tmx.cpu():
+        ex = net.simple_bind(grad_req="write", data=(3, 4))
+        ex.arg_dict["fc_weight"]._data.fill_(0.5)
+        mom = tmx.nd.zeros((2, 4))
+        ex.forward(is_train=True, data=tmx.nd.array(np.ones((3, 4))),
+                   softmax_label=tmx.nd.array([0, 1, 1]))
+        ex.backward()
+        w = ex.arg_dict["fc_weight"]
+        tmx.nd.sgd_mom_update(w, ex.grad_dict["fc_weight"], mom, out=w,
+                              lr=0.1, momentum=0.9)
+        tmx.nd.adam_update(w, ex.grad_dict["fc_weight"], tmx.nd.zeros(
+            (2, 4)), tmx.nd.zeros((2, 4)), out=w, lr=0.1)
+    assert w.context == tmx.cpu() and mom.context == tmx.cpu()
+    assert ex.grad_dict["fc_weight"].context == tmx.cpu()
+    assert float(np.abs(mom.asnumpy()).max()) > 0
+    # a CPU tensor never reaches the kernel
+    assert fused_opt.fused_sgd_mom.launches == 0
+    assert fused_opt.fused_adam.launches == 0

@@ -93,13 +93,25 @@ def test_symbol_json_crosses_both_ways_unchanged():
 
 def _canonical(text):
     """The graph with gluon's instance and op counters renamed in order
-    of appearance (resnetv10_ vs resnetv17_, convolution0 vs 53)."""
+    of appearance (resnetv10_ vs resnetv17_, broadcast_add0 vs 8,
+    _plus3): the counted token that opens a quoted name, underscores
+    included, up to its digits."""
     seen = {}
 
     def rename(m):
         return seen.setdefault(m.group(0), f"n{len(seen)}")
 
-    return re.sub(r"\b[a-z]+v?\d+(?=_|\")", rename, text)
+    return re.sub(r"(?<=\")[a-z_]+?\d+(?=_|\")", rename, text)
+
+
+@pytest.mark.parametrize("text,want", [
+    ('"resnetv17_conv0_weight", "broadcast_add8", "_plus3", "resnetv17_x"',
+     '"n0_conv0_weight", "n1", "n2", "n0_x"'),
+    ('"broadcast_add0", "broadcast_add0_x", "data", "(3, 3)", "64"',
+     '"n0", "n0_x", "data", "(3, 3)", "64"'),
+])
+def test_canonical_renames_every_counter_in_order(text, want):
+    assert _canonical(text) == want
 
 
 def test_shipped_resnet50_is_the_jax_model_zoo_graph():
