@@ -13,11 +13,16 @@ Phases (any failure exits non-zero and prints no result line):
    source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
    its main path's shapes (stated tolerances; the INT8 epilogue
-   bitwise, on ties, clip edges and an odd size too);
+   bitwise, on ties, clip edges and an odd size too). The flash kernel
+   at every prefill bucket and head size 16/32/64/128, over all cases no
+   further from an f64 run than twice the fp32 plain version, and its
+   SASS must hold TF32 tensor-core instructions (cuobjdump); the paged
+   kernel at lengths on both sides of its 64-token splits, seq_len-0
+   rows zeros;
 4. time each kernel, its plain version and, where one exists, the
    PyTorch library call that computes the same function; print one
-   JSON line per kernel and the flash-vs-dense sweep over the prompt
-   buckets;
+   JSON line per kernel, the flash sweep over the prompt buckets (with
+   the 3xTF32 and fp32 bounds) and the paged rows at B 32 and B 1;
 5. drive the serving path: ``Gateway.register_generator`` with the
    documented decoder (vocab 32000, d_model 512, 8 layers, 8 heads,
    2.15 GB paged KV pool) and 32 concurrent streamed
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -74,6 +80,7 @@ from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
 
 # the decoder configuration docs/serving.md documents as its quickstart
@@ -188,9 +195,11 @@ def paged_inputs(lens, layers, nb, dev, rng):
 
 
 def phase_paged(att, dev, rng):
-    # correctness: lengths on both sides of block boundaries, a 1, a full
-    # table and a padding row (0, excluded from the comparison)
-    lens = [1, 15, 16, 17, 31, 32, 33, 100, 255, 256, 257, 512,
+    # correctness: lengths on both sides of block boundaries and of the
+    # kernel's 64-token splits, a 1, a full table and a padding row (0,
+    # excluded from the comparison and held to zeros)
+    lens = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 191,
+            192, 193, 255, 256, 257, 512, TABLE_WIDTH * BLOCK_TOKENS - 1,
             TABLE_WIDTH * BLOCK_TOKENS, 5, 48, 49]
     lens += list(rng.integers(2, TABLE_WIDTH * BLOCK_TOKENS, 15)) + [0]
     q, k, v, tab, sl = paged_inputs(lens, 1, MAX_BLOCKS, dev, rng)
@@ -206,47 +215,57 @@ def phase_paged(att, dev, rng):
 
     # timing at the serving path's decode shape: a full batch bucket of
     # 32 rows mid-generation, one pool per layer like the real cache so
-    # consecutive calls find the L2 cold, as consecutive layers do
-    lens = [int(n) for n in rng.integers(5, MAX_PROMPT + 1, MAX_BATCH) + 32]
-    q, k, v, tab, sl = paged_inputs(lens, LAYERS, MAX_BLOCKS, dev,
-                                    rng)
-    layer = [0]
+    # consecutive calls find the L2 cold, as consecutive layers do; then
+    # one row at the full table
+    rows = []
+    for lens in ([int(n) for n in rng.integers(5, MAX_PROMPT + 1, MAX_BATCH)
+                  + 32], [TABLE_WIDTH * BLOCK_TOKENS]):
+        q, k, v, tab, sl = paged_inputs(lens, LAYERS, MAX_BLOCKS, dev, rng)
+        layer = [0]
 
-    def run(fn):
-        def go():
-            li = layer[0] = (layer[0] + 1) % LAYERS
-            fn(q, k[li], v[li], tab, sl)
-        return go
+        def run(fn):
+            def go():
+                li = layer[0] = (layer[0] + 1) % LAYERS
+                fn(q, k[li], v[li], tab, sl)
+            return go
 
-    ms, launch_ms = measure(run(att.paged_attention))
-    plain_ms, _ = measure(run(att.paged_attention_plain), iters=10)
-    live_tok = sum(lens)
-    nbytes = (2 * live_tok * HEADS * HEAD_DIM * 4 + 2 * q.numel() * 4
-              + tab.numel() * 4 + sl.numel() * 4)
-    flops = 4 * live_tok * HEADS * HEAD_DIM
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S \
-        else "operations"
-    del k, v
-    torch.cuda.empty_cache()
+        ms, launch_ms = measure(run(att.paged_attention))
+        plain_ms, _ = measure(run(att.paged_attention_plain), iters=10)
+        live_tok = sum(lens)
+        nbytes = (2 * live_tok * HEADS * HEAD_DIM * 4 + 2 * q.numel() * 4
+                  + tab.numel() * 4 + sl.numel() * 4)
+        flops = 4 * live_tok * HEADS * HEAD_DIM
+        bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       flops / FP32_FLOPS_PER_S) * 1e3
+        rows.append({"B": len(lens), "live_tokens": live_tok, "ms": ms,
+                     "launch_ms": launch_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_share": bound_ms / ms,
+                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                  >= flops / FP32_FLOPS_PER_S
+                                  else "operations")})
+        del k, v
+        torch.cuda.empty_cache()
+    log("paged_timing " + json.dumps(rows))
+    top = rows[0]
     return {"name": "paged_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:236",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "launch_ms": launch_ms,
+            "max_abs_err": err, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "launch_ms": top["launch_ms"],
             "shape": {"B": MAX_BATCH, "H": HEADS, "D": HEAD_DIM,
                       "BT": BLOCK_TOKENS, "W": TABLE_WIDTH,
-                      "live_tokens": live_tok}}
+                      "live_tokens": top["live_tokens"]}}
 
 
 # -- phase 3/4: flash attention ---------------------------------------------
-def prefill_qkv(t, dev, rng):
+def prefill_qkv(t, dev, rng, hd=HEAD_DIM):
     """q, k, v as the prefill step hands them to the kernel: (1, H, T, hd)
-    views into one (1, T, 3d) projection output."""
+    views into one (1, T, 3d) projection output (H = d_model / hd)."""
     qkv = torch.from_numpy(rng.standard_normal(
         (1, t, 3 * D_MODEL), dtype=np.float32)).to(dev)
-    return [y.view(1, t, HEADS, HEAD_DIM).transpose(1, 2)
+    return [y.view(1, t, D_MODEL // hd, hd).transpose(1, 2)
             for y in qkv.chunk(3, dim=-1)]
 
 
@@ -257,19 +276,86 @@ def flash_cost(t):
     return nbytes, flops
 
 
-def phase_flash(att, dev, rng):
-    err = 0.0
-    for t, causal in ((16, True), (48, True), (512, True), (48, False)):
-        q, k, v = prefill_qkv(t, dev, rng)
+def flash_bounds(t):
+    """(bound ms on the route the kernel takes: 3xTF32 products, three
+    TF32 products each; bound ms on the fp32 FMA pipes; what bounds the
+    first)."""
+    nbytes, flops = flash_cost(t)
+    mem_s = nbytes / HBM_BYTES_PER_S
+    tf32_s = 3 * flops / TF32_FLOPS_PER_S
+    return (max(mem_s, tf32_s) * 1e3,
+            max(mem_s, flops / FP32_FLOPS_PER_S) * 1e3,
+            "bytes" if mem_s >= tf32_s else "operations")
+
+
+def flash_sass(build):
+    """The flash kernel's SASS must run both products on the tensor cores
+    in TF32 (HMMA ... TF32 from mma.sync, or HGMMA): cuobjdump on the
+    built library, counting the instructions of the kernel's functions."""
+    tool = None
+    for cand in ("cuobjdump", os.path.join(os.environ.get(
+            "CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")):
+        if (found := shutil.which(cand)) or os.path.exists(cand):
+            tool = found or cand
+            break
+    check(tool is not None, "cuobjdump not found: cannot check the SASS")
+    lib = str(build._target("flash_attention"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "flash_attention_kernel" in fn and (
+                ("HMMA" in line and "TF32" in line) or "HGMMA" in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    check(len(counts) == 4 and all(counts.values()),
+          f"flash_attention: tensor-core TF32 instructions per kernel "
+          f"instance {counts} (want all 4 head sizes)")
+    log("flash_attention SASS: TF32 tensor-core instructions per head "
+        "size " + json.dumps(sorted(counts.values())))
+    return counts
+
+
+def phase_flash(att, build, dev, rng):
+    flash_sass(build)
+    # every prefill bucket at every head size the kernel takes, causal as
+    # the prefill runs it, some lengths no bucket has, and non-causal.
+    # Besides the fp32 plain version, an f64 plain run on the same inputs:
+    # over all cases the kernel's largest error against it may be no more
+    # than twice the fp32 plain version's (a 1xTF32 product would be ~1e-3
+    # off). Per case the two are maxima over a few hundred values each and
+    # 3xTF32 keeps 22 of an operand's 24 bits, so one case may read 2x
+    err, err_kernel, err_plain, worst_ratio = 0.0, 0.0, 0.0, 0.0
+    cases = [(t, hd, True) for hd in (16, 32, 64, 128)
+             for t in (16, 32, 64, 128, 256, 512)]
+    cases += [(48, 64, True), (48, 64, False), (512, 64, False),
+              (100, 128, False)]
+    for t, hd, causal in cases:
+        q, k, v = prefill_qkv(t, dev, rng, hd)
         got = att.flash_attention(q, k, v, causal=causal)
         want = att.flash_attention_plain(q, k, v, causal=causal)
+        exact = att.flash_attention_plain(q.double(), k.double(),
+                                          v.double(), causal=causal)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
-        log(f"flash_attention T={t} causal={causal}: max abs err {e:.3e} "
-            f"(tol {FLASH_TOL})")
-        check(e <= FLASH_TOL, f"flash_attention T={t} error {e} > "
+        e_kernel = (got.double() - exact).abs().max().item()
+        e_plain = (want.double() - exact).abs().max().item()
+        log(f"flash_attention T={t} D={hd} causal={causal}: max abs err "
+            f"{e:.3e} (tol {FLASH_TOL}); vs f64 kernel {e_kernel:.3e}, "
+            f"fp32 plain {e_plain:.3e}")
+        check(e <= FLASH_TOL, f"flash_attention T={t} D={hd} error {e} > "
               f"{FLASH_TOL}")
         err = max(err, e)
+        err_kernel = max(err_kernel, e_kernel)
+        err_plain = max(err_plain, e_plain)
+        worst_ratio = max(worst_ratio, e_kernel / e_plain)
+    log(f"flash_attention vs f64 over {len(cases)} cases: kernel "
+        f"{err_kernel:.3e}, fp32 plain {err_plain:.3e}; worst case ratio "
+        f"{worst_ratio:.3f}")
+    check(err_kernel <= 2 * err_plain, f"flash_attention: {err_kernel:.3e} "
+          f"off the f64 run, more than twice the fp32 plain version's "
+          f"{err_plain:.3e}")
     # the 3-d (BH, T, D) form
     q3, k3, v3 = (torch.from_numpy(rng.standard_normal(
         (HEADS, 40, HEAD_DIM), dtype=np.float32)).to(dev) for _ in range(3))
@@ -287,20 +373,16 @@ def phase_flash(att, dev, rng):
             lambda: att.flash_attention_plain(q, k, v, True))
         row["library_ms"], row["library_launch_ms"] = measure(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        nbytes, flops = flash_cost(t)
-        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                              flops / FP32_FLOPS_PER_S) * 1e3
+        row["bound_ms"], row["fp32_bound_ms"], row["bound_by"] = \
+            flash_bounds(t)
         sweep.append(row)
     log("flash_sweep " + json.dumps(sweep))
     top = sweep[-1]
-    nbytes, flops = flash_cost(top["T"])
     return {"name": "flash_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:43",
             "max_abs_err": err, "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"],
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / FP32_FLOPS_PER_S else "operations"),
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "launch_ms": top["launch_ms"],
             "shape": {"B": 1, "H": HEADS, "T": top["T"], "D": HEAD_DIM,
                       "causal": True}}
@@ -433,8 +515,8 @@ def profile_traffic(gw, prompts, new):
     groups = {}
     for ms, _, name in rows:
         low = name.lower()
-        g = ("flash_attention" if "flash_attention_kernel" in name else
-             "paged_attention" if "paged_attention_kernel" in name else
+        g = ("flash_attention" if "flash_attention" in name else
+             "paged_attention" if "paged_attention" in name else
              "matmul" if any(w in low for w in ("gemm", "gemv", "cutlass",
                                                 "xmma", "splitk")) else
              "copy" if "memcpy" in low or "memset" in low else "other")
@@ -1145,7 +1227,7 @@ def main():
     build_s = _build.build_all()
     log(f"build: {build_s:.1f}s for {', '.join(_build.KERNELS)}")
 
-    kernels = [phase_flash(att, dev, rng),
+    kernels = [phase_flash(att, _build, dev, rng),
                phase_paged(att, dev, rng),
                phase_int8(i8, dev),
                *phase_fused_opt(fo, dev)]

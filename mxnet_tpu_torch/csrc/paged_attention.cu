@@ -1,4 +1,5 @@
-// Paged single-query attention for the decode step, fp32, sm_90a.
+// Paged single-query attention for the decode step, fp32, sm_90a: split-KV
+// (flash decoding), one kernel for the chunks and one to merge them.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py `_paged_kernel` (launched by
 // `_paged_call`, exposed as `paged_attention`).
@@ -11,20 +12,39 @@
 // live K and V rows once (D*4 bytes each per token) and does 4*D flops per
 // token, a quarter of a flop per byte, far below the H100's ~20 fp32
 // flops/byte balance. The least time is the live K/V bytes of the step over
-// 3.35 TB/s.
+// 3.35 TB/s (11.0 us for the 8,971 live tokens of the B 32 timing shape at
+// H 8, D 64).
 //
-// Design against that bound:
-//  - one CTA per (sequence, head); the CTA reads its own block ids from the
-//    table in device memory (the TPU kernel's scalar prefetch) and walks only
-//    the ceil(seq_len / BT) live blocks, not the table's full width;
-//  - each warp takes U tokens at a time and issues all 2*U row loads before
-//    it reduces any of them, so every warp keeps U K rows and U V rows in
-//    flight; a lane holds D/32 consecutive floats of a row, so a row load is
-//    one coalesced D*4-byte transaction;
-//  - online softmax in fp32 per warp, then the warps' (max, sum, acc)
-//    partials merge through shared memory. NEG_INF is -1e30 as in the TPU
-//    kernel: -inf - -inf would be NaN;
-//  - a row with seq_len 0 (batch padding) writes zeros.
+// Reaching it takes bytes in flight: about 25 KB per SM to cover HBM's
+// latency at 3.35 TB/s. One CTA per (sequence, head) walking its whole
+// sequence, as the TPU kernel's sequential grid does, keeps a few KB in
+// flight and waits one round trip per few tokens: the longest sequence
+// sets the time. So the sequence is split:
+//  - `paged_attention_kernel`: grid (split, head, sequence), one CTA of 128
+//    threads per 64-token chunk. The grid is sized from the table width W
+//    (ceil(W * BT / 64) splits), never from seq_lens, which stays on the
+//    device: a CTA whose chunk starts at or past its sequence's length
+//    exits at once, and the merge never reads its slot. The CTA reads its
+//    block ids from the table in device memory (the TPU kernel's scalar
+//    prefetch), clamps them into the pool, and issues every K and V row of
+//    its chunk as 16-byte cp.async copies before it waits for any (32 KB at
+//    D 64; K and V in two commit groups, so the scores start while V is
+//    still arriving). A token's block and slot come from its own position,
+//    so chunk edges need not fall on block edges. At D 64 six CTAs fit on
+//    an SM: some 190 KB in flight per SM.
+//  - each CTA computes its chunk's scores (two threads per token, one
+//    shuffle), the chunk's max m and sum l of exp(s - m), and acc[d] =
+//    sum exp(s - m) v[d], and writes (m, l, acc) to scratch the wrapper
+//    allocates (B, H, splits) x (2 + D floats);
+//  - `paged_attention_merge_kernel`: grid (head, sequence), D threads,
+//    combines the live splits' partials, out = sum acc_s e^(m_s - M) /
+//    sum l_s e^(m_s - M). A row with seq_len 0 (batch padding) writes
+//    zeros there.
+// The merge costs one more launch per layer per decode step: the wrapper
+// issues both from one C call, so the host pays one cudaLaunchKernel (some
+// 2-3 us; 8 layers x 68 steps of the serving burst: about 1.5 ms of host
+// time over a burst of ~15 s), and the device one small kernel (256 CTAs at
+// B 32) behind the first.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -32,164 +52,218 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kUnroll = 4;
-
-template <int V>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(const float* p, float* r) { r[0] = __ldg(p); }
-};
-template <>
-struct Vec<2> {
-  __device__ static void load(const float* p, float* r) {
-    float2 x = __ldg(reinterpret_cast<const float2*>(p));
-    r[0] = x.x;
-    r[1] = x.y;
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(const float* p, float* r) {
-    float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    r[0] = x.x;
-    r[1] = x.y;
-    r[2] = x.z;
-    r[3] = x.w;
-  }
-};
+constexpr int kThreads = 128;
+constexpr int kChunk = 64;               // tokens per split CTA
+constexpr int kWarps = kThreads / 32;
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int smem_floats() {
+  // K and V chunks (rows padded to D + 4), q, p, reduction scratch
+  return 2 * kChunk * (D + 4) + D + kChunk + 2 * kWarps + kThreads;
+}
+
+__device__ __forceinline__ void cp16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const float* __restrict__ q, int64_t q_sb,
                            int64_t q_sh, const float* __restrict__ kc,
                            const float* __restrict__ vc,
                            const int* __restrict__ tables,
                            const int* __restrict__ seq_lens,
-                           float* __restrict__ out, int H, int NB, int BT,
-                           int W, float scale) {
-  constexpr int V = D / 32;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* ob = out + (static_cast<int64_t>(b) * H + h) * D;
+                           float* __restrict__ part_ml,
+                           float* __restrict__ part_acc, int H, int NB,
+                           int BT, int W, int S, float scale) {
+  constexpr int P = D + 4;
+  constexpr int Q4 = D / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + kChunk * P;
+  float* sQ = sV + kChunk * P;
+  float* sP = sQ + D;
+  float* sRed = sP + kChunk;             // [2][kWarps]
+  float* sAcc = sRed + 2 * kWarps;       // [kThreads]
 
-  int len = seq_lens[b];
-  len = min(len, W * BT);  // positions past the table do not exist
-  if (len <= 0) {
-    for (int d = threadIdx.x; d < D; d += kWarps * 32) ob[d] = 0.f;
-    return;
-  }
-
-  float qv[V];
-  const float* qp = q + b * q_sb + h * q_sh + lane * V;
-#pragma unroll
-  for (int i = 0; i < V; ++i) qv[i] = qp[i] * scale;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(seq_lens[b], W * BT);  // positions past the table do not exist
+  const int t0 = split * kChunk;
+  if (t0 >= len) return;                 // the merge reads only live splits
+  const int n = min(kChunk, len - t0);
 
   const int* trow = tables + static_cast<int64_t>(b) * W;
   const int64_t tok_stride = static_cast<int64_t>(H) * D;
-  const int64_t head_off = static_cast<int64_t>(h) * D + lane * V;
-
-  float m = kNegInf, l = 0.f, acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
-    float kr[kUnroll][V], vr[kUnroll][V];
-    bool live[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      live[u] = t < len;
-      const int tc = live[u] ? t : t0;  // t0 < len: always a real token
-      int blk = __ldg(trow + tc / BT);
-      blk = min(max(blk, 0), NB - 1);  // never read outside the pool
-      const int64_t off =
-          (static_cast<int64_t>(blk) * BT + tc % BT) * tok_stride + head_off;
-      Vec<V>::load(kc + off, kr[u]);
-      Vec<V>::load(vc + off, vr[u]);
-    }
-    float s[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float x = 0.f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) x = fmaf(qv[i], kr[u][i], x);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-      s[u] = live[u] ? x : kNegInf;
-    }
-    float mx = s[0];
-#pragma unroll
-    for (int u = 1; u < kUnroll; ++u) mx = fmaxf(mx, s[u]);
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float p[kUnroll], psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      p[u] = expf(s[u] - m_new);
-      psum += p[u];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      float a = acc[i] * alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vr[u][i], a);
-      acc[i] = a;
-    }
-    m = m_new;
+  const int64_t head_off = static_cast<int64_t>(h) * D;
+  // every row of the chunk in flight at once: K, then V
+  for (int e = threadIdx.x; e < n * Q4; e += kThreads) {
+    const int i = e / Q4, c = (e % Q4) * 4, tok = t0 + i;
+    int blk = __ldg(trow + tok / BT);
+    blk = min(max(blk, 0), NB - 1);       // never read outside the pool
+    const int64_t off =
+        (static_cast<int64_t>(blk) * BT + tok % BT) * tok_stride + head_off + c;
+    cp16(sK + i * P + c, kc + off);
   }
-
-  __shared__ float sm[kWarps], sl[kWarps], sacc[kWarps][D];
-  if (lane == 0) {
-    sm[warp] = m;
-    sl[warp] = l;
+  cp_commit();
+  for (int e = threadIdx.x; e < n * Q4; e += kThreads) {
+    const int i = e / Q4, c = (e % Q4) * 4, tok = t0 + i;
+    int blk = __ldg(trow + tok / BT);
+    blk = min(max(blk, 0), NB - 1);
+    const int64_t off =
+        (static_cast<int64_t>(blk) * BT + tok % BT) * tok_stride + head_off + c;
+    cp16(sV + i * P + c, vc + off);
   }
-#pragma unroll
-  for (int i = 0; i < V; ++i) sacc[warp][lane * V + i] = acc[i];
+  cp_commit();
+  const float* qp = q + b * q_sb + h * q_sh;
+  for (int d = threadIdx.x; d < D; d += kThreads) sQ[d] = qp[d] * scale;
+  cp_wait<1>();
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
-    float M = sm[0];
+
+  // scores: two threads per token, half of D each
+  const int i = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float s = 0.f;
+  {
+    const float4* kr = reinterpret_cast<const float4*>(sK + i * P + half * (D / 2));
+    const float4* qr = reinterpret_cast<const float4*>(sQ + half * (D / 2));
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, sm[w]);
-    float L = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm[w] - M);  // an idle warp has l = acc = 0
-      L = fmaf(sl[w], f, L);
-      a = fmaf(sacc[w][d], f, a);
+    for (int j = 0; j < D / 8; ++j) {
+      const float4 a = kr[j], x = qr[j];
+      s = fmaf(a.x, x.x, s);
+      s = fmaf(a.y, x.y, s);
+      s = fmaf(a.z, x.z, s);
+      s = fmaf(a.w, x.w, s);
     }
-    ob[d] = a / fmaxf(L, 1e-30f);
   }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  const bool live = i < n;
+  s = live ? s : kNegInf;
+  float mx = s;
+#pragma unroll
+  for (int off = 16; off > 1; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) sRed[warp] = mx;
+  __syncthreads();
+  float m = sRed[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, sRed[w]);
+  const float p = live ? expf(s - m) : 0.f;
+  float ps = half == 0 ? p : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ps += __shfl_xor_sync(0xffffffffu, ps, off);
+  if (lane == 0) sRed[kWarps + warp] = ps;
+  if (half == 0) sP[i] = p;
+  cp_wait<0>();
+  __syncthreads();
+
+  // acc[d] = sum_i p_i v_i[d]: D columns x (kThreads / D) token ranges
+  constexpr int PARTS = kThreads / D;
+  constexpr int PER = kChunk / PARTS;
+  const int d = threadIdx.x % D, part = threadIdx.x / D;
+  float a = 0.f;
+  const int lo = part * PER, hi = min(lo + PER, n);
+  for (int j = lo; j < hi; ++j) a = fmaf(sP[j], sV[j * P + d], a);
+  const int64_t slot = (static_cast<int64_t>(b) * H + h) * S + split;
+  if (PARTS > 1) {
+    sAcc[threadIdx.x] = a;
+    __syncthreads();
+    if (part == 0) {
+#pragma unroll
+      for (int r = 1; r < PARTS; ++r) a += sAcc[r * D + d];
+    }
+  }
+  if (part == 0) part_acc[slot * D + d] = a;
+  if (threadIdx.x == 0) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += sRed[kWarps + w];
+    part_ml[2 * slot] = m;
+    part_ml[2 * slot + 1] = l;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(D)
+    paged_attention_merge_kernel(const float* __restrict__ part_ml,
+                                 const float* __restrict__ part_acc,
+                                 const int* __restrict__ seq_lens,
+                                 float* __restrict__ out, int H, int BT,
+                                 int W, int S) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int64_t row = static_cast<int64_t>(b) * H + h;
+  const int len = min(seq_lens[b], W * BT);
+  if (len <= 0) {
+    out[row * D + d] = 0.f;
+    return;
+  }
+  const int ns = (len + kChunk - 1) / kChunk;
+  const float* ml = part_ml + 2 * row * S;
+  float M = ml[0];
+  for (int s = 1; s < ns; ++s) M = fmaxf(M, ml[2 * s]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float f = expf(ml[2 * s] - M);
+    L = fmaf(ml[2 * s + 1], f, L);
+    A = fmaf(part_acc[(row * S + s) * D + d], f, A);
+  }
+  out[row * D + d] = A / fmaxf(L, 1e-30f);
 }
 
 template <int D>
 cudaError_t launch(const float* q, int64_t q_sb, int64_t q_sh,
                    const float* kc, const float* vc, const int* tables,
-                   const int* seq_lens, float* out, int B, int H, int NB,
-                   int BT, int W, float scale, cudaStream_t stream) {
-  dim3 grid(H, B);
-  paged_attention_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
-      q, q_sb, q_sh, kc, vc, tables, seq_lens, out, H, NB, BT, W, scale);
+                   const int* seq_lens, float* out, float* scratch, int B,
+                   int H, int NB, int BT, int W, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<D>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int S = (W * BT + kChunk - 1) / kChunk;
+  float* part_ml = scratch;
+  float* part_acc = scratch + 2 * static_cast<int64_t>(B) * H * S;
+  paged_attention_kernel<D><<<dim3(S, H, B), kThreads, smem, stream>>>(
+      q, q_sb, q_sh, kc, vc, tables, seq_lens, part_ml, part_acc, H, NB, BT,
+      W, S, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_attention_merge_kernel<D><<<dim3(H, B), D, 0, stream>>>(
+      part_ml, part_acc, seq_lens, out, H, BT, W, S);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Tokens per split CTA: the wrapper sizes the scratch from it.
+extern "C" int mxt_paged_attention_chunk() { return kChunk; }
+
 // q: (B, H, D) with strides (q_sb, q_sh, 1) in elements; k_cache/v_cache:
 // (NB, BT, H, D) contiguous and 16-byte aligned; tables: (B, W) int32;
-// seq_lens: (B,) int32; out: (B, H, D) contiguous. Returns the CUDA error
-// of the launch (0 on success), or cudaErrorInvalidValue for an unsupported
+// seq_lens: (B,) int32; out: (B, H, D) contiguous; scratch: (B, H, S) x
+// (2 + D) floats for S = ceil(W * BT / chunk). Returns the CUDA error of
+// the launches (0 on success), or cudaErrorInvalidValue for an unsupported
 // head size.
 extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
                                        int64_t q_sh, const float* k_cache,
                                        const float* v_cache,
                                        const int* tables, const int* seq_lens,
-                                       float* out, int B, int H, int D, int NB,
-                                       int BT, int W, float scale, int device,
+                                       float* out, float* scratch, int B,
+                                       int H, int D, int NB, int BT, int W,
+                                       float scale, int device,
                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -197,13 +271,13 @@ extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
   switch (D) {
     case 32:
       return launch<32>(q, q_sb, q_sh, k_cache, v_cache, tables, seq_lens,
-                        out, B, H, NB, BT, W, scale, s);
+                        out, scratch, B, H, NB, BT, W, scale, s);
     case 64:
       return launch<64>(q, q_sb, q_sh, k_cache, v_cache, tables, seq_lens,
-                        out, B, H, NB, BT, W, scale, s);
+                        out, scratch, B, H, NB, BT, W, scale, s);
     case 128:
       return launch<128>(q, q_sb, q_sh, k_cache, v_cache, tables, seq_lens,
-                         out, B, H, NB, BT, W, scale, s);
+                         out, scratch, B, H, NB, BT, W, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -86,8 +86,8 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, seq_lens,
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
 _FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P]
-_PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-               _F, _I, _P]
+_PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               _I, _F, _I, _P]
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)
 _PAGED_HEAD_DIMS = (32, 64, 128)
 
@@ -98,6 +98,13 @@ def _fn(name, symbol, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _aligned(x):
+    """cp.async copies 16 bytes: the base address and every stride but
+    the last (unit) one must be multiples of 16 bytes."""
+    return (x.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in x.stride()[:-1]))
 
 
 def _check(err, what):
@@ -130,9 +137,10 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention forward. q, k, v: (B, H, T, D) or (BH, T, D).
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
     the kernel of ``csrc/flash_attention.cu`` (fp32, D in {16, 32, 64,
-    128}, unit stride along D, causal only with T_q == T_k) and count
-    one launch. The output has q's shape; on CUDA it is laid out
-    (B, T, H, D) so the caller's head merge is a view."""
+    128}, unit stride along D, 16-byte aligned base addresses and
+    strides, causal only with T_q == T_k) and count one launch. The
+    output has q's shape; on CUDA it is laid out (B, T, H, D) so the
+    caller's head merge is a view."""
     name = "flash_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -154,9 +162,12 @@ def flash_attention(q, k, v, causal=False, scale=None):
              f"head size {d} not in {_FLASH_HEAD_DIMS}")
     _require(all(x.stride(-1) == 1 for x in (q, k, v)), name,
              "the head dimension must be contiguous (stride 1)")
+    _require(all(_aligned(x) for x in (q, k, v)), name,
+             "q, k and v need 16-byte aligned base addresses and strides "
+             "(multiples of 4 elements)")
     _require(not causal or t_q == t_k, name,
              f"causal kernel needs t_q == t_k, got {t_q} and {t_k}")
-    _require(t_q > 0 and t_k > 0 and b <= 65535 and h <= 65535, name,
+    _require(t_q > 0 and t_k > 0 and b * h * t_q < 2 ** 31, name,
              f"unsupported shape {tuple(q.shape)} x {t_k}")
     out = torch.empty((b, t_q, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -178,8 +189,9 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     layer; block_tables: (B, W) int32 pool block ids; seq_lens: (B,)
     int32 visible tokens (0 = padding row, output discarded). CPU
     tensors take :func:`paged_attention_plain`; CUDA tensors launch the
-    kernel of ``csrc/paged_attention.cu`` and count one launch. The
-    caches are read in place, never copied: they must be contiguous."""
+    split and merge kernels of ``csrc/paged_attention.cu`` and count one
+    launch per call. The caches are read in place, never copied: they
+    must be contiguous. ``seq_lens`` is never read on the host."""
     name = "paged_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -211,14 +223,22 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
              name, "caches, tables and seq_lens must be contiguous")
     _require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
              name, "caches must be 16-byte aligned")
-    _require(b <= 65535 and h <= 65535 and block_tables.shape[1] > 0, name,
+    _require(b <= 65535 and h <= 65535 and block_tables.shape[1] > 0
+             and block_tables.shape[1] * bt < 2 ** 31, name,
              f"unsupported batch {b} / heads {h} / table width "
              f"{block_tables.shape[1]}")
+    w = block_tables.shape[1]
+    chunk = _fn("paged_attention", "mxt_paged_attention_chunk", [])()
+    splits = -(-w * bt // chunk)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    # each split CTA's (max, sum, acc[d]); slots past a sequence's length
+    # are neither written nor read
+    scratch = torch.empty(b * h * splits * (2 + d), dtype=torch.float32,
+                          device=q.device)
     fn = _fn("paged_attention", "mxt_paged_attention_f32", _PAGED_ARGS)
     err = fn(q.data_ptr(), q.stride(0), q.stride(1), k_cache.data_ptr(),
              v_cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-             out.data_ptr(), b, h, d, nb, bt, block_tables.shape[1],
+             out.data_ptr(), scratch.data_ptr(), b, h, d, nb, bt, w,
              float(scale), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
