@@ -57,7 +57,26 @@ Phases (any failure exits non-zero and prints no result line):
    path (loss, two gradients, an updated weight);
 9. 3 Adam steps at batch 32 through ``nd.adam_update`` (bias correction
    folded into lr): 161 launches per step, finite, falling loss;
-10. one ``{"kernels": [...]}`` line, then the result line
+10. gluon inference and one-shot serving at full width: gluon
+   ``resnet50_v1`` (NCHW, standard stem) on ``cuda:0`` from seeded
+   weights, hybridized, forward at batch 128 x 3x224x224 in fp32 (TF32
+   off; median of 5 after a warm one, images/s, one forward's device
+   time by group and idle share), its logits against the same weights
+   through ``export`` → ``load_checkpoint`` → ``simple_bind`` →
+   ``forward`` (1e-5 of their scale), the first 2 images against the
+   CPU gluon path (1e-4) and the NHWC / s2d net against the NCHW one
+   (1e-4); then ``Gateway.register_checkpoint`` on the export with the
+   fp32, bf16 and int8 (native) variants, buckets 1-32, max_wait 2 ms,
+   naive calibration on 8 images (18 executables warmed), and per
+   variant a burst of 64 requests of 1-4 seeded images: every reply's
+   shape and dtype, fp32 against the direct ``Predictor`` (1e-5 of the
+   scale), bf16 and int8 against fp32 (the JAX package's bounds, and
+   neither bitwise fp32); images/s, p50 / p90 / max latency, rows per
+   batch, padding, and one fp32
+   burst's device time and idle share; then ``quantize_net`` at batch 32
+   (int8 bound, and whether its calibration table equals the
+   gateway's). No kernel of the port launches in this phase;
+11. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -595,26 +614,32 @@ def phase_int8(i8, dev):
 
 
 # -- phase 6: the INT8 inference path ----------------------------------------
+def seeded_value(name, shape, rng):
+    """A seeded fp32 value for the parameter ``name``: He-normal weights
+    and biases, BatchNorm parameters and statistics away from the
+    identity (gamma U(0.5, 1.5), beta U(-0.2, 0.2), mean U(-0.1, 0.1),
+    variance U(0.5, 2))."""
+    if name.endswith("gamma"):
+        v = rng.uniform(0.5, 1.5, shape)
+    elif name.endswith("beta"):
+        v = rng.uniform(-0.2, 0.2, shape)
+    elif name.endswith(("moving_mean", "running_mean")):
+        v = rng.uniform(-0.1, 0.1, shape)
+    elif name.endswith(("moving_var", "running_var")):
+        v = rng.uniform(0.5, 2.0, shape)
+    else:
+        v = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+    return v.astype(np.float32)
+
+
 def resnet_params(sym, rng):
-    """Seeded fp32 weights (He-normal) and BatchNorm parameters and
-    statistics away from the identity, as numpy."""
+    """Seeded weights of the graph as numpy (arg, aux) dicts."""
     arg_shapes, _, aux_shapes = sym.infer_shape(data=(1,) + R50_SHAPE[1:])
-    arg, aux = {}, {}
-    for name, shape in zip(sym.list_arguments(), arg_shapes):
-        if name == "data":
-            continue
-        if name.endswith("gamma"):
-            v = rng.uniform(0.5, 1.5, shape)
-        elif name.endswith("beta"):
-            v = rng.uniform(-0.2, 0.2, shape)
-        else:
-            v = rng.standard_normal(shape) * np.sqrt(
-                2.0 / np.prod(shape[1:]))
-        arg[name] = v.astype(np.float32)
-    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
-        v = (rng.uniform(-0.1, 0.1, shape) if "mean" in name
-             else rng.uniform(0.5, 2.0, shape))
-        aux[name] = v.astype(np.float32)
+    arg = {name: seeded_value(name, shape, rng)
+           for name, shape in zip(sym.list_arguments(), arg_shapes)
+           if name != "data"}
+    aux = {name: seeded_value(name, shape, rng)
+           for name, shape in zip(sym.list_auxiliary_states(), aux_shapes)}
     return arg, aux
 
 
@@ -1199,6 +1224,287 @@ def phase_train_adam(fo, dev, rng, here):
     return launches
 
 
+# -- phase 10: gluon inference and one-shot serving --------------------------
+# gluon ResNet-50 v1 at bench.py's inference batch, full width and depth
+GLUON_SHAPE = (128, 3, 224, 224)
+GLUON_PREFIX = "resnetv10_"
+# logits over the same ops on the same card (gluon vs export -> executor)
+GLUON_EXEC_TOL = 1e-5
+# the card against the CPU gluon path (cuDNN vs the CPU's kernels), and
+# the NHWC / s2d net against the NCHW one (channels-last cuDNN kernels
+# and the stem's s2d rearrangement sum in other orders): the CPU tests'
+# bound against the JAX package
+GLUON_CPU_TOL = GLUON_LAYOUT_TOL = 1e-4
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_MAX_WAIT_MS = 2.0
+SERVE_REQUESTS, SERVE_ROWS = 64, (1, 4)
+SERVE_VARIANTS = ("fp32", "bf16", "int8")
+# gateway fp32 replies vs the direct Predictor on the same rows: cuDNN
+# may pick another algorithm per bucket, so bitwise is not assumed
+SERVE_FP32_TOL = 1e-5
+# the JAX package's own bounds (tests/test_serving.py): bf16 atol 0.15
+# and rtol 0.1 relative to the fp32 logits' scale, int8 0.2 x scale
+BF16_ATOL, BF16_RTOL, INT8_TOL = 0.15, 0.1, 0.2
+QNET_BATCH = 32
+
+
+def gluon_resnet(mx, weights, ctx, **kwargs):
+    """resnet50_v1 on ``ctx`` with ``weights`` (None: draw them),
+    shapes resolved without a forward, hybridized."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.block import infer_shapes
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1(prefix=GLUON_PREFIX, **kwargs)
+    net.initialize(initializer.Zero(), ctx=ctx)
+    infer_shapes(net, (1,) + GLUON_SHAPE[1:])
+    if weights is None:
+        rng = np.random.default_rng(SEED + 5)
+        weights = {name: seeded_value(name, p.shape, rng)
+                   for name, p in net.collect_params().items()}
+    for name, p in net.collect_params().items():
+        p.set_data(torch.from_numpy(weights[name]))
+    net.hybridize()
+    return net, weights
+
+
+def timed_forwards(fn, iters=5):
+    """Median seconds of ``iters`` calls of ``fn`` after a warm one, each
+    ended by a sync (host clock); returns (median_s, last output)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def kernel_counts(att, i8, fo):
+    return {"flash_attention": att.flash_attention.launches,
+            "paged_attention": att.paged_attention.launches,
+            "int8_epilogue": i8.int8_conv_epilogue.launches,
+            "fused_sgd_mom": fo.fused_sgd_mom.launches,
+            "fused_adam": fo.fused_adam.launches}
+
+
+def calib_table(sym):
+    """The calibrated ranges of a quantized graph in node order."""
+    return [(n.op, float(n.attrs["min_calib_range"]),
+             float(n.attrs["max_calib_range"]))
+            for n in sym._topo() if "min_calib_range" in n.attrs]
+
+
+def table_diff(a, b):
+    """Largest relative difference of two calibration tables of one
+    graph (None when their nodes differ)."""
+    if [t[0] for t in a] != [t[0] for t in b]:
+        return None
+    return max((abs(x - y) / max(abs(y), 1e-30) for p, q in zip(a, b)
+                for x, y in zip(p[1:], q[1:])), default=0.0)
+
+
+def serve_burst(gw, xs, variant):
+    """``len(xs)`` requests submitted back to back (the lane coalesces
+    them under max_wait); returns the replies, per-request latencies in
+    ms (submit to reply on the host clock), the burst's wall seconds
+    and the model's batch / row / padding counts over it."""
+    before = gw.stats()["r50"]
+    t0 = time.perf_counter()
+    reqs = [gw.submit("r50", x, variant=variant) for x in xs]
+    replies = [r.result(timeout=600)[0] for r in reqs]
+    wall = time.perf_counter() - t0
+    after = gw.stats()["r50"]
+    lat = sorted((r.exec_end_ns - r.submit_ns) / 1e6 for r in reqs)
+    batches = after["batches"].get(variant, 0) \
+        - before["batches"].get(variant, 0)
+    rows = after["rows"] - before["rows"]
+    return replies, {
+        "variant": variant, "requests": len(xs), "images": rows,
+        "wall_s": wall, "images_per_s": rows / wall,
+        "p50_ms": lat[len(lat) // 2],
+        "p90_ms": lat[int(0.9 * len(lat))],
+        # a burst of 64 has no p99 of its own: its p99 is its largest
+        "max_ms": lat[-1],
+        "batches": batches, "mean_rows_per_batch": rows / batches,
+        "padding_rows": after["padding_rows"] - before["padding_rows"]}
+
+
+def phase_gluon(att, i8, fo, dev, rng, here):
+    """Gluon ResNet-50 v1 inference on the card against the symbolic
+    executor, the CPU and the NHWC / s2d net; then one-shot serving of
+    its export (fp32, bf16, int8 native) and quantize_net. The path
+    reaches none of the port's kernels: their counts must not move."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import Gateway
+
+    counts0 = kernel_counts(att, i8, fo)
+    ctx = mx.Context(dev)
+    t0 = time.perf_counter()
+    net, weights = gluon_resnet(mx, None, ctx)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in net.collect_params().values())
+    log(f"gluon resnet50_v1: {n_params} parameter values on {dev} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    x = rng.standard_normal(GLUON_SHAPE, dtype=np.float32)
+    data = mx.nd.array(x, ctx=ctx)
+    fwd_s, out = timed_forwards(lambda: net(data))
+    logits = out.asnumpy()
+    check(logits.shape == (GLUON_SHAPE[0], 1000)
+          and np.isfinite(logits).all(), f"gluon logits {logits.shape}")
+    scale = float(np.abs(logits).max())
+    prof = profile_step(lambda: net(data))
+
+    # the same weights through export -> load_checkpoint -> simple_bind
+    prefix = os.path.join(here, "build", "chip_smoke", "gluon_r50")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    net.export(prefix)
+    sym, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0, ctx=ctx)
+    ex = sym.simple_bind(ctx, grad_req="null", data=GLUON_SHAPE)
+    ex.copy_params_from(arg_p, aux_p)
+    sym_logits = ex.forward(data=data)[0].asnumpy()
+    exec_err = float(np.abs(sym_logits - logits).max())
+    check(exec_err <= GLUON_EXEC_TOL * scale, f"gluon vs executor: "
+          f"{exec_err} > {GLUON_EXEC_TOL} x {scale}")
+    del ex
+    # the first images on the CPU gluon path
+    t0 = time.perf_counter()
+    cpu_net, _ = gluon_resnet(mx, weights, mx.cpu())
+    with mx.cpu():
+        cpu_logits = cpu_net(mx.nd.array(x[:CPU_IMAGES])).asnumpy()
+    cpu_err = float(np.abs(cpu_logits - logits[:CPU_IMAGES]).max())
+    check(cpu_err <= GLUON_CPU_TOL * scale, f"gluon card vs CPU: "
+          f"{cpu_err} > {GLUON_CPU_TOL} x {scale}")
+    cpu_s = time.perf_counter() - t0
+    del cpu_net
+    # the same checkpoint channel-last with the space-to-depth stem
+    nhwc, _ = gluon_resnet(mx, weights, ctx, layout="NHWC", stem="s2d")
+    nhwc_s, nhwc_out = timed_forwards(lambda: nhwc(data))
+    nhwc_err = float(np.abs(nhwc_out.asnumpy() - logits).max())
+    check(nhwc_err <= GLUON_LAYOUT_TOL * scale, f"NHWC/s2d vs NCHW: "
+          f"{nhwc_err} > {GLUON_LAYOUT_TOL} x {scale}")
+    del nhwc, nhwc_out, out
+    torch.cuda.empty_cache()
+    log("gluon_r50 " + json.dumps({
+        "batch": GLUON_SHAPE[0], "forward_ms": fwd_s * 1e3,
+        "images_per_s": GLUON_SHAPE[0] / fwd_s,
+        "nhwc_s2d_forward_ms": nhwc_s * 1e3,
+        "max_err_vs_executor": exec_err, "max_err_vs_cpu": cpu_err,
+        "max_err_nhwc_s2d": nhwc_err, "logit_scale": scale,
+        "cpu_check_s": cpu_s, "forward_profile": prof}))
+
+    # one-shot serving of the export
+    calib = rng.standard_normal((CALIB_IMAGES,) + GLUON_SHAPE[1:],
+                                dtype=np.float32)
+    rows = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1, SERVE_REQUESTS)
+    xs = [rng.standard_normal((int(r),) + GLUON_SHAPE[1:],
+                              dtype=np.float32) for r in rows]
+    gw = Gateway(device=dev)
+    try:
+        t0 = time.perf_counter()
+        gw.register_checkpoint(
+            "r50", prefix, 0, {"data": GLUON_SHAPE[1:]},
+            variants=SERVE_VARIANTS, calib_data=calib, calib_mode="naive",
+            buckets=SERVE_BUCKETS, max_wait_ms=SERVE_MAX_WAIT_MS)
+        reg_s = time.perf_counter() - t0
+        st = gw.stats()["r50"]
+        n_exec = len(SERVE_VARIANTS) * len(SERVE_BUCKETS)
+        check(st["executables"] == n_exec,
+              f"{st['executables']} executables warmed, want {n_exec}")
+        check(st["int8_lowering"] == "native",
+              f"int8 lowering {st['int8_lowering']} on the card")
+        log(f"register_checkpoint: {st['executables']} executables, "
+            f"warmup {st['warmup_seconds']:.2f}s ({reg_s:.2f}s in all)")
+        bursts, replies = [], {}
+        for variant in SERVE_VARIANTS:
+            replies[variant], res = serve_burst(gw, xs, variant)
+            bursts.append(res)
+        burst_profile = profile_step(lambda: serve_burst(gw, xs, "fp32"))
+        vs = gw._get_model("r50").replicas[0].variant_set
+        gw_table = calib_table(vs.int8_symbol)
+    finally:
+        gw.close()
+
+    for i, r in enumerate(replies["fp32"]):
+        for v in SERVE_VARIANTS:
+            got = replies[v][i]
+            check(got.shape == (len(xs[i]), 1000)
+                  and got.dtype == np.float32, f"{v} reply {i}: "
+                  f"{got.shape} {got.dtype}")
+            check(np.isfinite(got).all(), f"{v} reply {i} not finite")
+    serve_scale = max(float(np.abs(r).max()) for r in replies["fp32"])
+    pred = Predictor.from_checkpoint(prefix, 0, {"data": xs[0].shape},
+                                     device=dev)
+    fp32_err, bitwise, bf16_err, int8_err = 0.0, True, 0.0, 0.0
+    bf16_same, int8_same = True, True
+    for i, x_i in enumerate(xs):
+        pred.reshape({"data": x_i.shape})
+        want = pred.forward(data=x_i)[0]
+        got = replies["fp32"][i]
+        fp32_err = max(fp32_err, float(np.abs(got - want).max()))
+        bitwise &= bool(np.array_equal(got, want))
+        bf = replies["bf16"][i]
+        check(np.all(np.abs(bf - got) <= BF16_ATOL * serve_scale
+                     + BF16_RTOL * np.abs(got)),
+              f"bf16 reply {i} outside atol {BF16_ATOL} x scale, rtol "
+              f"{BF16_RTOL} of fp32")
+        bf16_err = max(bf16_err, float(np.abs(bf - got).max()))
+        int8_err = max(int8_err,
+                       float(np.abs(replies["int8"][i] - got).max()))
+        bf16_same &= bool(np.array_equal(bf, got))
+        int8_same &= bool(np.array_equal(replies["int8"][i], got))
+    check(fp32_err <= SERVE_FP32_TOL * serve_scale, f"gateway fp32 vs "
+          f"Predictor: {fp32_err} > {SERVE_FP32_TOL} x {serve_scale}")
+    check(int8_err <= INT8_TOL * serve_scale, f"int8 replies: {int8_err} "
+          f"> {INT8_TOL} x {serve_scale}")
+    # a variant that quietly ran in fp32 would pass the bounds above
+    for v, same, err in (("bf16", bf16_same, bf16_err),
+                         ("int8", int8_same, int8_err)):
+        check(not same and err > fp32_err, f"{v} replies are the fp32 "
+              f"ones (bitwise {same}, max err {err} <= fp32 vs Predictor "
+              f"{fp32_err})")
+
+    # quantize_net on the same weights
+    t0 = time.perf_counter()
+    qfwd, qparams = quantize_net(net, QNET_BATCH, calib, ctx=ctx)
+    qnet_s = time.perf_counter() - t0
+    q_s, qout = timed_forwards(lambda: qfwd(qparams, data._data[
+        :QNET_BATCH]))
+    qlogits = qout.cpu().numpy()
+    check(qlogits.shape == (QNET_BATCH, 1000) and np.isfinite(qlogits).all(),
+          f"quantize_net logits {qlogits.shape}")
+    qscale = float(np.abs(logits[:QNET_BATCH]).max())
+    qerr = float(np.abs(qlogits - logits[:QNET_BATCH]).max())
+    check(qerr <= INT8_TOL * qscale, f"quantize_net: {qerr} > {INT8_TOL} "
+          f"x {qscale}")
+    qtable = calib_table(qfwd.symbol)
+    counts1 = kernel_counts(att, i8, fo)
+    check(counts1 == counts0, f"a kernel launched on the gluon path: "
+          f"{counts0} -> {counts1}")
+    log("oneshot_serving " + json.dumps({
+        "buckets": SERVE_BUCKETS, "max_wait_ms": SERVE_MAX_WAIT_MS,
+        "executables": n_exec, "register_s": reg_s,
+        "warmup_s": st["warmup_seconds"], "bursts": bursts,
+        "fp32_vs_predictor_max_err": fp32_err,
+        "fp32_vs_predictor_bitwise": bitwise,
+        "bf16_vs_fp32_max_err": bf16_err, "int8_vs_fp32_max_err": int8_err,
+        "logit_scale": serve_scale, "fp32_burst_profile": burst_profile}))
+    log("quantize_net " + json.dumps({
+        "batch": QNET_BATCH, "quantize_net_s": qnet_s,
+        "forward_ms": q_s * 1e3, "max_err_vs_fp32": qerr,
+        "calib_ranges": len(qtable),
+        "calib_table_equals_gateway": qtable == gw_table,
+        "calib_max_rel_diff_vs_gateway": table_diff(qtable, gw_table),
+        "kernel_launches_in_phase": {k: counts1[k] - counts0[k]
+                                     for k in counts0}}))
+    del net, data, qparams
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1236,6 +1542,7 @@ def main():
     launches.update(phase_resnet(i8, dev, rng, here))
     launches["fused_sgd_mom"] = phase_train(fo, dev, rng, here)
     launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
+    phase_gluon(att, i8, fo, dev, rng, here)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))

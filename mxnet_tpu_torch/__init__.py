@@ -14,7 +14,14 @@ float32 product here is a float32 product. Ported so far:
   ``contrib.quantization.quantize_model`` →
   ``Symbol.get_backend_symbol("XLA")`` → ``simple_bind`` →
   ``Executor.forward``, whose fused ``_sg_xla_quant_conv`` nodes end in
-  the hand-written INT8 requantize epilogue kernel.
+  the hand-written INT8 requantize epilogue kernel;
+- symbolic training (``simple_bind(grad_req="write")`` → ``forward`` /
+  ``backward`` → ``nd.sgd_mom_update`` / ``nd.adam_update``), whose
+  updates are the hand-written fused optimizer kernels;
+- gluon inference (``gluon.model_zoo.vision.resnet50_v1``,
+  ``hybridize``, ``export``, ``SymbolBlock``), the ``Predictor`` and
+  one-shot serving (``serving.Gateway.register`` / ``infer`` with fp32,
+  bf16 and int8 variants), and ``contrib.quantization.quantize_net``.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -28,10 +35,12 @@ from . import ops  # noqa: F401  registers every op
 from . import ndarray as nd
 from . import symbol as sym
 from . import executor, io, model, model_zoo, subgraph, contrib  # noqa: F401
+from . import autograd, gluon, initializer, predictor, random  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["Context", "MXNetError", "contrib", "cpu", "current_context",
-           "executor", "get_env", "gpu", "io", "model", "model_zoo", "nd",
-           "resolve_device", "subgraph", "sym"]
+__all__ = ["Context", "MXNetError", "autograd", "contrib", "cpu",
+           "current_context", "executor", "get_env", "gluon", "gpu",
+           "initializer", "io", "model", "model_zoo", "nd", "predictor",
+           "random", "resolve_device", "subgraph", "sym"]

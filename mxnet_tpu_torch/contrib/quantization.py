@@ -8,8 +8,9 @@ int8 forms (``_contrib_quantize_v2`` on fp32→int8 edges,
 ``_contrib_dequantize`` on int8→fp32 edges), calibrates per-tensor
 ranges by running the fp32 graph over sample batches (naive min/max or
 the KL-entropy threshold search) and bakes them into the graph, and
-quantizes the weights offline on the host. ``quantize_net`` (gluon)
-is not ported yet.
+quantizes the weights offline on the host. ``quantize_net`` runs the
+same flow on a gluon network and returns a forward function of the
+quantized graph on the device.
 """
 from __future__ import annotations
 
@@ -541,3 +542,65 @@ def quantize_model(sym, arg_params, aux_params, ctx=None,
     used = set(qsym.list_inputs())
     qarg_params = {k: v for k, v in qarg_params.items() if k in used}
     return qsym, qarg_params, dict(aux_params)
+
+
+def quantized_forward(qsym, qarg_params, qaux_params, device=None):
+    """``(fwd, params)`` for a quantized graph on ``device`` (``cuda:0``
+    when None), lowered by ``predictor.compile_symbol_forward``:
+    ``params`` is the tuple of its parameters there, and ``fwd(params,
+    data)`` runs the unpartitioned graph (the plain ``requantize``, as
+    the JAX package's ``quantize_net`` program) on ``data`` (a numpy
+    array, NDArray or tensor) and returns its first output, a tensor on
+    the device. ``fwd.symbol`` is ``qsym``, whose calibrated ranges are
+    its table."""
+    from ..ndarray.ndarray import as_tensor
+    from ..predictor import compile_symbol_forward
+
+    run, params = compile_symbol_forward(
+        qsym, {**qarg_params, **qaux_params}, device)
+
+    def fwd(pvals, data):
+        return run(pvals, {"data": as_tensor(data)})[0]
+
+    fwd.symbol = qsym
+    return fwd, params
+
+
+def quantize_net(net, batch, calib_data, mode="naive",
+                 excluded_sym_names=None, ctx=None):
+    """Quantize a gluon network end to end (the reference's
+    example/quantization flow as one call). ``net`` is a HybridBlock or
+    a model-zoo name (a name builds and initializes a fresh net). The
+    net is traced to a Symbol at ``(batch,) + calib_data.shape[1:]``,
+    calibrated on ``calib_data`` (numpy, NCHW) with ``mode`` ("naive" or
+    "entropy") and quantized with offline weights, on ``ctx`` (``cuda:0``
+    when None; raises without CUDA unless the CPU is asked for).
+
+    Returns ``(fwd, params)`` as :func:`quantized_forward` does:
+    ``fwd(params, data)`` runs the int8 graph on the device.
+    """
+    from ..context import Context, resolve_device
+    from ..gluon.block import infer_shapes
+    from ..gluon.model_zoo import vision
+    from ..io import NDArrayIter
+    from ..symbol.trace import trace_block
+
+    device = resolve_device(ctx)
+    calib_data = np.asarray(calib_data, np.float32)
+    if isinstance(net, str):
+        net = vision.get_model(net)
+        net.initialize(ctx=device)
+    infer_shapes(net, (batch,) + tuple(calib_data.shape[1:]))
+    sym_out, params = trace_block(net)
+    aux_names = set(sym_out.list_auxiliary_states())
+    arg_params = {k: p.data() for k, p in params.items()
+                  if k not in aux_names}
+    aux_params = {k: p.data() for k, p in params.items() if k in aux_names}
+    with Context(device):   # calibration batches go to the device
+        it = NDArrayIter(data=calib_data,
+                         batch_size=min(len(calib_data), 8))
+        qsym, qarg, qaux = quantize_model(
+            sym_out, arg_params, aux_params, ctx=Context(device),
+            calib_mode=mode, excluded_sym_names=excluded_sym_names,
+            calib_data=it, num_calib_examples=len(calib_data))
+    return quantized_forward(qsym, qarg, qaux, device)

@@ -75,11 +75,14 @@ def _run(symbol, values, training):
                 continue
             ins = [env[(id(c), k)] for c, k in node.inputs]
             attrs = op_attrs(node)
+            opdef = _reg.get(node.op)
+            if "training" in opdef._kwarg_names and "training" not in attrs:
+                attrs["training"] = training
             if training and node.op == "BatchNorm" \
                     and not attr_bool(attrs.get("use_global_stats")):
                 out = _bn_train(node, ins, attrs, aux_updates)
             else:
-                out = _reg.get(node.op).fn(*ins, **attrs)
+                out = opdef.fn(*ins, **attrs)
             del ins
             for c, k in node.inputs:
                 uses[(id(c), k)] -= 1

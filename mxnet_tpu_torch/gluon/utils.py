@@ -1,0 +1,80 @@
+"""Gluon utilities (the port of ``mxnet_tpu/gluon/utils.py``), plus
+:func:`params_from_jax`, which carries weights from the JAX package.
+``download`` is left out: the port fetches nothing."""
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import resolve_device
+from ..ndarray.ndarray import NDArray, array
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """``num_slice`` slices of ``data`` along ``batch_axis``; the last
+    takes the remainder unless ``even_split`` demands equal slices."""
+    size = data.shape[batch_axis]
+    if even_split and size % num_slice != 0:
+        raise MXNetError(
+            f"cannot evenly split batch of {size} into {num_slice} slices")
+    step = size // num_slice
+    t = data._data if isinstance(data, NDArray) else torch.as_tensor(data)
+    slices = []
+    for i in range(num_slice):
+        end = (i + 1) * step if i < num_slice - 1 else size
+        slices.append(NDArray(t.narrow(batch_axis, i * step, end - i * step)))
+    return slices
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """One slice of the batch per context, each moved there (the
+    reference's data-parallel split; with one context, the whole batch
+    on it)."""
+    if not isinstance(data, NDArray):
+        data = array(data, ctx=ctx_list[0])
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    slices = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+
+
+def clip_global_norm(arrays, max_norm, check_isfinite=True):
+    """Rescale ``arrays`` in place so their joint L2 norm is at most
+    ``max_norm``; returns the norm before clipping."""
+    total = math.sqrt(sum(float((a._data.double() ** 2).sum())
+                          for a in arrays))
+    if check_isfinite and not np.isfinite(total):
+        warnings.warn("nan or inf found in gradients")
+    scale = max_norm / (total + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            a *= scale
+    return total
+
+
+def params_from_jax(net, arrays, ctx=None):
+    """Set the parameters of the port's block ``net`` from the JAX
+    package's, given as ``{full name: numpy array}`` (what the JAX
+    block's ``collect_params()`` gives through ``asnumpy()``), on
+    ``ctx`` (``cuda:0`` when None). Every parameter of ``net`` must be
+    in ``arrays`` and no name may be left over; shapes must agree.
+    Returns ``net``."""
+    device = resolve_device(ctx)
+    params = net.collect_params()
+    missing = sorted(set(params.keys()) - set(arrays))
+    extra = sorted(set(arrays) - set(params.keys()))
+    if missing or extra:
+        raise MXNetError(f"params_from_jax: names differ; missing "
+                         f"{missing[:5]}, extra {extra[:5]}")
+    for name, p in params.items():
+        value = torch.from_numpy(np.array(arrays[name]))
+        if not p._shape_incomplete() and tuple(value.shape) != p.shape:
+            raise MXNetError(f"params_from_jax: {name} has shape "
+                             f"{tuple(value.shape)}, the port's {p.shape}")
+        p._data, p._device = None, device
+        p.set_data(value)
+    return net

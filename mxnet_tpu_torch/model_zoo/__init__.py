@@ -1,8 +1,9 @@
-"""Model graphs the port ships as symbol JSON, until it has gluon to
-build them: ``resnet50_v1-symbol.json`` is the JAX package's
+"""Model graphs the port ships as symbol JSON:
+``resnet50_v1-symbol.json`` is the JAX package's
 ``gluon.model_zoo.vision.resnet50_v1`` traced once (``trace_block``,
 then ``Symbol.tojson``) at 3x224x224. ``tests/test_torch_symbol.py``
-re-exports it from the JAX package and checks the two are one graph."""
+re-exports it from the JAX package, and ``tests/test_torch_gluon.py``
+from the port's gluon, and each checks they are one graph."""
 from __future__ import annotations
 
 import os

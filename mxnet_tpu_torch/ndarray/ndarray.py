@@ -217,12 +217,16 @@ class NDArray:
 
 def invoke(op_name, inputs, attrs, out=None):
     """Imperative op dispatch (MXImperativeInvoke analogue): unwraps
-    NDArrays, runs the registered function, wraps the outputs. A range
+    NDArrays, passes the autograd training flag to ops that take one,
+    runs the registered function, wraps the outputs. A range
     output the op computed on the host becomes a 0-d tensor on the
     inputs' device."""
     op = _reg.get(op_name) if isinstance(op_name, str) else op_name
     attrs = {k: _canon_attr(v) for k, v in attrs.items() if v is not None}
     attrs.pop("num_args", None)
+    if "training" in op._kwarg_names and "training" not in attrs:
+        from .. import autograd
+        attrs["training"] = autograd.is_training()
     tensors = [as_tensor(i) for i in inputs if i is not None]
     device = tensors[0].device if tensors else resolve_device(None)
     with torch.no_grad():

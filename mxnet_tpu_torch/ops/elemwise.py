@@ -1,6 +1,7 @@
 """The elementwise families of ``mxnet_tpu/ops/elemwise.py`` the port
-has reached: the residual add of the vision models and the arithmetic
-behind NDArray's operators (MXNet op names preserved)."""
+has reached: the residual add of the vision models, the arithmetic
+behind NDArray's operators and the sigmoid of gluon's Swish (MXNet op
+names preserved)."""
 from __future__ import annotations
 
 import torch
@@ -30,5 +31,7 @@ for _name, _fn in _SCALAR.items():
     register_op(_name, (lambda f: lambda data, scalar=1.0: f(data, scalar))(
         _fn))
 
-register_op("negative", lambda data: torch.neg(data))
-register_op("abs", lambda data: torch.abs(data))
+_UNARY = {"negative": torch.neg, "abs": torch.abs, "sigmoid": torch.sigmoid}
+
+for _name, _fn in _UNARY.items():
+    register_op(_name, (lambda f: lambda data: f(data))(_fn))

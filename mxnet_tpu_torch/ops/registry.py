@@ -123,8 +123,18 @@ def bind_positional_attrs(op, scalars, attrs, err_cls=TypeError):
 
 
 def torch_dtype(dtype):
-    """numpy dtype (or its name) -> torch dtype."""
+    """numpy dtype (or its name, "bfloat16" included) -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if str(dtype) == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def dtype_name(dtype):
+    """The name of a numpy or torch dtype (or of a name): "float32",
+    "bfloat16", "int8"..."""
+    return str(torch_dtype(dtype)).rsplit(".", 1)[-1]
 
 
 def numpy_dtype(dtype):

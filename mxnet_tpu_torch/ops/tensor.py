@@ -16,3 +16,15 @@ def embedding(data, weight):
 @register("Flatten", aliases=("flatten",))
 def flatten(data):
     return data.reshape(data.shape[0], -1)
+
+
+@register("Embedding")
+def embedding_op(data, weight, input_dim=0, output_dim=0, dtype="float32",
+                 sparse_grad=False):
+    return embedding(data, weight)
+
+
+@register("transpose")
+def transpose(data, axes=()):
+    axes = tuple(int(a) for a in axes) or tuple(range(data.ndim))[::-1]
+    return data.permute(axes)

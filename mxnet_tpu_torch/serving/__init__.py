@@ -1,8 +1,11 @@
-"""Serving front of the port (generative decode; the one-shot path is a
-later slice)."""
+"""Serving front of the port: one-shot models (``Gateway.register`` /
+``infer``, fp32 / bf16 / int8 variants) and generative decode
+(``Gateway.generate``)."""
 from __future__ import annotations
 
-from .batcher import RejectedError, ServingError
+from .batcher import RejectedError, Request, ServingError, pad_batch
 from .gateway import Gateway
+from .variants import VariantSet, default_buckets, pick_bucket
 
-__all__ = ["Gateway", "RejectedError", "ServingError"]
+__all__ = ["Gateway", "RejectedError", "Request", "ServingError",
+           "VariantSet", "default_buckets", "pad_batch", "pick_bucket"]

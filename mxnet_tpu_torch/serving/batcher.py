@@ -1,6 +1,24 @@
-"""Serving error types (the subset of ``mxnet_tpu/serving/batcher.py``
-the generative path raises; the one-shot batcher is a later slice)."""
+"""Request queues and shape-bucket coalescing for one-shot serving (the
+port of ``mxnet_tpu/serving/batcher.py``), and the serving error types.
+
+The lane loop of a model (``serving/gateway.py``) calls
+:meth:`ModelQueue.take_batch`, which blocks for the first pending
+request and then coalesces same-variant requests into one batch of at
+most ``max_rows`` rows, waiting at most until the FIRST request's
+``submit + max_wait`` before dispatching a partial batch: latency at
+batch 1 is bounded by ``max_wait`` plus one execution.
+
+A batch never mixes variants (one executable serves one dtype); with
+several variants pending, the one whose head request is oldest goes
+first, so no variant starves.
+"""
 from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+import numpy as np
 
 from ..base import MXNetError
 
@@ -11,9 +29,172 @@ class ServingError(MXNetError):
 
 class RejectedError(ServingError):
     """Fast-reject at admission (the 429 analogue): the request never
-    entered the queue. ``reason`` is one of ``queue_full`` /
-    ``kv_cache_full`` / ``closed``."""
+    entered the queue. ``reason`` is one of ``queue_full`` / ``slo`` /
+    ``kv_cache_full`` / ``no_replica`` / ``closed``."""
 
     def __init__(self, reason, msg):
         super().__init__(msg)
         self.reason = reason
+
+
+def now_ns():
+    """The serving clock: monotonic nanoseconds."""
+    return time.monotonic_ns()
+
+
+class Request:
+    """One in-flight inference request and its reply future.
+
+    ``data`` is a numpy array of shape ``(rows,) + feature_shape``; the
+    batcher stacks requests along axis 0 and splits the outputs back.
+    ``submit_ns`` orders the queue and starts the max_wait hold;
+    ``exec_end_ns`` is when its batch's outputs reached the host (the
+    trace spans and tail attribution of the JAX package wait for a
+    later slice).
+    """
+
+    __slots__ = ("model", "variant", "data", "rows", "submit_ns",
+                 "exec_end_ns", "_event", "_result", "_error")
+
+    def __init__(self, model, variant, data):
+        self.model = model
+        self.variant = variant
+        self.data = data
+        self.rows = int(data.shape[0])
+        self.submit_ns = now_ns()
+        self.exec_end_ns = 0
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+
+    def done(self):
+        return self._event.is_set()
+
+    def result(self, timeout=None):
+        """Block for the reply: a list of numpy outputs, each of shape
+        ``(rows,) + output_feature``. Raises the serving-side error if
+        the request failed."""
+        if not self._event.wait(timeout):
+            raise ServingError(
+                f"serving: request on {self.model!r} timed out after "
+                f"{timeout}s (still queued or executing)")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+    def _set_result(self, outs):
+        self._result = outs
+        self._event.set()
+
+    def _set_error(self, err):
+        self._error = err
+        self._event.set()
+
+
+class ModelQueue:
+    """Pending requests for one model, by variant. Producers are client
+    threads (``Gateway.submit``), the consumer is the model's lane
+    thread; ``requeue`` puts a batch back at the FRONT in its order."""
+
+    def __init__(self, max_rows, max_wait_s):
+        self.max_rows = int(max_rows)
+        self.max_wait_s = float(max_wait_s)
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._by_variant = {}
+        self._rows = 0
+        self.closed = False
+
+    def depth(self):
+        with self._lock:
+            return sum(len(d) for d in self._by_variant.values())
+
+    def pending_rows(self):
+        with self._lock:
+            return self._rows
+
+    def put(self, req):
+        with self._cond:
+            if self.closed:
+                raise RejectedError(
+                    "closed", f"serving: model {req.model!r} is closed")
+            self._by_variant.setdefault(req.variant, deque()).append(req)
+            self._rows += req.rows
+            # notify_all: a lane holding another variant's partial batch
+            # must not swallow the only wakeup
+            self._cond.notify_all()
+
+    def requeue(self, reqs):
+        """Back at the front, original order preserved."""
+        with self._cond:
+            for req in reversed(reqs):
+                self._by_variant.setdefault(
+                    req.variant, deque()).appendleft(req)
+                self._rows += req.rows
+            self._cond.notify_all()
+
+    def close(self):
+        with self._cond:
+            self.closed = True
+            self._cond.notify_all()
+
+    def drain(self):
+        """Remove and return every pending request (shutdown: the
+        caller fails them instead of leaving clients hanging)."""
+        with self._cond:
+            out = []
+            for d in self._by_variant.values():
+                out.extend(d)
+                d.clear()
+            self._rows = 0
+            return out
+
+    def _scoop(self, dq, batch, rows):
+        """Move as many head requests as still fit into ``batch``
+        (under the lock)."""
+        while dq and rows + dq[0].rows <= self.max_rows:
+            r = dq.popleft()
+            batch.append(r)
+            rows += r.rows
+            self._rows -= r.rows
+        return rows
+
+    def take_batch(self):
+        """Block until work arrives, then coalesce one same-variant
+        batch: ``(variant, [requests])``, or None once the queue closed
+        empty."""
+        with self._cond:
+            while True:
+                pending = [(v, d) for v, d in self._by_variant.items()
+                           if d]
+                if pending:
+                    break
+                if self.closed:
+                    return None
+                self._cond.wait()
+            # the oldest head request goes first: no variant starves
+            variant, dq = min(pending, key=lambda vd: vd[1][0].submit_ns)
+            first = dq.popleft()
+            self._rows -= first.rows
+            batch = [first]
+            rows = self._scoop(dq, batch, first.rows)
+            deadline_ns = first.submit_ns + int(self.max_wait_s * 1e9)
+            while rows < self.max_rows and not self.closed:
+                remaining = (deadline_ns - now_ns()) / 1e9
+                if remaining <= 0:
+                    break
+                self._cond.wait(remaining)
+                rows = self._scoop(dq, batch, rows)
+            return variant, batch
+
+
+def pad_batch(reqs, bucket, feature_shape, dtype):
+    """Stack request rows into one ``(bucket,) + feature_shape`` array,
+    zero-padding the tail. Returns ``(padded, rows)``."""
+    rows = sum(r.rows for r in reqs)
+    out = np.zeros((bucket,) + tuple(feature_shape), dtype)
+    off = 0
+    for r in reqs:
+        out[off:off + r.rows] = r.data
+        off += r.rows
+    return out, rows

@@ -1,7 +1,9 @@
 """The port stands alone and never runs on the CPU unasked:
 ``mxnet_tpu_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor
 ``mxnet_tpu``, its entry points (serving, ``nd.array``, ``bind`` /
-``simple_bind``, ``load_checkpoint``) default to the first CUDA card and
+``simple_bind``, ``load_checkpoint``, gluon's ``initialize`` /
+``load_parameters`` / ``SymbolBlock.imports``, the ``Predictor``,
+``quantize_net``) default to the first CUDA card and
 raise on a host without one unless the caller asks for the CPU, and its
 kernel build raises instead of falling back when ``nvcc`` is missing."""
 import ast
@@ -45,6 +47,10 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.contrib.quantization\n"
         "import mxnet_tpu_torch.ops.fused_opt\n"
         "import mxnet_tpu_torch.ops.optimizer_ops\n"
+        "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.model_zoo.vision\n"
+        "import mxnet_tpu_torch.predictor, mxnet_tpu_torch.serving.variants\n"
+        "from mxnet_tpu_torch.contrib.quantization import quantize_net\n"
+        "import mxnet_tpu_torch.autograd, mxnet_tpu_torch.symbol.trace\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n")
     # -I: no PYTHONPATH or user site, so nothing outside the port can
@@ -222,3 +228,77 @@ def test_training_path_runs_on_the_cpu_when_asked():
     # a CPU tensor never reaches the kernel
     assert fused_opt.fused_sgd_mom.launches == 0
     assert fused_opt.fused_adam.launches == 0
+
+
+def _tiny_gluon_net():
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix="iso_")
+    with net.name_scope():
+        net.add(nn.Conv2D(2, 3, in_channels=1), nn.Flatten(),
+                nn.Dense(2, in_units=8))
+    return net
+
+
+def test_gluon_and_oneshot_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import VariantSet
+    _require_no_cuda()
+    net = _tiny_gluon_net()
+    with pytest.raises(MXNetError):
+        net.initialize()
+    net.initialize(ctx=tmx.cpu())
+    prefix = str(tmp_path / "iso")
+    with tmx.cpu():
+        net(tmx.nd.array(np.zeros((1, 1, 4, 4), np.float32)))
+    net.save_parameters(prefix + ".params")
+    net.export(prefix)
+    with pytest.raises(MXNetError):
+        _tiny_gluon_net().load_parameters(prefix + ".params")
+    with pytest.raises(MXNetError):
+        SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                            prefix + "-0000.params")
+    sym, arg, aux = tmx.model.load_checkpoint(prefix, 0, ctx=tmx.cpu())
+    with pytest.raises(MXNetError):
+        Predictor(sym, arg, aux, {"data": (1, 1, 4, 4)})
+    with pytest.raises(MXNetError):
+        Predictor.from_checkpoint(prefix, 0, {"data": (1, 1, 4, 4)})
+    with pytest.raises(MXNetError):
+        VariantSet(sym, arg, aux, "data", (1, 4, 4))
+    with pytest.raises(MXNetError):
+        quantize_net(net, 1, np.zeros((2, 1, 4, 4), np.float32))
+    with pytest.raises(MXNetError):
+        Gateway().register("m", sym, arg, aux, {"data": (1, 4, 4)})
+
+
+def test_gluon_and_oneshot_entry_points_run_on_the_cpu_when_asked(tmp_path):
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.predictor import Predictor
+    net = _tiny_gluon_net()
+    net.initialize(ctx=tmx.cpu())
+    x = np.ones((2, 1, 4, 4), np.float32)
+    with tmx.cpu():
+        want = net(tmx.nd.array(x)).asnumpy()
+    prefix = str(tmp_path / "iso")
+    net.export(prefix)
+    pred = Predictor.from_checkpoint(prefix, 0, {"data": x.shape},
+                                     dev_type="cpu")
+    np.testing.assert_allclose(pred.forward(data=x)[0], want, rtol=1e-6)
+    gw = Gateway(device="cpu")
+    try:
+        gw.register_checkpoint("m", prefix, 0, {"data": (1, 4, 4)},
+                               buckets=(2,))
+        np.testing.assert_allclose(gw.infer("m", x)[0], want, rtol=1e-6)
+    finally:
+        gw.close()
+    fwd, params = quantize_net(net, 2, x, ctx=tmx.cpu())
+    out = fwd(params, x)
+    assert out.device == torch.device("cpu") and out.shape == (2, 2)
