@@ -53,8 +53,10 @@ Phases (any failure exits non-zero and prints no result line):
    tensors, on one seeded batch; check exactly 161 K2 launches per step,
    finite losses that fall, and no plain update on the card; print the
    step time, images/s and one step's device time by group and idle
-   share; then one step at batch 4 on the card against the CPU plain
-   path (loss, two gradients, an updated weight);
+   share, and the memory the last forward's graph holds until the next
+   forward (kept for a second ``backward``); then one step at batch 4 on
+   the card against the CPU plain path (loss, two gradients, an updated
+   weight);
 9. 3 Adam steps at batch 32 through ``nd.adam_update`` (bias correction
    folded into lr): 161 launches per step, finite, falling loss;
 10. gluon inference and one-shot serving at full width: gluon
@@ -76,7 +78,21 @@ Phases (any failure exits non-zero and prints no result line):
    burst's device time and idle share; then ``quantize_net`` at batch 32
    (int8 bound, and whether its calibration table equals the
    gateway's). No kernel of the port launches in this phase;
-11. one ``{"kernels": [...]}`` line, then the result line
+11. gluon training through the imperative tape at full width: the same
+   seeded gluon ``resnet50_v1``, hybridized, batch 128 x 3x224x224, 10
+   steps of ``autograd.record()`` -> forward ->
+   ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``Trainer.step`` (SGD,
+   momentum 0.9, lr 0.01) on one seeded batch, in fp32 and in bf16 with
+   fp32 masters (``cast("bfloat16")``, ``multi_precision``): losses
+   finite and falling; step ms, images/s, peak memory, the host ms of
+   ``Trainer.step``, one step's and one ``Trainer.step``'s device time
+   by group and idle share. The first fp32 step's loss against the same
+   weights and batch through ``export`` -> ``simple_bind`` (1e-5), one
+   batch-4 step against the CPU gluon path (phase 8's bounds), and the
+   SGD class's update on the card within 1 ulp of one rounding per
+   multiply-add. The Trainer's SGD computes its own update: no kernel of
+   the port launches in this phase;
+12. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -1099,6 +1115,12 @@ def phase_train(fo, dev, rng, here):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     step_s = float(np.median(secs[-5:]))
+    # the last training forward's graph is kept for a second backward
+    # until the next forward: what it holds between steps
+    held = torch.cuda.memory_allocated(dev)
+    ex.forward(is_train=False, data=x, softmax_label=y)
+    torch.cuda.synchronize()
+    graph_held_gb = (held - torch.cuda.memory_allocated(dev)) / 1e9
     prof = profile_step(lambda: train_step(mx, ex, params, states, x, y,
                                            hp))
     check(all(torch.isfinite(ex.arg_dict[n]._data).all() for n in params),
@@ -1116,7 +1138,8 @@ def phase_train(fo, dev, rng, here):
             "conv_fc_fp32_bound_ms": step_flops / FP32_FLOPS_PER_S * 1e3,
             "fused_sgd_mom_launches": launches,
             "launches_per_step": launches / TRAIN_STEPS,
-            "peak_memory_gb": peak_gb, "step_profile": prof,
+            "peak_memory_gb": peak_gb,
+            "recorded_graph_held_gb": graph_held_gb, "step_profile": prof,
             "parity_batch4": parity}
     log("resnet50_train " + json.dumps(main))
     return launches
@@ -1505,6 +1528,232 @@ def phase_gluon(att, i8, fo, dev, rng, here):
     torch.cuda.empty_cache()
 
 
+# -- phase 11: gluon training through the imperative tape --------------------
+# bench.py build_train's loop through gluon's own API: hybridized
+# resnet50_v1, SoftmaxCrossEntropyLoss, Trainer(SGD), on one seeded batch;
+# phase 8's optimizer settings (lr 0.01 falls on one fixed batch)
+GLUON_TRAIN_STEPS = 10
+GLUON_SGD = {"learning_rate": SGD_HYPER["lr"],
+             "momentum": SGD_HYPER["momentum"], "wd": SGD_HYPER["wd"]}
+# the first step's loss against phase 8's executor on the same weights
+# and batch (the same cuDNN kernels, two sums of the 128 row losses)
+GLUON_EXEC_LOSS_RTOL = 1e-5
+
+
+def gluon_train_loop(mx, net, trainer, loss_fn, x, y, steps):
+    """``steps`` of record -> forward -> loss -> backward -> Trainer.step;
+    returns (mean losses as device tensors, step seconds ended by a
+    sync, host seconds of each Trainer.step call)."""
+    losses, secs, host = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        t1 = time.perf_counter()
+        trainer.step(x.shape[0])
+        host.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss._data.detach().float().mean())
+    return losses, secs, host
+
+
+def gluon_train_run(mx, weights, ctx, x, y, dtype):
+    """GLUON_TRAIN_STEPS at batch 128 in ``dtype`` (bf16: the net cast,
+    fp32 masters in the optimizer); the measurements as a dict."""
+    net, _ = gluon_resnet(mx, weights, ctx)
+    multi = dtype == "bfloat16"
+    if multi:
+        net.cast("bfloat16")
+        x = x.astype("bfloat16")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(GLUON_SGD, multi_precision=multi))
+    dev = ctx.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs, host = gluon_train_loop(mx, net, trainer, loss_fn, x, y,
+                                          GLUON_TRAIN_STEPS)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"gluon {dtype}: loss {losses}")
+    check(losses[-1] < losses[0], f"gluon {dtype}: loss did not fall: "
+          f"{losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = float(np.median(secs[-5:]))
+    prof = profile_step(lambda: gluon_train_loop(mx, net, trainer, loss_fn,
+                                                 x, y, 1))
+    # the optimizer alone: one Trainer.step after a backward
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    opt_prof = profile_step(lambda: trainer.step(x.shape[0]))
+    params = net.collect_params().values()
+    check(all(torch.isfinite(p.data()._data).all() for p in params),
+          f"gluon {dtype}: non-finite weights after training")
+    del net, trainer, loss
+    torch.cuda.empty_cache()
+    return {"dtype": dtype, "multi_precision": multi, "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in secs],
+            "images_per_s": x.shape[0] / step_s, "peak_memory_gb": peak_gb,
+            "trainer_step_host_ms": float(np.median(host[-5:])) * 1e3,
+            "trainer_step_host_ms_all": [t * 1e3 for t in host],
+            "optimizer_device_ms": opt_prof["device_busy_ms"],
+            "optimizer_launches": sum(opt_prof["by_group_launches"]
+                                      .values()),
+            "optimizer_profile": opt_prof, "step_profile": prof}
+
+
+def gluon_train_parity(mx, weights, x_np, y_np):
+    """One step at PARITY_BATCH on the card and on the CPU gluon path
+    from the same weights: in f32 with the Trainer's update, in f64
+    forward and backward only (the f64 run is the stem's reference, as
+    in phase 8)."""
+    conv_w = GLUON_PREFIX + "conv2d0_weight"
+    fc_w = GLUON_PREFIX + "dense0_weight"
+    got = {}
+    for dt in ("float32", "float64"):
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            t0 = time.perf_counter()
+            with ctx:
+                net, _ = gluon_resnet(mx, weights, ctx)
+                if dt == "float64":
+                    net.cast("float64")
+                params = net.collect_params()
+                x = mx.nd.array(x_np[:PARITY_BATCH], dtype=dt)
+                y = mx.nd.array(y_np[:PARITY_BATCH], dtype=dt)
+                with mx.autograd.record():
+                    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x),
+                                                                   y)
+                loss.backward()
+                res = {"loss": float(loss.asnumpy().mean()),
+                       "stem_grad": params[conv_w].grad().asnumpy(),
+                       "fc_grad": params[fc_w].grad().asnumpy()}
+                if dt == "float32":
+                    mx.gluon.Trainer(params, "sgd", dict(GLUON_SGD)).step(
+                        PARITY_BATCH)
+                    res["fc_updated"] = params[fc_w].data().asnumpy()
+                res["s"] = time.perf_counter() - t0
+                got[where, dt] = res
+            del net, params
+
+    def rel(a, b, key):
+        return float(np.abs(a[key].astype(np.float64) - b[key]).max()
+                     / np.abs(b[key]).max())
+
+    card32, cpu32 = got["card", "float32"], got["cpu", "float32"]
+    card64, cpu64 = got["card", "float64"], got["cpu", "float64"]
+    res = {"loss_card": card32["loss"], "loss_cpu": cpu32["loss"],
+           "loss_f64": cpu64["loss"], "cpu_s": cpu32["s"] + cpu64["s"]}
+    check(abs(card64["loss"] - cpu64["loss"]) <= PARITY_F64_TOL
+          * abs(cpu64["loss"]), "gluon f64 loss card vs CPU")
+    for key in ("stem_grad", "fc_grad"):
+        res[key + "_f64_rel"] = r = rel(card64, cpu64, key)
+        check(r <= PARITY_F64_TOL, f"gluon f64 {key}: card vs CPU {r}")
+    check(abs(card32["loss"] - cpu32["loss"]) <= PARITY_LOSS_RTOL
+          * abs(cpu32["loss"]), f"gluon batch-{PARITY_BATCH} loss card "
+          f"{card32['loss']} vs CPU {cpu32['loss']}")
+    for key in ("fc_grad", "fc_updated"):
+        res[key + "_rel"] = r = rel(card32, cpu32, key)
+        check(r <= PARITY_TENSOR_TOL, f"gluon f32 {key}: card vs CPU "
+              f"differ by {r} of the largest (> {PARITY_TENSOR_TOL})")
+    res["stem_grad_card_vs_f64"] = card_err = rel(card32, cpu64,
+                                                  "stem_grad")
+    res["stem_grad_cpu_vs_f64"] = cpu_err = rel(cpu32, cpu64, "stem_grad")
+    check(card_err <= PARITY_STEM_RATIO * cpu_err,
+          f"gluon f32 stem gradient: card {card_err} vs CPU {cpu_err} of "
+          "the largest off the f64 run")
+    log(f"gluon train parity: batch {PARITY_BATCH} step on the card "
+        f"matches the CPU gluon path in f64 and f32 ({res['cpu_s']:.1f}s "
+        "on the CPU)")
+    return res
+
+
+def sgd_class_vs_fma32(mx, dev):
+    """The SGD class's update on the card (``torch.add`` with ``alpha``:
+    one FMA in PyTorch's CUDA kernel) against ``fma32`` (f64, rounded
+    once) on the same tensors, at ResNet-50's largest tensor: the
+    contraction the CPU tests hold bitwise to the JAX package's jitted
+    step. Returns the largest difference of the weight and the momentum
+    in units of the last place."""
+    from mxnet_tpu_torch.ops.fused_opt import f32, fma32
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    w, g, m = (torch.randn(K2_LARGEST, generator=gen, device=dev)
+               for _ in range(3))
+    lr, wd, mu, rs = (SGD_HYPER["lr"], SGD_HYPER["wd"],
+                      SGD_HYPER["momentum"], 1.0 / TRAIN_BATCH)
+    mom_ref = fma32(m, f32(mu), fma32(w, f32(wd), g * f32(rs)) * -f32(lr))
+    w_ref = w + mom_ref
+    opt = mx.optimizer.SGD(learning_rate=lr, momentum=mu, wd=wd,
+                           rescale_grad=rs)
+    weight, mom = mx.nd.NDArray(w.clone()), mx.nd.NDArray(m.clone())
+    opt.update(0, weight, mx.nd.NDArray(g), mom)
+
+    def ulps(got, ref):
+        unit = torch.nextafter(ref.abs(), torch.full_like(ref, np.inf)) \
+            - ref.abs()
+        return float(((got - ref).abs() / unit).max())
+
+    return max(ulps(weight._data, w_ref), ulps(mom._data, mom_ref))
+
+
+def phase_gluon_train(att, i8, fo, dev, rng, here):
+    """Gluon ResNet-50 v1 training at batch 128, fp32 and bf16 with fp32
+    masters, through autograd.record / backward / Trainer.step; the
+    first step's loss against the symbolic executor, one batch-4 step
+    against the CPU. The Trainer's SGD class computes its own update:
+    no kernel of the port may launch in the phase."""
+    import mxnet_tpu_torch as mx
+
+    counts0 = kernel_counts(att, i8, fo)
+    ctx = mx.Context(dev)
+    net, weights = gluon_resnet(mx, None, ctx)
+    x_np = rng.standard_normal(GLUON_SHAPE, dtype=np.float32)
+    y_np = rng.integers(0, 1000, GLUON_SHAPE[0]).astype(np.float32)
+    x, y = mx.nd.array(x_np, ctx=ctx), mx.nd.array(y_np, ctx=ctx)
+
+    # the first step's loss through export -> simple_bind (phase 8's path)
+    prefix = os.path.join(here, "build", "chip_smoke", "gluon_r50_train")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    net.export(prefix)
+    del net
+    sym, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0, ctx=ctx)
+    ex = train_executor(mx, mx.sym.SoftmaxOutput(sym, name="softmax"),
+                        GLUON_SHAPE[0], arg_p, aux_p, ctx)
+    out = ex.forward(is_train=True, data=x, softmax_label=y)[0]
+    exec_loss = float(cross_entropy(out._data, y._data))
+    del ex, out, arg_p, aux_p
+    torch.cuda.empty_cache()
+
+    runs = [gluon_train_run(mx, weights, ctx, x, y, dt)
+            for dt in ("float32", "bfloat16")]
+    fp32, bf16 = runs
+    loss_err = abs(fp32["losses"][0] - exec_loss)
+    check(loss_err <= GLUON_EXEC_LOSS_RTOL * abs(exec_loss),
+          f"gluon first-step loss {fp32['losses'][0]} vs executor "
+          f"{exec_loss}")
+    parity = gluon_train_parity(mx, weights, x_np, y_np)
+    fma_ulps = sgd_class_vs_fma32(mx, dev)
+    check(fma_ulps <= 1, f"SGD class on the card {fma_ulps} ulp off one "
+          "rounding of each multiply-add")
+    counts1 = kernel_counts(att, i8, fo)
+    check(counts1 == counts0, f"a kernel launched on the gluon training "
+          f"path: {counts0} -> {counts1}")
+    log("gluon_train " + json.dumps({
+        "batch": GLUON_SHAPE[0], "steps": GLUON_TRAIN_STEPS,
+        "optimizer": dict(GLUON_SGD, name="sgd"),
+        "executor_first_loss": exec_loss,
+        "first_loss_rel_err_vs_executor": loss_err / abs(exec_loss),
+        "runs": runs, "parity_batch4": parity,
+        "sgd_class_max_ulps_vs_fma32": fma_ulps,
+        "kernel_launches_in_phase": {k: counts1[k] - counts0[k]
+                                     for k in counts0}}))
+    del x, y
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1543,6 +1792,7 @@ def main():
     launches["fused_sgd_mom"] = phase_train(fo, dev, rng, here)
     launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
     phase_gluon(att, i8, fo, dev, rng, here)
+    phase_gluon_train(att, i8, fo, dev, rng, here)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))

@@ -21,7 +21,11 @@ float32 product here is a float32 product. Ported so far:
 - gluon inference (``gluon.model_zoo.vision.resnet50_v1``,
   ``hybridize``, ``export``, ``SymbolBlock``), the ``Predictor`` and
   one-shot serving (``serving.Gateway.register`` / ``infer`` with fp32,
-  bf16 and int8 variants), and ``contrib.quantization.quantize_net``.
+  bf16 and int8 variants), and ``contrib.quantization.quantize_net``;
+- gluon training through the imperative tape: ``autograd.record`` /
+  ``backward`` / ``grad``, ``gluon.loss``, ``gluon.Trainer`` over the
+  ``optimizer`` classes (multi-precision included), ``lr_scheduler`` and
+  ``metric``.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -36,11 +40,13 @@ from . import ndarray as nd
 from . import symbol as sym
 from . import executor, io, model, model_zoo, subgraph, contrib  # noqa: F401
 from . import autograd, gluon, initializer, predictor, random  # noqa: F401
+from . import lr_scheduler, metric, optimizer  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["Context", "MXNetError", "autograd", "contrib", "cpu",
            "current_context", "executor", "get_env", "gluon", "gpu",
-           "initializer", "io", "model", "model_zoo", "nd", "predictor",
-           "random", "resolve_device", "subgraph", "sym"]
+           "initializer", "io", "lr_scheduler", "metric", "model",
+           "model_zoo", "nd", "optimizer", "predictor", "random",
+           "resolve_device", "subgraph", "sym"]

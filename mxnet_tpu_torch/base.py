@@ -34,3 +34,26 @@ def attr_bool(val, default=False):
             return False
         raise MXNetError(f"cannot parse boolean attr {val!r}")
     return bool(val)
+
+
+class Registry:
+    """Name -> class registry, names case-insensitive (the port's copy
+    of the JAX package's ``base.registry``; ref:
+    python/mxnet/registry.py)."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        self._entries = {}
+
+    def register(self, obj, name=None, aliases=()):
+        name = name or obj.__name__
+        for key in (name,) + tuple(aliases):
+            self._entries[key.lower()] = obj
+        return obj
+
+    def get(self, name):
+        try:
+            return self._entries[name.lower()]
+        except KeyError:
+            raise MXNetError(f"{self.kind} {name!r} is not registered. "
+                             f"Known: {sorted(self._entries)}") from None

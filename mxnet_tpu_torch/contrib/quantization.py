@@ -593,9 +593,10 @@ def quantize_net(net, batch, calib_data, mode="naive",
     infer_shapes(net, (batch,) + tuple(calib_data.shape[1:]))
     sym_out, params = trace_block(net)
     aux_names = set(sym_out.list_auxiliary_states())
-    arg_params = {k: p.data() for k, p in params.items()
+    arg_params = {k: p.data().detach() for k, p in params.items()
                   if k not in aux_names}
-    aux_params = {k: p.data() for k, p in params.items() if k in aux_names}
+    aux_params = {k: p.data().detach() for k, p in params.items()
+                  if k in aux_names}
     with Context(device):   # calibration batches go to the device
         it = NDArrayIter(data=calib_data,
                          batch_size=min(len(calib_data), 8))

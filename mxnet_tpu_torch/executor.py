@@ -15,7 +15,10 @@ arguments whose ``grad_req`` is not ``"null"``; BatchNorm normalises
 over the batch and the executor folds the batch statistics into the
 moving ones, as the JAX executor's ``_bn_train`` does. ``backward``
 takes ``torch.autograd.grad`` of the recorded outputs (the JAX executor
-takes ``jax.vjp`` of the same function) and frees the recorded graph.
+takes ``jax.vjp`` of the same function). The recorded graph is kept
+until the next ``forward``, so a second ``backward`` after one forward
+gives what the JAX executor gives by recomputing from its saved state:
+``"add"`` accumulates again, ``"write"`` writes the same gradient.
 """
 from __future__ import annotations
 
@@ -137,7 +140,9 @@ class Executor:
                 n: NDArray(torch.zeros_like(self.arg_dict[n]._data))
                 for n in self.arg_names if self._grad_req[n] != "null"}
         self.outputs = []
-        self._recorded = None   # (outputs with graph, leaves) until backward
+        # (outputs with graph, leaves) of the last training forward,
+        # until the next forward
+        self._recorded = None
 
     def _canon(self, arrays, names, what, allow_missing=False):
         arrays = arrays or {}
@@ -152,7 +157,7 @@ class Executor:
                 if allow_missing:
                     continue
                 raise MXNetError(f"{what}: missing array for {n}")
-            out[n] = NDArray(as_tensor(arrays[n], self._device))
+            out[n] = NDArray(as_tensor(arrays[n], self._device).detach())
         return out
 
     def forward(self, is_train=False, **kwargs):
@@ -194,7 +199,6 @@ class Executor:
         if self._recorded is None:
             raise MXNetError("backward called before forward(is_train=True)")
         outs, leaves = self._recorded
-        self._recorded = None
         if out_grads is None:
             heads = [torch.ones_like(o) if isinstance(o, torch.Tensor)
                      else None for o in outs]
@@ -209,7 +213,8 @@ class Executor:
         if pairs and names:
             grads = torch.autograd.grad(
                 [o for o, _ in pairs], [leaves[n] for n in names],
-                grad_outputs=[h for _, h in pairs], allow_unused=True)
+                grad_outputs=[h for _, h in pairs], allow_unused=True,
+                retain_graph=True)
         del outs, pairs
         for n, g in zip(names, grads):
             g = torch.zeros_like(leaves[n]) if g is None else g.contiguous()
@@ -245,7 +250,7 @@ class Executor:
                                       "aux")):
             for n, v in params.items():
                 if n in target:
-                    target[n]._data = as_tensor(v).to(self._device,
-                                                      copy=True)
+                    target[n]._data = as_tensor(v).detach().to(
+                        self._device, copy=True)
                 elif not allow_extra_params:
                     raise MXNetError(f"unknown {what} {n}")

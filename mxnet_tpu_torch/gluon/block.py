@@ -13,8 +13,11 @@ file written by either package loads in the other and ``export`` writes
 the same graph.
 
 ``hybridize()`` runs the same eager forward, under
-``torch.inference_mode()`` outside training; the JAX package jits it
-there. ``optimize_for`` waits.
+``torch.inference_mode()`` when neither training nor recording (the
+JAX package jits it there); under ``autograd.record()``, in either
+mode, it runs with autograd on, so the tape sees it. A predict-mode
+output that later enters a recorded op is copied out of inference mode
+at the ``nd`` dispatch (``ndarray.invoke``). ``optimize_for`` waits.
 """
 from __future__ import annotations
 
@@ -108,15 +111,16 @@ class _BlockScope:
 
 def defer_aux_update(param, new_value):
     """A BatchNorm running-statistic update from a training forward:
-    written into the parameter (the JAX package collects these as jit
-    outputs; the port runs eagerly and writes them directly). A symbolic
-    trace records none: the executor updates moving statistics itself."""
+    written into the parameter, outside any recorded graph (the JAX
+    package collects these as jit outputs apart from the gradients; the
+    port runs eagerly and writes them directly). A symbolic trace
+    records none: the executor updates moving statistics itself."""
     if not isinstance(new_value, NDArray) or _get("meta"):
         return
     if param._data is None:
         param.set_data(new_value)
     else:
-        param._data._data = new_value._data
+        param._data._data = new_value._data.detach()
 
 
 class Block:
@@ -267,6 +271,9 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def zero_grad(self):
+        self.collect_params().zero_grad()
+
     def __call__(self, *args):
         for hook in self._forward_pre_hooks:
             hook(self, args)
@@ -335,7 +342,7 @@ class HybridBlock(Block):
             return self.hybrid_forward(sym_mod, x, *args, **params)
         if self._active and not _get("trace"):
             mode = contextlib.nullcontext() if autograd.is_training() \
-                else torch.inference_mode()
+                or autograd.is_recording() else torch.inference_mode()
             with _forward_state(trace=True), mode:
                 return self.forward(x, *args)
         params = self._collect_param_values(x, *args)

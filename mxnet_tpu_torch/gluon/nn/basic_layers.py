@@ -269,10 +269,12 @@ class BatchNorm(HybridBlock):
                 use_global_stats=False, output_mean_var=True,
                 axis=self._axis, training=True)
             m = self._momentum
-            defer_aux_update(self.running_mean,
-                             running_mean * m + mean * (1 - m))
-            defer_aux_update(self.running_var,
-                             running_var * m + var * (1 - m))
+            # the running statistics stay out of the recorded graph
+            with autograd.pause(train_mode=True):
+                defer_aux_update(self.running_mean,
+                                 running_mean * m + mean * (1 - m))
+                defer_aux_update(self.running_var,
+                                 running_var * m + var * (1 - m))
             return out
         return F.BatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._epsilon,

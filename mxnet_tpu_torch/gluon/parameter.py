@@ -9,7 +9,11 @@ values. Values are drawn on the CPU from an explicit
 with 0, so an initialization repeats) and moved to the parameter's
 device: ``cuda:0`` unless the caller asks for the CPU.
 
-Gradients (``grad``, ``zero_grad``) wait for gluon training.
+A parameter whose ``grad_req`` is not ``"null"`` gets a gradient buffer
+when its values are drawn or set (``NDArray.attach_grad``): its tensor
+is then a leaf that requires grad, which ``autograd.backward`` writes
+``grad()`` for. ``set_data``, ``cast`` and ``reset_ctx`` make a new leaf
+and keep the gradient buffer, as the JAX package keeps it.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self.name = name
-        self.grad_req = grad_req if differentiable else "null"
+        self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
@@ -65,6 +69,35 @@ class Parameter:
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("null", "write", "add"):
+            raise MXNetError(f"grad_req must be null, write or add, got "
+                             f"{req!r}")
+        self._grad_req = req
+        if self._data is None:
+            return
+        if req == "null":
+            self._data.grad = None
+            self._data._grad_req = "null"
+            self._data._data = self._data._data.detach()
+        elif self._data.grad is None:
+            self._data.attach_grad(req)
+        else:
+            self._data._grad_req = req
+
+    def _rebind(self, t):
+        """Make ``t`` the parameter's tensor: a fresh leaf that requires
+        grad when a gradient is attached; the gradient buffer stays."""
+        from .. import autograd
+        t = t.detach()
+        self._data._data = autograd._leaf(t) if self._data.grad is not None \
+            else t
 
     def _shape_incomplete(self):
         return self.shape is None or any(d == 0 for d in self.shape)
@@ -98,6 +131,8 @@ class Parameter:
             init_mod.create(init or self.init or default_init)(
                 self.name, value, generator)
             self._data = NDArray(value.to(self._device))
+            if self._grad_req != "null":
+                self._data.attach_grad(self._grad_req)
         self._deferred_init = None
 
     def _finish_deferred_init(self):
@@ -137,6 +172,21 @@ class Parameter:
     def list_data(self):
         return [self.data()]
 
+    def grad(self, ctx=None):
+        if self._data is None or self._data.grad is None:
+            raise MXNetError(
+                f"parameter {self.name} has no gradient (grad_req="
+                f"{self._grad_req!r} or not initialized)")
+        return self._data.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data.grad is not None:
+            g = self._data.grad
+            g._data = torch.zeros_like(g._data)
+
     def list_ctx(self):
         return [self.data().context]
 
@@ -156,10 +206,14 @@ class Parameter:
             t = t.to(self._device)
         self.shape = tuple(t.shape)
         self.dtype = dtype_name(t.dtype)
+        with torch.no_grad():
+            t = t.clone()
         if self._data is None:
-            self._data = NDArray(t.clone())
+            self._data = NDArray(t)
+            if self._grad_req != "null":
+                self._data.attach_grad(self._grad_req)
         else:
-            self._data._data = t.clone()
+            self._rebind(t)
         self._device = self._data._data.device
         self._deferred_init = None
 
@@ -169,9 +223,12 @@ class Parameter:
         self.set_data(data)
 
     def cast(self, dtype):
+        """Cast the values (running statistics too, as in the JAX
+        package); the gradient buffer keeps its dtype until the next
+        backward writes one."""
         self.dtype = dtype_name(dtype)
         if self._data is not None:
-            self._data._data = self._data._data.to(torch_dtype(dtype))
+            self._rebind(self._data._data.detach().to(torch_dtype(dtype)))
 
     def var(self):
         from ..symbol import var
@@ -180,7 +237,10 @@ class Parameter:
     def reset_ctx(self, ctx):
         self._device = _one_ctx(ctx)
         if self._data is not None:
-            self._data._data = self._data._data.to(self._device)
+            self._rebind(self._data._data.detach().to(self._device))
+            if self._data.grad is not None:
+                g = self._data.grad
+                g._data = g._data.to(self._device)
 
 
 class Constant(Parameter):
@@ -283,6 +343,10 @@ class ParameterDict:
             p.initialize(init=None, ctx=ctx,
                          default_init=init or init_mod.Uniform(),
                          force_reinit=force_reinit, generator=generator)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
 
     def setattr(self, name, value):
         for p in self._params.values():

@@ -1,9 +1,9 @@
 """Gluon utilities (the port of ``mxnet_tpu/gluon/utils.py``), plus
-:func:`params_from_jax`, which carries weights from the JAX package.
+:func:`params_from_jax` and :func:`updater_states_from_jax`, which carry
+weights and optimizer states from the JAX package.
 ``download`` is left out: the port fetches nothing."""
 from __future__ import annotations
 
-import math
 import warnings
 
 import numpy as np
@@ -44,9 +44,14 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):
     """Rescale ``arrays`` in place so their joint L2 norm is at most
-    ``max_norm``; returns the norm before clipping."""
-    total = math.sqrt(sum(float((a._data.double() ** 2).sum())
-                          for a in arrays))
+    ``max_norm``; returns the norm before clipping. As in the JAX
+    package, each array's sum of squares is an f32 ``nd`` reduction read
+    back to the host, and the scaling goes through ``nd`` too (recorded
+    when called under ``autograd.record()``)."""
+    total = 0.0
+    for a in arrays:
+        total += float((a * a).sum().asscalar())
+    total = float(np.sqrt(total))
     if check_isfinite and not np.isfinite(total):
         warnings.warn("nan or inf found in gradients")
     scale = max_norm / (total + 1e-8)
@@ -78,3 +83,24 @@ def params_from_jax(net, arrays, ctx=None):
         p._data, p._device = None, device
         p.set_data(value)
     return net
+
+
+def _state_np(state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_state_np(s) for s in state)
+    value = np.asarray(state.asnumpy())
+    if value.dtype.kind == "V" or str(value.dtype) == "bfloat16":
+        value = value.astype(np.float32)   # numpy has no bf16 of its own
+    return value
+
+
+def updater_states_from_jax(jax_updater):
+    """The states of the JAX package's ``optimizer.Updater`` as numpy
+    trees, by index, for the port's ``Updater.states`` (it puts each on
+    its weight's device at the first update of the index). bf16 states
+    come over as fp32; fp32 master copies stay fp32. The optimizer's
+    update counts travel separately (``_index_update_count``,
+    ``num_update``)."""
+    return {k: _state_np(v) for k, v in jax_updater.states.items()}

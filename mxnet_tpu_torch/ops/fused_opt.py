@@ -81,6 +81,15 @@ def fma32(a, b, c):
     return torch.where(bump, torch.nextafter(t, toward), t).float()
 
 
+def sqrt32(t):
+    """``sqrt`` of an f32 tensor rounded once: in f64 on the CPU, whose
+    vectorised f32 root is not always correctly rounded; ``sqrtf`` on
+    the card is."""
+    if t.device.type == "cpu" and t.dtype == torch.float32:
+        return torch.sqrt(t.double()).float()
+    return torch.sqrt(t)
+
+
 def _sgd_mom_hyper(lr, momentum, wd, rescale_grad, clip_gradient):
     """(mu, lr_wd, lr_g, rescale, clip, mu_is_one) as the XLA program
     holds them: see the module docstring."""

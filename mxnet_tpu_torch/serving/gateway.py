@@ -200,6 +200,21 @@ class Model:
             + exec_s
 
 
+def _check_one_replica(replicas):
+    """Resolve ``replicas`` (None reads ``MXTPU_SERVING_REPLICAS``, as
+    the JAX package does) and refuse more than one: each model or
+    generator is served by one lane until replicas are ported."""
+    if replicas is None:
+        replicas = int(get_env("MXTPU_SERVING_REPLICAS", 1, int))
+    if replicas < 1:
+        raise ServingError(
+            f"serving: replicas must be >= 1, got {replicas}")
+    if replicas > 1:
+        raise ServingError(
+            "serving: several replicas per model are not ported yet "
+            "(one lane per model)")
+
+
 class Gateway:
     """Serves registered models and generators on one device: ``cuda:0``
     unless ``device`` says otherwise; without CUDA it raises unless
@@ -220,7 +235,7 @@ class Gateway:
                  input_shapes, variants=("fp32",), calib_data=None,
                  calib_mode="naive", excluded_sym_names=None,
                  buckets=None, max_batch=None, max_wait_ms=None,
-                 max_queue=None, slo_ms=None, replicas=1,
+                 max_queue=None, slo_ms=None, replicas=None,
                  input_dtype="float32", int8_lowering="auto",
                  warmup=True, tp=None):
         """Register a model and build (and, with ``warmup``, run once)
@@ -230,9 +245,10 @@ class Gateway:
         data input, without the batch dim (requests are coalesced along
         it). ``max_batch`` defaults to the largest of ``buckets`` (or
         32). ``slo_ms`` of 0/None turns latency-budget rejection off;
-        ``max_wait_ms`` / ``max_queue`` default from
-        ``MXTPU_SERVING_MAX_WAIT_MS`` / ``MXTPU_SERVING_MAX_QUEUE``.
-        One lane per model: ``replicas > 1`` and ``tp >= 2`` raise.
+        ``max_wait_ms`` / ``max_queue`` / ``replicas`` default from
+        ``MXTPU_SERVING_MAX_WAIT_MS`` / ``MXTPU_SERVING_MAX_QUEUE`` /
+        ``MXTPU_SERVING_REPLICAS``. One lane per model: ``replicas > 1``
+        (given or read from the knob) and ``tp >= 2`` raise.
         """
         if self._closed:
             raise ServingError("serving: gateway is closed")
@@ -240,13 +256,7 @@ class Gateway:
             raise ServingError(
                 "serving: tensor-parallel slices (tp >= 2) are not ported "
                 "yet; serve on one device")
-        if replicas < 1:
-            raise ServingError(
-                f"serving: replicas must be >= 1, got {replicas}")
-        if replicas > 1:
-            raise ServingError(
-                "serving: several replicas per model are not ported yet "
-                "(one lane per model)")
+        _check_one_replica(replicas)
         if len(input_shapes) != 1:
             raise ServingError(
                 "serving: exactly one data input per model (got "
@@ -407,7 +417,8 @@ class Gateway:
 
     def register_generator(self, name, decoder, block_tokens=None,
                            max_blocks=None, max_new_tokens=None,
-                           max_decode_batch=8, max_queue=None, warmup=True):
+                           max_decode_batch=8, max_queue=None,
+                           replicas=None, warmup=True):
         """Register a decoder LM for token-granular generation.
 
         ``decoder`` is a :class:`~.generate.GenerativeDecoder` on this
@@ -418,11 +429,14 @@ class Gateway:
         default for requests that don't pass one); the knob defaults
         come from ``MXTPU_GEN_BLOCK_TOKENS`` / ``MXTPU_GEN_MAX_BLOCKS``
         / ``MXTPU_GEN_MAX_NEW_TOKENS`` / ``MXTPU_SERVING_MAX_QUEUE``.
+        One lane per generator: ``replicas > 1`` (given or read from
+        ``MXTPU_SERVING_REPLICAS``) raises.
         """
         from .generate.scheduler import GenModel
 
         if self._closed:
             raise ServingError("serving: gateway is closed")
+        _check_one_replica(replicas)
         if decoder.device != self.device:
             raise ServingError(
                 f"serving: decoder on {decoder.device}, gateway on "

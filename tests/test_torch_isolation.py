@@ -5,7 +5,9 @@
 ``load_parameters`` / ``SymbolBlock.imports``, the ``Predictor``,
 ``quantize_net``) default to the first CUDA card and
 raise on a host without one unless the caller asks for the CPU, and its
-kernel build raises instead of falling back when ``nvcc`` is missing."""
+kernel build raises instead of falling back when ``nvcc`` is missing.
+The import check covers the training modules too (``optimizer``,
+``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``)."""
 import ast
 import os
 import subprocess
@@ -51,6 +53,9 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.predictor, mxnet_tpu_torch.serving.variants\n"
         "from mxnet_tpu_torch.contrib.quantization import quantize_net\n"
         "import mxnet_tpu_torch.autograd, mxnet_tpu_torch.symbol.trace\n"
+        "import mxnet_tpu_torch.optimizer, mxnet_tpu_torch.metric\n"
+        "import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.gluon.loss\n"
+        "import mxnet_tpu_torch.gluon.trainer\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n")
     # -I: no PYTHONPATH or user site, so nothing outside the port can

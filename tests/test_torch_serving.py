@@ -323,6 +323,30 @@ def test_register_rejects_zero_and_several_replicas_and_tp(gw):
     assert gw.stats()["m"]["executables"] == 0
 
 
+def test_replicas_knob_raises_instead_of_serving_one(gw, monkeypatch):
+    """MXTPU_SERVING_REPLICAS=2 asks the JAX package for two replicas per
+    model (and per generator); the port has one lane, so registration
+    raises instead of serving one replica silently."""
+    symbol, args, aux, feature = tiny_mlp(tmx)
+    monkeypatch.setenv("MXTPU_SERVING_REPLICAS", "2")
+    with pytest.raises(ServingError, match="replicas"):
+        gw.register("m", symbol, _tnd(args), _tnd(aux),
+                    input_shapes={"data": feature}, warmup=False)
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+    dec = GenerativeDecoder(vocab_size=32, d_model=16, num_layers=1,
+                            num_heads=2, max_prompt_tokens=16,
+                            device="cpu")
+    with pytest.raises(ServingError, match="replicas"):
+        gw.register_generator("lm", dec, warmup=False)
+    assert "m" not in gw.stats()
+    # the knob at 1, or an explicit replicas=1, registers
+    gw.register("m", symbol, _tnd(args), _tnd(aux),
+                input_shapes={"data": feature}, warmup=False, replicas=1)
+    monkeypatch.setenv("MXTPU_SERVING_REPLICAS", "1")
+    gw.register("m2", symbol, _tnd(args), _tnd(aux),
+                input_shapes={"data": feature}, warmup=False)
+
+
 def test_close_fails_pending_cleanly():
     gw = Gateway(device="cpu")
     symbol, args, aux, feature = _register(gw, "m", tiny_mlp, buckets=(1,),

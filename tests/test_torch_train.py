@@ -249,8 +249,53 @@ def test_backward_needs_a_training_forward(small):
         ex.backward()
     ex.forward(is_train=True)
     ex.backward()
-    with pytest.raises(MXNetError):            # the graph is freed
-        ex.backward()
+    first = {n: g.asnumpy() for n, g in ex.grad_dict.items()}
+    ex.backward()      # the graph is kept until the next forward, as the
+    for n, g in first.items():     # JAX executor recomputes: "write"
+        np.testing.assert_array_equal(ex.grad_dict[n].asnumpy(), g)
+
+
+def _fc_softmax_twice(pkg, req):
+    """One forward(is_train=True), two backward(): FullyConnected ->
+    SoftmaxOutput at data (2, 4)."""
+    sym = pkg.sym
+    net = sym.SoftmaxOutput(sym.FullyConnected(sym.var("data"), name="fc",
+                                               num_hidden=3),
+                            name="softmax")
+    rng = np.random.default_rng(7)
+    arg = {"data": rng.standard_normal((2, 4)).astype(F32),
+           "fc_weight": rng.standard_normal((3, 4)).astype(F32),
+           "fc_bias": rng.standard_normal(3).astype(F32),
+           "softmax_label": np.array([0, 2], F32)}
+    if pkg is tmx:
+        ex = net.simple_bind(CPU, grad_req=req, data=(2, 4),
+                             softmax_label=(2,))
+        ex.copy_params_from(_tnd(arg))
+    else:
+        ex = net.simple_bind(mx.cpu(), grad_req=req, data=(2, 4),
+                             softmax_label=(2,))
+        ex.copy_params_from(_jnd(arg))
+    ex.forward(is_train=True)
+    ex.backward()
+    once = {n: g.asnumpy() for n, g in ex.grad_dict.items()}
+    ex.backward()
+    return once, {n: g.asnumpy() for n, g in ex.grad_dict.items()}
+
+
+@pytest.mark.parametrize("req", ["add", "write"])
+def test_second_backward_after_one_forward_matches_jax(req):
+    """The JAX executor recomputes from the forward's saved state, so a
+    second backward succeeds: "add" accumulates twice, "write" writes
+    the same gradient again. The port keeps the recorded graph until
+    the next forward and does the same."""
+    j_once, j_twice = _fc_softmax_twice(mx, req)
+    t_once, t_twice = _fc_softmax_twice(tmx, req)
+    assert sorted(t_twice) == sorted(j_twice)
+    for n in j_twice:
+        _close(t_once[n], j_once[n])
+        _close(t_twice[n], j_twice[n])
+        factor = 2 if req == "add" else 1
+        np.testing.assert_array_equal(t_twice[n], factor * t_once[n])
 
 
 def test_copy_params_from_leaves_the_callers_arrays_alone(small):
