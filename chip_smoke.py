@@ -18,11 +18,17 @@ Phases (any failure exits non-zero and prints no result line):
    further from an f64 run than twice the fp32 plain version, and its
    SASS must hold TF32 tensor-core instructions (cuobjdump); the paged
    kernel at lengths on both sides of its 64-token splits, seq_len-0
-   rows zeros;
+   rows zeros; the flash backward (dQ, dK, dV with the forward's
+   log-sum-exp) against its plain version at the decoder-LM training
+   path's shape (B 8, H 12, T 2048, D 64, causal, strided views of one
+   projection) and at head sizes 16 / 32 / 128, non-causal 128 x 192,
+   ragged T 100 (rtol 1e-4 / atol 1e-5);
 4. time each kernel, its plain version and, where one exists, the
    PyTorch library call that computes the same function; print one
    JSON line per kernel, the flash sweep over the prompt buckets (with
-   the 3xTF32 and fp32 bounds) and the paged rows at B 32 and B 1;
+   the 3xTF32 and fp32 bounds, and the forward with its log-sum-exp
+   output beside it), the paged rows at B 32 and B 1 and the flash
+   backward at the training shape beside SDPA's backward;
 5. drive the serving path: ``Gateway.register_generator`` with the
    documented decoder (vocab 32000, d_model 512, 8 layers, 8 heads,
    2.15 GB paged KV pool) and 32 concurrent streamed
@@ -92,7 +98,21 @@ Phases (any failure exits non-zero and prints no result line):
    SGD class's update on the card within 1 ulp of one rounding per
    multiply-add. The Trainer's SGD computes its own update: no kernel of
    the port launches in this phase;
-12. one ``{"kernels": [...]}`` line, then the result line
+12. decoder-LM training through gluon at GPT-2 small's widths
+   (``bench.py``'s transformer configuration): the port's
+   ``GenerativeDecoder(vocab 50304, d_model 768, 12 layers, 12 heads,
+   ff_mult 4)`` block in fp32 (TF32 off), tokens (8, 2048) from the
+   seed, 5 steps of ``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` on
+   next-token labels -> ``backward`` -> ``gluon.Trainer("adam", lr
+   1e-4).step(8)``: exactly 12 flash forward and 12 flash backward
+   launches a step; the first loss near ln 50304 and finite, falling
+   losses; the first step's loss against the same step with the plain
+   attention (forward and backward) on the card, and every parameter's
+   gradient no further from an f64 run of that step than twice the fp32
+   plain step's (the same step with TF32 products must fail that bound);
+   step ms, tokens/s, peak memory, one step's device time by group and
+   idle share;
+13. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -111,6 +131,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -406,6 +427,11 @@ def phase_flash(att, build, dev, rng):
             lambda: att.flash_attention(q, k, v, True))
         row["plain_ms"], row["plain_launch_ms"] = measure(
             lambda: att.flash_attention_plain(q, k, v, True))
+        # the forward as training runs it: with its log-sum-exp, saved
+        # for the backward
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        row["lse_ms"], row["lse_launch_ms"] = measure(
+            lambda: att.flash_attention(ql, kl, vl, True))
         row["library_ms"], row["library_launch_ms"] = measure(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         row["bound_ms"], row["fp32_bound_ms"], row["bound_by"] = \
@@ -421,6 +447,130 @@ def phase_flash(att, build, dev, rng):
             "library_ms": top["library_ms"], "launch_ms": top["launch_ms"],
             "shape": {"B": 1, "H": HEADS, "T": top["T"], "D": HEAD_DIM,
                       "causal": True}}
+
+
+# -- phase 3/4: the flash backward ------------------------------------------
+# the decoder-LM training path (phase 12): bench.py _bench_transformer's
+# GPT-2 small widths
+LM_VOCAB, LM_D_MODEL, LM_LAYERS, LM_HEADS, LM_FF = 50304, 768, 12, 12, 4
+LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 8, 2048, 5, 1e-4
+LM_HEAD_DIM = LM_D_MODEL // LM_HEADS
+# the JAX package's fp32 attention bound (tests/test_pallas_attention.py)
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+
+
+def lm_qkv(b, t, h, d, dev, gen, requires_grad=False):
+    """q, k, v as the decoder block hands them to the kernels: (B, H, T, D)
+    views into one (B, T, 3, H, D) projection."""
+    qkv = torch.randn((b, t, 3, h, d), generator=gen).to(dev)
+    qkv.requires_grad_(requires_grad)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def flash_bwd_cost(b, h, t_q, t_k, d, causal):
+    """Bytes (q, k, v, out, dO read once, dq, dk, dv written once, lse
+    read once: four (T_q, D) and four (T_k, D) tensors) and flops (five
+    products of 2 D flops per visible query-key pair: S, dP, dV, dK,
+    dQ)."""
+    nbytes = 4 * b * h * (4 * t_q * d + 4 * t_k * d + t_q)
+    pairs = t_q * (t_q + 1) // 2 if causal else t_q * t_k
+    return nbytes, 10 * d * b * h * pairs
+
+
+def phase_flash_bwd(att, dev):
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, True),
+             (2, 4, 256, 256, 16, True, False),
+             (2, 4, 256, 256, 32, True, False),
+             (2, 4, 256, 256, 128, True, False),
+             (2, 4, 128, 192, 64, False, False),
+             (2, 4, 100, 100, 64, True, False),
+             (2, 4, 100, 100, 64, False, True)]
+    err = 0.0
+    for b, h, t_q, t_k, d, causal, strided in cases:
+        # through the path's entry: the autograd Function saves the
+        # forward kernel's output and log-sum-exp for the backward kernel
+        if strided:
+            q, k, v = lm_qkv(b, t_q, h, d, dev, gen, requires_grad=True)
+        else:
+            q = torch.randn((b, h, t_q, d), generator=gen).to(dev)
+            k, v = (torch.randn((b, h, t_k, d), generator=gen).to(dev)
+                    for _ in range(2))
+            for x in (q, k, v):
+                x.requires_grad_(True)
+        out = att.flash_attention(q, k, v, causal)
+        d_out = torch.randn((b, h, t_q, d), generator=gen).to(dev)
+        got = torch.autograd.grad(out, (q, k, v), d_out)
+        torch.cuda.synchronize()
+        q, k, v, out = (x.detach() for x in (q, k, v, out))
+        want = att.flash_attention_bwd_plain(q, k, v, out, d_out, causal)
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e = (a - w).abs()
+            ok = bool((e <= BWD_ATOL + BWD_RTOL * w.abs()).all())
+            errs.append(e.max().item())
+            check(ok, f"flash_attention_bwd B={b} H={h} Tq={t_q} Tk={t_k} "
+                  f"D={d} causal={causal} strided={strided}: {name} off "
+                  f"by {errs[-1]:.3e} beyond rtol {BWD_RTOL} / atol "
+                  f"{BWD_ATOL}")
+        log(f"flash_attention_bwd B={b} H={h} Tq={t_q} Tk={t_k} D={d} "
+            f"causal={causal} strided={strided}: max abs err dq/dk/dv "
+            f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (rtol "
+            f"{BWD_RTOL}, atol {BWD_ATOL})")
+        err = max(err, *errs)
+
+    # timing at the training path's shape
+    q, k, v = lm_qkv(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
+    out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5,
+                              with_lse=True)
+    d_out = torch.randn(out.shape, generator=gen).to(dev)
+    row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
+                     "D": LM_HEAD_DIM, "causal": True}}
+    row["ms"], row["launch_ms"] = measure(
+        lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+        iters=20)
+    row["plain_ms"], _ = measure(
+        lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
+        iters=10)
+    row["fwd_ms"], _ = measure(
+        lambda: att.flash_attention(q, k, v, True), iters=20)
+    # the forward as training runs it: with its log-sum-exp, saved
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    row["fwd_lse_ms"], _ = measure(
+        lambda: att.flash_attention(qs, ks, vs, True), iters=20)
+    # the yardstick: SDPA forward + backward less its forward, fp32
+    ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        torch.autograd.grad(o, (ql, kl, vl), d_out)
+
+    with torch.no_grad():
+        sdpa_fwd, _ = measure(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=20)
+    sdpa_both, _ = measure(sdpa_fwd_bwd, iters=20)
+    row["library_ms"] = sdpa_both - sdpa_fwd
+    row["library_fwd_ms"], row["library_fwd_bwd_ms"] = sdpa_fwd, sdpa_both
+    nbytes, flops = flash_bwd_cost(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ,
+                                   LM_HEAD_DIM, True)
+    # as the forward's (flash_bounds): the card's fastest fp32-accurate
+    # route is 3xTF32 on the tensor cores; the fp32 FMA pipes beside it
+    mem_s, op_s = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S
+    row["bound_ms"] = max(mem_s, op_s) * 1e3
+    row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+    row["bytes"], row["flops"] = nbytes, flops
+    row["fp32_bound_ms"] = max(mem_s, flops / FP32_FLOPS_PER_S) * 1e3
+    log("flash_bwd_timing " + json.dumps(row))
+    del q, k, v, out, lse, d_out, qs, ks, vs, ql, kl, vl
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:144",
+            "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launch_ms": row["launch_ms"], "shape": row["shape"]}
 
 
 # -- phase 5: the serving path ----------------------------------------------
@@ -440,7 +590,8 @@ def phase_serve(att, dev, rng):
                             num_layers=LAYERS, num_heads=HEADS,
                             max_prompt_tokens=MAX_PROMPT, device=dev,
                             seed=SEED)
-    log(f"decoder: {sum(p.numel() for p in dec.parameters())} parameters "
+    log(f"decoder: {sum(t.numel() for t in dec.state_dict().values())} "
+        f"parameters "
         f"on {dec.device} ({time.perf_counter() - t0:.2f}s)")
 
     att.reset_launches()
@@ -1307,6 +1458,7 @@ def timed_forwards(fn, iters=5):
 
 def kernel_counts(att, i8, fo):
     return {"flash_attention": att.flash_attention.launches,
+            "flash_attention_bwd": att.flash_attention_bwd.launches,
             "paged_attention": att.paged_attention.launches,
             "int8_epilogue": i8.int8_conv_epilogue.launches,
             "fused_sgd_mom": fo.fused_sgd_mom.launches,
@@ -1754,6 +1906,309 @@ def phase_gluon_train(att, i8, fo, dev, rng, here):
     torch.cuda.empty_cache()
 
 
+# -- phase 12: decoder-LM training through gluon ----------------------------
+LM_LOSS_RTOL = 1e-5
+# one step's gradients, kernels vs the plain attention. Elementwise, at
+# rtol 1e-4 and an atol of 1e-5 of each gradient's largest value, the two
+# fp32 runs part on the MLP's first layer and the embedding: those
+# gradients are sums over 16,384 tokens that cancel to ~1e-3 of their
+# terms, so each run's own rounding (and a few dozen ReLU inputs per
+# layer that round to the other side) moves them by ~1e-3 of their norm.
+# So both fp32 runs are held to an f64 run of the plain step: the
+# kernels' gradient no further from it (relative L2 norm, per parameter)
+# than twice the fp32 plain version's, as phase 8 holds its
+# ill-conditioned stem; the elementwise comparison is printed. A control
+# shows the bound rejects a lower precision: the plain step with TF32
+# products must exceed it.
+LM_GRAD_RTOL, LM_GRAD_ATOL_OF_SCALE = 1e-4, 1e-5
+LM_F64_RATIO = 2.0
+
+
+def plain_attention_op(att):
+    """The ``_contrib_flash_attention`` op on the plain attention and its
+    plain gradient (the kernels' oracles, on the card), for the
+    comparison step."""
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale):
+            out = att.flash_attention_plain(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, out)
+            ctx.causal, ctx.scale = causal, scale
+            return out
+
+        @staticmethod
+        def backward(ctx, d_out):
+            q, k, v, out = ctx.saved_tensors
+            grads = att.flash_attention_bwd_plain(q, k, v, out, d_out,
+                                                  ctx.causal, ctx.scale)
+            return (*grads, None, None)
+
+    def op(q, k, v, causal=False, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return PlainAttention.apply(q, k, v, bool(causal), float(scale))
+
+    return op
+
+
+def lm_step(mx, block, loss_fn, x, y, trainer=None):
+    with mx.autograd.record():
+        loss = loss_fn(block(x), y)
+    loss.backward()
+    if trainer is not None:
+        trainer.step(x.shape[0])
+    return loss
+
+
+def lm_kernel_group(name):
+    low = name.lower()
+    if "flash_attention_kernel" in low:
+        return "flash_fwd"
+    if "dkdv_kernel" in low or "dq_kernel" in low \
+            or "bwd_dot_kernel" in low:
+        return "flash_bwd"
+    if "gemm" in low or "gemv" in low or "cutlass" in low \
+            or "xmma" in low:
+        return "matmul"
+    return None
+
+
+def _range_group(e, seq):
+    """The ``mx_group:`` range an op ran in, or for a backward op the
+    group of the forward op whose gradient it computes."""
+    while e is not None:
+        if e.name.startswith("mx_group:"):
+            return e.name[len("mx_group:"):]
+        if e.name.startswith("autograd::engine::evaluate_function") \
+                and e.sequence_nr in seq:
+            return seq[e.sequence_nr]
+        e = e.cpu_parent
+    return None
+
+
+def lm_step_groups(registry, loss_fn, step):
+    """One step's device ms by group: flash_fwd, flash_bwd and matmul by
+    kernel name; layernorm and softmax_ce by the ops run inside the
+    LayerNorm op and the loss block (forward ranges, and their backward
+    ops through autograd's sequence numbers); the rest
+    elementwise_other."""
+    ln = registry.get("LayerNorm")
+    ln_fn = ln.fn
+
+    def ln_ranged(*a, **kw):
+        with torch.profiler.record_function("mx_group:layernorm"):
+            return ln_fn(*a, **kw)
+
+    loss_hf = loss_fn.hybrid_forward
+
+    def loss_ranged(*a, **kw):
+        with torch.profiler.record_function("mx_group:softmax_ce"):
+            return loss_hf(*a, **kw)
+
+    ln.fn, loss_fn.hybrid_forward = ln_ranged, loss_ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        ln.fn = ln_fn
+        del loss_fn.hybrid_forward
+    groups = dict.fromkeys(("flash_fwd", "flash_bwd", "matmul", "layernorm",
+                            "softmax_ce", "elementwise_other"), 0.0)
+    events = prof.events()
+    for e in events:      # the device's own events: kernels, copies
+        if e.device_type == DeviceType.CUDA:
+            g = lm_kernel_group(e.name) or "elementwise_other"
+            groups[g] += e.time_range.elapsed_us() / 1e3
+    seq = {}
+    for e in events:
+        if e.sequence_nr is not None and e.sequence_nr >= 0:
+            g = _range_group(e, {})
+            if g:
+                seq[e.sequence_nr] = g
+    for e in events:
+        for kern in e.kernels:
+            if lm_kernel_group(kern.name) is None:
+                g = _range_group(e, seq)
+                if g in ("layernorm", "softmax_ce"):
+                    groups[g] += kern.duration / 1e3
+                    groups["elementwise_other"] -= kern.duration / 1e3
+    return groups
+
+
+def phase_lm_train(att, i8, fo, dev, rng):
+    """Decoder-LM training at GPT-2 small's widths through gluon: the
+    plain-attention comparison step, then LM_STEPS counted steps (12
+    flash forward and 12 flash backward launches each)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    ctx = mx.Context(dev)
+    t0 = time.perf_counter()
+    dec = GenerativeDecoder(vocab_size=LM_VOCAB, d_model=LM_D_MODEL,
+                            num_layers=LM_LAYERS, num_heads=LM_HEADS,
+                            ff_mult=LM_FF, max_prompt_tokens=LM_SEQ,
+                            device=dev, seed=SEED)
+    block = dec.block
+    params = list(block.collect_params().values())
+    n_params = sum(p.data()._data.numel() for p in params)
+    log(f"lm decoder: {n_params} parameters on {dec.device} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    tokens = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1))
+    x = mx.nd.array(tokens[:, :-1].astype(np.int32), ctx=ctx)
+    y = mx.nd.array(tokens[:, 1:].astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    # the comparison steps: the plain attention and its plain gradient,
+    # from the initial weights, in fp32, in f64 and in fp32 with TF32
+    # products (the control); no kernel launches
+    counts0 = kernel_counts(att, i8, fo)
+    op = registry.get("_contrib_flash_attention")
+    op_fn, op.fn = op.fn, plain_attention_op(att)
+    try:
+        loss = lm_step(mx, block, loss_fn, x, y)
+        plain_loss = float(loss._data.detach().mean())
+        plain_grads = [p.grad()._data.clone() for p in params]
+        del loss
+        block.cast("float64")
+        loss = lm_step(mx, block, loss_fn, x, y)
+        f64_loss = float(loss._data.detach().mean())
+        f64_grads = [p.grad()._data.clone() for p in params]
+        del loss
+        block.cast("float32")     # exact: the values were fp32
+        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            loss = lm_step(mx, block, loss_fn, x, y)
+            tf32_grads = [p.grad()._data.clone() for p in params]
+            del loss
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    finally:
+        op.fn = op_fn
+    torch.cuda.empty_cache()
+    check(kernel_counts(att, i8, fo) == counts0,
+          "a kernel launched in the plain-attention steps")
+
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    att.reset_launches()
+    losses, secs, per_step = [], [], []
+    for i in range(LM_STEPS):
+        f0, b0 = att.flash_attention.launches, att.flash_attention_bwd.launches
+        t0 = time.perf_counter()
+        loss = lm_step(mx, block, loss_fn, x, y)
+        if i == 0:
+            grads = [p.grad()._data.clone() for p in params]
+        trainer.step(LM_BATCH)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss._data.detach().mean()))
+        per_step.append((att.flash_attention.launches - f0,
+                         att.flash_attention_bwd.launches - b0))
+    fwd_n, bwd_n = att.flash_attention.launches, \
+        att.flash_attention_bwd.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del loss
+    check(all(s == (LM_LAYERS, LM_LAYERS) for s in per_step),
+          f"lm_train: flash forward / backward launches per step "
+          f"{per_step}, want {LM_LAYERS} each")
+    check(fwd_n == bwd_n == LM_LAYERS * LM_STEPS,
+          f"lm_train: {fwd_n} / {bwd_n} launches in {LM_STEPS} steps")
+    check(all(np.isfinite(losses)), f"lm_train: losses {losses}")
+    check(losses[-1] < losses[0], f"lm_train: loss did not fall: {losses}")
+    check(abs(losses[0] - np.log(LM_VOCAB)) < 1.0,
+          f"lm_train: first loss {losses[0]} far from ln {LM_VOCAB}")
+
+    loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(loss_err <= LM_LOSS_RTOL, f"lm_train: first loss {losses[0]} vs "
+          f"the plain attention's {plain_loss}")
+    grad_rows = []
+    for p, a, b, c, w in zip(params, grads, plain_grads, tf32_grads,
+                             f64_grads):
+        scale = b.abs().max().item()
+        e = (a - b).abs()
+        share = (e / (LM_GRAD_ATOL_OF_SCALE * scale
+                      + LM_GRAD_RTOL * b.abs())).max().item()
+        w_norm = torch.linalg.vector_norm(w).item()
+        rel = [(torch.linalg.vector_norm(g.double() - w).item()
+                / max(w_norm, 1e-300)) for g in (a, b, c)]
+        grad_rows.append({
+            "name": p.name, "share_of_elementwise_bound": share,
+            "over_elementwise_bound": int((e > LM_GRAD_ATOL_OF_SCALE * scale
+                                           + LM_GRAD_RTOL * b.abs()).sum()),
+            "numel": b.numel(),
+            "rel_l2_vs_plain": (torch.linalg.vector_norm(a - b).item()
+                                / max(torch.linalg.vector_norm(b).item(),
+                                      1e-30)),
+            "kernel_rel_l2_vs_f64": rel[0], "plain_rel_l2_vs_f64": rel[1],
+            "ratio": rel[0] / max(rel[1], 1e-300),
+            "tf32_control_ratio": rel[2] / max(rel[1], 1e-300)})
+    worst = max(grad_rows, key=lambda r: r["ratio"])
+    control = max(grad_rows, key=lambda r: r["tf32_control_ratio"])
+    check(control["tf32_control_ratio"] > LM_F64_RATIO,
+          f"lm_train: the plain step with TF32 products is within "
+          f"{LM_F64_RATIO}x of the fp32 plain step's distance from f64 "
+          f"(worst {control['tf32_control_ratio']:.3f}): the gradient "
+          f"check cannot tell a lower precision")
+    check(worst["ratio"] <= LM_F64_RATIO,
+          f"lm_train: gradient of {worst['name']} "
+          f"{worst['kernel_rel_l2_vs_f64']:.3e} off the f64 plain step "
+          f"(relative L2), more than "
+          f"{LM_F64_RATIO}x the fp32 plain version's "
+          f"{worst['plain_rel_l2_vs_f64']:.3e}")
+    f64_loss_err = [abs(v - f64_loss) / abs(f64_loss)
+                    for v in (losses[0], plain_loss)]
+    del grads, plain_grads, tf32_grads, f64_grads
+
+    step = lambda: lm_step(mx, block, loss_fn, x, y, trainer)  # noqa: E731
+    prof = profile_step(step)
+    groups = lm_step_groups(registry, loss_fn, step)
+    check(all(torch.isfinite(p.data()._data).all() for p in params),
+          "lm_train: non-finite weights after training")
+    step_s = float(np.median(secs[-3:]))
+    log("lm_train " + json.dumps({
+        "config": {"vocab": LM_VOCAB, "d_model": LM_D_MODEL,
+                   "layers": LM_LAYERS, "heads": LM_HEADS,
+                   "ff_mult": LM_FF, "batch": LM_BATCH, "seq": LM_SEQ,
+                   "parameters": n_params, "dtype": "float32",
+                   "optimizer": {"name": "adam", "learning_rate": LM_LR}},
+        "losses": losses, "ln_vocab": float(np.log(LM_VOCAB)),
+        "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in secs],
+        "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+        "peak_memory_gb": peak_gb,
+        "flash_launches_per_step": per_step,
+        "plain_attention_first_loss": plain_loss,
+        "first_loss_rel_err_vs_plain": loss_err,
+        "f64_plain_first_loss": f64_loss,
+        "first_loss_rel_err_vs_f64_kernel_plain": f64_loss_err,
+        "grad_f64_ratio_max": worst["ratio"],
+        "grad_f64_ratio_max_param": worst["name"],
+        "tf32_control_ratio_max": control["tf32_control_ratio"],
+        "tf32_control_ratio_max_param": control["name"],
+        "tf32_control_ratio_min": min(r["tf32_control_ratio"]
+                                      for r in grad_rows),
+        "grad_rel_l2_vs_plain_max": max(r["rel_l2_vs_plain"]
+                                        for r in grad_rows),
+        "grad_elementwise_worst": sorted(
+            grad_rows, key=lambda r: -r["share_of_elementwise_bound"])[:6],
+        "grad_params_within_elementwise_bound": sum(
+            r["share_of_elementwise_bound"] <= 1 for r in grad_rows),
+        "grad_params": len(grad_rows),
+        "device_idle_share": prof["device_idle_share"],
+        "profiled_step_wall_ms": prof["wall_ms"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "by_group_ms": groups, "top": prof["top"]}))
+    del trainer, block, dec, params, x, y
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": bwd_n}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1783,6 +2238,7 @@ def main():
     log(f"build: {build_s:.1f}s for {', '.join(_build.KERNELS)}")
 
     kernels = [phase_flash(att, _build, dev, rng),
+               phase_flash_bwd(att, dev),
                phase_paged(att, dev, rng),
                phase_int8(i8, dev),
                *phase_fused_opt(fo, dev)]
@@ -1793,6 +2249,7 @@ def main():
     launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
     phase_gluon(att, i8, fo, dev, rng, here)
     phase_gluon_train(att, i8, fo, dev, rng, here)
+    launches.update(phase_lm_train(att, i8, fo, dev, rng))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))

@@ -25,7 +25,11 @@ float32 product here is a float32 product. Ported so far:
 - gluon training through the imperative tape: ``autograd.record`` /
   ``backward`` / ``grad``, ``gluon.loss``, ``gluon.Trainer`` over the
   ``optimizer`` classes (multi-precision included), ``lr_scheduler`` and
-  ``metric``.
+  ``metric``;
+- decoder-LM training through gluon: the generative decoder's block
+  (``serving.generate.GenerativeDecoder(...).block``) under
+  ``autograd.record``, with the hand-written flash attention forward and
+  backward kernels, served afterwards from the same weights.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """

@@ -2,10 +2,15 @@
 // (3xTF32), sm_90a.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py `_flash_kernel` (launched by
-// `_flash_call`, exposed as `flash_attention`), forward only.
+// `_flash_call`, exposed as `flash_attention`), forward only; the backward
+// is csrc/flash_attention_bwd.cu.
 //
 // out[b, h] = softmax(scale * Q K^T [causal]) V for Q (Tq, D) and K, V
 // (Tk, D), without writing the (Tq, Tk) score matrix to device memory.
+// When the caller passes an `lse` buffer (training), the kernel also
+// writes each row's log-sum-exp m + log(l) of the scaled scores, f32
+// (B, H, Tq) contiguous, which the backward uses to recompute P; serving
+// passes null and the kernel writes nothing more than the output.
 //
 // Bound on this card. Q, K, V and O are read or written once (4 * T * D * 4
 // bytes per head) while the two products do 4 * Tq * Tk * D flops (about
@@ -138,7 +143,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ o, int H, int BH, int n_qt,
+                           float* __restrict__ o,
+                           float* __restrict__ lse, int H, int BH, int n_qt,
                            int Tq, int Tk, int64_t q_sb, int64_t q_sh,
                            int64_t q_st, int64_t k_sb, int64_t k_sh,
                            int64_t k_st, int64_t v_sb, int64_t v_sh,
@@ -360,12 +366,14 @@ __global__ void __launch_bounds__(kThreads)
       A = fmaf(sA[(w * kBQ + r) * P + c], f, A);
     }
     obase[tok * o_st + c] = A / fmaxf(L, 1e-30f);
+    if (lse != nullptr && c == 0)
+      lse[static_cast<int64_t>(bh) * Tq + tok] = M + logf(fmaxf(L, 1e-30f));
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int H, int Tq, int Tk, const int64_t* st,
+                   float* lse, int B, int H, int Tq, int Tk, const int64_t* st,
                    float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -377,7 +385,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   flash_attention_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
                               stream>>>(
-      q, k, v, o, H, B * H, n_qt, Tq, Tk, st[0], st[1], st[2], st[3], st[4],
+      q, k, v, o, lse, H, B * H, n_qt, Tq, Tk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal);
   return cudaGetLastError();
 }
@@ -388,10 +396,13 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // `strides` = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,
 // o_sh, o_st} and unit stride along D; q, k and v 16-byte aligned with
 // strides that are multiples of 4 (checked by the caller). Causal needs
-// Tq == Tk (checked by the caller). Returns the CUDA error of the launch
-// (0 on success), or cudaErrorInvalidValue for an unsupported head size.
+// Tq == Tk (checked by the caller). `lse`: null, or f32 (B, H, Tq)
+// contiguous for the rows' log-sum-exp. Returns the CUDA error of the
+// launch (0 on success), or cudaErrorInvalidValue for an unsupported head
+// size.
 extern "C" int mxt_flash_attention_f32(const float* q, const float* k,
-                                       const float* v, float* o, int B, int H,
+                                       const float* v, float* o, float* lse,
+                                       int B, int H,
                                        int Tq, int Tk, int D,
                                        const int64_t* strides, float scale,
                                        int causal, int device, void* stream) {
@@ -400,13 +411,13 @@ extern "C" int mxt_flash_attention_f32(const float* q, const float* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, B, H, Tq, Tk, strides, scale, causal, s);
+      return launch<16>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     case 32:
-      return launch<32>(q, k, v, o, B, H, Tq, Tk, strides, scale, causal, s);
+      return launch<32>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     case 64:
-      return launch<64>(q, k, v, o, B, H, Tq, Tk, strides, scale, causal, s);
+      return launch<64>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     case 128:
-      return launch<128>(q, k, v, o, B, H, Tq, Tk, strides, scale, causal, s);
+      return launch<128>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }

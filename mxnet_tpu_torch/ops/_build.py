@@ -27,8 +27,8 @@ from ..base import MXNetError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_attention", "paged_attention", "int8_epilogue",
-           "fused_opt")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention",
+           "int8_epilogue", "fused_opt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,13 +1,14 @@
-"""Attention kernels of the decode plane: the port's counterparts of
-``flash_attention`` and ``paged_attention`` in
-``mxnet_tpu/ops/pallas_kernels.py``.
+"""Attention kernels: the port's counterparts of ``flash_attention``
+(with its gradient, ``_chunked_attention_bwd``) and ``paged_attention``
+in ``mxnet_tpu/ops/pallas_kernels.py``.
 
 Each entry point has three parts:
 
 - a plain PyTorch version (``flash_attention_plain``,
-  ``paged_attention_plain``), the counterpart of the JAX package's
-  ``_dense_reference`` / ``_paged_gather_reference`` and the oracle the
-  kernels are held against;
+  ``flash_attention_bwd_plain``, ``paged_attention_plain``), the
+  counterpart of the JAX package's ``_dense_reference`` /
+  ``_chunked_attention_bwd`` / ``_paged_gather_reference`` and the
+  oracle the kernels are held against;
 - a hand-written CUDA kernel for sm_90a in ``csrc/`` (see the note at
   the top of each source for the TPU kernel it replaces, its bound on
   the H100 and how its design meets it), built by :mod:`._build`;
@@ -15,6 +16,14 @@ Each entry point has three parts:
   tensors on a CUDA device to the kernel. It raises on any input the
   kernel does not take; nothing falls back. Each kernel launch adds one
   to the wrapper's ``launches`` count.
+
+:func:`flash_attention` is differentiable. On the CPU torch autograd
+differentiates the plain version. On CUDA, when a gradient is needed,
+it is a ``torch.autograd.Function``: the forward kernel also writes the
+rows' log-sum-exp, and the backward launches
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`). Without a
+gradient (serving, ``inference_mode``) nothing is saved and the
+log-sum-exp is not written.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ NEG_INF = -1e30
 
 def reset_launches():
     flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
     paged_attention.launches = 0
 
 
@@ -37,24 +47,65 @@ def reset_launches():
 # plain versions (CPU path and oracles)
 # ---------------------------------------------------------------------------
 
-def flash_attention_plain(q, k, v, causal=False, scale=None):
-    """Dense attention. q, k, v: (B, H, T, D) or (BH, T, D). When
-    causal and T_q < T_k the queries are the last T_q positions of the
-    key sequence (the decoder convention of the JAX reference)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    t_q, t_k = q.shape[-2], k.shape[-2]
+def _scores(q, k, scale, causal, q0=0, t_q=None):
+    """scale * Q K^T over (..., rows, D) x (..., T_k, D). With causal,
+    the keys after each query are NEG_INF: q holds rows ``q0`` on of
+    ``t_q`` queries (all of them by default), the last t_q positions of
+    the key sequence (the decoder convention of the JAX reference)."""
+    t_q = q.shape[-2] if t_q is None else t_q
+    t_k = k.shape[-2]
     s = torch.matmul(q * scale, k.transpose(-1, -2))
     if causal:
         if t_q > t_k:
             raise MXNetError(
                 f"causal attention with t_q ({t_q}) > t_k ({t_k}) leaves "
                 "queries with no visible keys; pad K/V or drop causal")
-        q_pos = torch.arange(t_q, device=q.device)[:, None] + (t_k - t_q)
-        mask = torch.arange(t_k, device=q.device)[None, :] <= q_pos
+        rows = torch.arange(q0, q0 + q.shape[-2], device=q.device)
+        mask = torch.arange(t_k, device=q.device)[None, :] \
+            <= rows[:, None] + (t_k - t_q)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None):
+    """Dense attention. q, k, v: (B, H, T, D) or (BH, T, D). When
+    causal and T_q < T_k the queries are the last T_q positions of the
+    key sequence (the decoder convention of the JAX reference)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    p = torch.softmax(_scores(q, k, scale, causal), dim=-1)
     return torch.matmul(p, v)
+
+
+def flash_attention_bwd_plain(q, k, v, out, d_out, causal=False,
+                              scale=None, block_q=256):
+    """dq, dk, dv of ``flash_attention_plain(q, k, v, causal, scale)``
+    given its output ``out`` and the output gradient ``d_out``, the
+    counterpart of the JAX package's ``_chunked_attention_bwd``: f32 (or
+    the inputs' type where it is wider), over query blocks of
+    ``block_q`` rows, each recomputing its scores and softmax, with
+    D = rowsum(dO * O) for the softmax VJP and dK / dV summed over the
+    blocks. Shapes (..., T, D); any ``T`` (the last block is short)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    t_q = q.shape[-2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = (x.to(ct) for x in (q, k, v, d_out))
+    d_vec = (gf * out.to(ct)).sum(-1)                    # (..., T_q)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    vt = vf.transpose(-1, -2)
+    for i0 in range(0, t_q, block_q):
+        i1 = min(i0 + block_q, t_q)
+        qi, gi = qf[..., i0:i1, :], gf[..., i0:i1, :]
+        p = torch.softmax(_scores(qi, kf, scale, causal, i0, t_q), dim=-1)
+        dp = torch.matmul(gi, vt)
+        ds = p * (dp - d_vec[..., i0:i1, None])
+        dq[..., i0:i1, :] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(-1, -2), qi) * scale
+        dv += torch.matmul(p.transpose(-1, -2), gi)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention_plain(q, k_cache, v_cache, block_tables, seq_lens,
@@ -85,7 +136,8 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, seq_lens,
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
-_FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P]
+_FLASH_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P]
+_FLASH_BWD_ARGS = [_P] * 10 + [_I] * 5 + [_P, _F, _I, _I, _P]
 _PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _F, _I, _P]
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)
@@ -133,24 +185,19 @@ def _require(cond, name, msg):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, causal=False, scale=None):
-    """Blockwise attention forward. q, k, v: (B, H, T, D) or (BH, T, D).
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
-    the kernel of ``csrc/flash_attention.cu`` (fp32, D in {16, 32, 64,
-    128}, unit stride along D, 16-byte aligned base addresses and
-    strides, causal only with T_q == T_k) and count one launch. The
-    output has q's shape; on CUDA it is laid out (B, T, H, D) so the
-    caller's head merge is a view."""
-    name = "flash_attention"
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if _devices(name, q, k, v) == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale)
-    _require(q.ndim in (3, 4) and q.ndim == k.ndim == v.ndim, name,
-             f"expected (B, H, T, D) or (BH, T, D), got {tuple(q.shape)}")
-    squeeze = q.ndim == 3
-    if squeeze:
-        q, k, v = q.unsqueeze(1), k.unsqueeze(1), v.unsqueeze(1)
+def _heads4(name, *xs):
+    """(B, H, T, D) views of (B, H, T, D) or (BH, T, D) inputs, and
+    whether they were 3-D."""
+    _require(all(x.ndim in (3, 4) for x in xs)
+             and len({x.ndim for x in xs}) == 1, name,
+             f"expected (B, H, T, D) or (BH, T, D), got "
+             f"{[tuple(x.shape) for x in xs]}")
+    squeeze = xs[0].ndim == 3
+    return [x.unsqueeze(1) if squeeze else x for x in xs], squeeze
+
+
+def _check_flash(name, q, k, v, causal):
+    """The shapes, types and layouts both flash kernels take."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     _require(k.shape == v.shape == (b, h, t_k, d), name,
@@ -162,24 +209,129 @@ def flash_attention(q, k, v, causal=False, scale=None):
              f"head size {d} not in {_FLASH_HEAD_DIMS}")
     _require(all(x.stride(-1) == 1 for x in (q, k, v)), name,
              "the head dimension must be contiguous (stride 1)")
+    _require(not causal or t_q == t_k, name,
+             f"causal kernel needs t_q == t_k, got {t_q} and {t_k}")
+    _require(t_q > 0 and t_k > 0 and b * h * max(t_q, t_k) < 2 ** 31,
+             name, f"unsupported shape {tuple(q.shape)} x {t_k}")
+    return b, h, t_q, t_k, d
+
+
+def _flash_fwd(q, k, v, causal, scale, with_lse):
+    """Launch the forward kernel on (B, H, T, D) CUDA tensors: the output
+    laid out (B, T, H, D) (so the caller's head merge is a view) and,
+    with ``with_lse``, the rows' log-sum-exp f32 (B, H, T_q)."""
+    name = "flash_attention"
+    b, h, t_q, t_k, d = _check_flash(name, q, k, v, causal)
     _require(all(_aligned(x) for x in (q, k, v)), name,
              "q, k and v need 16-byte aligned base addresses and strides "
              "(multiples of 4 elements)")
-    _require(not causal or t_q == t_k, name,
-             f"causal kernel needs t_q == t_k, got {t_q} and {t_k}")
-    _require(t_q > 0 and t_k > 0 and b * h * t_q < 2 ** 31, name,
-             f"unsupported shape {tuple(q.shape)} x {t_k}")
     out = torch.empty((b, t_q, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     strides = (ctypes.c_int64 * 12)(*[s for x in (q, k, v, out)
                                        for s in x.stride()[:3]])
     fn = _fn("flash_attention", "mxt_flash_attention_f32", _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, h, t_q, t_k, d, strides, float(scale), int(bool(causal)),
-             q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+             lse.data_ptr() if with_lse else None, b, h, t_q, t_k, d,
+             strides, float(scale), int(bool(causal)), q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
     flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, saving what the backward kernel reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _flash_fwd(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.lse, ctx.causal, ctx.scale = lse, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        if d_out.stride(-1) != 1:    # e.g. an expanded gradient of a sum
+            d_out = d_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, ctx.lse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Blockwise attention. q, k, v: (B, H, T, D) or (BH, T, D). CPU
+    tensors take :func:`flash_attention_plain` (differentiated by torch
+    autograd); CUDA tensors launch the kernel of
+    ``csrc/flash_attention.cu`` (fp32, D in {16, 32, 64, 128}, unit
+    stride along D, 16-byte aligned base addresses and strides, causal
+    only with T_q == T_k) and count one launch. When a gradient is
+    needed on CUDA, the backward is :func:`flash_attention_bwd`. The
+    output has q's shape; on CUDA it is laid out (B, T, H, D) so the
+    caller's head merge is a view."""
+    name = "flash_attention"
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _devices(name, q, k, v) == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale)
+    (q, k, v), squeeze = _heads4(name, q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out = _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    else:
+        out, _ = _flash_fwd(q, k, v, causal, scale, with_lse=False)
     return out.squeeze(1) if squeeze else out
+
+
+def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
+                        scale=None):
+    """dq, dk, dv of the flash forward: q, k, v, its output ``out`` and
+    the output gradient ``d_out`` (B, H, T, D) or (BH, T, D), and the
+    forward's row log-sum-exp ``lse`` (B, H, T_q) or (BH, T_q). CPU
+    tensors take :func:`flash_attention_bwd_plain` (which recomputes the
+    softmax and ignores ``lse``); CUDA tensors launch the three kernels
+    of ``csrc/flash_attention_bwd.cu`` and count one launch. The kernel
+    takes what the forward kernel takes (fp32, D in {16, 32, 64, 128},
+    unit stride along D, causal only with T_q == T_k), any other strides,
+    and ``lse`` f32 contiguous; anything else raises."""
+    name = "flash_attention_bwd"
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _devices(name, q, k, v, out, d_out, lse) == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, d_out, causal, scale)
+    (q, k, v, out, d_out), squeeze = _heads4(name, q, k, v, out, d_out)
+    b, h, t_q, t_k, d = _check_flash(name, q, k, v, causal)
+    _require(out.shape == d_out.shape == q.shape, name,
+             f"out {tuple(out.shape)} / d_out {tuple(d_out.shape)} do not "
+             f"match q {tuple(q.shape)}")
+    _require(out.dtype == d_out.dtype == torch.float32
+             and out.stride(-1) == 1 and d_out.stride(-1) == 1, name,
+             "out and d_out must be float32 with a contiguous head "
+             "dimension")
+    _require(lse.dtype == torch.float32 and lse.is_contiguous()
+             and lse.numel() == b * h * t_q, name,
+             f"lse must be float32 contiguous (B, H, T_q), got "
+             f"{lse.dtype} {tuple(lse.shape)}")
+    _require(-(-max(t_q, t_k) // 64) * b * h < 2 ** 31, name,
+             f"grid too large for {b} x {h} x {max(t_q, t_k)}")
+    grads = [torch.empty((b, t, h, d), dtype=torch.float32,
+                         device=q.device).transpose(1, 2)
+             for t in (t_q, t_k, t_k)]
+    d_vec = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*[s for x in (q, k, v, out, d_out,
+                                                  *grads)
+                                       for s in x.stride()[:3]])
+    fn = _fn("flash_attention_bwd", "mxt_flash_attention_bwd_f32",
+             _FLASH_BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             d_out.data_ptr(), lse.data_ptr(), d_vec.data_ptr(),
+             *[g.data_ptr() for g in grads], b, h, t_q, t_k, d, strides,
+             float(scale), int(bool(causal)), q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _check(err, name)
+    flash_attention_bwd.launches += 1
+    return tuple(g.squeeze(1) for g in grads) if squeeze else tuple(grads)
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
@@ -247,4 +399,5 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 paged_attention.launches = 0

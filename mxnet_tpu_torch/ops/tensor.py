@@ -1,8 +1,8 @@
 """The subset of ``mxnet_tpu/ops/tensor.py`` the port reaches: shape
-ops (``Reshape`` with MXNet's special codes, ``transpose``, ``Cast``),
-the reductions with ``axis`` / ``keepdims`` / ``exclude``, ``norm``,
-``dot`` and the indexing ops gluon's losses and metrics call
-(``pick``, ``where``, ``Embedding``)."""
+ops (``Reshape`` with MXNet's special codes, ``transpose``, ``Cast``,
+``slice_axis``), the reductions with ``axis`` / ``keepdims`` /
+``exclude``, ``norm``, ``dot`` and the indexing ops gluon's losses and
+metrics call (``pick``, ``where``, ``Embedding``)."""
 from __future__ import annotations
 
 import torch
@@ -91,6 +91,15 @@ def reshape(data, shape=(), reverse=False):
     if reverse:
         return data.reshape(infer_reshape(data.shape[::-1], tgt[::-1])[::-1])
     return data.reshape(infer_reshape(data.shape, tgt))
+
+
+@register("slice_axis")
+def slice_axis(data, axis=0, begin=0, end=None):
+    """``data[..., begin:end, ...]`` along ``axis`` (a view; its
+    gradient scatters into zeros of the input's shape)."""
+    sl = [slice(None)] * data.ndim
+    sl[int(axis)] = slice(begin, end)
+    return data[tuple(sl)]
 
 
 @register("reshape_like")

@@ -5,7 +5,11 @@ the seq_len-0 padding contract, the wrappers' device routing (a CPU
 tensor takes the plain path and launches nothing; anything else the
 kernel cannot take raises), and the arithmetic of the Hopper kernels
 emulated in plain torch: the flash kernel's 3xTF32 products and its
-split online softmax, the paged kernel's split-KV and merge."""
+split online softmax, the paged kernel's split-KV and merge. The
+gradient: the port's plain backward and torch autograd through the
+CPU path against ``jax.grad`` of the Pallas forward (whose custom VJP is
+``_chunked_attention_bwd``), and the backward kernel's two passes over
+64-row tiles with the forward's log-sum-exp, emulated."""
 import numpy as np
 import pytest
 import torch
@@ -326,3 +330,147 @@ def test_paged_split_kv_emulation_matches_jax(chunk):
     live = lens > 0
     assert np.abs(got - ref)[live].max() < PAGED_ATOL
     assert not got[~live].any()
+
+
+# ---------------------------------------------------------------------------
+# the gradient: against jax.grad of the Pallas forward, and the backward
+# kernel's two-pass tiling emulated
+# ---------------------------------------------------------------------------
+
+def _bwd_case(case):
+    """(q, k, v, d_out) numpy for JAX and the port's torch views of them,
+    and causal."""
+    rng = np.random.default_rng({"causal": 20, "rect": 21,
+                                 "strided": 22}[case])
+    if case == "causal":
+        q, k, v = (rng.standard_normal((2, 128, 16)).astype(np.float32)
+                   for _ in range(3))
+        views = _t(q, k, v)
+    elif case == "rect":
+        q = rng.standard_normal((2, 128, 16)).astype(np.float32)
+        k, v = (rng.standard_normal((2, 192, 16)).astype(np.float32)
+                for _ in range(2))
+        views = _t(q, k, v)
+    else:
+        # (B, H, T, D) views into one (B, T, 3, H, D) projection
+        qkv = torch.from_numpy(rng.standard_normal((2, 64, 3, 2, 16))
+                               .astype(np.float32))
+        views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+        q, k, v = (x.contiguous().numpy() for x in views)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    return (q, k, v, g), views, case != "rect"
+
+
+def _jax_flash_grads(q, k, v, g, causal):
+    import jax
+    import jax.numpy as jnp
+
+    def f(q, k, v):
+        out = pk.flash_attention(q, k, v, causal=causal, force=True,
+                                 interpret=True, block_q=64, block_k=64)
+        return jnp.sum(out * g)
+
+    return [np.asarray(x) for x in jax.grad(f, argnums=(0, 1, 2))(q, k, v)]
+
+
+@pytest.mark.parametrize("case", ["causal", "rect", "strided"])
+def test_flash_gradient_matches_jax_grad_of_pallas_kernel(case):
+    (q, k, v, g), views, causal = _bwd_case(case)
+    want = _jax_flash_grads(q, k, v, g, causal)
+    gt = torch.from_numpy(g)
+    out = att.flash_attention_plain(*views, causal=causal)
+    plain = att.flash_attention_bwd_plain(*views, out, gt, causal,
+                                          block_q=48)
+    leaves = [x.detach().clone().requires_grad_(True) for x in views]
+    tout = att.flash_attention(*leaves, causal=causal)
+    auto = torch.autograd.grad(tout, leaves, gt)
+    for got in (plain, auto):
+        for a, w in zip(got, want):
+            assert a.shape == w.shape
+            np.testing.assert_allclose(a.numpy(), w, rtol=FLASH_RTOL,
+                                       atol=FLASH_ATOL)
+
+
+def _lse(q, k, causal, scale):
+    """Each row's log-sum-exp of the scaled (masked) scores: what the
+    forward kernel writes for the backward."""
+    s = scale * (q @ k.transpose(-1, -2))
+    if causal:
+        t_q, t_k = q.shape[-2], k.shape[-2]
+        ok = torch.arange(t_k)[None, :] <= \
+            torch.arange(t_q)[:, None] + (t_k - t_q)
+        s = torch.where(ok, s, torch.tensor(float("-inf")))
+    return torch.logsumexp(s, dim=-1)
+
+
+def test_flash_bwd_wrapper_on_cpu_takes_plain_and_launches_nothing():
+    att.reset_launches()
+    (q, k, v, g), views, causal = _bwd_case("causal")
+    out = att.flash_attention(*views, causal=causal)
+    lse = _lse(*views[:2], causal, 16 ** -0.5)
+    got = att.flash_attention_bwd(*views, out, torch.from_numpy(g), lse,
+                                  causal)
+    want = att.flash_attention_bwd_plain(*views, out, torch.from_numpy(g),
+                                         causal)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert lse.shape == (2, 128)
+    assert att.flash_attention.launches == 0
+    assert att.flash_attention_bwd.launches == 0
+
+
+def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64):
+    """csrc/flash_attention_bwd.cu's order of work on (BH, T, D):
+    D = rowsum(dO * O); pass 2 walks each 64-key block's query blocks
+    (from the diagonal when causal) summing dV += P^T dO and
+    dK += dS^T Q; pass 3 walks each 64-row query block's key blocks
+    summing dQ += dS K; P = exp(scale * S - lse) recomputed in both,
+    zero where masked."""
+    t_q, t_k = q.shape[1], k.shape[1]
+    d_vec = (g * out).sum(-1)
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+
+    def tile(q0, k0):
+        rows = torch.arange(q0, min(q0 + blk, t_q))
+        keys = torch.arange(k0, min(k0 + blk, t_k))
+        s = q[:, rows] @ k[:, keys].transpose(1, 2)
+        dp = g[:, rows] @ v[:, keys].transpose(1, 2)
+        ok = keys[None, :] <= rows[:, None] if causal else \
+            torch.ones(len(rows), len(keys), dtype=torch.bool)
+        p = torch.where(ok, torch.exp(scale * s - lse[:, rows, None]),
+                        torch.tensor(0.0))
+        return rows, keys, p, p * (dp - d_vec[:, rows, None])
+
+    for k0 in range(0, t_k, blk):
+        for q0 in range(k0 if causal else 0, t_q, blk):
+            rows, keys, p, ds = tile(q0, k0)
+            dv[:, keys] += p.transpose(1, 2) @ g[:, rows]
+            dk[:, keys] += ds.transpose(1, 2) @ q[:, rows]
+    for q0 in range(0, t_q, blk):
+        for k0 in range(0, min(q0 + blk, t_k) if causal else t_k, blk):
+            rows, keys, p, ds = tile(q0, k0)
+            dq[:, rows] += ds @ k[:, keys]
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("t_q,t_k,causal", [(100, 100, True),
+                                            (192, 192, True),
+                                            (130, 70, False),
+                                            (64, 200, False)])
+def test_flash_bwd_two_pass_emulation_matches_plain(t_q, t_k, causal):
+    """The kernel's tiling with the forward's log-sum-exp and its causal
+    skips gives the plain backward's gradient: the skipped blocks are
+    the fully masked ones, and the ragged tails add nothing."""
+    rng = np.random.default_rng(t_q * 1000 + t_k)
+    q = rng.standard_normal((3, t_q, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((3, t_k, 16)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    q, k, v, g = _t(q, k, v, g)
+    out = att.flash_attention_plain(q, k, v, causal)
+    lse = _lse(q, k, causal, 16 ** -0.5)
+    got = _bwd_emulated(q, k, v, out, g, lse, causal, 16 ** -0.5)
+    want = att.flash_attention_bwd_plain(q, k, v, out, g, causal)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=FLASH_RTOL,
+                                   atol=FLASH_ATOL)

@@ -7,7 +7,8 @@
 raise on a host without one unless the caller asks for the CPU, and its
 kernel build raises instead of falling back when ``nvcc`` is missing.
 The import check covers the training modules too (``optimizer``,
-``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``)."""
+``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``) and the
+ops the decoder-LM training path adds (``ops.contrib``)."""
 import ast
 import os
 import subprocess
@@ -41,6 +42,7 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
         "import mxnet_tpu_torch.serving.generate\n"
         "import mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops._build\n"
+        "import mxnet_tpu_torch.ops.contrib\n"
         "import mxnet_tpu_torch.ops.int8, mxnet_tpu_torch.ops.quantized\n"
         "import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.symbol\n"
         "import mxnet_tpu_torch.executor, mxnet_tpu_torch.io\n"
@@ -113,11 +115,13 @@ def test_resolve_device_rules():
             context.resolve_device("cuda")
 
 
-def test_decoder_and_gateway_devices_must_agree():
+def test_decoder_and_gateway_devices_must_agree(monkeypatch):
     gw = Gateway(device="cpu")
     dec = GenerativeDecoder(vocab_size=10, d_model=8, num_layers=1,
                             num_heads=2, device="cpu")
-    dec.to("meta")
+    # a decoder whose weights live elsewhere than the gateway's device
+    monkeypatch.setattr(GenerativeDecoder, "device",
+                        property(lambda self: torch.device("meta")))
     try:
         with pytest.raises(ServingError):
             gw.register_generator("lm", dec, max_blocks=8,

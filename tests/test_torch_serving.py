@@ -249,14 +249,17 @@ def test_unknown_model_variant_and_shape_errors(gw):
 
 
 # -- admission control -------------------------------------------------------
-def _block_lane(gw, model):
+def _block_lane(gw, model, parked=None):
     """Test seam: park the lane's executions on an Event, for a
-    deterministic overload."""
+    deterministic overload. ``parked``, an Event, is set once the lane
+    holds a batch."""
     vs = gw._get_model(model).replicas[0].variant_set
     release = threading.Event()
     orig = vs.run
 
     def blocked(variant, batch):
+        if parked is not None:
+            parked.set()
         release.wait(20.0)
         return orig(variant, batch)
 
@@ -285,14 +288,22 @@ def test_admission_queue_full_fast_reject(gw):
 
 
 def test_admission_slo_budget_reject(gw):
+    """The budget is set from the model's own estimate once the lane is
+    parked (no execution then moves the EWMA): one request fits, and the
+    queued rows push the estimate past the budget within a few submits,
+    however long one execution of the tiny MLP takes on a loaded host."""
     _, _, _, feature = _register(gw, "m", tiny_mlp, buckets=(1,),
-                                 max_wait_ms=0.0, max_queue=1000,
-                                 slo_ms=1.0)
+                                 max_wait_ms=0.0, max_queue=1000)
     for _ in range(3):                      # seed the EWMA estimates
         gw.infer("m", _x(feature))
-    release = _block_lane(gw, "m")
+    parked = threading.Event()
+    release = _block_lane(gw, "m", parked)
     pending = [gw.submit("m", _x(feature))]
-    time.sleep(0.05)
+    assert parked.wait(10.0)
+    m = gw._get_model("m")
+    one = m.estimate_latency_s(1)
+    assert one is not None and one > 0
+    m.slo_s = 4.0 * one                     # room for a few queued rows
     rejected = None
     for _ in range(50):
         try:
@@ -301,6 +312,7 @@ def test_admission_slo_budget_reject(gw):
             rejected = e
             break
     assert rejected is not None and rejected.reason == "slo"
+    assert len(pending) > 1                 # the budget admitted some
     release.set()
     for r in pending:
         r.result(10.0)
