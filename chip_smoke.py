@@ -112,7 +112,30 @@ Phases (any failure exits non-zero and prints no result line):
    plain step's (the same step with TF32 products must fail that bound);
    step ms, tokens/s, peak memory, one step's device time by group and
    idle share;
-13. one ``{"kernels": [...]}`` line, then the result line
+13. bf16 through the decoder: the bf16 K3 forward (its SASS must hold
+   BF16 tensor-core instructions at all four head sizes) at every
+   prefill bucket and head size and at the decoder-LM shape, and the
+   bf16 K3 backward through the autograd Function at the LM shape and a
+   small grid, each within the JAX package's bf16 bound (rtol 0.1 /
+   atol 0.05) and no further from an f64 run on the same bf16 inputs
+   than twice the plain bf16 version (the backward also within one bf16
+   ulp of the plain backward given the same forward output); K4 over
+   bf16 caches with f32 queries against its plain version (2e-5); each
+   timed at the path's shape beside its bound and the library call
+   (SDPA's bf16 forward, and forward plus backward; K4 at B 32 and B 1,
+   cold L2). Then phase 12's decoder block cast to bf16, Adam with f32
+   masters (``multi_precision``), 5 steps: exactly 12 bf16 flash forward
+   and 12 bf16 flash backward launches a step and no fp32 one, the
+   first loss and every gradient no further from an f32 run of the step
+   than twice the plain-attention bf16 step's; step ms, tokens/s, peak
+   memory, idle share, ``Trainer.step`` host ms, device ms by group. Then
+   ``GenerativeDecoder(dtype="bfloat16")`` at phase 5's widths (bf16
+   Dense and Embedding weights, f32 LayerNorm, a bf16 pool of half the
+   f32 pool's bytes) serving phase 5's burst: 8 bf16-cache K4 launches a
+   decode step, tokens equal to those of the same lane with the plain
+   paged attention, and how many equal ``reference_generate`` (whose
+   K/V are not rounded to bf16: information, no gate);
+14. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -250,7 +273,13 @@ def paged_inputs(lens, layers, nb, dev, rng):
             torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
 
 
-def phase_paged(att, dev, rng):
+def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
+    """K4 with f32 queries over ``cache``-typed pools (float32, or
+    bfloat16: the bf16 decoder's pool, read exactly into f32 by both the
+    kernel and the plain version) against the plain version, and timed at
+    ``decode_lens`` (drawn here when None; the result's shape holds them,
+    so that both cache types are timed on the same lengths)."""
+    name = "paged_attention" + ("_bf16" if cache == torch.bfloat16 else "")
     # correctness: lengths on both sides of block boundaries and of the
     # kernel's 64-token splits, a 1, a full table and a padding row (0,
     # excluded from the comparison and held to zeros)
@@ -259,24 +288,30 @@ def phase_paged(att, dev, rng):
             TABLE_WIDTH * BLOCK_TOKENS, 5, 48, 49]
     lens += list(rng.integers(2, TABLE_WIDTH * BLOCK_TOKENS, 15)) + [0]
     q, k, v, tab, sl = paged_inputs(lens, 1, MAX_BLOCKS, dev, rng)
+    k, v = k.to(cache), v.to(cache)
     got = att.paged_attention(q, k[0], v[0], tab, sl)
     want = att.paged_attention_plain(q, k[0], v[0], tab, sl)
     torch.cuda.synchronize()
+    check(got.dtype == torch.float32, f"{name}: output {got.dtype}")
     live = torch.from_numpy(np.asarray(lens) > 0).to(dev)
     err = (got - want).abs()[live].max().item()
-    check(bool(torch.all(got[~live] == 0)), "paged: seq_len-0 row not zeros")
-    log(f"paged_attention: max abs err {err:.3e} (tol {PAGED_TOL})")
-    check(err <= PAGED_TOL, f"paged_attention error {err} > {PAGED_TOL}")
+    check(bool(torch.all(got[~live] == 0)), f"{name}: seq_len-0 row not "
+          "zeros")
+    log(f"{name}: max abs err {err:.3e} (tol {PAGED_TOL})")
+    check(err <= PAGED_TOL, f"{name} error {err} > {PAGED_TOL}")
     del k, v
 
     # timing at the serving path's decode shape: a full batch bucket of
     # 32 rows mid-generation, one pool per layer like the real cache so
     # consecutive calls find the L2 cold, as consecutive layers do; then
     # one row at the full table
+    if decode_lens is None:
+        decode_lens = [int(n) for n in rng.integers(5, MAX_PROMPT + 1,
+                                                     MAX_BATCH) + 32]
     rows = []
-    for lens in ([int(n) for n in rng.integers(5, MAX_PROMPT + 1, MAX_BATCH)
-                  + 32], [TABLE_WIDTH * BLOCK_TOKENS]):
+    for lens in (decode_lens, [TABLE_WIDTH * BLOCK_TOKENS]):
         q, k, v, tab, sl = paged_inputs(lens, LAYERS, MAX_BLOCKS, dev, rng)
+        k, v = k.to(cache), v.to(cache)
         layer = [0]
 
         def run(fn):
@@ -288,8 +323,8 @@ def phase_paged(att, dev, rng):
         ms, launch_ms = measure(run(att.paged_attention))
         plain_ms, _ = measure(run(att.paged_attention_plain), iters=10)
         live_tok = sum(lens)
-        nbytes = (2 * live_tok * HEADS * HEAD_DIM * 4 + 2 * q.numel() * 4
-                  + tab.numel() * 4 + sl.numel() * 4)
+        nbytes = (2 * live_tok * HEADS * HEAD_DIM * k.element_size()
+                  + 2 * q.numel() * 4 + tab.numel() * 4 + sl.numel() * 4)
         flops = 4 * live_tok * HEADS * HEAD_DIM
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        flops / FP32_FLOPS_PER_S) * 1e3
@@ -302,9 +337,9 @@ def phase_paged(att, dev, rng):
                                   else "operations")})
         del k, v
         torch.cuda.empty_cache()
-    log("paged_timing " + json.dumps(rows))
+    log(f"{name.replace('attention', 'timing')} " + json.dumps(rows))
     top = rows[0]
-    return {"name": "paged_attention", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:236",
             "max_abs_err": err, "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -312,7 +347,9 @@ def phase_paged(att, dev, rng):
             "library_ms": None, "launch_ms": top["launch_ms"],
             "shape": {"B": MAX_BATCH, "H": HEADS, "D": HEAD_DIM,
                       "BT": BLOCK_TOKENS, "W": TABLE_WIDTH,
-                      "live_tokens": top["live_tokens"]}}
+                      "live_tokens": top["live_tokens"],
+                      "cache": str(cache).rsplit(".", 1)[-1],
+                      "decode_lens": decode_lens}}
 
 
 # -- phase 3/4: flash attention ---------------------------------------------
@@ -344,10 +381,11 @@ def flash_bounds(t):
             "bytes" if mem_s >= tf32_s else "operations")
 
 
-def flash_sass(build):
+def flash_sass(build, kernel="flash_attention_kernel", kind="TF32"):
     """The flash kernel's SASS must run both products on the tensor cores
-    in TF32 (HMMA ... TF32 from mma.sync, or HGMMA): cuobjdump on the
-    built library, counting the instructions of the kernel's functions."""
+    in ``kind`` (HMMA ... TF32 / BF16 from mma.sync, or HGMMA): cuobjdump
+    on the built library, counting the instructions of the functions of
+    ``kernel`` (the fp32 kernel, or ``flash_attention_bf16_kernel``)."""
     tool = None
     for cand in ("cuobjdump", os.path.join(os.environ.get(
             "CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")):
@@ -362,13 +400,13 @@ def flash_sass(build):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn and "flash_attention_kernel" in fn and (
-                ("HMMA" in line and "TF32" in line) or "HGMMA" in line):
+        elif fn and kernel in fn and (
+                ("HMMA" in line and kind in line) or "HGMMA" in line):
             counts[fn] = counts.get(fn, 0) + 1
     check(len(counts) == 4 and all(counts.values()),
-          f"flash_attention: tensor-core TF32 instructions per kernel "
+          f"{kernel}: tensor-core {kind} instructions per kernel "
           f"instance {counts} (want all 4 head sizes)")
-    log("flash_attention SASS: TF32 tensor-core instructions per head "
+    log(f"{kernel} SASS: {kind} tensor-core instructions per head "
         "size " + json.dumps(sorted(counts.values())))
     return counts
 
@@ -574,16 +612,23 @@ def phase_flash_bwd(att, dev):
 
 
 # -- phase 5: the serving path ----------------------------------------------
-def phase_serve(att, dev, rng):
+def generate_burst(rng):
+    """The serving phases' burst: MAX_BATCH prompts of 5-512 tokens, each
+    asking for 32-64 new tokens (prompt lengths, new counts, prompts)."""
+    plens = np.linspace(5, MAX_PROMPT, MAX_BATCH).astype(int)
+    rng.shuffle(plens)
+    new = rng.integers(32, 65, MAX_BATCH)
+    prompts = [rng.integers(0, VOCAB, int(p)).tolist() for p in plens]
+    return plens, new, prompts
+
+
+def phase_serve(att, dev, burst):
     from mxnet_tpu_torch.serving import Gateway
     from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
                                                   reference_generate)
 
     n_req = MAX_BATCH
-    plens = np.linspace(5, MAX_PROMPT, n_req).astype(int)
-    rng.shuffle(plens)
-    new = rng.integers(32, 65, n_req)
-    prompts = [rng.integers(0, VOCAB, int(p)).tolist() for p in plens]
+    plens, new, prompts = burst
 
     t0 = time.perf_counter()
     dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
@@ -678,9 +723,9 @@ def phase_serve(att, dev, rng):
             "decode_steps": lane["decode_steps"],
             "mean_decode_rows": lane["decode_rows"] / lane["decode_steps"],
             "flash_launches": flash_n, "paged_launches": paged_n,
-            "step_calls": calls}
+            "step_calls": calls, "pool_gb": pool_bytes / 1e9}
     log("main_path " + json.dumps(main))
-    return {"flash_attention": flash_n, "paged_attention": paged_n}
+    return {"flash_attention": flash_n, "paged_attention": paged_n}, main
 
 
 def profile_traffic(gw, prompts, new):
@@ -704,7 +749,8 @@ def profile_traffic(gw, prompts, new):
         g = ("flash_attention" if "flash_attention" in name else
              "paged_attention" if "paged_attention" in name else
              "matmul" if any(w in low for w in ("gemm", "gemv", "cutlass",
-                                                "xmma", "splitk")) else
+                                                "nvjet", "xmma",
+                                                "splitk")) else
              "copy" if "memcpy" in low or "memset" in low else "other")
         groups[g] = groups.get(g, 0.0) + ms
     log("profile " + json.dumps({
@@ -1179,7 +1225,7 @@ def kernel_group(name):
     if "bn_" in low or "batch_norm" in low or "batchnorm" in low \
             or "welford" in low:
         return "batchnorm"
-    if "gemm" in low or "gemv" in low:
+    if "gemm" in low or "gemv" in low or "nvjet" in low:
         return "matmul"
     if "memcpy" in low or "memset" in low:
         return "copy"
@@ -1460,6 +1506,10 @@ def kernel_counts(att, i8, fo):
     return {"flash_attention": att.flash_attention.launches,
             "flash_attention_bwd": att.flash_attention_bwd.launches,
             "paged_attention": att.paged_attention.launches,
+            "flash_attention_bf16": att.flash_attention.launches_bf16,
+            "flash_attention_bwd_bf16":
+                att.flash_attention_bwd.launches_bf16,
+            "paged_attention_bf16": att.paged_attention.launches_bf16,
             "int8_epilogue": i8.int8_conv_epilogue.launches,
             "fused_sgd_mom": fo.fused_sgd_mom.launches,
             "fused_adam": fo.fused_adam.launches}
@@ -1962,13 +2012,13 @@ def lm_step(mx, block, loss_fn, x, y, trainer=None):
 
 def lm_kernel_group(name):
     low = name.lower()
-    if "flash_attention_kernel" in low:
+    if "flash_attention_kernel" in low \
+            or "flash_attention_bf16_kernel" in low:
         return "flash_fwd"
     if "dkdv_kernel" in low or "dq_kernel" in low \
             or "bwd_dot_kernel" in low:
         return "flash_bwd"
-    if "gemm" in low or "gemv" in low or "cutlass" in low \
-            or "xmma" in low:
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma")):
         return "matmul"
     return None
 
@@ -2209,6 +2259,500 @@ def phase_lm_train(att, i8, fo, dev, rng):
     return {"flash_attention_bwd": bwd_n}
 
 
+# -- phase 13: bf16 through the decoder ---------------------------------------
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 on the tensor cores, dense
+# tests/test_pallas_attention.py's bound for the bf16 Pallas kernel against
+# an f32 dense run on the same bf16 inputs; and the f64 rule of phases 3
+# and 12: a kernel no further (relative L2) from an f64 run on the same
+# bf16 inputs than twice the plain bf16 version
+BF16_RTOL, BF16_ATOL, BF16_F64_RATIO = 0.1, 0.05, 2.0
+# the bf16 forward computes in f32 and rounds its output once (P to bf16
+# for the second product adds under half of that): no further from the f64
+# run than 1.5x the f64 output's own bf16 rounding, as the CPU emulation
+# test of its arithmetic (tests/test_torch_attention.py) derives; rounding
+# S to bf16 or truncating P would not pass
+BF16_ROUND_RATIO = 1.5
+# the bf16 backward against its plain version given the same forward
+# output: both compute in f32 from the bf16 inputs (within the fp32
+# backward's rtol 1e-4 / atol 1e-5) and round each gradient once, which
+# may land one bf16 ulp (2^-7 of the value at most) apart
+BF16_ULP = 2.0 ** -7
+BF16_BWD_RTOL, BF16_BWD_ATOL = BWD_RTOL + BF16_ULP, BWD_ATOL
+
+
+def rel_l2(a, b):
+    b = b.double()
+    return (torch.linalg.vector_norm(a.double() - b)
+            / torch.linalg.vector_norm(b).clamp_min(1e-300)).item()
+
+
+def within(a, b, rtol, atol):
+    """Whether |a - b| <= atol + rtol |b| everywhere, and the largest
+    |a - b|."""
+    a, b = a.double(), b.double()
+    e = (a - b).abs()
+    return bool((e <= atol + rtol * b.abs()).all()), e.max().item()
+
+
+def lm_qkv_bf16(b, t, h, d, dev, gen, requires_grad=False):
+    """bf16 (B, H, T, D) views into one (B, T, 3, H, D) projection, as
+    the cast decoder block hands them to the kernels."""
+    qkv = torch.randn((b, t, 3, h, d), generator=gen).to(dev).bfloat16()
+    qkv.requires_grad_(requires_grad)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def flash_bf16_cost(b, h, t, d):
+    """Causal forward with its log-sum-exp: q, k, v read and out written
+    once in bf16, lse f32; 4 D flops per visible query-key pair."""
+    nbytes = b * h * (4 * t * d * 2 + t * 4)
+    return nbytes, 4 * d * b * h * t * (t + 1) // 2
+
+
+def phase_flash_bf16(att, build, dev):
+    """bf16 K3 forward: every prefill bucket at every head size and the
+    decoder-LM shape against the plain bf16 version and an f64 run on the
+    same inputs; timed at the LM shape."""
+    flash_sass(build, "flash_attention_bf16_kernel", "BF16")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    cases = [(1, D_MODEL // hd, t, hd, False) for hd in (16, 32, 64, 128)
+             for t in (16, 32, 64, 128, 256, 512)]
+    cases += [(1, HEADS, 100, HEAD_DIM, False),
+              (LM_BATCH, LM_HEADS, LM_SEQ, LM_HEAD_DIM, True)]
+    err, worst, worst_round = 0.0, 0.0, 0.0
+    for b, h, t, d, lm in cases:
+        if lm:
+            q, k, v = lm_qkv_bf16(b, t, h, d, dev, gen)
+        else:    # (1, H, T, D) views of the prefill's (1, T, 3 d) output
+            qkv = torch.randn((1, t, 3 * h * d), generator=gen).to(
+                dev).bfloat16()
+            q, k, v = (y.view(1, t, h, d).transpose(1, 2)
+                       for y in qkv.chunk(3, dim=-1))
+        got = att.flash_attention(q, k, v, causal=True)
+        want = att.flash_attention_plain(q, k, v, causal=True)
+        exact = att.flash_attention_plain(q.double(), k.double(),
+                                          v.double(), causal=True)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, f"flash bf16 output {got.dtype}")
+        ok_plain, e = within(got, want, BF16_RTOL, BF16_ATOL)
+        ok_exact, _ = within(got, exact, BF16_RTOL, BF16_ATOL)
+        r_kernel, r_plain = rel_l2(got, exact), rel_l2(want, exact)
+        r_round = rel_l2(exact.to(torch.bfloat16), exact)
+        log(f"flash_attention bf16 B={b} H={h} T={t} D={d}: max abs err "
+            f"{e:.3e} vs plain bf16; vs f64 (relative L2) kernel "
+            f"{r_kernel:.3e}, plain bf16 {r_plain:.3e}, f64 output rounded "
+            f"to bf16 {r_round:.3e}")
+        check(ok_plain and ok_exact, f"flash_attention bf16 B={b} T={t} "
+              f"D={d}: outside rtol {BF16_RTOL} / atol {BF16_ATOL}")
+        check(r_kernel <= BF16_F64_RATIO * r_plain,
+              f"flash_attention bf16 B={b} T={t} D={d}: {r_kernel:.3e} off "
+              f"f64, more than {BF16_F64_RATIO}x the plain bf16 version's "
+              f"{r_plain:.3e}")
+        check(r_kernel <= BF16_ROUND_RATIO * r_round,
+              f"flash_attention bf16 B={b} T={t} D={d}: {r_kernel:.3e} off "
+              f"f64, more than {BF16_ROUND_RATIO}x the f64 output's own "
+              f"bf16 rounding {r_round:.3e}")
+        err = max(err, e)
+        worst = max(worst, r_kernel / r_plain)
+        worst_round = max(worst_round, r_kernel / r_round)
+        del q, k, v, got, want, exact
+    log(f"flash_attention bf16: {len(cases)} cases, largest ratio of the "
+        f"kernel's f64 distance to the plain bf16 version's {worst:.3f}, "
+        f"to the f64 output's bf16 rounding {worst_round:.3f} (bound "
+        f"{BF16_ROUND_RATIO})")
+
+    q, k, v = lm_qkv_bf16(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
+    row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
+                     "D": LM_HEAD_DIM, "causal": True},
+           "f64_ratio_max": worst, "rounding_ratio_max": worst_round}
+    row["ms"], row["launch_ms"] = measure(
+        lambda: att.flash_attention(q, k, v, True), iters=20)
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    row["lse_ms"], _ = measure(
+        lambda: att.flash_attention(qs, ks, vs, True), iters=20)
+    row["plain_ms"], _ = measure(
+        lambda: att.flash_attention_plain(q, k, v, True), iters=5)
+    with torch.no_grad():
+        row["library_ms"], _ = measure(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            iters=20)
+    nbytes, flops = flash_bf16_cost(LM_BATCH, LM_HEADS, LM_SEQ, LM_HEAD_DIM)
+    mem_s, op_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    row["bound_ms"] = max(mem_s, op_s) * 1e3
+    row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+    row["bytes"], row["flops"] = nbytes, flops
+    log("flash_bf16_timing " + json.dumps(row))
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bf16", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:43",
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "launch_ms": row["launch_ms"],
+            "shape": row["shape"]}
+
+
+def phase_flash_bwd_bf16(att, dev):
+    """bf16 K3 backward through the path's autograd Function, against
+    the plain backward given the same forward output, and both pipelines
+    (kernels; plain bf16 forward and backward) against an f64 run; timed
+    at the LM shape beside SDPA's bf16 backward."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    # the forward's grid (every prefill bucket at every head size, as
+    # views of one projection), the LM shape, and rectangular / ragged
+    cases = [(1, D_MODEL // hd, t, t, hd, True, "prefill")
+             for hd in (16, 32, 64, 128) for t in (16, 32, 64, 128, 256, 512)]
+    cases += [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, "lm"),
+              (2, 4, 128, 192, 64, False, "dense"),
+              (2, 4, 100, 100, 64, True, "dense")]
+    err, worst = 0.0, 0.0
+    for b, h, t_q, t_k, d, causal, layout in cases:
+        if layout == "lm":
+            q, k, v = lm_qkv_bf16(b, t_q, h, d, dev, gen, requires_grad=True)
+        elif layout == "prefill":
+            qkv = torch.randn((1, t_q, 3 * h * d), generator=gen).to(
+                dev).bfloat16().requires_grad_(True)
+            q, k, v = (y.view(1, t_q, h, d).transpose(1, 2)
+                       for y in qkv.chunk(3, dim=-1))
+        else:
+            q = torch.randn((b, h, t_q, d), generator=gen).to(dev).bfloat16()
+            k, v = (torch.randn((b, h, t_k, d), generator=gen).to(
+                dev).bfloat16() for _ in range(2))
+            for x in (q, k, v):
+                x.requires_grad_(True)
+        out = att.flash_attention(q, k, v, causal)
+        d_out = torch.randn((b, h, t_q, d), generator=gen).to(dev).bfloat16()
+        got = torch.autograd.grad(out, (q, k, v), d_out)
+        torch.cuda.synchronize()
+        q, k, v, out = (x.detach() for x in (q, k, v, out))
+        want = att.flash_attention_bwd_plain(q, k, v, out, d_out, causal)
+        qd, kd, vd = (x.double() for x in (q, k, v))
+        exact = att.flash_attention_bwd_plain(
+            qd, kd, vd, att.flash_attention_plain(qd, kd, vd, causal),
+            d_out.double(), causal)
+        plain = att.flash_attention_bwd_plain(
+            q, k, v, att.flash_attention_plain(q, k, v, causal), d_out,
+            causal)
+        errs, ratios = [], []
+        for name, a, w, x, p in zip(("dq", "dk", "dv"), got, want, exact,
+                                    plain):
+            check(a.dtype == torch.bfloat16, f"bf16 {name} is {a.dtype}")
+            ok, e = within(a, w, BF16_BWD_RTOL, BF16_BWD_ATOL)
+            ok_x, _ = within(a, x, BF16_RTOL, BF16_ATOL)
+            r_kernel, r_plain = rel_l2(a, x), rel_l2(p, x)
+            errs.append(e)
+            ratios.append(r_kernel / r_plain)
+            check(ok and ok_x, f"flash_attention_bwd bf16 B={b} Tq={t_q} "
+                  f"Tk={t_k} D={d}: {name} off by {e:.3e}")
+            check(r_kernel <= BF16_F64_RATIO * r_plain,
+                  f"flash_attention_bwd bf16 B={b} Tq={t_q} D={d}: {name} "
+                  f"{r_kernel:.3e} off f64, more than {BF16_F64_RATIO}x the "
+                  f"plain bf16 pipeline's {r_plain:.3e}")
+        log(f"flash_attention_bwd bf16 B={b} H={h} Tq={t_q} Tk={t_k} D={d} "
+            f"causal={causal} {layout}: max abs err dq/dk/dv vs "
+            f"plain {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}; f64 "
+            f"distance ratio to plain bf16 "
+            f"{' / '.join(f'{r:.3f}' for r in ratios)}")
+        err = max(err, *errs)
+        worst = max(worst, *ratios)
+        del q, k, v, out, d_out, got, want, exact, plain
+    torch.cuda.empty_cache()
+
+    q, k, v = lm_qkv_bf16(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
+    out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5,
+                              with_lse=True)
+    d_out = torch.randn(out.shape, generator=gen).to(dev).bfloat16()
+    row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
+                     "D": LM_HEAD_DIM, "causal": True},
+           "f64_ratio_max": worst}
+    row["ms"], row["launch_ms"] = measure(
+        lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+        iters=20)
+    row["plain_ms"], _ = measure(
+        lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
+        iters=5)
+    ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        torch.autograd.grad(o, (ql, kl, vl), d_out)
+
+    with torch.no_grad():
+        sdpa_fwd, _ = measure(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=20)
+    sdpa_both, _ = measure(sdpa_fwd_bwd, iters=20)
+    row["library_ms"] = sdpa_both - sdpa_fwd
+    row["library_fwd_ms"], row["library_fwd_bwd_ms"] = sdpa_fwd, sdpa_both
+    nbytes, flops = flash_bwd_cost(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ,
+                                   LM_HEAD_DIM, True)
+    # bf16 tensors move half the bytes of the f32 count (lse stays f32)
+    nbytes = (nbytes - 4 * LM_BATCH * LM_HEADS * LM_SEQ) // 2 \
+        + 4 * LM_BATCH * LM_HEADS * LM_SEQ
+    mem_s, op_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    row["bound_ms"] = max(mem_s, op_s) * 1e3
+    row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+    row["bytes"], row["flops"] = nbytes, flops
+    # the kernel runs its products on the fp32 FMA pipes
+    row["fp32_fma_bound_ms"] = max(mem_s, flops / FP32_FLOPS_PER_S) * 1e3
+    log("flash_bwd_bf16_timing " + json.dumps(row))
+    del q, k, v, out, lse, d_out, ql, kl, vl
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd_bf16", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:144",
+            "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launch_ms": row["launch_ms"], "shape": row["shape"]}
+
+
+def phase_lm_train_bf16(att, i8, fo, dev, rng):
+    """Decoder-LM training in bf16 at GPT-2 small's widths: the seeded
+    block cast to bf16, Adam with f32 masters (multi_precision); the
+    first step against the same step with the plain attention and an
+    f32 run of it; LM_STEPS counted steps, each 12 bf16 flash forward and
+    12 bf16 flash backward launches and no f32 one."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    ctx = mx.Context(dev)
+    dec = GenerativeDecoder(vocab_size=LM_VOCAB, d_model=LM_D_MODEL,
+                            num_layers=LM_LAYERS, num_heads=LM_HEADS,
+                            ff_mult=LM_FF, max_prompt_tokens=LM_SEQ,
+                            device=dev, seed=SEED)
+    block = dec.block
+    block.cast("bfloat16")
+    params = list(block.collect_params().values())
+    check(all(p.data()._data.dtype == torch.bfloat16 for p in params),
+          "lm bf16: a parameter is not bf16 after cast")
+    tokens = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1))
+    x = mx.nd.array(tokens[:, :-1].astype(np.int32), ctx=ctx)
+    y = mx.nd.array(tokens[:, 1:].astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    # the comparison steps: the plain attention in bf16, then the same
+    # step in f32 on the bf16-rounded weights (exact both ways); no kernel
+    counts0 = kernel_counts(att, i8, fo)
+    op = registry.get("_contrib_flash_attention")
+    op_fn, op.fn = op.fn, plain_attention_op(att)
+    try:
+        loss = lm_step(mx, block, loss_fn, x, y)
+        check(loss._data.dtype == torch.bfloat16, "lm bf16: loss not bf16")
+        plain_loss = loss._data.detach().float()
+        plain_grads = [p.grad()._data.clone() for p in params]
+        del loss
+        block.cast("float32")
+        loss = lm_step(mx, block, loss_fn, x, y)
+        f32_loss = loss._data.detach().float()
+        f32_grads = [p.grad()._data.clone() for p in params]
+        del loss
+        block.cast("bfloat16")
+    finally:
+        op.fn = op_fn
+    torch.cuda.empty_cache()
+    check(kernel_counts(att, i8, fo) == counts0,
+          "a kernel launched in the plain-attention steps")
+
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": LM_LR,
+                                "multi_precision": True})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    att.reset_launches()
+    losses, secs, host, per_step = [], [], [], []
+    for i in range(LM_STEPS):
+        before = (att.flash_attention.launches_bf16,
+                  att.flash_attention_bwd.launches_bf16)
+        t0 = time.perf_counter()
+        loss = lm_step(mx, block, loss_fn, x, y)
+        if i == 0:
+            first_loss = loss._data.detach().float()
+            grads = [p.grad()._data.clone() for p in params]
+        t1 = time.perf_counter()
+        trainer.step(LM_BATCH)
+        host.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss._data.detach().float().mean()))
+        per_step.append((att.flash_attention.launches_bf16 - before[0],
+                         att.flash_attention_bwd.launches_bf16 - before[1]))
+    fwd_n = att.flash_attention.launches_bf16
+    bwd_n = att.flash_attention_bwd.launches_bf16
+    f32_n = (att.flash_attention.launches, att.flash_attention_bwd.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del loss
+    check(all(s == (LM_LAYERS, LM_LAYERS) for s in per_step),
+          f"lm bf16: bf16 flash forward / backward launches per step "
+          f"{per_step}, want {LM_LAYERS} each")
+    check(f32_n == (0, 0), f"lm bf16: f32 flash launches {f32_n}")
+    check(all(np.isfinite(losses)), f"lm bf16: losses {losses}")
+    check(losses[-1] < losses[0], f"lm bf16: loss did not fall: {losses}")
+    check(abs(losses[0] - np.log(LM_VOCAB)) < 1.0,
+          f"lm bf16: first loss {losses[0]} far from ln {LM_VOCAB}")
+    check(all(torch.isfinite(p.data()._data).all() for p in params),
+          "lm bf16: non-finite weights after training")
+
+    # the first loss: each row's bf16 loss no further from the f32 run's
+    # than twice the plain attention's, or than half a bf16 ulp of it
+    half_ulp = torch.exp2(torch.floor(torch.log2(f32_loss.abs())) - 8)
+    loss_bound = BF16_F64_RATIO * torch.maximum(
+        (plain_loss - f32_loss).abs(), half_ulp)
+    loss_ok = bool(((first_loss - f32_loss).abs() <= loss_bound).all())
+    check(loss_ok, f"lm bf16: first loss {first_loss.tolist()} vs f32 "
+          f"{f32_loss.tolist()}, plain bf16 {plain_loss.tolist()}")
+    grad_rows = []
+    for p, a, b, w in zip(params, grads, plain_grads, f32_grads):
+        check(a.dtype == torch.bfloat16, f"lm bf16: {p.name} grad {a.dtype}")
+        ok, e = within(a, b, BF16_RTOL, BF16_ATOL * b.abs().max().item())
+        r_kernel, r_plain = rel_l2(a, w), rel_l2(b, w)
+        grad_rows.append({"name": p.name, "elementwise_ok": ok,
+                          "max_abs_err_vs_plain": e,
+                          "kernel_rel_l2_vs_f32": r_kernel,
+                          "plain_rel_l2_vs_f32": r_plain,
+                          "ratio": r_kernel / max(r_plain, 1e-300)})
+    worst = max(grad_rows, key=lambda r: r["ratio"])
+    check(worst["ratio"] <= BF16_F64_RATIO,
+          f"lm bf16: gradient of {worst['name']} "
+          f"{worst['kernel_rel_l2_vs_f32']:.3e} off the f32 step, more than "
+          f"{BF16_F64_RATIO}x the plain bf16 step's "
+          f"{worst['plain_rel_l2_vs_f32']:.3e}")
+    del grads, plain_grads, f32_grads
+
+    step = lambda: lm_step(mx, block, loss_fn, x, y, trainer)  # noqa: E731
+    prof = profile_step(step)
+    groups = lm_step_groups(registry, loss_fn, step)
+    with mx.autograd.record():
+        loss = loss_fn(block(x), y)
+    loss.backward()
+    opt_prof = profile_step(lambda: trainer.step(LM_BATCH))
+    del loss
+    step_s = float(np.median(secs[-3:]))
+    log("lm_train_bf16 " + json.dumps({
+        "config": {"vocab": LM_VOCAB, "d_model": LM_D_MODEL,
+                   "layers": LM_LAYERS, "heads": LM_HEADS,
+                   "ff_mult": LM_FF, "batch": LM_BATCH, "seq": LM_SEQ,
+                   "dtype": "bfloat16", "masters": "float32",
+                   "optimizer": {"name": "adam", "learning_rate": LM_LR,
+                                 "multi_precision": True}},
+        "losses": losses, "ln_vocab": float(np.log(LM_VOCAB)),
+        "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in secs],
+        "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+        "peak_memory_gb": peak_gb,
+        "trainer_step_host_ms": float(np.median(host[-3:])) * 1e3,
+        "trainer_step_host_ms_all": [t * 1e3 for t in host],
+        "optimizer_device_ms": opt_prof["device_busy_ms"],
+        "optimizer_launches": sum(opt_prof["by_group_launches"].values()),
+        "bf16_flash_launches_per_step": per_step,
+        "first_loss": first_loss.tolist(),
+        "plain_attention_first_loss": plain_loss.tolist(),
+        "f32_first_loss": f32_loss.tolist(),
+        "grad_f32_ratio_max": worst["ratio"],
+        "grad_f32_ratio_max_param": worst["name"],
+        "grad_params_within_elementwise_bound": sum(
+            r["elementwise_ok"] for r in grad_rows),
+        "grad_params": len(grad_rows),
+        "grad_elementwise_worst": sorted(
+            grad_rows, key=lambda r: -r["max_abs_err_vs_plain"])[:4],
+        "device_idle_share": prof["device_idle_share"],
+        "profiled_step_wall_ms": prof["wall_ms"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "by_group_ms": groups, "top": prof["top"]}))
+    del trainer, block, dec, params, x, y
+    torch.cuda.empty_cache()
+    return {"flash_attention_bf16": fwd_n, "flash_attention_bwd_bf16": bwd_n}
+
+
+def phase_serve_bf16(att, dev, burst, f32_main):
+    """bf16-KV serving: GenerativeDecoder(dtype="bfloat16") at the
+    quickstart widths (Dense and Embedding weights bf16, LayerNorm f32), a
+    bf16 pool, phase 5's burst; 8 bf16-cache K4 launches a decode step.
+    Gate: the tokens equal those of the same lane with the plain paged
+    attention on the same bf16 pool. Printed beside phase 5's f32 numbers
+    of this run (``f32_main``)."""
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
+                                                  reference_generate)
+    from mxnet_tpu_torch.serving.generate import model as gen_model
+
+    plens, new, prompts = burst
+    n_req = len(prompts)
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED, dtype="bfloat16")
+    att.reset_launches()
+    gw = Gateway(device=dev)
+    try:
+        gen = gw.register_generator(
+            "lm16", dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
+            max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH)
+        pool = gen.lane.pool
+        pool_bytes = pool.bytes_total
+        check(pool.k.dtype == torch.bfloat16 and pool_bytes == 2 * LAYERS
+              * MAX_BLOCKS * BLOCK_TOKENS * HEADS * HEAD_DIM * 2,
+              f"bf16 pool {pool.k.dtype} {pool_bytes} bytes")
+        t_start = time.perf_counter()
+        reqs = [gw.generate("lm16", p, max_new_tokens=int(n), stream=True)
+                for p, n in zip(prompts, new)]
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t_start
+        stats = gw.stats()["lm16"]
+        counts = {"paged_bf16": att.paged_attention.launches_bf16,
+                  "paged_f32": att.paged_attention.launches,
+                  "flash_f32": att.flash_attention.launches,
+                  "flash_bf16": att.flash_attention.launches_bf16}
+        # the same lane and pool with the plain paged attention
+        paged = gen_model.paged_attention
+        gen_model.paged_attention = att.paged_attention_plain
+        try:
+            plain = [gw.generate("lm16", p, max_new_tokens=int(n))
+                     for p, n in zip(prompts, new)]
+        finally:
+            gen_model.paged_attention = paged
+    finally:
+        gw.close()
+    lane = stats["lanes"][0]
+    calls = lane["step_calls"]
+    for i, (res, n) in enumerate(zip(results, new)):
+        check(len(res) == n, f"bf16 request {i}: {len(res)} tokens, want {n}")
+    check(counts["paged_bf16"] == calls["decode"] * LAYERS
+          and counts["paged_bf16"] > 0,
+          f"bf16 paged launches {counts} != {calls['decode']} x {LAYERS}")
+    check(counts["paged_f32"] == 0 and counts["flash_bf16"] == 0
+          and counts["flash_f32"] == calls["prefill"] * LAYERS,
+          f"bf16 serving launches {counts}, calls {calls}")
+    same = sum(a == b for a, b in zip(results, plain))
+    check(same == n_req, f"bf16 serving: {n_req - same} of {n_req} requests "
+          f"differ from the plain paged attention on the same pool")
+    t0 = time.perf_counter()
+    oracle = sum(reference_generate(dec, p, int(n)) == r
+                 for p, n, r in zip(prompts, new, results))
+    oracle_s = time.perf_counter() - t0
+    gen_tokens = int(sum(new))
+    main = {"requests": n_req, "generated_tokens": gen_tokens,
+            "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+            "mean_prefill_ms": lane["prefill_ns"] / lane["prefills"] / 1e6,
+            "mean_decode_step_ms": lane["decode_ns"]
+            / lane["decode_steps"] / 1e6,
+            "decode_steps": lane["decode_steps"],
+            "mean_decode_rows": lane["decode_rows"] / lane["decode_steps"],
+            "pool_gb": pool_bytes / 1e9,
+            "f32_pool_gb": f32_main["pool_gb"],
+            "f32_tokens_per_s": f32_main["tokens_per_s"],
+            "f32_mean_decode_step_ms": f32_main["mean_decode_step_ms"],
+            "launches": counts, "step_calls": calls,
+            "equal_to_plain_paged_lane": same,
+            "equal_to_reference_generate": int(oracle),
+            "reference_generate_s": oracle_s}
+    log("serve_bf16 " + json.dumps(main))
+    del dec
+    torch.cuda.empty_cache()
+    return {"paged_attention_bf16": counts["paged_bf16"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2243,13 +2787,20 @@ def main():
                phase_int8(i8, dev),
                *phase_fused_opt(fo, dev)]
 
-    launches = phase_serve(att, dev, rng)
+    burst = generate_burst(rng)
+    launches, serve_main = phase_serve(att, dev, burst)
     launches.update(phase_resnet(i8, dev, rng, here))
     launches["fused_sgd_mom"] = phase_train(fo, dev, rng, here)
     launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
     phase_gluon(att, i8, fo, dev, rng, here)
     phase_gluon_train(att, i8, fo, dev, rng, here)
     launches.update(phase_lm_train(att, i8, fo, dev, rng))
+    kernels += [phase_flash_bf16(att, _build, dev),
+                phase_flash_bwd_bf16(att, dev),
+                phase_paged(att, dev, rng, torch.bfloat16,
+                            kernels[2]["shape"]["decode_lens"])]
+    launches.update(phase_lm_train_bf16(att, i8, fo, dev, rng))
+    launches.update(phase_serve_bf16(att, dev, burst, serve_main))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))

@@ -1,4 +1,4 @@
-// Blockwise (flash) attention backward, fp32, sm_90a: dQ, dK and dV of
+// Blockwise (flash) attention backward, fp32 or bf16, sm_90a: dQ, dK and dV of
 // out = softmax(scale * Q K^T [causal]) V, without writing the (Tq, Tk)
 // score or probability matrix to device memory.
 //
@@ -53,6 +53,17 @@
 // fp32 FMA pipes instead, where the same work could take no less than
 // 1.924 ms (67 TFLOP/s), and does 14/10 of that work (the recomputation
 // of S and dP in pass 3).
+//
+// bf16 (`mxt_flash_attention_bwd_bf16`): the same kernels, templated on the
+// element type, read bf16 q, k, v, o and dO into f32 tiles, compute every
+// product and sum in f32 as above (the TPU backward's `.astype(f32)`,
+// D = rowsum(dO * O) in f32 too) and round each gradient once to bf16
+// (nearest even) when they write it; lse stays f32. A first right kernel,
+// not a fast one: its products stay on the fp32 FMA pipes. Bound at the
+// same shape in bf16: bytes 8 tensors of 96 * 2048 * 64 bf16 plus lse =
+// 202.1 MB, 0.060 ms; operations 128.9 GFLOP at 989 TFLOP/s bf16,
+// 0.130 ms: bound 0.130 ms, by operations (1.924 ms on the FMA pipes).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -76,15 +87,30 @@ constexpr int dq_smem_floats() {
   return 4 * kB * (D + 4) + kB * kPB + 2 * kB;
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// f32 into the gradient's type, rounded to nearest even for bf16
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
+}
+
 // rows [row0, row0 + kB) of a (T, D) slice with row stride `st` into a
-// padded tile; rows past T are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
+// padded f32 tile; rows past T are zero
+template <int D, typename E>
+__device__ __forceinline__ void load_tile(float* s, const E* g,
                                           int64_t st, int row0, int T) {
   constexpr int P = D + 4;
   for (int e = threadIdx.x; e < kB * D; e += kThreads) {
     const int r = e / D, c = e % D, row = row0 + r;
-    s[r * P + c] = row < T ? g[static_cast<int64_t>(row) * st + c] : 0.f;
+    s[r * P + c] =
+        row < T ? to_f32(g[static_cast<int64_t>(row) * st + c]) : 0.f;
   }
 }
 
@@ -173,9 +199,9 @@ __device__ __forceinline__ void probs(const float (&s)[4][4],
   }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kDotWarps * 32)
-    bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+    bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
                float* __restrict__ dvec, int H, int Tq, int rows,
                int64_t o_sb, int64_t o_sh, int64_t o_st, int64_t g_sb,
                int64_t g_sh, int64_t g_st) {
@@ -183,28 +209,31 @@ __global__ void __launch_bounds__(kDotWarps * 32)
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int tok = row % Tq, bh = row / Tq, b = bh / H, h = bh % H;
-  const float* orow = o + b * o_sb + h * o_sh + tok * o_st;
-  const float* grow = dout + b * g_sb + h * g_sh + tok * g_st;
+  const E* orow = o + b * o_sb + h * o_sh + tok * o_st;
+  const E* grow = dout + b * g_sb + h * g_sh + tok * g_st;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], grow[c], acc);
+  for (int c = lane; c < D; c += 32)
+    acc = fmaf(to_f32(orow[c]), to_f32(grow[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) dvec[row] = acc;
 }
 
+template <typename E>
 struct Args {
-  const float *q, *k, *v, *dout, *lse, *dvec;
-  float *dq, *dk, *dv;
+  const E *q, *k, *v, *dout;
+  const float *lse, *dvec;
+  E *dq, *dk, *dv;
   int H, BH, Tq, Tk;
   int64_t st[24];   // (batch, head, token) of q, k, v, o, dO, dq, dk, dv
   float scale;
   int causal;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
+template <int D, typename E>
+__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<E> a) {
   constexpr int P = D + 4;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -223,10 +252,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = kb * kB;
   const int64_t* st = a.st;
-  const float* qb = a.q + b * st[0] + h * st[1];
-  const float* kbase = a.k + b * st[3] + h * st[4];
-  const float* vb = a.v + b * st[6] + h * st[7];
-  const float* gb = a.dout + b * st[12] + h * st[13];
+  const E* qb = a.q + b * st[0] + h * st[1];
+  const E* kbase = a.k + b * st[3] + h * st[4];
+  const E* vb = a.v + b * st[6] + h * st[7];
+  const E* gb = a.dout + b * st[12] + h * st[13];
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
   const float* dvec = a.dvec + static_cast<int64_t>(bh) * a.Tq;
 
@@ -282,8 +311,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
     __syncthreads();   // the next block's loads overwrite Q, dO, P, dS
   }
 
-  float* dkb = a.dk + b * st[18] + h * st[19];
-  float* dvb = a.dv + b * st[21] + h * st[22];
+  E* dkb = a.dk + b * st[18] + h * st[19];
+  E* dvb = a.dv + b * st[21] + h * st[22];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int key = k0 + ty + 16 * r;
@@ -291,14 +320,15 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       dkb[static_cast<int64_t>(key) * st[20] + tx + 16 * c] =
-          a.scale * dk[r][c];
-      dvb[static_cast<int64_t>(key) * st[23] + tx + 16 * c] = dv[r][c];
+          from_f32<E>(a.scale * dk[r][c]);
+      dvb[static_cast<int64_t>(key) * st[23] + tx + 16 * c] =
+          from_f32<E>(dv[r][c]);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
+template <int D, typename E>
+__global__ void __launch_bounds__(kThreads) dq_kernel(const Args<E> a) {
   constexpr int P = D + 4;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -317,8 +347,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = qb_i * kB;
   const int64_t* st = a.st;
-  const float* kbase = a.k + b * st[3] + h * st[4];
-  const float* vb = a.v + b * st[6] + h * st[7];
+  const E* kbase = a.k + b * st[3] + h * st[4];
+  const E* vb = a.v + b * st[6] + h * st[7];
 
   load_tile<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
   load_tile<D>(sdO, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
@@ -366,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     __syncthreads();   // the next block's loads overwrite K, V, dS
   }
 
-  float* dqb = a.dq + b * st[15] + h * st[16];
+  E* dqb = a.dq + b * st[15] + h * st[16];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty + 16 * r;
@@ -374,15 +404,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       dqb[static_cast<int64_t>(row) * st[17] + tx + 16 * c] =
-          a.scale * dq[r][c];
+          from_f32<E>(a.scale * dq[r][c]);
   }
 }
 
-template <int D>
-cudaError_t launch(const Args& a, const float* o, int B,
-                   cudaStream_t stream) {
+template <int D, typename E>
+cudaError_t launch(const Args<E>& a, const E* o, cudaStream_t stream) {
   const int rows = a.BH * a.Tq;
-  bwd_dot_kernel<D><<<(rows + kDotWarps - 1) / kDotWarps, kDotWarps * 32, 0,
+  bwd_dot_kernel<D, E><<<(rows + kDotWarps - 1) / kDotWarps, kDotWarps * 32, 0,
                   stream>>>(o, a.dout, const_cast<float*>(a.dvec), a.H,
                             a.Tq, rows, a.st[9], a.st[10], a.st[11],
                             a.st[12], a.st[13], a.st[14]);
@@ -390,45 +419,35 @@ cudaError_t launch(const Args& a, const float* o, int B,
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem1 = dkdv_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dkdv_kernel<D>,
+  err = cudaFuncSetAttribute(dkdv_kernel<D, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem1));
   if (err != cudaSuccess) return err;
   const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
+  dkdv_kernel<D, E><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
                    stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem2 = dq_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dq_kernel<D>,
+  err = cudaFuncSetAttribute(dq_kernel<D, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return err;
   const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
+  dq_kernel<D, E><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
                  stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q/k/v/o/dout in and dq/dk/dv out: (B, H, T, D) fp32 with element strides
-// (batch, head, token) in `strides` = {q, k, v, o, dout, dq, dk, dv} x
-// {sb, sh, st} and unit stride along D. lse: the forward's f32 (B, H, Tq)
-// contiguous row log-sum-exp; dvec: f32 (B, H, Tq) scratch. Causal needs
-// Tq == Tk; the caller checks shapes, strides and that (Tq or Tk) / 64
-// times B * H fits a grid. Returns the first CUDA error of the three
-// launches (0 on success), or cudaErrorInvalidValue for an unsupported
-// head size.
-extern "C" int mxt_flash_attention_bwd_f32(
-    const float* q, const float* k, const float* v, const float* o,
-    const float* dout, const float* lse, float* dvec, float* dq, float* dk,
-    float* dv, int B, int H, int Tq, int Tk, int D, const int64_t* strides,
-    float scale, int causal, int device, void* stream) {
+template <typename E>
+int dispatch(const E* q, const E* k, const E* v, const E* o, const E* dout,
+             const float* lse, float* dvec, E* dq, E* dk, E* dv, int B, int H,
+             int Tq, int Tk, int D, const int64_t* strides, float scale,
+             int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Args a;
+  Args<E> a;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -448,14 +467,44 @@ extern "C" int mxt_flash_attention_bwd_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(a, o, B, s);
+      return launch<16>(a, o, s);
     case 32:
-      return launch<32>(a, o, B, s);
+      return launch<32>(a, o, s);
     case 64:
-      return launch<64>(a, o, B, s);
+      return launch<64>(a, o, s);
     case 128:
-      return launch<128>(a, o, B, s);
+      return launch<128>(a, o, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q/k/v/o/dout in and dq/dk/dv out: (B, H, T, D) with element strides
+// (batch, head, token) in `strides` = {q, k, v, o, dout, dq, dk, dv} x
+// {sb, sh, st} and unit stride along D; all fp32 (`_f32`) or all bf16
+// (`_bf16`: read into f32, every sum in f32, the gradients rounded once
+// to bf16). lse: the forward's f32 (B, H, Tq) contiguous row log-sum-exp;
+// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk; the caller checks
+// shapes, strides and that (Tq or Tk) / 64 times B * H fits a grid.
+// Returns the first CUDA error of the three launches (0 on success), or
+// cudaErrorInvalidValue for an unsupported head size.
+extern "C" int mxt_flash_attention_bwd_f32(
+    const float* q, const float* k, const float* v, const float* o,
+    const float* dout, const float* lse, float* dvec, float* dq, float* dk,
+    float* dv, int B, int H, int Tq, int Tk, int D, const int64_t* strides,
+    float scale, int causal, int device, void* stream) {
+  return dispatch(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, Tq, Tk, D,
+                  strides, scale, causal, device, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* o, const __nv_bfloat16* dout, const float* lse,
+    float* dvec, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+    int B, int H, int Tq, int Tk, int D, const int64_t* strides, float scale,
+    int causal, int device, void* stream) {
+  return dispatch(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, Tq, Tk, D,
+                  strides, scale, causal, device, stream);
 }

@@ -1,4 +1,5 @@
-// Paged single-query attention for the decode step, fp32, sm_90a: split-KV
+// Paged single-query attention for the decode step, f32 queries over f32 or
+// bf16 caches, f32 out, sm_90a: split-KV
 // (flash decoding), one kernel for the chunks and one to merge them.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py `_paged_kernel` (launched by
@@ -40,11 +41,20 @@
 //    combines the live splits' partials, out = sum acc_s e^(m_s - M) /
 //    sum l_s e^(m_s - M). A row with seq_len 0 (batch padding) writes
 //    zeros there.
+// bf16 caches (`mxt_paged_attention_bf16`, the bf16 decoder's pool; the TPU
+// kernel casts each block to f32): the same kernels templated on the cache
+// type. A 16-byte cp.async carries 8 values, rows are padded by 16 bytes,
+// scores read the K row as bf16 pairs converted to f32; q, the softmax,
+// the accumulators, the scratch and the output stay f32. The cache bytes
+// halve: at phase 5's B 32 with 9,536 live tokens the bound falls from
+// 11.7 us to about 5.9 us (2 * 9,536 * 8 * 64 * 2 bytes over 3.35 TB/s).
+//
 // The merge costs one more launch per layer per decode step: the wrapper
 // issues both from one C call, so the host pays one cudaLaunchKernel (some
 // 2-3 us; 8 layers x 68 steps of the serving burst: about 1.5 ms of host
 // time over a burst of ~15 s), and the device one small kernel (256 CTAs at
 // B 32) behind the first.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,13 +66,57 @@ constexpr int kThreads = 128;
 constexpr int kChunk = 64;               // tokens per split CTA
 constexpr int kWarps = kThreads / 32;
 
+// f32 scratch first (q, p, reduction, accumulators), then the K and V
+// chunks in the cache's type, rows padded by 16 bytes
 template <int D>
-constexpr int smem_floats() {
-  // K and V chunks (rows padded to D + 4), q, p, reduction scratch
-  return 2 * kChunk * (D + 4) + D + kChunk + 2 * kWarps + kThreads;
+__host__ __device__ constexpr int scratch_floats() {
+  return D + kChunk + 2 * kWarps + kThreads;
 }
 
-__device__ __forceinline__ void cp16(float* smem, const float* gmem) {
+template <int D, typename T>
+constexpr int smem_bytes() {
+  return scratch_floats<D>() * 4 +
+         2 * kChunk * (D + 16 / sizeof(T)) * sizeof(T);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// q . k over n values: fp32 cache rows four at a time, bf16 two at a time
+template <int N>
+__device__ __forceinline__ float dot(const float* kr, const float* qr) {
+  float s = 0.f;
+  const float4* k4 = reinterpret_cast<const float4*>(kr);
+  const float4* q4 = reinterpret_cast<const float4*>(qr);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 a = k4[j], x = q4[j];
+    s = fmaf(a.x, x.x, s);
+    s = fmaf(a.y, x.y, s);
+    s = fmaf(a.z, x.z, s);
+    s = fmaf(a.w, x.w, s);
+  }
+  return s;
+}
+
+template <int N>
+__device__ __forceinline__ float dot(const __nv_bfloat16* kr,
+                                     const float* qr) {
+  float s = 0.f;
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(kr);
+  const float2* q2 = reinterpret_cast<const float2*>(qr);
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float2 a = __bfloat1622float2(k2[j]), x = q2[j];
+    s = fmaf(a.x, x.x, s);
+    s = fmaf(a.y, x.y, s);
+  }
+  return s;
+}
+
+__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
@@ -78,25 +132,26 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const float* __restrict__ q, int64_t q_sb,
-                           int64_t q_sh, const float* __restrict__ kc,
-                           const float* __restrict__ vc,
+                           int64_t q_sh, const T* __restrict__ kc,
+                           const T* __restrict__ vc,
                            const int* __restrict__ tables,
                            const int* __restrict__ seq_lens,
                            float* __restrict__ part_ml,
                            float* __restrict__ part_acc, int H, int NB,
                            int BT, int W, int S, float scale) {
-  constexpr int P = D + 4;
-  constexpr int Q4 = D / 4;
+  constexpr int E16 = 16 / sizeof(T);   // values per 16-byte copy
+  constexpr int P = D + E16;             // padded row, in T
+  constexpr int Q4 = D / E16;            // 16-byte copies per row
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kChunk * P;
-  float* sQ = sV + kChunk * P;
+  float* sQ = smem;
   float* sP = sQ + D;
   float* sRed = sP + kChunk;             // [2][kWarps]
   float* sAcc = sRed + 2 * kWarps;       // [kThreads]
+  T* sK = reinterpret_cast<T*>(smem + scratch_floats<D>());
+  T* sV = sK + kChunk * P;
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int len = min(seq_lens[b], W * BT);  // positions past the table do not exist
@@ -109,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t head_off = static_cast<int64_t>(h) * D;
   // every row of the chunk in flight at once: K, then V
   for (int e = threadIdx.x; e < n * Q4; e += kThreads) {
-    const int i = e / Q4, c = (e % Q4) * 4, tok = t0 + i;
+    const int i = e / Q4, c = (e % Q4) * E16, tok = t0 + i;
     int blk = __ldg(trow + tok / BT);
     blk = min(max(blk, 0), NB - 1);       // never read outside the pool
     const int64_t off =
@@ -118,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_commit();
   for (int e = threadIdx.x; e < n * Q4; e += kThreads) {
-    const int i = e / Q4, c = (e % Q4) * 4, tok = t0 + i;
+    const int i = e / Q4, c = (e % Q4) * E16, tok = t0 + i;
     int blk = __ldg(trow + tok / BT);
     blk = min(max(blk, 0), NB - 1);
     const int64_t off =
@@ -134,19 +189,7 @@ __global__ void __launch_bounds__(kThreads)
   // scores: two threads per token, half of D each
   const int i = threadIdx.x >> 1, half = threadIdx.x & 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float s = 0.f;
-  {
-    const float4* kr = reinterpret_cast<const float4*>(sK + i * P + half * (D / 2));
-    const float4* qr = reinterpret_cast<const float4*>(sQ + half * (D / 2));
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float4 a = kr[j], x = qr[j];
-      s = fmaf(a.x, x.x, s);
-      s = fmaf(a.y, x.y, s);
-      s = fmaf(a.z, x.z, s);
-      s = fmaf(a.w, x.w, s);
-    }
-  }
+  float s = dot<D / 2>(sK + i * P + half * (D / 2), sQ + half * (D / 2));
   s += __shfl_xor_sync(0xffffffffu, s, 1);
   const bool live = i < n;
   s = live ? s : kNegInf;
@@ -175,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   const int d = threadIdx.x % D, part = threadIdx.x / D;
   float a = 0.f;
   const int lo = part * PER, hi = min(lo + PER, n);
-  for (int j = lo; j < hi; ++j) a = fmaf(sP[j], sV[j * P + d], a);
+  for (int j = lo; j < hi; ++j) a = fmaf(sP[j], to_f32(sV[j * P + d]), a);
   const int64_t slot = (static_cast<int64_t>(b) * H + h) * S + split;
   if (PARTS > 1) {
     sAcc[threadIdx.x] = a;
@@ -222,21 +265,21 @@ __global__ void __launch_bounds__(D)
   out[row * D + d] = A / fmaxf(L, 1e-30f);
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const float* q, int64_t q_sb, int64_t q_sh,
-                   const float* kc, const float* vc, const int* tables,
+                   const T* kc, const T* vc, const int* tables,
                    const int* seq_lens, float* out, float* scratch, int B,
                    int H, int NB, int BT, int W, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
+  constexpr size_t smem = smem_bytes<D, T>();
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_attention_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int S = (W * BT + kChunk - 1) / kChunk;
   float* part_ml = scratch;
   float* part_acc = scratch + 2 * static_cast<int64_t>(B) * H * S;
-  paged_attention_kernel<D><<<dim3(S, H, B), kThreads, smem, stream>>>(
+  paged_attention_kernel<D, T><<<dim3(S, H, B), kThreads, smem, stream>>>(
       q, q_sb, q_sh, kc, vc, tables, seq_lens, part_ml, part_acc, H, NB, BT,
       W, S, scale);
   err = cudaGetLastError();
@@ -246,25 +289,11 @@ cudaError_t launch(const float* q, int64_t q_sb, int64_t q_sh,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Tokens per split CTA: the wrapper sizes the scratch from it.
-extern "C" int mxt_paged_attention_chunk() { return kChunk; }
-
-// q: (B, H, D) with strides (q_sb, q_sh, 1) in elements; k_cache/v_cache:
-// (NB, BT, H, D) contiguous and 16-byte aligned; tables: (B, W) int32;
-// seq_lens: (B,) int32; out: (B, H, D) contiguous; scratch: (B, H, S) x
-// (2 + D) floats for S = ceil(W * BT / chunk). Returns the CUDA error of
-// the launches (0 on success), or cudaErrorInvalidValue for an unsupported
-// head size.
-extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
-                                       int64_t q_sh, const float* k_cache,
-                                       const float* v_cache,
-                                       const int* tables, const int* seq_lens,
-                                       float* out, float* scratch, int B,
-                                       int H, int D, int NB, int BT, int W,
-                                       float scale, int device,
-                                       void* stream) {
+template <typename T>
+int dispatch(const float* q, int64_t q_sb, int64_t q_sh, const T* k_cache,
+             const T* v_cache, const int* tables, const int* seq_lens,
+             float* out, float* scratch, int B, int H, int D, int NB, int BT,
+             int W, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -281,4 +310,40 @@ extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Tokens per split CTA: the wrapper sizes the scratch from it.
+extern "C" int mxt_paged_attention_chunk() { return kChunk; }
+
+// q: (B, H, D) f32 with strides (q_sb, q_sh, 1) in elements; k_cache/v_cache:
+// (NB, BT, H, D) contiguous and 16-byte aligned, f32 (`_f32`) or bf16
+// (`_bf16`, read into f32); tables: (B, W) int32; seq_lens: (B,) int32;
+// out: (B, H, D) f32 contiguous; scratch: (B, H, S) x (2 + D) floats for
+// S = ceil(W * BT / chunk). Returns the CUDA error of the launches (0 on
+// success), or cudaErrorInvalidValue for an unsupported head size.
+extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
+                                       int64_t q_sh, const float* k_cache,
+                                       const float* v_cache,
+                                       const int* tables, const int* seq_lens,
+                                       float* out, float* scratch, int B,
+                                       int H, int D, int NB, int BT, int W,
+                                       float scale, int device,
+                                       void* stream) {
+  return dispatch(q, q_sb, q_sh, k_cache, v_cache, tables, seq_lens, out,
+                  scratch, B, H, D, NB, BT, W, scale, device, stream);
+}
+
+extern "C" int mxt_paged_attention_bf16(const float* q, int64_t q_sb,
+                                        int64_t q_sh,
+                                        const __nv_bfloat16* k_cache,
+                                        const __nv_bfloat16* v_cache,
+                                        const int* tables,
+                                        const int* seq_lens, float* out,
+                                        float* scratch, int B, int H, int D,
+                                        int NB, int BT, int W, float scale,
+                                        int device, void* stream) {
+  return dispatch(q, q_sb, q_sh, k_cache, v_cache, tables, seq_lens, out,
+                  scratch, B, H, D, NB, BT, W, scale, device, stream);
 }

@@ -49,7 +49,9 @@ def as_tensor(value, device=None):
     if isinstance(value, NDArray):
         value = value._data
     if not isinstance(value, torch.Tensor):
-        value = torch.from_numpy(np.array(value))
+        value = np.array(value)
+        value = _reg.bf16_from_numpy(value) \
+            if value.dtype.name == "bfloat16" else torch.from_numpy(value)
     return value if device is None else value.to(device)
 
 
@@ -99,7 +101,9 @@ class NDArray:
         """A host copy (never a view of the array: updates write into
         arrays in place)."""
         t = self._data.detach()
-        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+        t = t.clone() if t.device.type == "cpu" else t.cpu()
+        return _reg.bf16_to_numpy(t) if t.dtype == torch.bfloat16 \
+            else t.numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -437,12 +441,20 @@ def array(source_array, ctx=None, dtype=None):
     when None: ``cuda:0`` outside a ``with mx.cpu():`` scope).
     float64 numpy input becomes float32 and int64 int32 unless a dtype
     is given; Python lists default to float32, like the reference."""
-    if isinstance(source_array, NDArray):
-        data = source_array.asnumpy()
-    elif isinstance(source_array, torch.Tensor):
-        data = source_array.detach().cpu().numpy()
+    if isinstance(source_array, (NDArray, torch.Tensor)):
+        t = as_tensor(source_array).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()      # exact; the bfloat16 branch below rounds back
+            dtype = "bfloat16" if dtype is None else dtype
+        data = t.numpy()
     else:
         data = source_array
+    if dtype is not None and _reg.torch_dtype(dtype) == torch.bfloat16:
+        # numpy has bfloat16 only through ml_dtypes: torch rounds (RNE)
+        data = as_tensor(data if _is_bf16(data)
+                         else np.asarray(data, np.float32))
+        return NDArray(data.to(torch.bfloat16),
+                       ctx=ctx if ctx is not None else resolve_device(None))
     if isinstance(data, np.ndarray):
         if dtype is not None:
             data = data.astype(dtype)
@@ -452,5 +464,9 @@ def array(source_array, ctx=None, dtype=None):
             data = data.astype(np.int32)
     else:
         data = np.asarray(data, dtype=dtype or np.float32)
-    return NDArray(torch.from_numpy(np.array(data)),
+    return NDArray(as_tensor(data),
                    ctx=ctx if ctx is not None else resolve_device(None))
+
+
+def _is_bf16(data):
+    return isinstance(data, np.ndarray) and data.dtype.name == "bfloat16"

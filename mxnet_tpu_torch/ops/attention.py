@@ -11,11 +11,13 @@ Each entry point has three parts:
   oracle the kernels are held against;
 - a hand-written CUDA kernel for sm_90a in ``csrc/`` (see the note at
   the top of each source for the TPU kernel it replaces, its bound on
-  the H100 and how its design meets it), built by :mod:`._build`;
+  the H100 and how its design meets it), built by :mod:`._build`, for
+  float32 and for bfloat16 (f32 inside, as the TPU kernels compute);
 - a wrapper that sends tensors on the CPU to the plain version and
-  tensors on a CUDA device to the kernel. It raises on any input the
-  kernel does not take; nothing falls back. Each kernel launch adds one
-  to the wrapper's ``launches`` count.
+  tensors on a CUDA device to the kernel of their type. It raises on any
+  input the kernels do not take; nothing falls back and nothing is cast.
+  Each kernel launch adds one to the wrapper's ``launches`` (float32) or
+  ``launches_bf16`` count.
 
 :func:`flash_attention` is differentiable. On the CPU torch autograd
 differentiates the plain version. On CUDA, when a gradient is needed,
@@ -38,9 +40,8 @@ NEG_INF = -1e30
 
 
 def reset_launches():
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
-    paged_attention.launches = 0
+    for fn in (flash_attention, flash_attention_bwd, paged_attention):
+        fn.launches = fn.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +142,7 @@ _FLASH_BWD_ARGS = [_P] * 10 + [_I] * 5 + [_P, _F, _I, _I, _P]
 _PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _F, _I, _P]
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)
+_FLASH_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (32, 64, 128)
 
 
@@ -153,10 +155,20 @@ def _fn(name, symbol, argtypes):
 
 
 def _aligned(x):
-    """cp.async copies 16 bytes: the base address and every stride but
-    the last (unit) one must be multiples of 16 bytes."""
+    """cp.async copies 16 bytes (4 f32 or 8 bf16 values): the base
+    address and every stride but the last (unit) one must be multiples
+    of 16 bytes."""
     return (x.data_ptr() % 16 == 0
-            and all(st % 4 == 0 for st in x.stride()[:-1]))
+            and all(st * x.element_size() % 16 == 0
+                    for st in x.stride()[:-1]))
+
+
+def _count(wrapper, bf16):
+    """One launch of the wrapper's float32 or bfloat16 kernel."""
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _check(err, what):
@@ -203,8 +215,9 @@ def _check_flash(name, q, k, v, causal):
     _require(k.shape == v.shape == (b, h, t_k, d), name,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
              f"{tuple(q.shape)}")
-    _require(all(x.dtype == torch.float32 for x in (q, k, v)), name,
-             f"kernel takes float32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    _require(q.dtype in _FLASH_TYPES and k.dtype == v.dtype == q.dtype,
+             name, f"kernels take float32 or bfloat16 q, k and v of one "
+             f"type, got {q.dtype}/{k.dtype}/{v.dtype}")
     _require(d in _FLASH_HEAD_DIMS, name,
              f"head size {d} not in {_FLASH_HEAD_DIMS}")
     _require(all(x.stride(-1) == 1 for x in (q, k, v)), name,
@@ -217,27 +230,30 @@ def _check_flash(name, q, k, v, causal):
 
 
 def _flash_fwd(q, k, v, causal, scale, with_lse):
-    """Launch the forward kernel on (B, H, T, D) CUDA tensors: the output
-    laid out (B, T, H, D) (so the caller's head merge is a view) and,
-    with ``with_lse``, the rows' log-sum-exp f32 (B, H, T_q)."""
+    """Launch the forward kernel of q's type on (B, H, T, D) CUDA
+    tensors: the output in that type laid out (B, T, H, D) (so the
+    caller's head merge is a view) and, with ``with_lse``, the rows'
+    log-sum-exp f32 (B, H, T_q)."""
     name = "flash_attention"
     b, h, t_q, t_k, d = _check_flash(name, q, k, v, causal)
     _require(all(_aligned(x) for x in (q, k, v)), name,
              "q, k and v need 16-byte aligned base addresses and strides "
-             "(multiples of 4 elements)")
+             "(multiples of 4 float32 or 8 bfloat16 elements)")
     out = torch.empty((b, t_q, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device) \
         if with_lse else None
     strides = (ctypes.c_int64 * 12)(*[s for x in (q, k, v, out)
                                        for s in x.stride()[:3]])
-    fn = _fn("flash_attention", "mxt_flash_attention_f32", _FLASH_ARGS)
+    bf16 = q.dtype == torch.bfloat16
+    fn = _fn("flash_attention", "mxt_flash_attention_bf16" if bf16
+             else "mxt_flash_attention_f32", _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr() if with_lse else None, b, h, t_q, t_k, d,
              strides, float(scale), int(bool(causal)), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
-    flash_attention.launches += 1
+    _count(flash_attention, bf16)
     return out, lse
 
 
@@ -265,12 +281,14 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention. q, k, v: (B, H, T, D) or (BH, T, D). CPU
     tensors take :func:`flash_attention_plain` (differentiated by torch
     autograd); CUDA tensors launch the kernel of
-    ``csrc/flash_attention.cu`` (fp32, D in {16, 32, 64, 128}, unit
-    stride along D, 16-byte aligned base addresses and strides, causal
-    only with T_q == T_k) and count one launch. When a gradient is
-    needed on CUDA, the backward is :func:`flash_attention_bwd`. The
-    output has q's shape; on CUDA it is laid out (B, T, H, D) so the
-    caller's head merge is a view."""
+    ``csrc/flash_attention.cu`` for their type (float32, or bfloat16
+    computed in f32 and written in bfloat16; D in {16, 32, 64, 128},
+    unit stride along D, 16-byte aligned base addresses and strides,
+    causal only with T_q == T_k) and count one launch in ``launches``
+    (float32) or ``launches_bf16``. When a gradient is needed on CUDA,
+    the backward is :func:`flash_attention_bwd`. The output has q's
+    shape and type; on CUDA it is laid out (B, T, H, D) so the caller's
+    head merge is a view."""
     name = "flash_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -291,10 +309,13 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     forward's row log-sum-exp ``lse`` (B, H, T_q) or (BH, T_q). CPU
     tensors take :func:`flash_attention_bwd_plain` (which recomputes the
     softmax and ignores ``lse``); CUDA tensors launch the three kernels
-    of ``csrc/flash_attention_bwd.cu`` and count one launch. The kernel
-    takes what the forward kernel takes (fp32, D in {16, 32, 64, 128},
-    unit stride along D, causal only with T_q == T_k), any other strides,
-    and ``lse`` f32 contiguous; anything else raises."""
+    of ``csrc/flash_attention_bwd.cu`` for q's type and count one launch
+    in ``launches`` (float32) or ``launches_bf16``. The kernels take
+    what the forward kernels take (q, k, v, out and d_out float32, or
+    all bfloat16; D in {16, 32, 64, 128}, unit stride along D, causal
+    only with T_q == T_k), any other strides, and ``lse`` f32
+    contiguous; anything else raises. The gradients come out in q's
+    type, summed in f32 and rounded once."""
     name = "flash_attention_bwd"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -305,32 +326,33 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     _require(out.shape == d_out.shape == q.shape, name,
              f"out {tuple(out.shape)} / d_out {tuple(d_out.shape)} do not "
              f"match q {tuple(q.shape)}")
-    _require(out.dtype == d_out.dtype == torch.float32
+    _require(out.dtype == d_out.dtype == q.dtype
              and out.stride(-1) == 1 and d_out.stride(-1) == 1, name,
-             "out and d_out must be float32 with a contiguous head "
-             "dimension")
+             f"out and d_out must be {q.dtype} (q's type) with a "
+             f"contiguous head dimension, got {out.dtype}/{d_out.dtype}")
     _require(lse.dtype == torch.float32 and lse.is_contiguous()
              and lse.numel() == b * h * t_q, name,
              f"lse must be float32 contiguous (B, H, T_q), got "
              f"{lse.dtype} {tuple(lse.shape)}")
     _require(-(-max(t_q, t_k) // 64) * b * h < 2 ** 31, name,
              f"grid too large for {b} x {h} x {max(t_q, t_k)}")
-    grads = [torch.empty((b, t, h, d), dtype=torch.float32,
+    grads = [torch.empty((b, t, h, d), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
              for t in (t_q, t_k, t_k)]
     d_vec = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*[s for x in (q, k, v, out, d_out,
                                                   *grads)
                                        for s in x.stride()[:3]])
-    fn = _fn("flash_attention_bwd", "mxt_flash_attention_bwd_f32",
-             _FLASH_BWD_ARGS)
+    bf16 = q.dtype == torch.bfloat16
+    fn = _fn("flash_attention_bwd", "mxt_flash_attention_bwd_bf16" if bf16
+             else "mxt_flash_attention_bwd_f32", _FLASH_BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              d_out.data_ptr(), lse.data_ptr(), d_vec.data_ptr(),
              *[g.data_ptr() for g in grads], b, h, t_q, t_k, d, strides,
              float(scale), int(bool(causal)), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, bf16)
     return tuple(g.squeeze(1) for g in grads) if squeeze else tuple(grads)
 
 
@@ -341,9 +363,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     layer; block_tables: (B, W) int32 pool block ids; seq_lens: (B,)
     int32 visible tokens (0 = padding row, output discarded). CPU
     tensors take :func:`paged_attention_plain`; CUDA tensors launch the
-    split and merge kernels of ``csrc/paged_attention.cu`` and count one
-    launch per call. The caches are read in place, never copied: they
-    must be contiguous. ``seq_lens`` is never read on the host."""
+    split and merge kernels of ``csrc/paged_attention.cu`` for the
+    caches' type and count one launch per call in ``launches`` (float32
+    caches) or ``launches_bf16`` (bfloat16 caches, read into f32). q is
+    float32 either way, and so is the output. The caches are read in
+    place, never copied: they must be contiguous. ``seq_lens`` is never
+    read on the host."""
     name = "paged_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -362,8 +387,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
              and seq_lens.shape == (b,), name,
              f"tables {tuple(block_tables.shape)} / seq_lens "
              f"{tuple(seq_lens.shape)} do not match batch {b}")
-    _require(all(x.dtype == torch.float32 for x in (q, k_cache, v_cache)),
-             name, f"kernel takes float32, got {q.dtype}/{k_cache.dtype}")
+    _require(q.dtype == torch.float32 and k_cache.dtype == v_cache.dtype
+             and k_cache.dtype in _FLASH_TYPES, name,
+             f"kernels take a float32 q over float32 or bfloat16 caches, "
+             f"got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     _require(block_tables.dtype == torch.int32
              and seq_lens.dtype == torch.int32, name,
              "block_tables and seq_lens must be int32")
@@ -387,17 +414,17 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     # are neither written nor read
     scratch = torch.empty(b * h * splits * (2 + d), dtype=torch.float32,
                           device=q.device)
-    fn = _fn("paged_attention", "mxt_paged_attention_f32", _PAGED_ARGS)
+    bf16 = k_cache.dtype == torch.bfloat16
+    fn = _fn("paged_attention", "mxt_paged_attention_bf16" if bf16
+             else "mxt_paged_attention_f32", _PAGED_ARGS)
     err = fn(q.data_ptr(), q.stride(0), q.stride(1), k_cache.data_ptr(),
              v_cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
              out.data_ptr(), scratch.data_ptr(), b, h, d, nb, bt, w,
              float(scale), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
-    paged_attention.launches += 1
+    _count(paged_attention, bf16)
     return out
 
 
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
-paged_attention.launches = 0
+reset_launches()

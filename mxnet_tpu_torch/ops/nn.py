@@ -18,9 +18,12 @@ from .registry import register
 def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
                     flatten=True):
     """``x @ W.T + b`` with the reference's (num_hidden, in_units)
-    weight layout."""
+    weight layout. Mixed operands promote as the JAX op's
+    ``lax.dot_general`` does (f32 data x bf16 weight gives f32; the
+    weight's gradient comes back in its own type)."""
     x = data.reshape(data.shape[0], -1) if flatten else data
-    out = torch.matmul(x, weight.t())
+    ct = torch.promote_types(x.dtype, weight.dtype)
+    out = torch.matmul(x.to(ct), weight.t().to(ct))
     if not no_bias and bias is not None:
         out = out + bias
     return out
@@ -357,9 +360,13 @@ def layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     """Normalise over ``axis`` with the biased variance, as the
-    reference's LayerNorm does."""
-    mean = data.mean(dim=axis, keepdim=True)
-    var = (data - mean).square().mean(dim=axis, keepdim=True)
+    reference's LayerNorm does. The mean and the variance are taken in
+    at least f32 and rounded once to the data's type, as ``jnp.mean`` /
+    ``jnp.var`` do for 16-bit data; the rest runs in the data's type."""
+    xf = data.to(torch.promote_types(data.dtype, torch.float32))
+    mf = xf.mean(dim=axis, keepdim=True)
+    var = (xf - mf).square().mean(dim=axis, keepdim=True).to(data.dtype)
+    mean = mf.to(data.dtype)
     ax = axis % data.ndim
     bshape = tuple(data.shape[ax] if i == ax else 1
                    for i in range(data.ndim))

@@ -138,8 +138,36 @@ def dtype_name(dtype):
 
 
 def numpy_dtype(dtype):
-    """torch dtype -> numpy dtype."""
+    """torch dtype -> numpy dtype. numpy has no bfloat16 of its own:
+    ``ml_dtypes``' one (the JAX package's) is imported when first
+    asked for, and its absence raises."""
+    if dtype == torch.bfloat16:
+        return np.dtype(_ml_dtypes().bfloat16)
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _ml_dtypes():
+    try:
+        import ml_dtypes
+    except ImportError:
+        raise MXNetError(
+            "bfloat16 as a numpy array needs the ml_dtypes package, which "
+            "is not installed; read the values through torch or cast the "
+            "array to float32 first") from None
+    return ml_dtypes
+
+
+def bf16_to_numpy(t):
+    """A bfloat16 CPU tensor as a numpy array of ``ml_dtypes.bfloat16``
+    (the same bits)."""
+    return t.view(torch.int16).numpy().view(_ml_dtypes().bfloat16)
+
+
+def bf16_from_numpy(a):
+    """A numpy array of ``ml_dtypes.bfloat16`` as a bfloat16 tensor (the
+    same bits; needs no ml_dtypes)."""
+    a = np.ascontiguousarray(a).reshape(a.shape)  # keeps a 0-d shape
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 
 
 def infer_output(op_name, in_specs, attrs):

@@ -47,27 +47,30 @@ from ...gluon.block import HybridBlock
 from ...ops.attention import (flash_attention, flash_attention_plain,
                               paged_attention)
 from ...ops.nn import activation, fully_connected, layer_norm
+from ...ops.registry import dtype_name, torch_dtype
 from ...ops.tensor import embedding
 from ...random import generator
 
 
 class DecoderLayer(HybridBlock):
-    """Pre-norm causal self-attention + ReLU MLP (JAX ``_build_block``)."""
+    """Pre-norm causal self-attention + ReLU MLP (JAX ``_build_block``):
+    the Dense weights in ``dtype``, LayerNorm in float32."""
 
-    def __init__(self, d_model, num_heads, ff_mult, **kw):
+    def __init__(self, d_model, num_heads, ff_mult, dtype="float32", **kw):
         super().__init__(**kw)
         self._d_model = d_model
         self._num_heads = num_heads
         with self.name_scope():
             self.ln1 = nn.LayerNorm(in_channels=d_model)
             self.qkv = nn.Dense(3 * d_model, flatten=False,
-                                in_units=d_model)
-            self.proj = nn.Dense(d_model, flatten=False, in_units=d_model)
+                                in_units=d_model, dtype=dtype)
+            self.proj = nn.Dense(d_model, flatten=False, in_units=d_model,
+                                 dtype=dtype)
             self.ln2 = nn.LayerNorm(in_channels=d_model)
             self.ff1 = nn.Dense(ff_mult * d_model, flatten=False,
-                                in_units=d_model)
+                                in_units=d_model, dtype=dtype)
             self.ff2 = nn.Dense(d_model, flatten=False,
-                                in_units=ff_mult * d_model)
+                                in_units=ff_mult * d_model, dtype=dtype)
 
     def hybrid_forward(self, F, x):
         b, t, _ = x.shape
@@ -90,21 +93,22 @@ class DecoderLayer(HybridBlock):
 class DecoderLM(HybridBlock):
     """Embedding, ``num_layers`` :class:`DecoderLayer`, final LayerNorm
     and an untied vocabulary head: int tokens (B, T) -> logits
-    (B, T, vocab)."""
+    (B, T, vocab). Embedding and Dense weights in ``dtype``, LayerNorm
+    in float32, as the JAX ``_build_block``."""
 
     def __init__(self, vocab_size, d_model, num_layers, num_heads,
-                 ff_mult, **kw):
+                 ff_mult, dtype="float32", **kw):
         super().__init__(**kw)
         with self.name_scope():
-            self.embed = nn.Embedding(vocab_size, d_model)
+            self.embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
             self.layers = []
             for i in range(num_layers):
-                layer = DecoderLayer(d_model, num_heads, ff_mult)
+                layer = DecoderLayer(d_model, num_heads, ff_mult, dtype)
                 setattr(self, "layer%d" % i, layer)
                 self.layers.append(layer)
             self.ln_f = nn.LayerNorm(in_channels=d_model)
             self.head = nn.Dense(vocab_size, use_bias=False, flatten=False,
-                                 in_units=d_model)
+                                 in_units=d_model, dtype=dtype)
 
     def hybrid_forward(self, F, tokens):
         x = self.embed(tokens)
@@ -134,7 +138,11 @@ class GenerativeDecoder:
     parameters initialise through gluon (``Uniform(0.07)`` weights, zero
     biases, LayerNorm gamma 1 and beta 0) from a ``torch.Generator``
     seeded with ``seed``, on ``device`` (``cuda:0`` by default; raises
-    without CUDA unless ``"cpu"``). A JAX decoder's weights (its
+    without CUDA unless ``"cpu"``). ``dtype`` is float32 or bfloat16:
+    the Embedding and Dense weights and the paged pool take it, the
+    LayerNorm parameters stay float32, so the residual stream is f32
+    and the decode step's paged attention reads f32 queries over a
+    bf16 cache, as the JAX package's. A JAX decoder's weights (its
     ``param_tree()``, which holds its block's gluon parameters) load
     through :func:`params_from_jax` and :meth:`load_state_dict`.
     """
@@ -146,10 +154,10 @@ class GenerativeDecoder:
             raise MXNetError(
                 f"generate: d_model {d_model} not divisible by "
                 f"num_heads {num_heads}")
-        if dtype not in ("float32", torch.float32):
+        if dtype_name(dtype) not in ("float32", "bfloat16"):
             raise MXNetError(
                 f"generate: dtype {dtype!r} unsupported; the port's decode "
-                "kernels take float32")
+                "kernels take float32 or bfloat16 caches")
         device = resolve_device(device)
         self.vocab_size = int(vocab_size)
         self.d_model = int(d_model)
@@ -159,10 +167,10 @@ class GenerativeDecoder:
         self.ff_mult = int(ff_mult)
         self.max_prompt_tokens = int(max_prompt_tokens)
         self.eos_id = eos_id
-        self.dtype = torch.float32
+        self.dtype = torch_dtype(dtype)
         self.block = DecoderLM(self.vocab_size, self.d_model,
                                self.num_layers, self.num_heads,
-                               self.ff_mult)
+                               self.ff_mult, dtype_name(dtype))
         self.block.initialize(ctx=device, generator=generator(seed))
 
     @property
@@ -226,13 +234,19 @@ def params_from_jax(tree):
     """The JAX decoder's ``param_tree()`` (arrays convertible with
     ``np.asarray``) as a :meth:`GenerativeDecoder.state_dict` mapping:
     ``decoder.load_state_dict(params_from_jax(jax_decoder.param_tree()))``.
-    """
+    bfloat16 leaves stay bfloat16: they travel as float32, exact both
+    ways, so this needs no numpy bfloat16 type."""
     sd = {_sd_name(key, None): tree[key] for key in _TOP_PARAMS}
     for i, lp in enumerate(tree["layers"]):
         for key in _LAYER_PARAMS:
             sd[_sd_name(key, i)] = lp[key]
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+    return {k: _tensor_of(v) for k, v in sd.items()}
+
+
+def _tensor_of(value):
+    value = np.asarray(value)
+    t = torch.from_numpy(np.array(value, np.float32))
+    return t.to(torch.bfloat16) if value.dtype.name == "bfloat16" else t
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +316,11 @@ class DecodeSteps:
         x = embedding(tok, params["embed_w"])                # (1, T, d)
         for li, lp in enumerate(params["layers"]):
             q, k, v = _qkv(lp, x)                            # (1, T, d) each
-            pool.k[li][blk] = k.reshape(nblk, bt, dec.num_heads, hd)
-            pool.v[li][blk] = v.reshape(nblk, bt, dec.num_heads, hd)
+            # in the pool's type (JAX's .at[].set casts; index_put_ does not)
+            pool.k[li][blk] = k.reshape(nblk, bt, dec.num_heads,
+                                        hd).to(pool.dtype)
+            pool.v[li][blk] = v.reshape(nblk, bt, dec.num_heads,
+                                        hd).to(pool.dtype)
             a = flash_attention(_heads(q, dec.num_heads),
                                 _heads(k, dec.num_heads),
                                 _heads(v, dec.num_heads), causal=True)
@@ -340,8 +357,10 @@ class DecodeSteps:
             q, k, v = _qkv(lp, x)                            # (B, d) each
             # the token's own K/V lands in the cache BEFORE attention:
             # position p attends over [0, p] including itself
-            pool.k[li][blk, slot] = k.view(bsz, dec.num_heads, hd)
-            pool.v[li][blk, slot] = v.view(bsz, dec.num_heads, hd)
+            pool.k[li][blk, slot] = k.view(bsz, dec.num_heads,
+                                           hd).to(pool.dtype)
+            pool.v[li][blk, slot] = v.view(bsz, dec.num_heads,
+                                           hd).to(pool.dtype)
             a = paged_attention(q.view(bsz, dec.num_heads, hd), pool.k[li],
                                 pool.v[li], tab, seq_lens)   # (B, H, hd)
             x = _layer_tail(lp, x, a.reshape(bsz, dec.d_model))

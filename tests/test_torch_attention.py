@@ -474,3 +474,274 @@ def test_flash_bwd_two_pass_emulation_matches_plain(t_q, t_k, causal):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=FLASH_RTOL,
                                    atol=FLASH_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: the plain versions against the JAX package on bf16 inputs, and
+# the bf16 kernels' arithmetic emulated
+# ---------------------------------------------------------------------------
+
+# tests/test_pallas_attention.py's bound for the bf16 Pallas kernel against
+# an f32 dense run on the same bf16 inputs; chip_smoke.py holds the bf16
+# kernels to it elementwise, and to no more than BF16_F64_RATIO times the
+# plain bf16 version's distance (relative L2) from an f64 run
+BF16_RTOL, BF16_ATOL = 0.1, 0.05
+BF16_F64_RATIO = 2.0
+# one bf16 rounding: a value x rounds to within half an ulp, and an ulp of
+# a bf16 value is at most 2^-7 of it; two roundings of nearly equal f32
+# values land at most one ulp apart
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16(*arrays):
+    """bf16 torch tensors of f32 numpy arrays (rounded to nearest even),
+    and the same values as f32 numpy arrays for the JAX package."""
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return ts, [t.float().numpy() for t in ts]
+
+
+def _jbf16(a):
+    import jax.numpy as jnp
+    return jnp.asarray(a, jnp.bfloat16)    # exact: a holds bf16 values
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_bf16_matches_jax_reference_and_pallas_kernel(causal):
+    """The plain version in bf16 is the JAX ``_dense_reference`` in bf16
+    (what the JAX ``flash_attention`` runs below FLASH_MIN_SEQ): the same
+    roundings (scaled q, scores, probabilities, output), in another
+    summation order, so at most a few bf16 ulps apart: 4 ulps of the
+    output's scale (|o| <= max |v|). Against the Pallas kernel in
+    interpret mode, which computes in f32 inside as the Hopper kernel
+    does, it meets the JAX bf16 bound."""
+    b, h, t, d = 1, 2, 256, 32
+    (q, k, v), (qn, kn, vn) = _bf16(*_flash_inputs((b, h, t, d), seed=30))
+    got = att.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ref = np.asarray(pk._dense_reference(
+        *(_jbf16(x.reshape(b * h, t, d)) for x in (qn, kn, vn)), causal,
+        d ** -0.5).astype(np.float32)).reshape(b, h, t, d)
+    kern = pk.flash_attention(*(_jbf16(x) for x in (qn, kn, vn)),
+                              causal=causal, force=True, block_q=128,
+                              block_k=128)
+    assert kern.dtype.name == "bfloat16"
+    dense32 = np.asarray(pk._dense_reference(
+        qn.reshape(b * h, t, d), kn.reshape(b * h, t, d),
+        vn.reshape(b * h, t, d), causal, d ** -0.5)).reshape(b, h, t, d)
+    assert np.abs(got - ref).max() <= 4 * BF16_ULP * np.abs(vn).max()
+    np.testing.assert_allclose(got, np.asarray(kern, np.float32),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    np.testing.assert_allclose(got, dense32, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+def _flash_bf16_emulated(q, k, v, causal, stage=64, warps=4):
+    """csrc/flash_attention.cu's bf16 kernel on (BH, T, D) bf16: S = Q K^T
+    from bf16 operands with f32 sums (a product of two bf16 values is
+    exact in f32), scaled in f32; the f32 online softmax split as the
+    fp32 kernel's (64-key stages, 4 warps of 16 keys, merged at the end);
+    P rounded to bf16 (nearest even) for the P V product, the row sums
+    taken from the f32 P; the output rounded once to bf16."""
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    rows = torch.arange(t_q)[:, None]
+    chunk = stage // warps
+    m = torch.full((warps, bh, t_q), att.NEG_INF)
+    l = torch.zeros(warps, bh, t_q)
+    acc = torch.zeros(warps, bh, t_q, d)
+    for s0 in range(0, t_k, stage):
+        for w in range(warps):
+            c0 = s0 + w * chunk
+            if c0 >= t_k:
+                continue
+            keys = torch.arange(c0, min(c0 + chunk, t_k))
+            ok = (keys[None, :] <= rows) if causal else \
+                torch.ones(t_q, len(keys), dtype=torch.bool)
+            sc = torch.where(ok, (qf @ kf[:, keys].transpose(1, 2))
+                             * d ** -0.5, torch.tensor(att.NEG_INF))
+            mn = torch.maximum(m[w], sc.max(-1).values)
+            alpha = torch.exp(m[w] - mn)
+            p = torch.where(ok, torch.exp(sc - mn[..., None]),
+                            torch.tensor(0.0))
+            l[w] = l[w] * alpha + p.sum(-1)
+            acc[w] = acc[w] * alpha[..., None] \
+                + p.to(torch.bfloat16).float() @ vf[:, keys]
+            m[w] = mn
+    f = torch.exp(m - m.max(0).values)
+    out = (acc * f[..., None]).sum(0) \
+        / (l * f).sum(0).clamp_min(1e-30)[..., None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", [(16, 16), (48, 64), (512, 64), (130, 128)])
+def test_flash_bf16_emulation_meets_chip_bound(t, d, causal):
+    """The bf16 kernel's arithmetic meets the bound chip_smoke.py holds the
+    kernel to: within the JAX bf16 bound of an f32 dense run elementwise,
+    and no further from an f64 run than twice the plain bf16 version."""
+    (q, k, v), (qn, kn, vn) = _bf16(*_flash_inputs((2, t, d), seed=40 + t))
+    got = _flash_bf16_emulated(q, k, v, causal).float().numpy()
+    exact = att.flash_attention_plain(
+        *(x.double() for x in (q, k, v)), causal=causal).numpy()
+    plain = att.flash_attention_plain(q, k, v, causal=causal).float().numpy()
+    dense32 = np.asarray(pk._dense_reference(qn, kn, vn, causal, d ** -0.5))
+    np.testing.assert_allclose(got, dense32, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert _rel_l2(got, exact) <= BF16_F64_RATIO * _rel_l2(plain, exact)
+
+
+def test_flash_bf16_emulation_has_no_wider_rounding_than_the_output():
+    """What the bound above allows the kernel: its distance from f64 is
+    the output's own bf16 rounding and little more (P rounded to bf16
+    adds under half of it), where the plain bf16 version, which rounds
+    the scores too, sits further off. chip_smoke.py holds the kernel to
+    the same 1.5x on the card."""
+    (q, k, v), _ = _bf16(*_flash_inputs((2, 512, 64), seed=41))
+    exact = att.flash_attention_plain(*(x.double() for x in (q, k, v)),
+                                      causal=True)
+    got = _flash_bf16_emulated(q, k, v, True).double()
+    rounded = exact.to(torch.bfloat16).double()
+    plain = att.flash_attention_plain(q, k, v, causal=True).double()
+    assert _rel_l2(got, exact) <= 1.5 * _rel_l2(rounded, exact)
+    assert _rel_l2(plain, exact) > _rel_l2(got, exact)
+
+
+def _jax_flash_grads_bf16(q, k, v, g, causal):
+    import jax
+    import jax.numpy as jnp
+
+    def f(q, k, v):
+        out = pk.flash_attention(q, k, v, causal=causal, force=True,
+                                 interpret=True, block_q=64, block_k=64)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    out = pk.flash_attention(q, k, v, causal=causal, force=True,
+                             interpret=True, block_q=64, block_k=64)
+    grads = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    return np.asarray(out, np.float32), [np.asarray(x, np.float32)
+                                         for x in grads]
+
+
+@pytest.mark.parametrize("case", ["causal", "rect"])
+def test_flash_bf16_gradient_matches_jax_grad_of_pallas_kernel(case):
+    """bf16 q, k, v: ``jax.grad`` of the interpret-mode Pallas forward
+    (its VJP, ``_chunked_attention_bwd``, computes in f32 from the bf16
+    inputs and rounds each gradient once to bf16). The plain backward
+    given the same forward output runs the same f32 arithmetic in another
+    order: at most one bf16 ulp apart. torch autograd through the CPU
+    path (the plain forward in bf16) meets the JAX bf16 bound."""
+    rng = np.random.default_rng({"causal": 50, "rect": 51}[case])
+    t_k = 128 if case == "causal" else 192
+    causal = case == "causal"
+    (q, k, v, g), (qn, kn, vn, gn) = _bf16(
+        rng.standard_normal((2, 128, 16)).astype(np.float32),
+        *(rng.standard_normal((2, t_k, 16)).astype(np.float32)
+          for _ in range(2)),
+        rng.standard_normal((2, 128, 16)).astype(np.float32))
+    jout, want = _jax_flash_grads_bf16(*(_jbf16(x) for x in (qn, kn, vn)),
+                                       _jbf16(gn), causal)
+    out = torch.from_numpy(jout).to(torch.bfloat16)
+    plain = att.flash_attention_bwd_plain(q, k, v, out, g, causal,
+                                          block_q=48)
+    for a, w in zip(plain, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=BF16_ULP,
+                                   atol=1e-6)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    auto = torch.autograd.grad(att.flash_attention(*leaves, causal=causal),
+                               leaves, g)
+    for a, w in zip(auto, want):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("t_q,t_k,causal", [(100, 100, True),
+                                            (130, 70, False)])
+def test_flash_bwd_bf16_emulation_meets_chip_bound(t_q, t_k, causal):
+    """The bf16 backward kernel is the fp32 two-pass kernel reading bf16
+    into f32 and rounding each gradient once: its emulation, from the
+    emulated bf16 forward's output and log-sum-exp, is no further from
+    an f64 backward than twice the plain bf16 backward (from the plain
+    bf16 forward's output), and within the JAX bf16 bound of it."""
+    rng = np.random.default_rng(t_q * 1000 + t_k + 7)
+    (q, k, v, g), _ = _bf16(
+        rng.standard_normal((3, t_q, 16)).astype(np.float32),
+        *(rng.standard_normal((3, t_k, 16)).astype(np.float32)
+          for _ in range(2)),
+        rng.standard_normal((3, t_q, 16)).astype(np.float32))
+    scale = 16 ** -0.5
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    out = _flash_bf16_emulated(q, k, v, causal)
+    got = [x.to(torch.bfloat16) for x in _bwd_emulated(
+        qf, kf, vf, out.float(), gf, _lse(qf, kf, causal, scale), causal,
+        scale)]
+    qd, kd, vd, gd = (x.double() for x in (q, k, v, g))
+    exact = att.flash_attention_bwd_plain(
+        qd, kd, vd, att.flash_attention_plain(qd, kd, vd, causal), gd,
+        causal)
+    plain = att.flash_attention_bwd_plain(
+        q, k, v, att.flash_attention_plain(q, k, v, causal), g, causal)
+    for a, p, e in zip(got, plain, exact):
+        assert _rel_l2(a.float(), e) <= BF16_F64_RATIO * _rel_l2(p.float(), e)
+        np.testing.assert_allclose(a.float().numpy(), p.float().numpy(),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+def _paged_bf16_case(case):
+    """The paged case with bf16 caches: torch bf16 caches, and the same
+    values as JAX bf16 arrays; q stays f32, as the bf16 decoder's decode
+    step hands it over."""
+    q, kc, vc, tables, lens = _paged_case() if case == "small" \
+        else _wide_case()
+    (kt, vt), (kn, vn) = _bf16(kc, vc)
+    return q, (kt, vt), (kn, vn), tables, lens
+
+
+@pytest.mark.parametrize("case", ["small", "wide"])
+def test_paged_plain_bf16_cache_matches_jax_reference_and_pallas_kernel(
+        case):
+    """f32 q over bf16 caches: each side reads the bf16 values exactly
+    into f32, so the paged bound of the f32 case holds."""
+    q, (kt, vt), (kn, vn), tables, lens = _paged_bf16_case(case)
+    got = att.paged_attention(torch.from_numpy(q), kt, vt,
+                              *_t(tables, lens))
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    kj, vj = _jbf16(kn), _jbf16(vn)
+    ref = np.asarray(pk._paged_gather_reference(
+        q, kj, vj, tables, lens, q.shape[-1] ** -0.5))
+    kern = np.asarray(pk.paged_attention(q, kj, vj, tables, lens,
+                                         force=True))
+    live = lens > 0
+    assert np.abs(got - ref)[live].max() < PAGED_ATOL
+    assert np.abs(got - kern)[live].max() < PAGED_ATOL
+    # the split-KV emulation reads the same bf16 values
+    split = _paged_split_emulated(torch.from_numpy(q), kt.float(),
+                                  vt.float(), *_t(tables, lens), 64)
+    assert np.abs(split.numpy() - ref)[live].max() < PAGED_ATOL
+
+
+def test_bf16_kernel_entry_types_on_cpu_and_launch_counts():
+    """On the CPU every type takes the plain version and counts no
+    launch; the wrappers refuse mixed flash types (no quiet cast)."""
+    att.reset_launches()
+    (q, k, v), _ = _bf16(*_flash_inputs((1, 2, 16, 8), seed=60))
+    assert att.flash_attention(q, k, v, causal=True).dtype == torch.bfloat16
+    pq, kc, vc, tables, lens = _paged_case()
+    (kt, vt), _ = _bf16(kc, vc)
+    assert att.paged_attention(torch.from_numpy(pq), kt, vt,
+                               *_t(tables, lens)).dtype == torch.float32
+    assert all(fn.launches == fn.launches_bf16 == 0 for fn in (
+        att.flash_attention, att.flash_attention_bwd, att.paged_attention))
+    b, h, t, d = 1, 2, 16, 16
+    x16 = torch.zeros((b, h, t, d), dtype=torch.bfloat16, device="meta")
+    x32 = torch.zeros((b, h, t, d), device="meta")
+    for args in ((x16, x32, x32), (x16.half(), x16.half(), x16.half())):
+        with pytest.raises(MXNetError):
+            att._check_flash("flash_attention", *args, True)

@@ -25,6 +25,9 @@ from mxnet_tpu_torch.serving.generate import BlockPool, GenerativeDecoder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+# numpy's bfloat16: the card's machine need not have it, so the port
+# imports it only inside the function that turns bf16 into numpy
+LAZY = ("ml_dtypes",)
 
 
 def _port_sources():
@@ -59,7 +62,8 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.gluon.loss\n"
         "import mxnet_tpu_torch.gluon.trainer\n"
         "new = set(sys.modules) - before\n"
-        f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n")
+        f"print(sorted(m for m in new if m.split('.')[0] in "
+        f"{FORBIDDEN + LAZY!r}))\n")
     # -I: no PYTHONPATH or user site, so nothing outside the port can
     # import jax first
     out = subprocess.run([sys.executable, "-I", "-c", code],
@@ -83,6 +87,39 @@ def test_sources_import_no_jax_and_no_mxnet_tpu(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path}:{node.lineno} imports {name}"
+
+
+def _module_imports(tree):
+    """Names the module imports when it is imported: its top-level
+    statements, inside ``if`` / ``try`` blocks too, not in functions."""
+    todo, names = list(tree.body), []
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        elif isinstance(node, (ast.If, ast.Try)):
+            todo += node.body + node.orelse + getattr(node, "finalbody", [])
+            todo += [s for h in getattr(node, "handlers", []) for s in h.body]
+    return names
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_ml_dtypes_only_lazily(path):
+    """No module of the port imports ml_dtypes when it is imported, and
+    chip_smoke.py not at all (it reads bf16 values through torch)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    if path.endswith("chip_smoke.py"):
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names] + [
+            n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.level == 0]
+    else:
+        names = _module_imports(tree)
+    assert not [n for n in names if n.split(".")[0] in LAZY], path
 
 
 def _require_no_cuda():
@@ -138,9 +175,14 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 
 def test_unsupported_dtype_raises():
+    """float32 and bfloat16 decoders are served; float16, which no path
+    of the JAX package produces, waits for its kernels and raises."""
     with pytest.raises(MXNetError):
         GenerativeDecoder(vocab_size=10, d_model=8, num_layers=1,
-                          num_heads=2, dtype="bfloat16", device="cpu")
+                          num_heads=2, dtype="float16", device="cpu")
+    dec = GenerativeDecoder(vocab_size=10, d_model=8, num_layers=1,
+                            num_heads=2, dtype="bfloat16", device="cpu")
+    assert dec.dtype == torch.bfloat16
 
 
 def _tiny_symbol():
