@@ -119,7 +119,9 @@ Phases (any failure exits non-zero and prints no result line):
    small grid, each within the JAX package's bf16 bound (rtol 0.1 /
    atol 0.05) and no further from an f64 run on the same bf16 inputs
    than twice the plain bf16 version (the backward also within one bf16
-   ulp of the plain backward given the same forward output); K4 over
+   ulp of the plain backward given the same forward output, and given
+   unaligned views of its inputs the bits it gives on aligned copies,
+   and the same bits from two calls at the LM shape); K4 over
    bf16 caches with f32 queries against its plain version (2e-5); each
    timed at the path's shape beside its bound and the library call
    (SDPA's bf16 forward, and forward plus backward; K4 at B 32 and B 1,
@@ -381,11 +383,14 @@ def flash_bounds(t):
             "bytes" if mem_s >= tf32_s else "operations")
 
 
-def flash_sass(build, kernel="flash_attention_kernel", kind="TF32"):
-    """The flash kernel's SASS must run both products on the tensor cores
-    in ``kind`` (HMMA ... TF32 / BF16 from mma.sync, or HGMMA): cuobjdump
-    on the built library, counting the instructions of the functions of
-    ``kernel`` (the fp32 kernel, or ``flash_attention_bf16_kernel``)."""
+def flash_sass(build, lib="flash_attention", kernel="flash_attention_kernel",
+               kind="TF32", count=4):
+    """The SASS of ``kernel``'s instances in the built library ``lib``
+    must run their products on the tensor cores: cuobjdump, counting in
+    each function whose name holds ``kernel`` the HMMA instructions of
+    ``kind`` (TF32 or BF16, from mma.sync) or, for BF16, HGMMA (wgmma);
+    kind "HGMMA" counts HGMMA alone. ``count`` functions must have some:
+    one per head size and pass."""
     tool = None
     for cand in ("cuobjdump", os.path.join(os.environ.get(
             "CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")):
@@ -393,21 +398,23 @@ def flash_sass(build, kernel="flash_attention_kernel", kind="TF32"):
             tool = found or cand
             break
     check(tool is not None, "cuobjdump not found: cannot check the SASS")
-    lib = str(build._target("flash_attention"))
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
+    sass = subprocess.run([tool, "-sass", str(build._target(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
         elif fn and kernel in fn and (
-                ("HMMA" in line and kind in line) or "HGMMA" in line):
+                "HGMMA" in line if kind == "HGMMA" else
+                ("HMMA" in line and kind in line)
+                or (kind == "BF16" and "HGMMA" in line)):
             counts[fn] = counts.get(fn, 0) + 1
-    check(len(counts) == 4 and all(counts.values()),
-          f"{kernel}: tensor-core {kind} instructions per kernel "
-          f"instance {counts} (want all 4 head sizes)")
-    log(f"{kernel} SASS: {kind} tensor-core instructions per head "
-        "size " + json.dumps(sorted(counts.values())))
+    check(len(counts) == count and all(counts.values()),
+          f"{lib} {kernel}: tensor-core {kind} instructions per kernel "
+          f"instance {counts} (want all {count})")
+    log(f"{lib} {kernel} SASS: {kind} tensor-core instructions per "
+        "instance " + json.dumps(sorted(counts.values())))
     return counts
 
 
@@ -2015,8 +2022,8 @@ def lm_kernel_group(name):
     if "flash_attention_kernel" in low \
             or "flash_attention_bf16_kernel" in low:
         return "flash_fwd"
-    if "dkdv_kernel" in low or "dq_kernel" in low \
-            or "bwd_dot_kernel" in low:
+    if any(k in low for k in ("dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
+                              "dq_bf16_kernel", "bwd_dot_kernel")):
         return "flash_bwd"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma")):
         return "matmul"
@@ -2278,12 +2285,23 @@ BF16_ROUND_RATIO = 1.5
 # may land one bf16 ulp (2^-7 of the value at most) apart
 BF16_ULP = 2.0 ** -7
 BF16_BWD_RTOL, BF16_BWD_ATOL = BWD_RTOL + BF16_ULP, BWD_ATOL
+# the bf16 K3 kernels' earlier designs at the LM shape, measured by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W: the forward on 16-row
+# mma.sync CTAs, the backward on the fp32 FMA pipes reading bf16
+BF16_FWD_EARLIER_MS, BF16_BWD_EARLIER_MS = 0.5900, 6.476
 
 
 def rel_l2(a, b):
     b = b.double()
     return (torch.linalg.vector_norm(a.double() - b)
             / torch.linalg.vector_norm(b).clamp_min(1e-300)).item()
+
+
+def bound_share(a, b, rtol, atol):
+    """The largest |a - b| as a share of atol + rtol |b|: at most 1 where
+    ``within`` holds."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
 
 
 def within(a, b, rtol, atol):
@@ -2313,7 +2331,7 @@ def phase_flash_bf16(att, build, dev):
     """bf16 K3 forward: every prefill bucket at every head size and the
     decoder-LM shape against the plain bf16 version and an f64 run on the
     same inputs; timed at the LM shape."""
-    flash_sass(build, "flash_attention_bf16_kernel", "BF16")
+    flash_sass(build, kernel="flash_attention_bf16_kernel", kind="HGMMA")
     gen = torch.Generator().manual_seed(SEED + 13)
     cases = [(1, D_MODEL // hd, t, hd, False) for hd in (16, 32, 64, 128)
              for t in (16, 32, 64, 128, 256, 512)]
@@ -2364,7 +2382,8 @@ def phase_flash_bf16(att, build, dev):
     q, k, v = lm_qkv_bf16(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
     row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
                      "D": LM_HEAD_DIM, "causal": True},
-           "f64_ratio_max": worst, "rounding_ratio_max": worst_round}
+           "f64_ratio_max": worst, "rounding_ratio_max": worst_round,
+           "earlier_ms": BF16_FWD_EARLIER_MS}
     row["ms"], row["launch_ms"] = measure(
         lambda: att.flash_attention(q, k, v, True), iters=20)
     qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -2393,11 +2412,54 @@ def phase_flash_bf16(att, build, dev):
             "shape": row["shape"]}
 
 
-def phase_flash_bwd_bf16(att, dev):
+def unaligned_bwd_bf16(att, dev, gen):
+    """The bf16 backward's cp.async loads need 16-byte aligned inputs:
+    given views that are not (a narrow of a wider tensor, as autograd
+    hands back the gradient of a concatenation), it gives the bits it
+    gives on aligned copies, within phase 13's bound of the plain
+    backward."""
+    b, h, t, d, pad = 2, 4, 100, 64, 3
+    q, k, v = (torch.randn((b, h, t, d), generator=gen).to(dev).bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    head = torch.randn((b, h, t, pad), generator=gen).to(dev).bfloat16()
+    out = att.flash_attention(q, k, v, True)
+    g_cat = torch.randn((b, h, t, pad + d), generator=gen).to(dev).bfloat16()
+    got = torch.autograd.grad(torch.cat([head, out], -1), (q, k, v), g_cat)
+    d_out = g_cat[..., pad:]
+    check(not att._aligned(d_out), "the narrowed d_out is aligned")
+    q, k, v, out = (x.detach() for x in (q, k, v, out))
+    want = att.flash_attention_bwd_plain(q, k, v, out, d_out, True)
+    _, lse = att._flash_fwd(q, k, v, True, d ** -0.5, with_lse=True)
+    aligned = att.flash_attention_bwd(q, k, v, out, d_out.contiguous(), lse,
+                                      True)
+    views = []
+    for x in (q, k, v):
+        wide = torch.zeros((b, h, t, pad + d), dtype=x.dtype, device=dev)
+        wide[..., pad:] = x
+        views.append(wide[..., pad:])
+    direct = att.flash_attention_bwd(*views, out, d_out, lse, True)
+    torch.cuda.synchronize()
+    for name, a, dr, al, w in zip(("dq", "dk", "dv"), got, direct, aligned,
+                                  want):
+        ok, e = within(a, w, BF16_BWD_RTOL, BF16_BWD_ATOL)
+        check(ok, f"flash_attention_bwd bf16 unaligned d_out: {name} off "
+              f"the plain backward by {e:.3e}")
+        check(torch.equal(a, al) and torch.equal(dr, al),
+              f"flash_attention_bwd bf16: {name} from unaligned views "
+              f"differs from the aligned call's bits")
+    log(f"flash_attention_bwd bf16 B={b} H={h} T={t} D={d} causal: "
+        f"unaligned views (d_out through autograd; q, k, v and d_out "
+        f"called directly) give the aligned call's bits")
+
+
+def phase_flash_bwd_bf16(att, build, dev):
     """bf16 K3 backward through the path's autograd Function, against
     the plain backward given the same forward output, and both pipelines
-    (kernels; plain bf16 forward and backward) against an f64 run; timed
-    at the LM shape beside SDPA's bf16 backward."""
+    (kernels; plain bf16 forward and backward) against an f64 run; the
+    same bits from two calls at the LM shape; timed there beside SDPA's
+    bf16 backward. Both passes run their products on the tensor cores
+    at every head size."""
+    flash_sass(build, "flash_attention_bwd", "_bf16_kernel", "BF16", 8)
     gen = torch.Generator().manual_seed(SEED + 14)
     # the forward's grid (every prefill bucket at every head size, as
     # views of one projection), the LM shape, and rectangular / ragged
@@ -2406,7 +2468,7 @@ def phase_flash_bwd_bf16(att, dev):
     cases += [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, "lm"),
               (2, 4, 128, 192, 64, False, "dense"),
               (2, 4, 100, 100, 64, True, "dense")]
-    err, worst = 0.0, 0.0
+    err, worst, share = 0.0, 0.0, 0.0
     for b, h, t_q, t_k, d, causal, layout in cases:
         if layout == "lm":
             q, k, v = lm_qkv_bf16(b, t_q, h, d, dev, gen, requires_grad=True)
@@ -2439,6 +2501,8 @@ def phase_flash_bwd_bf16(att, dev):
                                     plain):
             check(a.dtype == torch.bfloat16, f"bf16 {name} is {a.dtype}")
             ok, e = within(a, w, BF16_BWD_RTOL, BF16_BWD_ATOL)
+            share = max(share, bound_share(a, w, BF16_BWD_RTOL,
+                                           BF16_BWD_ATOL))
             ok_x, _ = within(a, x, BF16_RTOL, BF16_ATOL)
             r_kernel, r_plain = rel_l2(a, x), rel_l2(p, x)
             errs.append(e)
@@ -2457,18 +2521,38 @@ def phase_flash_bwd_bf16(att, dev):
         err = max(err, *errs)
         worst = max(worst, *ratios)
         del q, k, v, out, d_out, got, want, exact, plain
+    unaligned_bwd_bf16(att, dev, gen)
     torch.cuda.empty_cache()
 
     q, k, v = lm_qkv_bf16(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
     out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5,
                               with_lse=True)
     d_out = torch.randn(out.shape, generator=gen).to(dev).bfloat16()
+    # no atomics: every gradient is written once, in a fixed order
+    first = att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+    again = att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    check(same, "flash_attention_bwd bf16: two calls at the LM shape "
+          "differ in their bits")
+    del first, again
     row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
                      "D": LM_HEAD_DIM, "causal": True},
-           "f64_ratio_max": worst}
+           "f64_ratio_max": worst, "bound_share_max": share,
+           "bitwise_run_to_run": same, "earlier_ms": BF16_BWD_EARLIER_MS}
     row["ms"], row["launch_ms"] = measure(
         lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
         iters=20)
+    # device ms of each of the three launches: the Dv dot, the dK/dV
+    # pass, the dQ pass
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+        torch.cuda.synchronize()
+    row["passes_ms"] = {tag: sum(e.self_device_time_total
+                                 for e in prof.key_averages()
+                                 if tag in e.key) / 5 / 1e3
+                        for tag in ("bwd_dot_kernel", "dkdv_bf16_kernel",
+                                    "dq_bf16_kernel")}
     row["plain_ms"], _ = measure(
         lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
         iters=5)
@@ -2494,8 +2578,10 @@ def phase_flash_bwd_bf16(att, dev):
     row["bound_ms"] = max(mem_s, op_s) * 1e3
     row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
     row["bytes"], row["flops"] = nbytes, flops
-    # the kernel runs its products on the fp32 FMA pipes
-    row["fp32_fma_bound_ms"] = max(mem_s, flops / FP32_FLOPS_PER_S) * 1e3
+    # the kernel's own floor on the tensor cores: 10 products of 2 D flops
+    # a visible pair (S and dP twice, dV, dK and dQ from two bf16 pieces
+    # of P and dS each) against the function's 5
+    row["kernel_floor_ms"] = max(mem_s, 2 * op_s) * 1e3
     log("flash_bwd_bf16_timing " + json.dumps(row))
     del q, k, v, out, lse, d_out, ql, kl, vl
     torch.cuda.empty_cache()
@@ -2796,7 +2882,7 @@ def main():
     phase_gluon_train(att, i8, fo, dev, rng, here)
     launches.update(phase_lm_train(att, i8, fo, dev, rng))
     kernels += [phase_flash_bf16(att, _build, dev),
-                phase_flash_bwd_bf16(att, dev),
+                phase_flash_bwd_bf16(att, _build, dev),
                 phase_paged(att, dev, rng, torch.bfloat16,
                             kernels[2]["shape"]["decode_lens"])]
     launches.update(phase_lm_train_bf16(att, i8, fo, dev, rng))

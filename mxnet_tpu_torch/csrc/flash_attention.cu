@@ -75,22 +75,40 @@
 // 4 * 96 * 2048 * 64 * 2 + 96 * 2048 * 4 = 101.4 MB, 0.030 ms at 3.35 TB/s;
 // operations 4 * D flops per visible pair, 96 * 2048 * 2049 / 2 = 201.4M
 // pairs, 51.6 GFLOP, 0.052 ms at 989 TFLOP/s bf16: bound 0.052 ms, by
-// operations. Design, the fp32 kernel's skeleton with:
-//  - mma.sync.m16n8k16.bf16 with f32 accumulators, one product per k16
-//    step (the fp32 kernel does three TF32 products per k8 step). bf16
-//    operands multiply exactly in f32, and the scale is applied to S in
-//    f32, so q is never rounded again;
-//  - rows of D + 8 bf16 in shared memory: 32-bit fragment loads of Q and
-//    K hit 32 distinct banks; cp.async moves 8 values a copy;
-//  - Q's A fragments are read into registers once;
-//  - P needs no key permutation: the m16n8k16 accumulator layout of the
-//    warp's two S tiles, (row g, keys 2t, 2t + 1) and (row g + 8, the
-//    same) then keys + 8, is the A fragment layout of the P V product. P
-//    is rounded to bf16 (nearest even) for that product, as the TPU's MXU
-//    rounds it at default precision; the row sums use the f32 P. V's B
-//    fragment pairs keys 2t and 2t + 1 of one column from two rows;
-//  - the four warps' partials merge in f32 (the stage area reused) and
-//    each output is rounded once to bf16.
+// operations. Design, for Hopper's warpgroup products:
+//  - one CTA per (128-row Q tile, head, batch): two consumer warpgroups of
+//    64 rows each and one producer warp. Each consumer walks every key its
+//    own rows can see, in 64-key stages, with one online softmax per row:
+//    no split of the keys over warps and no merge. Each K/V byte staged in
+//    shared memory serves 128 rows. Grid heaviest first, as the fp32
+//    kernel's; causal, a stage above a warpgroup's diagonal is never
+//    loaded or walked, and only the diagonal stage (and one past Tk) is
+//    masked;
+//  - the producer warp's one thread loads Q once and K/V stages into a
+//    ring of two by TMA (`cp.async.bulk.tensor`, (D, T, H, B) tensor maps
+//    built on the host with cuTensorMapEncodeTiled, found at run time
+//    through cudaGetDriverEntryPoint so the library needs no -lcuda),
+//    each stage signalled through a `full` mbarrier with its byte count;
+//    consumers release it through an `empty` mbarrier. TMA writes the
+//    tiles in column chunks of min(D, 64) values with the 128/64/32-byte
+//    swizzle wgmma reads (D 128: two chunks), zero past T, so q, k, v are
+//    read as the strided views they are (16-byte alignment is checked by
+//    the wrapper);
+//  - S = Q K^T is `wgmma.m64n64k16` with Q and K from shared memory, both
+//    K-major; the scale is applied to S in f32, so q is never rounded
+//    again;
+//  - P = exp(S - m) in f32 (on the SFU: `ex2.approx` of S log2(e) - m
+//    log2(e), one FMA and one SFU instruction), the row sums from the f32
+//    P, P rounded once to bf16 (nearest even) for O += P V, as the TPU's
+//    MXU rounds it at default precision. That product is `wgmma.m64nDk16` with P from
+//    registers: the accumulator layout of S's n8 tiles 2kk and 2kk + 1 is
+//    the A fragment of k-step kk as it stands. V's (keys x D) tile is the
+//    MN-major B operand (wgmma's transposed-B mode for bf16), so it is not
+//    staged transposed;
+//  - the output is rounded once to bf16, and lse = m + log(l) in f32.
+// The softmax of one warpgroup does not overlap its own products; the
+// other warpgroup's, and a second CTA's on the SM for D <= 64, fill in.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -398,277 +416,521 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ---------------------------------------------------------------------------
-// bf16 in and out, f32 inside (the TPU kernel's `.astype(jnp.float32)`)
+// bf16 in and out, f32 inside (the TPU kernel's `.astype(jnp.float32)`):
+// wgmma on 64-row warpgroup tiles, K/V by TMA
 // ---------------------------------------------------------------------------
 
+namespace wg {
+
+constexpr int kRows = 64;                 // query rows per consumer warpgroup
+constexpr int kConsumers = 2;             // consumer warpgroups
+constexpr int kBQ = kConsumers * kRows;   // query rows per CTA
+constexpr int kBK = 64;                   // keys per stage
+constexpr int kStages = 2;
+constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
+
+// a tile is stored in column chunks of CW = min(D, 64) values (one TMA box
+// each), rows of CW * 2 bytes swizzled as TMA's SWIZZLE_{32,64,128}B writes
+// them; chunk c of an R-row tile at c * R * CW * 2 bytes
 template <int D>
-constexpr int bf16_smem_bytes() {
-  // Q, then two stages of (K, V), rows of D + 8 bf16; the final merge
-  // reuses the stage area as f32 (row maxima, row sums, 4 x 16 x (D + 4))
-  constexpr int q = kBQ * (D + 8) * 2;
-  constexpr int stages = 2 * 2 * kBK * (D + 8) * 2;
-  constexpr int merge = (2 * kWarps * kBQ + kWarps * kBQ * (D + 4)) * 4;
-  return q + (stages > merge ? stages : merge);
+struct Layout {
+  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int RB = CW * 2;           // row bytes: 32, 64 or 128
+  static constexpr int NCH = D / CW;
+  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int KV_BYTES = kBK * D * 2;
+  // wgmma's layout type for the swizzle: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t SWZ = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  // Q, then kStages of (K, V), then the barriers; +1024 to align the base
+  static constexpr int SMEM = 1024 + Q_BYTES + kStages * 2 * KV_BYTES + 64;
+};
+
+// e^x on the SFU, `ex2.approx` of x log2(e) (relative error about 2^-22,
+// and 0 for the -1e30 of a masked score): two instructions where expf's
+// range reduction takes eight. The caller folds log2(e) into an FMA
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c += a * b on one m16n8k16 bf16 tile, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// two consecutive bf16 of shared memory as one fragment register
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// {lo, hi} as a fragment register: lo in the low half (the lower k index)
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-// two f32 rounded to nearest even into one bf16x2 register
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one (CW, rows) box of a (D, T, H, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int t0, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(t0),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma's shared memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, int lbo, int sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         Layout<D>::SWZ << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d += A B, A from registers, B MN-major from shared memory
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d += A B, A from registers, B MN-major from shared memory
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d = A B^T (+ d when acc), A and B K-major from shared memory
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d += A B, A from registers, B MN-major from shared memory
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d += A B, A from registers, B MN-major from shared memory
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// two f32 rounded to nearest even into one bf16x2 register, lo in the low
+// half (the lower k index)
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ o,
                                 float* __restrict__ lse, int H, int BH,
-                                int n_qt, int Tq, int Tk, int64_t q_sb,
-                                int64_t q_sh, int64_t q_st, int64_t k_sb,
-                                int64_t k_sh, int64_t k_st, int64_t v_sb,
-                                int64_t v_sh, int64_t v_st, int64_t o_sb,
+                                int n_qt, int Tq, int Tk, int64_t o_sb,
                                 int64_t o_sh, int64_t o_st, float scale,
                                 int causal) {
-  constexpr int P = D + 8;       // padded row, in bf16 (16 bytes of padding)
-  constexpr int KS = D / 16;     // k-steps of S = Q K^T
-  constexpr int NT = D / 8;      // n-tiles of O
-  constexpr int C8 = D / 8;      // 16-byte pieces per row
+  using L = Layout<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sKV = sQ + kBQ * P;   // stage i: K at i * 2 * kBK * P, V after
+  // swizzled tiles want 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sKV = sQ + L::Q_BYTES;     // stage i: K, then V
+  const uint32_t bars = sKV + kStages * 2 * L::KV_BYTES;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
+  const uint32_t qbar = bars + 8 * 2 * kStages;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  // heaviest causal tile first, across every (batch, head)
   const int bh = blockIdx.x % BH;
-  const int qt = n_qt - 1 - blockIdx.x / BH;
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * kBQ;
   const int b = bh / H, h = bh % H;
-  const int q0 = qt * kBQ;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* obase = o + b * o_sb + h * o_sh;
-
+  // keys any row of this tile can see: [0, kv_end)
   const int kv_end = causal ? min(q0 + kBQ, Tk) : Tk;
   const int n_st = (kv_end + kBK - 1) / kBK;
 
-  for (int e = threadIdx.x; e < kBQ * C8; e += kThreads) {
-    const int r = e / C8, c = (e % C8) * 8, tok = q0 + r;
-    const bool in = tok < Tq;
-    cp16(sQ + r * P + c, qb + (in ? tok : 0) * q_st + c, in);
-  }
-  auto load_kv = [&](int stage) {
-    __nv_bfloat16* sK = sKV + (stage & 1) * 2 * kBK * P;
-    __nv_bfloat16* sV = sK + kBK * P;
-    for (int e = threadIdx.x; e < kBK * C8; e += kThreads) {
-      const int r = e / C8, c = (e % C8) * 8, tok = stage * kBK + r;
-      const bool in = tok < Tk;
-      const int64_t src = in ? tok : 0;
-      cp16(sK + r * P + c, kb + src * k_st + c, in);
-      cp16(sV + r * P + c, vb + src * v_st + c, in);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), kConsumers * 128);
     }
-  };
-  load_kv(0);
-  cp_commit();
-
-  const int row0 = q0 + g, row1 = q0 + g + 8;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  uint32_t qa[KS][4];   // Q's A fragments, read once after the first wait
-
-  for (int s = 0; s < n_st; ++s) {
-    if (s + 1 < n_st) {
-      load_kv(s + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    if (s == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        qa[kk][0] = ld2(sQ + g * P + c);
-        qa[kk][1] = ld2(sQ + (g + 8) * P + c);
-        qa[kk][2] = ld2(sQ + g * P + c + 8);
-        qa[kk][3] = ld2(sQ + (g + 8) * P + c + 8);
-      }
-    }
-    const __nv_bfloat16* sK = sKV + (s & 1) * 2 * kBK * P + warp * kChunk * P;
-    const uint16_t* sV =
-        reinterpret_cast<const uint16_t*>(sK + kBK * P);
-    const int c0 = s * kBK + warp * kChunk;   // this warp's first key
-    if (c0 < kv_end) {
-      // S = Q K^T over the warp's 16 keys (two n8 tiles), f32, then scaled
-      float sc[kNJ][4];
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const __nv_bfloat16* kr = sK + (8 * j + g) * P + kk * 16 + 2 * t;
-          const uint32_t bk[2] = {ld2(kr), ld2(kr + 8)};
-          mma_bf16(sc[j], qa[kk], bk);
-        }
-      }
-
-      // online softmax in f32; sc[j][i] is (row g or g + 8, key
-      // c0 + 8j + 2t + i%2)
-      float p[kNJ][4];
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = c0 + 8 * j + 2 * t + (i & 1);
-          const int row = i < 2 ? row0 : row1;
-          const bool ok = key < Tk && (!causal || key <= row);
-          p[j][i] = ok ? 1.f : 0.f;
-          sc[j][i] = ok ? sc[j][i] * scale : kNegInf;
-          if (i < 2)
-            mx0 = fmaxf(mx0, sc[j][i]);
-          else
-            mx1 = fmaxf(mx1, sc[j][i]);
-        }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float e = p[j][i] != 0.f
-                              ? expf(sc[j][i] - (i < 2 ? mn0 : mn1))
-                              : 0.f;
-          p[j][i] = e;
-          if (i < 2)
-            rs0 += e;
-          else
-            rs1 += e;
-        }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-        rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-      }
-      l0 = fmaf(l0, al0, rs0);
-      l1 = fmaf(l1, al1, rs1);
-      m0 = mn0;
-      m1 = mn1;
-
-      // O = diag(alpha) O + P V with P rounded to bf16. The m16n8k16 A
-      // fragment of P is the accumulator layout of the two S tiles as it
-      // stands: (row g, keys 2t, 2t+1), (row g + 8, same), then keys + 8
-      const uint32_t pa[4] = {
-          pack_rn(p[0][0], p[0][1]), pack_rn(p[0][2], p[0][3]),
-          pack_rn(p[1][0], p[1][1]), pack_rn(p[1][2], p[1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const uint16_t* vc = sV + 2 * t * P + 8 * n + g;   // key 2t, column
-        const uint32_t bv[2] = {pack(vc[0], vc[P]), pack(vc[8 * P], vc[9 * P])};
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(part, pa, bv);
-        acc[n][0] = fmaf(acc[n][0], al0, part[0]);
-        acc[n][1] = fmaf(acc[n][1], al0, part[1]);
-        acc[n][2] = fmaf(acc[n][2], al1, part[2]);
-        acc[n][3] = fmaf(acc[n][3], al1, part[3]);
-      }
-    }
-    __syncthreads();   // the next iteration's load overwrites this buffer
-  }
-
-  // merge the four warps' partials through shared memory (f32)
-  float* sM = reinterpret_cast<float*>(sKV);   // [kWarps][kBQ]
-  float* sL = sM + kWarps * kBQ;               // [kWarps][kBQ]
-  float* sA = sL + kWarps * kBQ;               // [kWarps][kBQ][D + 4]
-  constexpr int PA = D + 4;
-  if (t == 0) {
-    sM[warp * kBQ + g] = m0;
-    sM[warp * kBQ + g + 8] = m1;
-    sL[warp * kBQ + g] = l0;
-    sL[warp * kBQ + g + 8] = l1;
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    float* a0 = sA + (warp * kBQ + g) * PA + 8 * n + 2 * t;
-    a0[0] = acc[n][0];
-    a0[1] = acc[n][1];
-    a0[8 * PA] = acc[n][2];
-    a0[8 * PA + 1] = acc[n][3];
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, tok = q0 + r;
-    if (tok >= Tq) continue;
-    float M = sM[r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, sM[w * kBQ + r]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sM[w * kBQ + r] - M);
-      L = fmaf(sL[w * kBQ + r], f, L);
-      A = fmaf(sA[(w * kBQ + r) * PA + c], f, A);
+
+  if (warp == 2 * 4) {
+    // producer: Q once, then K/V stages through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int c = 0; c < L::NCH; ++c)
+        for (int r = 0; r < kBQ; r += kRows)
+          tma_load(sQ + c * kBQ * L::RB + r * L::RB, &tq, qbar, c * L::CW,
+                   q0 + r, h, b);
+      for (int s = 0; s < n_st; ++s) {
+        const int i = s % kStages;
+        if (s >= kStages) mbar_wait(empty(i), (s / kStages - 1) & 1);
+        mbar_expect_tx(full(i), 2 * L::KV_BYTES);
+        const uint32_t sK = sKV + i * 2 * L::KV_BYTES;
+        for (int c = 0; c < L::NCH; ++c) {
+          tma_load(sK + c * kBK * L::RB, &tk, full(i), c * L::CW, s * kBK, h,
+                   b);
+          tma_load(sK + L::KV_BYTES + c * kBK * L::RB, &tv, full(i),
+                   c * L::CW, s * kBK, h, b);
+        }
+      }
     }
-    obase[tok * o_st + c] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
-    if (lse != nullptr && c == 0)
-      lse[static_cast<int64_t>(bh) * Tq + tok] = M + logf(fmaxf(L, 1e-30f));
+    return;
+  }
+
+  // consumer warpgroup w: rows q0 + 64 w + 16 (warp % 4) + g (and + 8)
+  const int w = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int rw = q0 + kRows * w;              // the warpgroup's first row
+  const int row0 = rw + 16 * (warp & 3) + g, row1 = row0 + 8;
+  // stages this warpgroup's rows can see
+  const int n_w = causal ? (min(rw + kRows, Tk) + kBK - 1) / kBK : n_st;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int s = 0; s < n_w; ++s) {
+    const int i = s % kStages;
+    mbar_wait(full(i), (s / kStages) & 1);
+    const uint32_t sK = sKV + i * 2 * L::KV_BYTES;
+    const uint32_t sV = sK + L::KV_BYTES;
+
+    // S = Q K^T over the stage's 64 keys, f32; sc[4j + e] is row row0
+    // (e < 2) or row1, key s * 64 + 8j + 2t + (e & 1)
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / L::CW, off = (kk * 16 % L::CW) * 2;
+      Wgmma<64>::ss(sc,
+                    desc<D>(sQ + c * kBQ * L::RB + kRows * w * L::RB + off,
+                            16, 8 * L::RB),
+                    desc<D>(sK + c * kBK * L::RB + off, 16, 8 * L::RB),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // online softmax in f32, the scale applied to S; masked scores get
+    // p = 0. Only the diagonal stage (causal) and the last (past Tk) mask
+    const bool edge = (causal && s * kBK + kBK > rw) || (s + 1) * kBK > Tk;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int key = s * kBK + 8 * (e >> 2) + 2 * t + (e & 1);
+      const int row = (e & 2) ? row1 : row0;
+      const bool ok = !edge || (key < Tk && (!causal || key <= row));
+      sc[e] = ok ? sc[e] * scale : kNegInf;
+      if (e & 2)
+        mx1 = fmaxf(mx1, sc[e]);
+      else
+        mx0 = fmaxf(mx0, sc[e]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2_sfu((m0 - mn0) * kLog2e);
+    const float al1 = exp2_sfu((m1 - mn1) * kLog2e);
+    const float ml0 = mn0 * kLog2e, ml1 = mn1 * kLog2e;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = sc[e] != kNegInf
+                          ? exp2_sfu(fmaf(sc[e], kLog2e, (e & 2) ? -ml1 : -ml0))
+                          : 0.f;
+      sc[e] = p;
+      if (e & 2)
+        rs1 += p;
+      else
+        rs0 += p;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    l0 = fmaf(l0, al0, rs0);
+    l1 = fmaf(l1, al1, rs1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= al0;
+      acc[4 * n + 1] *= al0;
+      acc[4 * n + 2] *= al1;
+      acc[4 * n + 3] *= al1;
+    }
+
+    // O += P V with P rounded to bf16: the accumulator layout of S's n8
+    // tiles 2kk and 2kk + 1 is the A fragment of k-step kk as it stands;
+    // V's tile (keys x D) is the MN-major B operand
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_rn(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<D>::rs(acc, pa[kk],
+                   desc<D>(sV + kk * 16 * L::RB, kBK * L::RB, 8 * L::RB));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    mbar_arrive(empty(i));
+  }
+
+  // acc[4n + e] is row row0 (e < 2) or row1, column 8n + 2t + (e & 1)
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = hh ? row1 : row0;
+    if (row >= Tq) continue;
+    const float inv = hh ? inv1 : inv0;
+    __nv_bfloat16* dst = ob + row * o_st + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * hh] * inv, acc[4 * n + 2 * hh + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(bh) * Tq + row] =
+          (hh ? m1 : m0) + logf(fmaxf(hh ? l1 : l0, 1e-30f));
   }
 }
-// the f32 kernel for float, the bf16 one for __nv_bfloat16
-template <int D>
-auto kernel_for(const float*) { return flash_attention_kernel<D>; }
-template <int D>
-auto kernel_for(const __nv_bfloat16*) { return flash_attention_bf16_kernel<D>; }
 
-template <int D, typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse,
+// cuTensorMapEncodeTiled from the driver, found at run time, so the
+// library links against the runtime alone
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (D, T, H, B) map of a bf16 (B, H, T, D) view with element strides
+// (sb, sh, st) and unit stride along D, boxes of (CW, 64 rows)
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
+              const int64_t* st) {
+  using L = Layout<D>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::CW), kBK, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = L::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace wg
+
+// bf16 on the wgmma kernel, fp32 on the 3xTF32 one
+template <int D>
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                    int B, int H, int Tq, int Tk, const int64_t* st,
                    float scale, int causal, cudaStream_t stream) {
-  constexpr bool bf16 = sizeof(T) == 2;
-  constexpr size_t smem = bf16 ? bf16_smem_bytes<D>()
-                               : smem_floats<D>() * sizeof(float);
-  const auto kernel = kernel_for<D>(q);
+  static_assert(wg::kRows == wg::kBK, "Q boxes reuse the K/V box shape");
+  CUtensorMap mq, mk, mv;
+  if (!wg::make_map<D>(&mq, q, B, H, Tq, st) ||
+      !wg::make_map<D>(&mk, k, B, H, Tk, st + 3) ||
+      !wg::make_map<D>(&mv, v, B, H, Tk, st + 6))
+    return cudaErrorInvalidValue;
+  constexpr int smem = wg::Layout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::flash_attention_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Tq + wg::kBQ - 1) / wg::kBQ;
+  const int64_t blocks = static_cast<int64_t>(n_qt) * B * H;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  wg::flash_attention_bf16_kernel<D>
+      <<<static_cast<unsigned>(blocks), wg::kThreads, smem, stream>>>(
+          mq, mk, mv, o, lse, H, B * H, n_qt, Tq, Tk, st[9], st[10], st[11],
+          scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   float* lse, int B, int H, int Tq, int Tk, const int64_t* st,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<D>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int n_qt = (Tq + kBQ - 1) / kBQ;
   const int64_t blocks = static_cast<int64_t>(n_qt) * B * H;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  flash_attention_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              stream>>>(
       q, k, v, o, lse, H, B * H, n_qt, Tq, Tk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal);
   return cudaGetLastError();
@@ -700,11 +962,13 @@ int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
 // q/k/v/o: (B, H, T, D) with element strides (batch, head, token) in
 // `strides` = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,
 // o_sh, o_st} and unit stride along D; q, k and v 16-byte aligned with
-// strides of 16 bytes' multiples (checked by the caller). Causal needs
-// Tq == Tk (checked by the caller). `lse`: null, or f32 (B, H, Tq)
-// contiguous for the rows' log-sum-exp. Returns the CUDA error of the
-// launch (0 on success), or cudaErrorInvalidValue for an unsupported head
-// size. `_f32` takes and writes fp32; `_bf16` takes and writes bf16.
+// strides of 16 bytes' multiples, as cp.async (fp32) and TMA (bf16) need
+// (checked by the caller). Causal needs Tq == Tk (checked by the caller).
+// `lse`: null, or f32 (B, H, Tq) contiguous for the rows' log-sum-exp.
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for an unsupported head size or a tensor map the
+// driver refuses. `_f32` takes and writes fp32; `_bf16` takes and writes
+// bf16.
 extern "C" int mxt_flash_attention_f32(const float* q, const float* k,
                                        const float* v, float* o, float* lse,
                                        int B, int H,

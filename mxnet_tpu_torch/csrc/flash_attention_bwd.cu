@@ -13,7 +13,7 @@
 // by csrc/flash_attention.cu when training). With it P is recomputed
 // exactly as the forward normalised it: P = exp(scale * Q K^T - lse).
 //
-// Three launches, one stream:
+// Three launches, one stream, for either type:
 //  1. dot: Dv_i = rowsum(dO_i * O_i), one warp per query row, f32 scratch
 //     (B, H, Tq). dS = P * (dP - Dv) with dP = dO V^T is the softmax VJP.
 //  2. dK/dV: one CTA per (64-key block, head, batch). K_j and V_j stay in
@@ -25,44 +25,70 @@
 //  3. dQ: one CTA per (64-row query block, head, batch). Q_i, dO_i, lse_i
 //     and Dv_i stay; the CTA walks the key blocks the rows can see,
 //     recomputes S, P, dP and dS, and accumulates dQ_i += dS K_j.
-// Two passes recompute S and dP twice (14 instead of 10 products of
-// T x T x D per head) but write every gradient once from one CTA: no
-// atomicAdd into dQ, so the result is the same bits run to run.
+// Pass 3 recomputes S and dP, but every gradient is written once from one
+// CTA: no atomicAdd into dQ, so the result is the same bits run to run.
 //
-// Arithmetic: fp32 FMA on the CUDA cores, one rounding per multiply-add,
-// so the result sits within the fp32 tolerance of the plain version
-// (ops/attention.py `flash_attention_bwd_plain`) with no TF32 splitting.
-// 256 threads as a 16 x 16 grid; each thread owns 4 x 4 scores (rows
-// ty + 16r, keys tx + 16c) and 4 x D/16 outputs (rows ty + 16r, columns
-// tx + 16c). Rows in shared memory are padded to D + 4 floats, so the
-// float4 reads of the score products hit distinct banks in each quarter
-// warp; P and dS are stored 68 floats a row.
-//
-// Bound on this card at the training path's shape (causal, B 8, H 12,
-// T 2048, D 64). Bytes: q, k, v, o, dO read once, dq, dk, dv written once,
-// lse read once: 8 * 8 * 12 * 2048 * 64 * 4 + 8 * 12 * 2048 * 4 bytes
-// = 403.4 MB, 0.120 ms at 3.35 TB/s. Operations: the five products the
-// gradient needs (S, dP, dV, dK, dQ), 2 * D flops each per visible
-// query-key pair, T (T + 1) / 2 pairs per head when causal:
+// fp32 (`mxt_flash_attention_bwd_f32`, `dkdv_kernel` / `dq_kernel`): fp32
+// FMA on the CUDA cores, one rounding per multiply-add, so the result sits
+// within the fp32 tolerance of the plain version (ops/attention.py
+// `flash_attention_bwd_plain`) with no TF32 splitting. 256 threads as a
+// 16 x 16 grid; each thread owns 4 x 4 scores (rows ty + 16r, keys
+// tx + 16c) and 4 x D/16 outputs (rows ty + 16r, columns tx + 16c). Rows
+// in shared memory are padded to D + 4 floats, so the float4 reads of the
+// score products hit distinct banks in each quarter warp; P and dS are
+// stored 68 floats a row. Bound at the training path's shape (causal,
+// B 8, H 12, T 2048, D 64): bytes q, k, v, o, dO read once, dq, dk, dv
+// written once, lse read once: 8 * 8 * 12 * 2048 * 64 * 4 + 8 * 12 *
+// 2048 * 4 = 403.4 MB, 0.120 ms at 3.35 TB/s. Operations: the five
+// products the gradient needs (S, dP, dV, dK, dQ), 2 * D flops each per
+// visible query-key pair, T (T + 1) / 2 pairs per head when causal:
 // 10 * 64 * 96 * 2048 * 2049 / 2 = 128.9 GFLOP (the exponentials not
 // counted). As for the forward, the least time takes the card's fastest
-// route that meets the fp32 tolerance, 3xTF32 on the tensor cores (three
-// TF32 products each):
+// route that meets the fp32 tolerance, 3xTF32 on the tensor cores:
 //   max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s) = max(0.120, 0.781)
-// = 0.781 ms, bound by operations. This kernel runs the products on the
-// fp32 FMA pipes instead, where the same work could take no less than
-// 1.924 ms (67 TFLOP/s), and does 14/10 of that work (the recomputation
-// of S and dP in pass 3).
+// = 0.781 ms, bound by operations. These kernels run the products on the
+// fp32 FMA pipes instead (1.924 ms at 67 TFLOP/s for the same work), with
+// 14/10 of it (the recomputation of S and dP in pass 3).
 //
-// bf16 (`mxt_flash_attention_bwd_bf16`): the same kernels, templated on the
-// element type, read bf16 q, k, v, o and dO into f32 tiles, compute every
-// product and sum in f32 as above (the TPU backward's `.astype(f32)`,
-// D = rowsum(dO * O) in f32 too) and round each gradient once to bf16
-// (nearest even) when they write it; lse stays f32. A first right kernel,
-// not a fast one: its products stay on the fp32 FMA pipes. Bound at the
-// same shape in bf16: bytes 8 tensors of 96 * 2048 * 64 bf16 plus lse =
-// 202.1 MB, 0.060 ms; operations 128.9 GFLOP at 989 TFLOP/s bf16,
-// 0.130 ms: bound 0.130 ms, by operations (1.924 ms on the FMA pipes).
+// bf16 (`mxt_flash_attention_bwd_bf16`, `dkdv_bf16_kernel` /
+// `dq_bf16_kernel`): q, k, v, o and dO bf16, every sum in f32, each
+// gradient rounded once to bf16 (nearest even); lse and Dv f32. The
+// products run on the bf16 tensor cores, `mma.sync.m16n8k16.row.col.f32.
+// bf16.bf16.f32`, with operands read from shared memory by `ldmatrix`
+// (`.trans` for an operand stored the other way round):
+//  - S and dP: one product each, exact products of the bf16 inputs;
+//  - P and dS are f32 (P = exp(scale * S - lse), dS = P * (dP - Dv), as
+//    the TPU backward computes them), not bf16 values. Rounded once to
+//    bf16 (the FA2 / SDPA rounding) they put the gradients outside the
+//    bound the card holds them to against the plain version (rtol 1e-4 +
+//    2^-7, atol 1e-5; tests/test_torch_attention.py
+//    `test_flash_bwd_bf16_single_rounding_misses_chip_bound`). So each
+//    is carried as two bf16 pieces, hi = bf16(x) and lo = bf16(x - hi),
+//    which keep 16 of its 24 bits, and dV += P^T dO, dK += dS^T Q and
+//    dQ += dS K take two products each, hi and lo, summed in the same f32
+//    accumulator;
+//  - P and dS never touch shared memory. In pass 2 each warp owns 16 keys
+//    and computes the transposed tiles S^T = K_w Q_i^T and dP^T = V_w
+//    dO_i^T: P^T and dS^T then sit in the m16n8k16 accumulator layout,
+//    which is the A fragment of the next product as it stands (two n8
+//    tiles, keys 2t, 2t + 1 then + 8). In pass 3 each warp owns 16 query
+//    rows and S, dP come out the same way;
+//  - P's exponential runs on the SFU, `ex2.approx` of the argument times
+//    log2(e) folded into the FMA that forms it (about 2^-22 relative,
+//    against expf's eight instructions an element);
+//  - tiles stay bf16 in shared memory, rows of D + 8 (16 bytes of
+//    padding: the eight 16-byte rows an ldmatrix reads hit distinct
+//    banks), loaded with cp.async 16 bytes a copy (4 for lse and Dv) and
+//    zero-filled past T; the next Q/dO block (pass 2) or K/V block
+//    (pass 3) loads into a second stage while this one computes. So q,
+//    k, v and dO need 16-byte aligned base addresses and strides.
+// 4 warps a CTA, three CTAs an SM below D 128. Bound at the same shape in
+// bf16: bytes 8 tensors of 96 * 2048 * 64 bf16 plus lse = 202.1 MB,
+// 0.060 ms; operations 128.9 GFLOP at 989 TFLOP/s bf16, 0.130 ms: bound
+// 0.130 ms, by operations. This kernel does 8 products of 2 * D flops
+// per visible pair (S, dP, and two each for dV, dK and dQ), 10 with pass
+// 3's recomputation of S and dP, so its own floor on the tensor cores is
+// 10/5 * 0.130 = 0.26 ms; mma.sync does not reach wgmma's peak rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,25 +118,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// f32 into the gradient's type, rounded to nearest even for bf16
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (sizeof(T) == 2)
-    return __float2bfloat16_rn(x);
-  else
-    return x;
-}
-
-// rows [row0, row0 + kB) of a (T, D) slice with row stride `st` into a
-// padded f32 tile; rows past T are zero
-template <int D, typename E>
-__device__ __forceinline__ void load_tile(float* s, const E* g,
+// rows [row0, row0 + kB) of a (T, D) f32 slice with row stride `st` into
+// a padded tile; rows past T are zero
+template <int D>
+__device__ __forceinline__ void load_tile(float* s, const float* g,
                                           int64_t st, int row0, int T) {
   constexpr int P = D + 4;
   for (int e = threadIdx.x; e < kB * D; e += kThreads) {
     const int r = e / D, c = e % D, row = row0 + r;
-    s[r * P + c] =
-        row < T ? to_f32(g[static_cast<int64_t>(row) * st + c]) : 0.f;
+    s[r * P + c] = row < T ? g[static_cast<int64_t>(row) * st + c] : 0.f;
   }
 }
 
@@ -232,8 +248,8 @@ struct Args {
   int causal;
 };
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<E> a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<float> a) {
   constexpr int P = D + 4;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -252,10 +268,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<E> a) {
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = kb * kB;
   const int64_t* st = a.st;
-  const E* qb = a.q + b * st[0] + h * st[1];
-  const E* kbase = a.k + b * st[3] + h * st[4];
-  const E* vb = a.v + b * st[6] + h * st[7];
-  const E* gb = a.dout + b * st[12] + h * st[13];
+  const float* qb = a.q + b * st[0] + h * st[1];
+  const float* kbase = a.k + b * st[3] + h * st[4];
+  const float* vb = a.v + b * st[6] + h * st[7];
+  const float* gb = a.dout + b * st[12] + h * st[13];
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
   const float* dvec = a.dvec + static_cast<int64_t>(bh) * a.Tq;
 
@@ -311,8 +327,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<E> a) {
     __syncthreads();   // the next block's loads overwrite Q, dO, P, dS
   }
 
-  E* dkb = a.dk + b * st[18] + h * st[19];
-  E* dvb = a.dv + b * st[21] + h * st[22];
+  float* dkb = a.dk + b * st[18] + h * st[19];
+  float* dvb = a.dv + b * st[21] + h * st[22];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int key = k0 + ty + 16 * r;
@@ -320,15 +336,14 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<E> a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       dkb[static_cast<int64_t>(key) * st[20] + tx + 16 * c] =
-          from_f32<E>(a.scale * dk[r][c]);
-      dvb[static_cast<int64_t>(key) * st[23] + tx + 16 * c] =
-          from_f32<E>(dv[r][c]);
+          a.scale * dk[r][c];
+      dvb[static_cast<int64_t>(key) * st[23] + tx + 16 * c] = dv[r][c];
     }
   }
 }
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args<E> a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) dq_kernel(const Args<float> a) {
   constexpr int P = D + 4;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -347,8 +362,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args<E> a) {
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = qb_i * kB;
   const int64_t* st = a.st;
-  const E* kbase = a.k + b * st[3] + h * st[4];
-  const E* vb = a.v + b * st[6] + h * st[7];
+  const float* kbase = a.k + b * st[3] + h * st[4];
+  const float* vb = a.v + b * st[6] + h * st[7];
 
   load_tile<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
   load_tile<D>(sdO, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
@@ -396,7 +411,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args<E> a) {
     __syncthreads();   // the next block's loads overwrite K, V, dS
   }
 
-  E* dqb = a.dq + b * st[15] + h * st[16];
+  float* dqb = a.dq + b * st[15] + h * st[16];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty + 16 * r;
@@ -404,39 +419,453 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args<E> a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       dqb[static_cast<int64_t>(row) * st[17] + tx + 16 * c] =
-          from_f32<E>(a.scale * dq[r][c]);
+          a.scale * dq[r][c];
   }
 }
 
-template <int D, typename E>
-cudaError_t launch(const Args<E>& a, const E* o, cudaStream_t stream) {
+// fp32 on the FMA kernels
+template <int D>
+cudaError_t launch(const Args<float>& a, const float* o,
+                   cudaStream_t stream) {
   const int rows = a.BH * a.Tq;
-  bwd_dot_kernel<D, E><<<(rows + kDotWarps - 1) / kDotWarps, kDotWarps * 32, 0,
-                  stream>>>(o, a.dout, const_cast<float*>(a.dvec), a.H,
-                            a.Tq, rows, a.st[9], a.st[10], a.st[11],
-                            a.st[12], a.st[13], a.st[14]);
+  bwd_dot_kernel<D, float><<<(rows + kDotWarps - 1) / kDotWarps,
+                             kDotWarps * 32, 0, stream>>>(
+      o, a.dout, const_cast<float*>(a.dvec), a.H, a.Tq, rows, a.st[9],
+      a.st[10], a.st[11], a.st[12], a.st[13], a.st[14]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem1 = dkdv_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dkdv_kernel<D, E>,
+  err = cudaFuncSetAttribute(dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem1));
   if (err != cudaSuccess) return err;
   const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_kernel<D, E><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
+  dkdv_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
                    stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem2 = dq_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dq_kernel<D, E>,
+  err = cudaFuncSetAttribute(dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return err;
   const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_kernel<D, E><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
+  dq_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
                  stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarpsB = 4;            // 16 rows (pass 3) or keys (pass 2) each
+constexpr int kThreadsB = kWarpsB * 32;
+
+template <int D>
+constexpr int dkdv_bf16_smem_bytes() {
+  // K, V; two stages of (Q, dO); two stages of (lse, Dv)
+  return (2 + 2 * 2) * kB * (D + 8) * 2 + 2 * 2 * kB * 4;
+}
+
+template <int D>
+constexpr int dq_bf16_smem_bytes() {
+  // Q, dO; two stages of (K, V)
+  return (2 + 2 * 2) * kB * (D + 8) * 2;
+}
+
+// e^x on the SFU, `ex2.approx` of x log2(e) (relative error about 2^-22,
+// and 0 for the -1e30 of a masked score): two instructions where expf's
+// range reduction takes eight. The caller folds log2(e) into its FMA
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a * b on one m16n8k16 bf16 tile, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// {x0, x1} as two bf16x2 registers hi = bf16(x), lo = bf16(x - hi), each
+// rounded to nearest even; x0 in the low half (the lower k index)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the A fragments (hi and lo) of k-step kk from an accumulator tile set
+// x[8][4] (n8 tiles 2kk and 2kk + 1 are the step's 16 k indices)
+__device__ __forceinline__ void a_split(const float (&x)[8][4], int kk,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split2(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+  split2(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+  split2(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+  split2(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// rows [row0, row0 + kB) of a (T, D) bf16 slice with row stride `st` into
+// a tile of rows D + 8, by cp.async; rows past T are zero
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(bf16* s, const bf16* g,
+                                               int64_t st, int row0, int T) {
+  constexpr int P = D + 8, C8 = D / 8;
+  for (int e = threadIdx.x; e < kB * C8; e += kThreadsB) {
+    const int r = e / C8, c = (e % C8) * 8, row = row0 + r;
+    const bool in = row < T;
+    cp16(s + r * P + c, g + static_cast<int64_t>(in ? row : 0) * st + c, in);
+  }
+}
+
+// c[8][4] = A (16 rows of sA from row a0) times B^T (64 rows of sB), both
+// stored row-major with rows of D + 8: the m16n8k16 tiles of a 16 x 64
+// product over D
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const bf16* sA,
+                                        const bf16* sB, int lane) {
+  constexpr int P = D + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm4(a, sA + (lane & 15) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t b[4];
+      ldsm4(b, sB + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * P +
+                   kk * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(c[2 * jj], a, b[0], b[1]);
+      mma16816(c[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[D/8][4] += X (16 x 64, an accumulator tile set, as hi + lo) times
+// sB (64 rows of D + 8, read transposed by ldmatrix)
+template <int D>
+__device__ __forceinline__ void mma_split_b(float (&acc)[D / 8][4],
+                                            const float (&x)[8][4],
+                                            const bf16* sB, int lane) {
+  constexpr int P = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+    a_split(x, kk, hi, lo);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      ldsm4_t(b, sB + (16 * kk + (lane & 15)) * P + 16 * np + (lane >> 4) * 8);
+      mma16816(acc[2 * np], hi, b[0], b[1]);
+      mma16816(acc[2 * np], lo, b[0], b[1]);
+      mma16816(acc[2 * np + 1], hi, b[2], b[3]);
+      mma16816(acc[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// the 16 x (D) accumulator's rows r0 and r0 + 8 (columns 8n + 2t, + 1),
+// times `scale`, rounded once to bf16; rows at or past T are not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* g, int64_t st, int r0, int T,
+                                          const float (&acc)[D / 8][4],
+                                          float scale, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= T) continue;
+    bf16* dst = g + static_cast<int64_t>(row) * st + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+          scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
+    dkdv_bf16_kernel(const Args<bf16> a) {
+  constexpr int P = D + 8;
+  constexpr int TILE = kB * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;          // stage i at i * TILE
+  bf16* sG = sQ + 2 * TILE;      // dO, stage i at i * TILE
+  float* sL = reinterpret_cast<float*>(sG + 2 * TILE);   // stage i at i * kB
+  float* sDv = sL + 2 * kB;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2e = a.scale * kLog2e;
+  // the heaviest key block (the first, when causal) first
+  const int bh = blockIdx.x % a.BH, kb = blockIdx.x / a.BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = kb * kB;
+  const int64_t* st = a.st;
+  const bf16* qb = a.q + b * st[0] + h * st[1];
+  const bf16* gb = a.dout + b * st[12] + h * st[13];
+  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
+  const float* dvec = a.dvec + static_cast<int64_t>(bh) * a.Tq;
+
+  load_tile_bf16<D>(sK, a.k + b * st[3] + h * st[4], st[5], k0, a.Tk);
+  load_tile_bf16<D>(sV, a.v + b * st[6] + h * st[7], st[8], k0, a.Tk);
+  auto load_q = [&](int q0, int buf) {
+    load_tile_bf16<D>(sQ + buf * TILE, qb, st[2], q0, a.Tq);
+    load_tile_bf16<D>(sG + buf * TILE, gb, st[14], q0, a.Tq);
+    // kThreadsB == 2 * kB: one f32 copy a thread
+    const int r = threadIdx.x & (kB - 1), row = q0 + r;
+    const bool in = row < a.Tq;
+    const float* src = threadIdx.x < kB ? lse : dvec;
+    float* dst = (threadIdx.x < kB ? sL : sDv) + buf * kB + r;
+    cp4(dst, src + (in ? row : 0), in);
+  };
+  const int n_qb = (a.Tq + kB - 1) / kB;
+  // causal needs Tq == Tk: rows below k0 see none of these keys
+  const int first = a.causal ? k0 / kB : 0;
+  load_q(first * kB, 0);
+  cp_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+  // this thread's keys: kw + g and kw + g + 8
+  const int kw = k0 + 16 * warp;
+
+  for (int qi = first; qi < n_qb; ++qi) {
+    const int buf = (qi - first) & 1, q0 = qi * kB;
+    if (qi + 1 < n_qb) {
+      load_q(q0 + kB, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Q = sQ + buf * TILE;
+    const bf16* G = sG + buf * TILE;
+    const float* L = sL + buf * kB;
+    const float* Dv = sDv + buf * kB;
+    // P^T = exp(scale * K_w Q^T - lse): x[j][i] is key kw + g + 8 (i >> 1),
+    // query q0 + 8j + 2t + (i & 1)
+    float x[8][4];
+    mma_abt<D>(x, sK + 16 * warp * P, Q, lane);
+    const bool edge = (a.causal && q0 < kw + 16) || q0 + kB > a.Tq ||
+                      kw + 16 > a.Tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = 8 * j + 2 * t + (i & 1), qg = q0 + qc;
+        const int kg = kw + g + 8 * (i >> 1);
+        const bool ok =
+            !edge || (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg));
+        x[j][i] = ok ? exp2_sfu(fmaf(sl2e, x[j][i], -L[qc] * kLog2e)) : 0.f;
+      }
+    mma_split_b<D>(dv, x, G, lane);
+    // dS^T = P^T * (V_w dO^T - Dv)
+    float dp[8][4];
+    mma_abt<D>(dp, sV + 16 * warp * P, G, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[j][i] *= dp[j][i] - Dv[8 * j + 2 * t + (i & 1)];
+    mma_split_b<D>(dk, x, Q, lane);
+    __syncthreads();   // the next block's loads overwrite this stage
+  }
+
+  store_rows<D>(a.dk + b * st[18] + h * st[19], st[20], kw + g, a.Tk, dk,
+                a.scale, t);
+  store_rows<D>(a.dv + b * st[21] + h * st[22], st[23], kw + g, a.Tk, dv,
+                1.f, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
+    dq_bf16_kernel(const Args<bf16> a) {
+  constexpr int P = D + 8;
+  constexpr int TILE = kB * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + TILE;
+  bf16* sK = sG + TILE;          // stage i: K at 2 i TILE, V after
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2e = a.scale * kLog2e;
+  const int n_qb = (a.Tq + kB - 1) / kB;
+  // the heaviest query block (the last, when causal) first
+  const int bh = blockIdx.x % a.BH, qi = n_qb - 1 - blockIdx.x / a.BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = qi * kB;
+  const int64_t* st = a.st;
+  const bf16* kbase = a.k + b * st[3] + h * st[4];
+  const bf16* vb = a.v + b * st[6] + h * st[7];
+
+  load_tile_bf16<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
+  load_tile_bf16<D>(sG, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
+  auto load_kv = [&](int k0, int buf) {
+    load_tile_bf16<D>(sK + 2 * buf * TILE, kbase, st[5], k0, a.Tk);
+    load_tile_bf16<D>(sK + (2 * buf + 1) * TILE, vb, st[8], k0, a.Tk);
+  };
+  load_kv(0, 0);
+  cp_commit();
+
+  // this thread's rows: qw + g and qw + g + 8, with their lse (times
+  // log2(e)) and Dv
+  const int qw = q0 + 16 * warp;
+  float lse_r[2], dv_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = qw + g + 8 * hh;
+    const int64_t at = static_cast<int64_t>(bh) * a.Tq + row;
+    lse_r[hh] = row < a.Tq ? a.lse[at] * kLog2e : 0.f;
+    dv_r[hh] = row < a.Tq ? a.dvec[at] : 0.f;
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  // keys these rows can see: [0, kv_end)
+  const int kv_end = a.causal ? min(q0 + kB, a.Tk) : a.Tk;
+  const int n_kb = (kv_end + kB - 1) / kB;
+  for (int kj = 0; kj < n_kb; ++kj) {
+    const int buf = kj & 1, k0 = kj * kB;
+    if (kj + 1 < n_kb) {
+      load_kv(k0 + kB, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bf16* K = sK + 2 * buf * TILE;
+    const bf16* V = K + TILE;
+    // P = exp(scale * Q_w K^T - lse): x[j][i] is row qw + g + 8 (i >> 1),
+    // key k0 + 8j + 2t + (i & 1)
+    float x[8][4];
+    mma_abt<D>(x, sQ + 16 * warp * P, K, lane);
+    const bool edge = (a.causal && k0 + kB > qw) || k0 + kB > a.Tk ||
+                      qw + 16 > a.Tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kg = k0 + 8 * j + 2 * t + (i & 1);
+        const int qg = qw + g + 8 * (i >> 1);
+        const bool ok =
+            !edge || (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg));
+        x[j][i] = ok ? exp2_sfu(fmaf(sl2e, x[j][i], -lse_r[i >> 1])) : 0.f;
+      }
+    // dS = P * (dO_w V^T - Dv)
+    float dp[8][4];
+    mma_abt<D>(dp, sG + 16 * warp * P, V, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[j][i] *= dp[j][i] - dv_r[i >> 1];
+    mma_split_b<D>(dq, x, K, lane);
+    __syncthreads();   // the next block's loads overwrite this stage
+  }
+
+  store_rows<D>(a.dq + b * st[15] + h * st[16], st[17], qw + g, a.Tq, dq,
+                a.scale, t);
+}
+
+// bf16 on the tensor-core kernels
+template <int D>
+cudaError_t launch(const Args<bf16>& a, const bf16* o, cudaStream_t stream) {
+  const int rows = a.BH * a.Tq;
+  bwd_dot_kernel<D, bf16><<<(rows + kDotWarps - 1) / kDotWarps,
+                            kDotWarps * 32, 0, stream>>>(
+      o, a.dout, const_cast<float*>(a.dvec), a.H, a.Tq, rows, a.st[9],
+      a.st[10], a.st[11], a.st[12], a.st[13], a.st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem1 = dkdv_bf16_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dkdv_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem1);
+  if (err != cudaSuccess) return err;
+  const int64_t n_kb = (a.Tk + kB - 1) / kB;
+  dkdv_bf16_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreadsB, smem1,
+                        stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem2 = dq_bf16_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dq_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem2);
+  if (err != cudaSuccess) return err;
+  const int64_t n_qb = (a.Tq + kB - 1) / kB;
+  dq_bf16_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreadsB, smem2,
+                      stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -486,8 +915,11 @@ int dispatch(const E* q, const E* k, const E* v, const E* o, const E* dout,
 // {sb, sh, st} and unit stride along D; all fp32 (`_f32`) or all bf16
 // (`_bf16`: read into f32, every sum in f32, the gradients rounded once
 // to bf16). lse: the forward's f32 (B, H, Tq) contiguous row log-sum-exp;
-// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk; the caller checks
-// shapes, strides and that (Tq or Tk) / 64 times B * H fits a grid.
+// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk. `_bf16` copies q,
+// k, v and dout 16 bytes at a time (cp.async): their base addresses and
+// (batch, head, token) strides must be multiples of 16 bytes; `_f32` and
+// o take any strides. The caller checks shapes, strides, alignment and
+// that (Tq or Tk) / 64 times B * H fits a grid.
 // Returns the first CUDA error of the three launches (0 on success), or
 // cudaErrorInvalidValue for an unsupported head size.
 extern "C" int mxt_flash_attention_bwd_f32(

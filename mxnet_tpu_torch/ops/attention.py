@@ -311,11 +311,14 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     softmax and ignores ``lse``); CUDA tensors launch the three kernels
     of ``csrc/flash_attention_bwd.cu`` for q's type and count one launch
     in ``launches`` (float32) or ``launches_bf16``. The kernels take
-    what the forward kernels take (q, k, v, out and d_out float32, or
-    all bfloat16; D in {16, 32, 64, 128}, unit stride along D, causal
-    only with T_q == T_k), any other strides, and ``lse`` f32
-    contiguous; anything else raises. The gradients come out in q's
-    type, summed in f32 and rounded once."""
+    q, k, v, out and d_out float32, or all bfloat16; D in {16, 32, 64,
+    128}, unit stride along D, causal only with T_q == T_k, and ``lse``
+    f32 contiguous; anything else raises. The float32 kernels take any
+    other strides. The bfloat16 ones copy q, k, v and d_out 16 bytes at
+    a time, so each of them that is not 16-byte aligned (base address
+    and strides, as the forward requires) is first copied to a
+    contiguous tensor. The gradients come out in q's type, summed in
+    f32 and rounded once."""
     name = "flash_attention_bwd"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -336,6 +339,11 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
              f"{lse.dtype} {tuple(lse.shape)}")
     _require(-(-max(t_q, t_k) // 64) * b * h < 2 ** 31, name,
              f"grid too large for {b} x {h} x {max(t_q, t_k)}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:    # e.g. a narrow view of a gradient autograd split up
+        q, k, v, d_out = (x if _aligned(x) else
+                          x.clone(memory_format=torch.contiguous_format)
+                          for x in (q, k, v, d_out))
     grads = [torch.empty((b, t, h, d), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
              for t in (t_q, t_k, t_k)]
@@ -343,7 +351,6 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     strides = (ctypes.c_int64 * 24)(*[s for x in (q, k, v, out, d_out,
                                                   *grads)
                                        for s in x.stride()[:3]])
-    bf16 = q.dtype == torch.bfloat16
     fn = _fn("flash_attention_bwd", "mxt_flash_attention_bwd_bf16" if bf16
              else "mxt_flash_attention_bwd_f32", _FLASH_BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

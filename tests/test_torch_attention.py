@@ -5,7 +5,9 @@ the seq_len-0 padding contract, the wrappers' device routing (a CPU
 tensor takes the plain path and launches nothing; anything else the
 kernel cannot take raises), and the arithmetic of the Hopper kernels
 emulated in plain torch: the flash kernel's 3xTF32 products and its
-split online softmax, the paged kernel's split-KV and merge. The
+split online softmax, the bf16 forward's one online softmax per row and
+the bf16 backward's P and dS carried as two bf16 pieces (and one piece
+shown to miss the card's bound), the paged kernel's split-KV and merge. The
 gradient: the port's plain backward and torch autograd through the
 CPU path against ``jax.grad`` of the Pallas forward (whose custom VJP is
 ``_chunked_attention_bwd``), and the backward kernel's two passes over
@@ -419,13 +421,29 @@ def test_flash_bwd_wrapper_on_cpu_takes_plain_and_launches_nothing():
     assert att.flash_attention_bwd.launches == 0
 
 
-def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64):
+def _mm_pieces(x, b, pieces):
+    """x @ b in f32 with x carried as ``pieces`` bf16 values, as the bf16
+    backward kernel feeds P and dS to the tensor cores: 1 is one rounding
+    (hi = bf16(x)), 2 adds lo = bf16(x - hi), each piece's product
+    summed into the same f32 result; 0 keeps x in f32."""
+    if pieces == 0:
+        return x @ b
+    out, rest = 0, x
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16).float()
+        out = out + piece @ b
+        rest = rest - piece
+    return out
+
+
+def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64, pieces=0):
     """csrc/flash_attention_bwd.cu's order of work on (BH, T, D):
     D = rowsum(dO * O); pass 2 walks each 64-key block's query blocks
     (from the diagonal when causal) summing dV += P^T dO and
     dK += dS^T Q; pass 3 walks each 64-row query block's key blocks
     summing dQ += dS K; P = exp(scale * S - lse) recomputed in both,
-    zero where masked."""
+    zero where masked. ``pieces``: how the bf16 kernels carry P and dS
+    into their products (:func:`_mm_pieces`); 0 for the fp32 kernels."""
     t_q, t_k = q.shape[1], k.shape[1]
     d_vec = (g * out).sum(-1)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
@@ -444,12 +462,12 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64):
     for k0 in range(0, t_k, blk):
         for q0 in range(k0 if causal else 0, t_q, blk):
             rows, keys, p, ds = tile(q0, k0)
-            dv[:, keys] += p.transpose(1, 2) @ g[:, rows]
-            dk[:, keys] += ds.transpose(1, 2) @ q[:, rows]
+            dv[:, keys] += _mm_pieces(p.transpose(1, 2), g[:, rows], pieces)
+            dk[:, keys] += _mm_pieces(ds.transpose(1, 2), q[:, rows], pieces)
     for q0 in range(0, t_q, blk):
         for k0 in range(0, min(q0 + blk, t_k) if causal else t_k, blk):
             rows, keys, p, ds = tile(q0, k0)
-            dq[:, rows] += ds @ k[:, keys]
+            dq[:, rows] += _mm_pieces(ds, k[:, keys], pieces)
     return dq * scale, dk * scale, dv
 
 
@@ -491,6 +509,9 @@ BF16_F64_RATIO = 2.0
 # a bf16 value is at most 2^-7 of it; two roundings of nearly equal f32
 # values land at most one ulp apart
 BF16_ULP = 2.0 ** -7
+# chip_smoke.py's bound for the bf16 backward kernel against the plain
+# backward given the same forward output: the fp32 bound plus one ulp
+BF16_BWD_RTOL, BF16_BWD_ATOL = FLASH_RTOL + BF16_ULP, FLASH_ATOL
 
 
 def _bf16(*arrays):
@@ -540,43 +561,34 @@ def test_flash_plain_bf16_matches_jax_reference_and_pallas_kernel(causal):
     np.testing.assert_allclose(got, dense32, rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-def _flash_bf16_emulated(q, k, v, causal, stage=64, warps=4):
+def _flash_bf16_emulated(q, k, v, causal, stage=64):
     """csrc/flash_attention.cu's bf16 kernel on (BH, T, D) bf16: S = Q K^T
     from bf16 operands with f32 sums (a product of two bf16 values is
-    exact in f32), scaled in f32; the f32 online softmax split as the
-    fp32 kernel's (64-key stages, 4 warps of 16 keys, merged at the end);
+    exact in f32), scaled in f32; one f32 online softmax per row over
+    every key it can see, in 64-key stages (a masked score gets p = 0);
     P rounded to bf16 (nearest even) for the P V product, the row sums
     taken from the f32 P; the output rounded once to bf16."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     qf, kf, vf = (x.float() for x in (q, k, v))
     rows = torch.arange(t_q)[:, None]
-    chunk = stage // warps
-    m = torch.full((warps, bh, t_q), att.NEG_INF)
-    l = torch.zeros(warps, bh, t_q)
-    acc = torch.zeros(warps, bh, t_q, d)
+    m = torch.full((bh, t_q), att.NEG_INF)
+    l = torch.zeros(bh, t_q)
+    acc = torch.zeros(bh, t_q, d)
     for s0 in range(0, t_k, stage):
-        for w in range(warps):
-            c0 = s0 + w * chunk
-            if c0 >= t_k:
-                continue
-            keys = torch.arange(c0, min(c0 + chunk, t_k))
-            ok = (keys[None, :] <= rows) if causal else \
-                torch.ones(t_q, len(keys), dtype=torch.bool)
-            sc = torch.where(ok, (qf @ kf[:, keys].transpose(1, 2))
-                             * d ** -0.5, torch.tensor(att.NEG_INF))
-            mn = torch.maximum(m[w], sc.max(-1).values)
-            alpha = torch.exp(m[w] - mn)
-            p = torch.where(ok, torch.exp(sc - mn[..., None]),
-                            torch.tensor(0.0))
-            l[w] = l[w] * alpha + p.sum(-1)
-            acc[w] = acc[w] * alpha[..., None] \
-                + p.to(torch.bfloat16).float() @ vf[:, keys]
-            m[w] = mn
-    f = torch.exp(m - m.max(0).values)
-    out = (acc * f[..., None]).sum(0) \
-        / (l * f).sum(0).clamp_min(1e-30)[..., None]
-    return out.to(torch.bfloat16)
+        keys = torch.arange(s0, min(s0 + stage, t_k))
+        ok = (keys[None, :] <= rows) if causal else \
+            torch.ones(t_q, len(keys), dtype=torch.bool)
+        sc = torch.where(ok, (qf @ kf[:, keys].transpose(1, 2))
+                         * d ** -0.5, torch.tensor(att.NEG_INF))
+        mn = torch.maximum(m, sc.max(-1).values)
+        alpha = torch.exp(m - mn)
+        p = torch.where(ok, torch.exp(sc - mn[..., None]), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] \
+            + p.to(torch.bfloat16).float() @ vf[:, keys]
+        m = mn
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -661,26 +673,52 @@ def test_flash_bf16_gradient_matches_jax_grad_of_pallas_kernel(case):
                                    atol=BF16_ATOL)
 
 
+def _bwd_bf16_case(t_q, t_k, causal, d=16, bh=3, seed=7):
+    """bf16 q, k, v, d_out (BH, T, D), and the emulated bf16 forward's
+    output with the f32 log-sum-exp the forward kernel writes beside it."""
+    rng = np.random.default_rng(t_q * 1000 + t_k + seed)
+    (q, k, v, g), _ = _bf16(
+        rng.standard_normal((bh, t_q, d)).astype(np.float32),
+        *(rng.standard_normal((bh, t_k, d)).astype(np.float32)
+          for _ in range(2)),
+        rng.standard_normal((bh, t_q, d)).astype(np.float32))
+    out = _flash_bf16_emulated(q, k, v, causal)
+    lse = _lse(q.float(), k.float(), causal, d ** -0.5)
+    return q, k, v, g, out, lse
+
+
+def _bwd_bf16_emulated(q, k, v, g, out, lse, causal, pieces):
+    """The bf16 backward kernel emulated: f32 inside from the bf16
+    inputs, P and dS carried as ``pieces`` bf16 values, each gradient
+    rounded once to bf16."""
+    return [x.to(torch.bfloat16) for x in _bwd_emulated(
+        *(x.float() for x in (q, k, v, out, g)), lse, causal,
+        q.shape[-1] ** -0.5, pieces=pieces)]
+
+
+def _within_chip_bwd_bound(got, q, k, v, g, out, causal):
+    """Per gradient, whether it meets chip_smoke.py phase 13's bound
+    against the plain backward given the same forward output."""
+    want = att.flash_attention_bwd_plain(q, k, v, out, g, causal)
+    return [bool(((a.double() - w.double()).abs()
+                  <= BF16_BWD_ATOL + BF16_BWD_RTOL * w.double().abs()).all())
+            for a, w in zip(got, want)]
+
+
 @pytest.mark.parametrize("t_q,t_k,causal", [(100, 100, True),
                                             (130, 70, False)])
 def test_flash_bwd_bf16_emulation_meets_chip_bound(t_q, t_k, causal):
-    """The bf16 backward kernel is the fp32 two-pass kernel reading bf16
-    into f32 and rounding each gradient once: its emulation, from the
-    emulated bf16 forward's output and log-sum-exp, is no further from
-    an f64 backward than twice the plain bf16 backward (from the plain
-    bf16 forward's output), and within the JAX bf16 bound of it."""
-    rng = np.random.default_rng(t_q * 1000 + t_k + 7)
-    (q, k, v, g), _ = _bf16(
-        rng.standard_normal((3, t_q, 16)).astype(np.float32),
-        *(rng.standard_normal((3, t_k, 16)).astype(np.float32)
-          for _ in range(2)),
-        rng.standard_normal((3, t_q, 16)).astype(np.float32))
-    scale = 16 ** -0.5
-    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
-    out = _flash_bf16_emulated(q, k, v, causal)
-    got = [x.to(torch.bfloat16) for x in _bwd_emulated(
-        qf, kf, vf, out.float(), gf, _lse(qf, kf, causal, scale), causal,
-        scale)]
+    """The bf16 backward kernel's arithmetic (f32 inside, S and dP one
+    exact product each, P and dS split into bf16 hi and lo for the dV,
+    dK and dQ products, each gradient rounded once), from the emulated
+    bf16 forward's output and log-sum-exp: within chip_smoke.py's bound
+    of the plain backward given the same output (rtol 1e-4 + 2^-7, atol
+    1e-5), no further from an f64 backward than twice the plain bf16
+    backward (from the plain bf16 forward's output), and within the JAX
+    bf16 bound of it."""
+    q, k, v, g, out, lse = _bwd_bf16_case(t_q, t_k, causal)
+    got = _bwd_bf16_emulated(q, k, v, g, out, lse, causal, pieces=2)
+    assert all(_within_chip_bwd_bound(got, q, k, v, g, out, causal))
     qd, kd, vd, gd = (x.double() for x in (q, k, v, g))
     exact = att.flash_attention_bwd_plain(
         qd, kd, vd, att.flash_attention_plain(qd, kd, vd, causal), gd,
@@ -691,6 +729,18 @@ def test_flash_bwd_bf16_emulation_meets_chip_bound(t_q, t_k, causal):
         assert _rel_l2(a.float(), e) <= BF16_F64_RATIO * _rel_l2(p.float(), e)
         np.testing.assert_allclose(a.float().numpy(), p.float().numpy(),
                                    rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+def test_flash_bwd_bf16_single_rounding_misses_chip_bound():
+    """Why the bf16 backward splits P and dS: rounded once to bf16 (the
+    FA2 / SDPA rounding) they put dQ, dK and dV outside chip_smoke.py's
+    unchanged bound against the plain backward, where the two-piece
+    split meets it on the same inputs."""
+    q, k, v, g, out, lse = _bwd_bf16_case(256, 256, True, bh=4, seed=8)
+    one = _bwd_bf16_emulated(q, k, v, g, out, lse, True, pieces=1)
+    two = _bwd_bf16_emulated(q, k, v, g, out, lse, True, pieces=2)
+    assert _within_chip_bwd_bound(one, q, k, v, g, out, True) == [False] * 3
+    assert all(_within_chip_bwd_bound(two, q, k, v, g, out, True))
 
 
 def _paged_bf16_case(case):
