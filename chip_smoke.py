@@ -6,6 +6,12 @@ Run from the root of a checkout on a machine with a CUDA card and
 
     python3 chip_smoke.py
 
+To time another commit's paged-attention kernels (K4) the way phase 3
+times this checkout's, in the same call (parent against change), unpack
+it into a directory and run::
+
+    python3 chip_smoke.py --time-paged DIR
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
@@ -17,18 +23,31 @@ Phases (any failure exits non-zero and prints no result line):
    at every prefill bucket and head size 16/32/64/128, over all cases no
    further from an f64 run than twice the fp32 plain version, and its
    SASS must hold TF32 tensor-core instructions (cuobjdump); the paged
-   kernel at lengths on both sides of its 64-token splits, seq_len-0
-   rows zeros; the flash backward (dQ, dK, dV with the forward's
-   log-sum-exp) against its plain version at the decoder-LM training
-   path's shape (B 8, H 12, T 2048, D 64, causal, strided views of one
-   projection) and at head sizes 16 / 32 / 128, non-causal 128 x 192,
-   ragged T 100 (rtol 1e-4 / atol 1e-5);
+   kernel at lengths on both sides of its 64- and 128-token splits,
+   seq_len-0 rows zeros, the same bits from the next call, 20 calls in
+   a row over 8 layer pools each within its bound, calls on two streams
+   at once the one-stream bits, rows of a 4,096-token table at B 32 and
+   B 1 (more splits than the bf16 kernel merges in one batch), and which
+   kernels the calls launch (f32: split and merge; bf16: its one kernel,
+   no merge kernel), each once a call; the
+   flash backward (dQ, dK, dV with the forward's log-sum-exp; TF32
+   tensor-core instructions in all 8 of its pass instances) against its
+   plain version at the decoder-LM training path's shape (B 8, H 12, T
+   2048, D 64, causal, strided views of one projection) and at head
+   sizes 16 / 32 / 128, non-causal 128 x 192, ragged T 100 (rtol 1e-4 /
+   atol 1e-5), over all cases no further from an f64 run than twice the
+   plain fp32 pipeline, on unaligned views the bits of aligned copies,
+   and the same bits from two calls at the LM shape;
 4. time each kernel, its plain version and, where one exists, the
-   PyTorch library call that computes the same function; print one
+   PyTorch library call that computes the same function (device time
+   from CUDA events over calls queued behind a spin of the card, launch
+   gaps between kernels included); print one
    JSON line per kernel, the flash sweep over the prompt buckets (with
    the 3xTF32 and fp32 bounds, and the forward with its log-sum-exp
-   output beside it), the paged rows at B 32 and B 1 and the flash
-   backward at the training shape beside SDPA's backward;
+   output beside it), the paged rows at B 32 and B 1 (with the chunk
+   the wrapper chose) and the flash backward at the training shape
+   beside SDPA's backward, which it must beat (its passes' device ms
+   too); each beside the time of the kernel's earlier design;
 5. drive the serving path: ``Gateway.register_generator`` with the
    documented decoder (vocab 32000, d_model 512, 8 layers, 8 heads,
    2.15 GB paged KV pool) and 32 concurrent streamed
@@ -160,6 +179,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+# ``measure``'s spin, in cycles a second: at least the card's clock, so
+# the spin lasts at least as long as asked
+SPIN_CYCLES_PER_S = 2.0e9
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
@@ -220,28 +242,73 @@ def check(cond, msg):
         fail(msg)
 
 
+def profiled(fn, calls):
+    """{entry: (records, device us)} of ``calls`` calls of ``fn`` under
+    torch.profiler, for the entries with device time (kernels, copies).
+    Later in a run the profiler on the card loses records, at times all
+    of a window's: a window that recorded no device time is taken again,
+    three in all ({} if none recorded any)."""
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+        if rows:
+            return rows
+    log(f"torch.profiler recorded no device time in three windows of "
+        f"{calls} calls")
+    return {}
+
+
 def measure(fn, iters=50, warmup=5):
-    """(device_ms, launch_ms) per call of ``fn()``. device_ms is the sum of
-    the device activity (kernels, copies) torch.profiler records over the
-    calls; launch_ms is the CUDA-event time from the first call to the
-    last, which also counts the gaps while the host launches."""
+    """(device_ms, launch_ms) per call of ``fn()``, from CUDA events.
+    launch_ms: over calls launched back to back, host gaps included.
+    device_ms: over calls queued behind a spin of the card that lasts
+    longer than the host took to launch them, so the card runs them back
+    to back: its time, the gaps between kernels included. (torch.profiler
+    is not used here: on the card it loses kernel records, and late in a
+    run the durations it records disagree with the events.) If the card
+    reached the calls before the host had queued them all (a call that
+    waits for the card, or more launches than the queue holds), device_ms
+    is the device time torch.profiler recorded (launch_ms where it
+    recorded none), and a line says so."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(device_us > 0, "torch.profiler recorded no device time")
-    return device_us / iters / 1e3, start.elapsed_time(end) / iters
+    launch_ms = start.elapsed_time(end) / iters
+    torch.cuda._sleep(int((0.005 + 2 * host_s) * SPIN_CYCLES_PER_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    if ahead:
+        return start.elapsed_time(end) / iters, launch_ms
+    device_us = sum(us for _, us in profiled(fn, iters).values())
+    device_ms = device_us / iters / 1e3 if device_us else launch_ms
+    log(f"the card caught up with the host in {iters} calls: device time "
+        f"{device_ms} ms a call from " + ("torch.profiler" if device_us
+                                          else "the launch events"))
+    return device_ms, launch_ms
+
+
+def kernels_launched(fn, calls):
+    """{kernel name: records} of ``calls`` calls of ``fn`` from
+    torch.profiler (``profiled``; a kernel is an entry with device time;
+    the profiler may lose records, so a count is at most the launches)."""
+    return {k: n for k, (n, _) in profiled(fn, calls).items()}
 
 
 def card_line():
@@ -253,9 +320,10 @@ def card_line():
 
 
 # -- phase 3/4: paged attention ---------------------------------------------
-def paged_inputs(lens, layers, nb, dev, rng):
-    """q, per-layer pool views, tables, seq_lens for one decode step:
-    each row's live blocks are distinct pool blocks, the rest pad sink."""
+def paged_inputs(lens, layers, nb, dev, rng, width=TABLE_WIDTH):
+    """q, per-layer pool views, tables of ``width`` blocks, seq_lens for
+    one decode step: each row's live blocks are distinct pool blocks, the
+    rest pad sink."""
     b = len(lens)
     q = torch.from_numpy(rng.standard_normal(
         (b, HEADS, HEAD_DIM), dtype=np.float32)).to(dev)
@@ -266,13 +334,103 @@ def paged_inputs(lens, layers, nb, dev, rng):
     v = torch.randn(shape, generator=gen, device=dev)
     need = [(n + BLOCK_TOKENS - 1) // BLOCK_TOKENS for n in lens]
     ids = rng.permutation(np.arange(1, nb))[:sum(need)]
-    tables = np.zeros((b, TABLE_WIDTH), np.int32)
+    tables = np.zeros((b, width), np.int32)
     at = 0
     for i, n in enumerate(need):
         tables[i, :n] = ids[at:at + n]
         at += n
     return (q, k, v, torch.from_numpy(tables).to(dev),
             torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
+
+
+# calls in a row over the layer pools at the decode shape
+PAGED_RUN = 20
+# the table of the long-row case: more splits than the bf16 kernel's
+# merge batch of 16 at either of its chunks
+PAGED_LONG_TOKENS = 4096
+# the decode step timed at B 32 (9,536 live tokens): the lengths phase 3
+# draws from the seed, kept here so that another commit is timed on them
+PAGED_DECODE_LENS = [284, 184, 257, 119, 49, 479, 491, 133, 70, 413, 505,
+                     350, 105, 287, 91, 297, 219, 219, 507, 344, 409, 201,
+                     342, 477, 212, 406, 384, 369, 260, 91, 480, 502]
+# the paged kernels' earlier times at B 32 and B 1 (full table), measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W: f32 the split and merge
+# kernels (unchanged), bf16 the same split and merge kernels over bf16
+PAGED_EARLIER_MS = {"paged_attention": (0.02012, 0.00748),
+                    "paged_attention_bf16": (0.01296, 0.00654)}
+
+
+def paged_row(att, dev, rng, cache, lens, name, earlier_ms=None):
+    """K4 over ``cache``-typed pools at ``lens``, one pool per layer like
+    the real cache, so consecutive calls find the L2 cold, as
+    consecutive layers do: first PAGED_RUN calls in a row (a decode
+    step's and more), each within PAGED_TOL of the plain version and the
+    same bits as the first call on its pool; then timed (``measure``),
+    beside the plain version and the bound. Only the wrappers' common interface is used,
+    so any commit's ``ops/attention.py`` can be timed so."""
+    q, k, v, tab, sl = paged_inputs(lens, LAYERS, MAX_BLOCKS, dev, rng)
+    k, v = k.to(cache), v.to(cache)
+    plain = [att.paged_attention_plain(q, k[li], v[li], tab, sl)
+             for li in range(LAYERS)]
+    seen = {}
+    for i in range(PAGED_RUN):
+        li = i % LAYERS
+        o = att.paged_attention(q, k[li], v[li], tab, sl)
+        e = (o - plain[li]).abs().max().item()
+        check(e <= PAGED_TOL, f"{name}: call {i} (layer {li}) off the "
+              f"plain version by {e}")
+        check(torch.equal(o, seen.setdefault(li, o)),
+              f"{name}: call {i} differs from layer {li}'s first")
+    del plain, seen
+    layer = [0]
+
+    def run(fn):
+        def go():
+            li = layer[0] = (layer[0] + 1) % LAYERS
+            fn(q, k[li], v[li], tab, sl)
+        return go
+
+    ms, launch_ms = measure(run(att.paged_attention))
+    plain_ms, _ = measure(run(att.paged_attention_plain), iters=10)
+    live_tok = sum(lens)
+    nbytes = (2 * live_tok * HEADS * HEAD_DIM * k.element_size()
+              + 2 * q.numel() * 4 + tab.numel() * 4 + sl.numel() * 4)
+    flops = 4 * live_tok * HEADS * HEAD_DIM
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+    del k, v
+    torch.cuda.empty_cache()
+    return {"B": len(lens), "live_tokens": live_tok, "ms": ms,
+            "earlier_ms": earlier_ms, "launch_ms": launch_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS_PER_S else "operations")}
+
+
+def time_paged_tree(root):
+    """K4's timing rows (both cache types, B 32 at PAGED_DECODE_LENS and
+    B 1 at the full table) for the checkout at ``root``, as
+    ``phase_paged`` times this one: another commit's kernels timed the
+    same way in the same call."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    root = os.path.abspath(root)
+    check(os.path.isdir(os.path.join(root, "mxnet_tpu_torch")),
+          f"no mxnet_tpu_torch package in {root}")
+    sys.path.insert(0, root)
+    from mxnet_tpu_torch.ops import attention as att
+    dev = torch.device("cuda", 0)
+    log(card_line())
+    log(f"paged timing of {att.__file__}")
+    for cache in (torch.float32, torch.bfloat16):
+        name = "paged_attention" + ("_bf16" if cache == torch.bfloat16
+                                    else "")
+        rng = np.random.default_rng(SEED)
+        rows = [paged_row(att, dev, rng, cache, lens, name)
+                for lens in (PAGED_DECODE_LENS,
+                             [TABLE_WIDTH * BLOCK_TOKENS])]
+        log(f"{name.replace('attention', 'timing')} " + json.dumps(rows))
+    return 0
 
 
 def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
@@ -301,44 +459,88 @@ def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
           "zeros")
     log(f"{name}: max abs err {err:.3e} (tol {PAGED_TOL})")
     check(err <= PAGED_TOL, f"{name} error {err} > {PAGED_TOL}")
-    del k, v
+    # the same bits from the next call (the bf16 kernel's merge counters
+    # are back at zero), and the kernel launches one call makes: the f32
+    # kernels split and merge, the bf16 kernel merges in itself
+    again = att.paged_attention(q, k[0], v[0], tab, sl)
+    check(torch.equal(got, again), f"{name}: two calls differ in their bits")
+    # which kernels run (torch.profiler: it may lose records, so each
+    # kernel at most once a call), and the wrapper's launches, once a call
+    bf16 = cache == torch.bfloat16
+    count = "launches_bf16" if bf16 else "launches"
+    counted = getattr(att.paged_attention, count)
+    launched = kernels_launched(
+        lambda: att.paged_attention(q, k[0], v[0], tab, sl), PAGED_RUN)
+    counted = getattr(att.paged_attention, count) - counted
+    paged = {key[key.find("paged_attention"):].split("(")[0]: n
+             for key, n in launched.items() if "paged_attention" in key}
+    want = (("paged_attention_bf16_kernel",) if bf16
+            else ("paged_attention_kernel", "paged_attention_merge_kernel"))
+    check(counted == PAGED_RUN and len(paged) == len(want) and all(
+        any(w in key for key in paged) for w in want)
+        and all(0 < n <= PAGED_RUN for n in paged.values()),
+        f"{name}: {counted} wrapper launches and kernels recorded {paged} "
+        f"in {PAGED_RUN} calls, want {PAGED_RUN} and {want}, each at most "
+        "once a call")
+    log(f"{name}: kernels recorded in {PAGED_RUN} calls " + json.dumps(paged))
+    # calls in flight on two streams at once (the bf16 kernel's merge
+    # counters are kept per stream): each gives the one-stream bits
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(2 * PAGED_RUN):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(att.paged_attention(q, k[0], v[0], tab, sl))
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, got) for o in outs),
+          f"{name}: calls on two streams differ from one stream's bits")
+    del k, v, outs
+
+    # long rows: a 4,096-token table, so the bf16 kernel merges more
+    # splits than one batch of its merge holds (32 of 128 tokens at B 32,
+    # 64 of 64 at B 1); lengths about its 16-split batches, a 0 row. A
+    # generator of their own leaves the timing's lengths as they were
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    long_w = PAGED_LONG_TOKENS // BLOCK_TOKENS
+    lrng = np.random.default_rng(SEED + 1)
+    long_b32 = ([PAGED_LONG_TOKENS, PAGED_LONG_TOKENS - 1, 2049, 2048, 2047,
+                 1025, 1024, 1023, 0]
+                + [int(n) for n in lrng.integers(2, PAGED_LONG_TOKENS, 23)])
+    for lens in (long_b32, [PAGED_LONG_TOKENS]):
+        q, k, v, tab, sl = paged_inputs(lens, 1, 1 + len(lens) * long_w,
+                                        dev, lrng, long_w)
+        k, v = k.to(cache), v.to(cache)
+        got = att.paged_attention(q, k[0], v[0], tab, sl)
+        want = att.paged_attention_plain(q, k[0], v[0], tab, sl)
+        live = torch.from_numpy(np.asarray(lens) > 0).to(dev)
+        e = (got - want).abs()[live].max().item()
+        chunk = att._paged_chunk(len(lens), HEADS, HEAD_DIM, long_w,
+                                 BLOCK_TOKENS, cache == torch.bfloat16, sms)
+        log(f"{name}: B {len(lens)} over {PAGED_LONG_TOKENS}-token tables, "
+            f"chunk {chunk} ({-(-max(lens) // chunk)} splits): max abs err "
+            f"{e:.3e} (tol {PAGED_TOL})")
+        check(e <= PAGED_TOL, f"{name}: long rows (B {len(lens)}) error {e}")
+        check(bool(torch.all(got[~live] == 0)), f"{name}: long rows' "
+              "seq_len-0 row not zeros")
+        check(torch.equal(got, att.paged_attention(q, k[0], v[0], tab, sl)),
+              f"{name}: long rows (B {len(lens)}): two calls differ")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
 
     # timing at the serving path's decode shape: a full batch bucket of
-    # 32 rows mid-generation, one pool per layer like the real cache so
-    # consecutive calls find the L2 cold, as consecutive layers do; then
-    # one row at the full table
+    # 32 rows mid-generation; then one row at the full table
     if decode_lens is None:
         decode_lens = [int(n) for n in rng.integers(5, MAX_PROMPT + 1,
                                                      MAX_BATCH) + 32]
+        check(decode_lens == PAGED_DECODE_LENS, f"decode lengths drawn "
+              f"{decode_lens}, not PAGED_DECODE_LENS")
     rows = []
     for lens in (decode_lens, [TABLE_WIDTH * BLOCK_TOKENS]):
-        q, k, v, tab, sl = paged_inputs(lens, LAYERS, MAX_BLOCKS, dev, rng)
-        k, v = k.to(cache), v.to(cache)
-        layer = [0]
-
-        def run(fn):
-            def go():
-                li = layer[0] = (layer[0] + 1) % LAYERS
-                fn(q, k[li], v[li], tab, sl)
-            return go
-
-        ms, launch_ms = measure(run(att.paged_attention))
-        plain_ms, _ = measure(run(att.paged_attention_plain), iters=10)
-        live_tok = sum(lens)
-        nbytes = (2 * live_tok * HEADS * HEAD_DIM * k.element_size()
-                  + 2 * q.numel() * 4 + tab.numel() * 4 + sl.numel() * 4)
-        flops = 4 * live_tok * HEADS * HEAD_DIM
-        bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                       flops / FP32_FLOPS_PER_S) * 1e3
-        rows.append({"B": len(lens), "live_tokens": live_tok, "ms": ms,
-                     "launch_ms": launch_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_share": bound_ms / ms,
-                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                  >= flops / FP32_FLOPS_PER_S
-                                  else "operations")})
-        del k, v
-        torch.cuda.empty_cache()
+        row = paged_row(att, dev, rng, cache, lens, name,
+                        PAGED_EARLIER_MS[name][len(rows)])
+        row["chunk"] = att._paged_chunk(len(lens), HEADS, HEAD_DIM,
+                                        TABLE_WIDTH, BLOCK_TOKENS, bf16, sms)
+        rows.append(row)
     log(f"{name.replace('attention', 'timing')} " + json.dumps(rows))
     top = rows[0]
     return {"name": name, "route": "cuda",
@@ -502,6 +704,10 @@ LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 8, 2048, 5, 1e-4
 LM_HEAD_DIM = LM_D_MODEL // LM_HEADS
 # the JAX package's fp32 attention bound (tests/test_pallas_attention.py)
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+# the fp32 K3 backward's earlier design (its two passes on the fp32 FMA
+# pipes) at the LM shape, measured by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W
+F32_BWD_EARLIER_MS = 6.820
 
 
 def lm_qkv(b, t, h, d, dev, gen, requires_grad=False):
@@ -522,7 +728,15 @@ def flash_bwd_cost(b, h, t_q, t_k, d, causal):
     return nbytes, 10 * d * b * h * pairs
 
 
-def phase_flash_bwd(att, dev):
+def phase_flash_bwd(att, build, dev):
+    """The fp32 K3 backward through the path's autograd Function against
+    the plain backward given the same forward output (BWD_RTOL /
+    BWD_ATOL), and over all cases no further from an f64 run than twice
+    the plain fp32 pipeline (forward and backward); unaligned views; the
+    same bits from two calls and the time at the LM shape beside SDPA's
+    fp32 backward. Both passes run their products on the tensor cores
+    (TF32) at every head size."""
+    flash_sass(build, "flash_attention_bwd", "_f32_kernel", "TF32", 8)
     gen = torch.Generator().manual_seed(SEED)
     cases = [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, True),
              (2, 4, 256, 256, 16, True, False),
@@ -531,7 +745,8 @@ def phase_flash_bwd(att, dev):
              (2, 4, 128, 192, 64, False, False),
              (2, 4, 100, 100, 64, True, False),
              (2, 4, 100, 100, 64, False, True)]
-    err = 0.0
+    err, share = 0.0, 0.0
+    err_kernel, err_plain = [0.0] * 3, [0.0] * 3
     for b, h, t_q, t_k, d, causal, strided in cases:
         # through the path's entry: the autograd Function saves the
         # forward kernel's output and log-sum-exp for the backward kernel
@@ -549,31 +764,65 @@ def phase_flash_bwd(att, dev):
         torch.cuda.synchronize()
         q, k, v, out = (x.detach() for x in (q, k, v, out))
         want = att.flash_attention_bwd_plain(q, k, v, out, d_out, causal)
+        qd, kd, vd = (x.double() for x in (q, k, v))
+        exact = att.flash_attention_bwd_plain(
+            qd, kd, vd, att.flash_attention_plain(qd, kd, vd, causal),
+            d_out.double(), causal)
+        plain = att.flash_attention_bwd_plain(
+            q, k, v, att.flash_attention_plain(q, k, v, causal), d_out,
+            causal)
         errs = []
-        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-            e = (a - w).abs()
-            ok = bool((e <= BWD_ATOL + BWD_RTOL * w.abs()).all())
-            errs.append(e.max().item())
+        for i, (name, a, w, x, p) in enumerate(zip(("dq", "dk", "dv"), got,
+                                                   want, exact, plain)):
+            ok, e = within(a, w, BWD_RTOL, BWD_ATOL)
+            share = max(share, bound_share(a, w, BWD_RTOL, BWD_ATOL))
+            errs.append(e)
+            err_kernel[i] = max(err_kernel[i], (a.double() - x).abs().max()
+                                .item())
+            err_plain[i] = max(err_plain[i], (p.double() - x).abs().max()
+                               .item())
             check(ok, f"flash_attention_bwd B={b} H={h} Tq={t_q} Tk={t_k} "
                   f"D={d} causal={causal} strided={strided}: {name} off "
-                  f"by {errs[-1]:.3e} beyond rtol {BWD_RTOL} / atol "
-                  f"{BWD_ATOL}")
+                  f"by {e:.3e} beyond rtol {BWD_RTOL} / atol {BWD_ATOL}")
         log(f"flash_attention_bwd B={b} H={h} Tq={t_q} Tk={t_k} D={d} "
             f"causal={causal} strided={strided}: max abs err dq/dk/dv "
             f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (rtol "
             f"{BWD_RTOL}, atol {BWD_ATOL})")
         err = max(err, *errs)
+        del q, k, v, out, d_out, got, want, exact, plain, qd, kd, vd
+    # over all cases: a 1xTF32 product would sit ~1e-3 of the values off
+    for name, e_k, e_p in zip(("dq", "dk", "dv"), err_kernel, err_plain):
+        log(f"flash_attention_bwd {name} vs f64 over {len(cases)} cases: "
+            f"kernel {e_k:.3e}, fp32 plain {e_p:.3e}")
+        check(e_k <= 2 * e_p, f"flash_attention_bwd {name}: {e_k:.3e} off "
+              f"the f64 run, more than twice the fp32 plain pipeline's "
+              f"{e_p:.3e}")
+    unaligned_bwd(att, dev, gen, torch.float32)
+    torch.cuda.empty_cache()
 
     # timing at the training path's shape
     q, k, v = lm_qkv(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
     out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5,
                               with_lse=True)
     d_out = torch.randn(out.shape, generator=gen).to(dev)
+    # no atomics: every gradient is written once, in a fixed order
+    first = att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+    again = att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    check(same, "flash_attention_bwd: two calls at the LM shape differ in "
+          "their bits")
+    del first, again
     row = {"shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
-                     "D": LM_HEAD_DIM, "causal": True}}
+                     "D": LM_HEAD_DIM, "causal": True},
+           "bound_share_max": share, "bitwise_run_to_run": same,
+           "f64_err_kernel": err_kernel, "f64_err_plain": err_plain,
+           "earlier_ms": F32_BWD_EARLIER_MS}
     row["ms"], row["launch_ms"] = measure(
         lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
         iters=20)
+    row["passes_ms"] = bwd_passes_ms(
+        lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+        ("bwd_dot_kernel", "dkdv_f32_kernel", "dq_f32_kernel"))
     row["plain_ms"], _ = measure(
         lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
         iters=10)
@@ -597,6 +846,9 @@ def phase_flash_bwd(att, dev):
     sdpa_both, _ = measure(sdpa_fwd_bwd, iters=20)
     row["library_ms"] = sdpa_both - sdpa_fwd
     row["library_fwd_ms"], row["library_fwd_bwd_ms"] = sdpa_fwd, sdpa_both
+    check(row["ms"] < row["library_ms"],
+          f"flash_attention_bwd: {row['ms']:.4f} ms, not below SDPA's fp32 "
+          f"backward {row['library_ms']:.4f} ms")
     nbytes, flops = flash_bwd_cost(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ,
                                    LM_HEAD_DIM, True)
     # as the forward's (flash_bounds): the card's fastest fp32-accurate
@@ -606,6 +858,9 @@ def phase_flash_bwd(att, dev):
     row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
     row["bytes"], row["flops"] = nbytes, flops
     row["fp32_bound_ms"] = max(mem_s, flops / FP32_FLOPS_PER_S) * 1e3
+    # the kernels' own floor: 7 products a visible pair (S and dP twice,
+    # dV, dK, dQ) against the function's 5, each 3 TF32 products
+    row["kernel_floor_ms"] = max(mem_s, 7 / 5 * op_s) * 1e3
     log("flash_bwd_timing " + json.dumps(row))
     del q, k, v, out, lse, d_out, qs, ks, vs, ql, kl, vl
     torch.cuda.empty_cache()
@@ -616,6 +871,23 @@ def phase_flash_bwd(att, dev):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "launch_ms": row["launch_ms"], "shape": row["shape"]}
+
+
+def bwd_passes_ms(call, tags, n=5):
+    """Device ms of each launch of the backward (the Dv dot, the dK/dV
+    pass, the dQ pass), by kernel name: its mean torch.profiler record
+    over ``n`` calls (each launches each once). Late in a run these
+    records disagree with ``measure``'s events: a breakdown only."""
+    rows = profiled(call, n)
+    check(rows, f"torch.profiler recorded no pass of the backward in {n} "
+          "calls")
+    out = {}
+    for tag in tags:
+        hits = [v for key, v in rows.items() if tag in key]
+        check(hits, f"torch.profiler recorded no {tag} in {n} calls")
+        out[tag] = (sum(us for _, us in hits)
+                    / sum(c for c, _ in hits) / 1e3)
+    return out
 
 
 # -- phase 5: the serving path ----------------------------------------------
@@ -1136,7 +1408,7 @@ def phase_fused_opt(fo, dev):
             for w, g, m, v in arrays:
                 f(w, g, *(m, v)[:k], **hp)
 
-        ms, launch_ms = measure(all_kernel, iters=20)
+        ms, launch_ms = measure(all_kernel, iters=5)
         plain_ms, _ = measure(all_plain, iters=2, warmup=1)
         step[name] = {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
                       "bound_ms": k2_bound_ms(total, nbytes, ops)}
@@ -2022,8 +2294,9 @@ def lm_kernel_group(name):
     if "flash_attention_kernel" in low \
             or "flash_attention_bf16_kernel" in low:
         return "flash_fwd"
-    if any(k in low for k in ("dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
-                              "dq_bf16_kernel", "bwd_dot_kernel")):
+    if any(k in low for k in ("dkdv_f32_kernel", "dq_f32_kernel",
+                              "dkdv_bf16_kernel", "dq_bf16_kernel",
+                              "bwd_dot_kernel")):
         return "flash_bwd"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma")):
         return "matmul"
@@ -2412,18 +2685,22 @@ def phase_flash_bf16(att, build, dev):
             "shape": row["shape"]}
 
 
-def unaligned_bwd_bf16(att, dev, gen):
-    """The bf16 backward's cp.async loads need 16-byte aligned inputs:
-    given views that are not (a narrow of a wider tensor, as autograd
-    hands back the gradient of a concatenation), it gives the bits it
-    gives on aligned copies, within phase 13's bound of the plain
-    backward."""
+def unaligned_bwd(att, dev, gen, dtype):
+    """The backward's cp.async loads need 16-byte aligned inputs: given
+    views that are not (a narrow of a wider tensor, as autograd hands
+    back the gradient of a concatenation), it gives the bits it gives on
+    aligned copies, within its bound of the plain backward (fp32: phase
+    3's rtol / atol; bf16: phase 13's)."""
+    bf16 = dtype == torch.bfloat16
+    rtol, atol = (BF16_BWD_RTOL, BF16_BWD_ATOL) if bf16 else (BWD_RTOL,
+                                                              BWD_ATOL)
+    tag = "bf16" if bf16 else "f32"
     b, h, t, d, pad = 2, 4, 100, 64, 3
-    q, k, v = (torch.randn((b, h, t, d), generator=gen).to(dev).bfloat16()
+    q, k, v = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
                .requires_grad_(True) for _ in range(3))
-    head = torch.randn((b, h, t, pad), generator=gen).to(dev).bfloat16()
+    head = torch.randn((b, h, t, pad), generator=gen).to(dev, dtype)
     out = att.flash_attention(q, k, v, True)
-    g_cat = torch.randn((b, h, t, pad + d), generator=gen).to(dev).bfloat16()
+    g_cat = torch.randn((b, h, t, pad + d), generator=gen).to(dev, dtype)
     got = torch.autograd.grad(torch.cat([head, out], -1), (q, k, v), g_cat)
     d_out = g_cat[..., pad:]
     check(not att._aligned(d_out), "the narrowed d_out is aligned")
@@ -2441,13 +2718,13 @@ def unaligned_bwd_bf16(att, dev, gen):
     torch.cuda.synchronize()
     for name, a, dr, al, w in zip(("dq", "dk", "dv"), got, direct, aligned,
                                   want):
-        ok, e = within(a, w, BF16_BWD_RTOL, BF16_BWD_ATOL)
-        check(ok, f"flash_attention_bwd bf16 unaligned d_out: {name} off "
+        ok, e = within(a, w, rtol, atol)
+        check(ok, f"flash_attention_bwd {tag} unaligned d_out: {name} off "
               f"the plain backward by {e:.3e}")
         check(torch.equal(a, al) and torch.equal(dr, al),
-              f"flash_attention_bwd bf16: {name} from unaligned views "
+              f"flash_attention_bwd {tag}: {name} from unaligned views "
               f"differs from the aligned call's bits")
-    log(f"flash_attention_bwd bf16 B={b} H={h} T={t} D={d} causal: "
+    log(f"flash_attention_bwd {tag} B={b} H={h} T={t} D={d} causal: "
         f"unaligned views (d_out through autograd; q, k, v and d_out "
         f"called directly) give the aligned call's bits")
 
@@ -2521,7 +2798,7 @@ def phase_flash_bwd_bf16(att, build, dev):
         err = max(err, *errs)
         worst = max(worst, *ratios)
         del q, k, v, out, d_out, got, want, exact, plain
-    unaligned_bwd_bf16(att, dev, gen)
+    unaligned_bwd(att, dev, gen, torch.bfloat16)
     torch.cuda.empty_cache()
 
     q, k, v = lm_qkv_bf16(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
@@ -2542,17 +2819,9 @@ def phase_flash_bwd_bf16(att, build, dev):
     row["ms"], row["launch_ms"] = measure(
         lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
         iters=20)
-    # device ms of each of the three launches: the Dv dot, the dK/dV
-    # pass, the dQ pass
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
-        torch.cuda.synchronize()
-    row["passes_ms"] = {tag: sum(e.self_device_time_total
-                                 for e in prof.key_averages()
-                                 if tag in e.key) / 5 / 1e3
-                        for tag in ("bwd_dot_kernel", "dkdv_bf16_kernel",
-                                    "dq_bf16_kernel")}
+    row["passes_ms"] = bwd_passes_ms(
+        lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+        ("bwd_dot_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel"))
     row["plain_ms"], _ = measure(
         lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
         iters=5)
@@ -2868,7 +3137,7 @@ def main():
     log(f"build: {build_s:.1f}s for {', '.join(_build.KERNELS)}")
 
     kernels = [phase_flash(att, _build, dev, rng),
-               phase_flash_bwd(att, dev),
+               phase_flash_bwd(att, _build, dev),
                phase_paged(att, dev, rng),
                phase_int8(i8, dev),
                *phase_fused_opt(fo, dev)]
@@ -2900,4 +3169,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-paged":
+        sys.exit(time_paged_tree(sys.argv[2]))
     sys.exit(main())

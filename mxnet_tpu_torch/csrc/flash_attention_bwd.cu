@@ -16,39 +16,90 @@
 // Three launches, one stream, for either type:
 //  1. dot: Dv_i = rowsum(dO_i * O_i), one warp per query row, f32 scratch
 //     (B, H, Tq). dS = P * (dP - Dv) with dP = dO V^T is the softmax VJP.
-//  2. dK/dV: one CTA per (64-key block, head, batch). K_j and V_j stay in
-//     shared memory; the CTA walks the 64-row query blocks that can see
-//     them (from the diagonal on when causal), loads Q_i, dO_i, lse_i and
-//     Dv_i, recomputes S = Q_i K_j^T and dP = dO_i V_j^T, and accumulates
-//     dV_j += P^T dO_i and dK_j += dS^T Q_i in registers; dK is scaled
-//     once at the end.
-//  3. dQ: one CTA per (64-row query block, head, batch). Q_i, dO_i, lse_i
-//     and Dv_i stay; the CTA walks the key blocks the rows can see,
-//     recomputes S, P, dP and dS, and accumulates dQ_i += dS K_j.
+//  2. dK/dV: one CTA of 4 warps per (64-key block, head, batch). K_j and
+//     V_j stay in shared memory; the CTA walks the 64-row query blocks
+//     that can see them (from the diagonal on when causal), loads Q_i,
+//     dO_i, lse_i and Dv_i, recomputes the scores and accumulates dV_j +=
+//     P^T dO_i and dK_j += dS^T Q_i in registers; dK is scaled once at
+//     the end.
+//  3. dQ: one CTA of 4 warps per (64-row query block, head, batch). Q_i,
+//     dO_i, lse_i and Dv_i stay; the CTA walks the key blocks the rows can
+//     see, recomputes S, P, dP and dS, and accumulates dQ_i += dS K_j.
 // Pass 3 recomputes S and dP, but every gradient is written once from one
 // CTA: no atomicAdd into dQ, so the result is the same bits run to run.
+// Both types share the skeleton of passes 2 and 3:
+//  - in pass 2 each warp owns 16 keys and computes the transposed tiles
+//    S^T = K_w Q_i^T and dP^T = V_w dO_i^T, so P^T and dS^T = P^T * (dP^T
+//    - Dv) sit in the mma accumulator layout, which is (after the key
+//    permutation below, for fp32) the A fragment of dV += P^T dO_i and
+//    dK += dS^T Q_i as it stands: P and dS never touch shared memory. In
+//    pass 3 each warp owns 16 query rows and S, dP come out the same way;
+//  - tiles are loaded by 16-byte cp.async, zero-filled past T, into two
+//    stages: the next Q/dO block (pass 2) or K/V block (pass 3) loads
+//    while this one computes. So q, k, v and dO need 16-byte aligned base
+//    addresses and strides (the wrapper copies any input that is not);
+//  - 4 warps a CTA.
 //
-// fp32 (`mxt_flash_attention_bwd_f32`, `dkdv_kernel` / `dq_kernel`): fp32
-// FMA on the CUDA cores, one rounding per multiply-add, so the result sits
-// within the fp32 tolerance of the plain version (ops/attention.py
-// `flash_attention_bwd_plain`) with no TF32 splitting. 256 threads as a
-// 16 x 16 grid; each thread owns 4 x 4 scores (rows ty + 16r, keys
-// tx + 16c) and 4 x D/16 outputs (rows ty + 16r, columns tx + 16c). Rows
-// in shared memory are padded to D + 4 floats, so the float4 reads of the
-// score products hit distinct banks in each quarter warp; P and dS are
-// stored 68 floats a row. Bound at the training path's shape (causal,
-// B 8, H 12, T 2048, D 64): bytes q, k, v, o, dO read once, dq, dk, dv
-// written once, lse read once: 8 * 8 * 12 * 2048 * 64 * 4 + 8 * 12 *
-// 2048 * 4 = 403.4 MB, 0.120 ms at 3.35 TB/s. Operations: the five
-// products the gradient needs (S, dP, dV, dK, dQ), 2 * D flops each per
-// visible query-key pair, T (T + 1) / 2 pairs per head when causal:
-// 10 * 64 * 96 * 2048 * 2049 / 2 = 128.9 GFLOP (the exponentials not
-// counted). As for the forward, the least time takes the card's fastest
-// route that meets the fp32 tolerance, 3xTF32 on the tensor cores:
+// Bound at the training path's shape (causal, B 8, H 12, T 2048, D 64):
+// bytes q, k, v, o, dO read once, dq, dk, dv written once, lse read once:
+// 8 * 8 * 12 * 2048 * 64 * 4 + 8 * 12 * 2048 * 4 = 403.4 MB, 0.120 ms at
+// 3.35 TB/s. Operations: the five products the gradient needs (S, dP, dV,
+// dK, dQ), 2 * D flops each per visible query-key pair, T (T + 1) / 2
+// pairs per head when causal: 10 * 64 * 96 * 2048 * 2049 / 2 = 128.9
+// GFLOP (the exponentials not counted). As for the forward, the least
+// time takes the card's fastest route that meets the fp32 tolerance,
+// 3xTF32 on the tensor cores:
 //   max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s) = max(0.120, 0.781)
-// = 0.781 ms, bound by operations. These kernels run the products on the
-// fp32 FMA pipes instead (1.924 ms at 67 TFLOP/s for the same work), with
-// 14/10 of it (the recomputation of S and dP in pass 3).
+// = 0.781 ms, bound by operations (1.924 ms on the fp32 FMA pipes).
+//
+// fp32 (`mxt_flash_attention_bwd_f32`, `dkdv_f32_kernel` /
+// `dq_f32_kernel`): every product runs on the tensor cores as 3xTF32,
+// `mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32`, in the forward's form
+// (csrc/flash_attention.cu). Each operand x is split into big = x rounded
+// to TF32 (to nearest, ties away: `cvt.rna`'s rounding, done as an integer
+// add and mask, two instructions where the cvt takes four) and small = x -
+// big, which the tensor core reads as TF32 by ignoring its low 13 bits
+// (big + small is x to within 2^-22). Per k-step of 16 (two m16n8k8) the
+// products a_small * b_big and a_big * b_small go into a zeroed fragment
+// first and a_big * b_big last, and the fragment is added to the running
+// f32 sum with an FADD, so the tensor core's own accumulation touches one
+// k-step's partial sum only (as the forward's P V does). One TF32 product
+// alone (10 mantissa bits) misses the fp32 tolerance
+// (tests/test_torch_attention.py
+// `test_flash_bwd_1xtf32_emulation_misses_fp32_tolerance`).
+//  - m16n8k8's A fragment holds columns t and t + 4 of a k-step, its
+//    accumulator columns 2t and 2t + 1. So P^T, dS^T and dS feed the next
+//    product with its k index permuted as the forward's P does: logical k
+//    = t is accumulator column 2t, k = t + 4 is 2t + 1; the B operand's
+//    rows (dO, Q or K, indexed by that k) are read in the same order.
+//    P^T and dS^T are split into big and small as they leave the
+//    accumulator;
+//  - ldmatrix moves 16-bit elements only, so every f32 fragment is read
+//    from shared memory by scalar loads and split as it is read (the
+//    forward does the same for K and V). Tiles stay f32, rows of D + 4
+//    floats: a fragment read along a row (lanes g, t at row g, column t)
+//    falls on bank 4g + t, one read down the rows (row 2t, column g) on
+//    bank 8t + g; both are 32 distinct banks. (The bf16 kernels' D + 8
+//    would put rows 2t and 2t + 2 on one bank);
+//  - P = expf(scale * S - lse), masked scores 0 (only in the blocks that
+//    hold a diagonal or a ragged edge). expf as the FMA kernels it
+//    replaces had it, not the bf16 kernels' `ex2.approx`: the SFU's
+//    2^-22 is a few percent faster but takes a larger share of the f64
+//    check this kernel is held to (no further from an f64 run than twice
+//    the plain fp32 pipeline);
+//  - shared memory: K, V and two stages of Q, dO (pass 2; lse and Dv
+//    too) or Q, dO and two stages of K, V (pass 3): 6 tiles of 64 x (D +
+//    4) floats, 105 KB at D 64, so two CTAs an SM; at D 128, 203 KB: one
+//    CTA an SM with both stages kept (no 32-row tiles);
+//  - registers: at D 64 pass 2 fills the 255 a thread may hold (dK and
+//    dV, 16 keys x D each, the S^T and dP^T tiles and the fragments; a
+//    few bytes spill), pass 3 a little less. The k-loop of the S and dP
+//    products is not unrolled: unrolled, ptxas runs the loads ahead into
+//    spills. Two CTAs an SM either way (shared memory). D 128 spills
+//    more.
+// The kernels' own floor: 7 products a visible pair (S and dP twice, dV,
+// dK, dQ), 3 TF32 products each, 21 against the function's 15: 21/15 *
+// 0.781 = 1.09 ms; mma.sync does not reach wgmma's peak rate.
 //
 // bf16 (`mxt_flash_attention_bwd_bf16`, `dkdv_bf16_kernel` /
 // `dq_bf16_kernel`): q, k, v, o and dO bf16, every sum in f32, each
@@ -66,28 +117,20 @@
 //    is carried as two bf16 pieces, hi = bf16(x) and lo = bf16(x - hi),
 //    which keep 16 of its 24 bits, and dV += P^T dO, dK += dS^T Q and
 //    dQ += dS K take two products each, hi and lo, summed in the same f32
-//    accumulator;
-//  - P and dS never touch shared memory. In pass 2 each warp owns 16 keys
-//    and computes the transposed tiles S^T = K_w Q_i^T and dP^T = V_w
-//    dO_i^T: P^T and dS^T then sit in the m16n8k16 accumulator layout,
-//    which is the A fragment of the next product as it stands (two n8
-//    tiles, keys 2t, 2t + 1 then + 8). In pass 3 each warp owns 16 query
-//    rows and S, dP come out the same way;
+//    accumulator. In m16n8k16 the accumulator layout of two n8 tiles
+//    (keys 2t, 2t + 1 then + 8) is the A fragment as it stands;
 //  - P's exponential runs on the SFU, `ex2.approx` of the argument times
 //    log2(e) folded into the FMA that forms it (about 2^-22 relative,
 //    against expf's eight instructions an element);
 //  - tiles stay bf16 in shared memory, rows of D + 8 (16 bytes of
 //    padding: the eight 16-byte rows an ldmatrix reads hit distinct
-//    banks), loaded with cp.async 16 bytes a copy (4 for lse and Dv) and
-//    zero-filled past T; the next Q/dO block (pass 2) or K/V block
-//    (pass 3) loads into a second stage while this one computes. So q,
-//    k, v and dO need 16-byte aligned base addresses and strides.
-// 4 warps a CTA, three CTAs an SM below D 128. Bound at the same shape in
-// bf16: bytes 8 tensors of 96 * 2048 * 64 bf16 plus lse = 202.1 MB,
-// 0.060 ms; operations 128.9 GFLOP at 989 TFLOP/s bf16, 0.130 ms: bound
-// 0.130 ms, by operations. This kernel does 8 products of 2 * D flops
-// per visible pair (S, dP, and two each for dV, dK and dQ), 10 with pass
-// 3's recomputation of S and dP, so its own floor on the tensor cores is
+//    banks), cp.async 16 bytes a copy (4 for lse and Dv).
+// Three CTAs an SM below D 128. Bound at the same shape in bf16: bytes 8
+// tensors of 96 * 2048 * 64 bf16 plus lse = 202.1 MB, 0.060 ms;
+// operations 128.9 GFLOP at 989 TFLOP/s bf16, 0.130 ms: bound 0.130 ms,
+// by operations. This kernel does 8 products of 2 * D flops per visible
+// pair (S, dP, and two each for dV, dK and dQ), 10 with pass 3's
+// recomputation of S and dP, so its own floor on the tensor cores is
 // 10/5 * 0.130 = 0.26 ms; mma.sync does not reach wgmma's peak rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,122 +140,13 @@
 namespace {
 
 constexpr int kB = 64;                // query rows and keys per tile
-constexpr int kThreads = 256;         // 16 x 16
-constexpr int kPB = kB + 4;           // padded row of P and dS
 constexpr int kDotWarps = 8;
-
-template <int D>
-constexpr int dkdv_smem_floats() {
-  // K, V, Q, dO tiles; P^T and dS^T; lse and Dv of the query block
-  return 4 * kB * (D + 4) + 2 * kB * kPB + 2 * kB;
-}
-
-template <int D>
-constexpr int dq_smem_floats() {
-  // Q, dO, K, V tiles; dS; lse and Dv of the query block
-  return 4 * kB * (D + 4) + kB * kPB + 2 * kB;
-}
+constexpr int kWarps = 4;             // 16 rows (pass 3) or keys (pass 2) each
+constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// rows [row0, row0 + kB) of a (T, D) f32 slice with row stride `st` into
-// a padded tile; rows past T are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          int64_t st, int row0, int T) {
-  constexpr int P = D + 4;
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int r = e / D, c = e % D, row = row0 + r;
-    s[r * P + c] = row < T ? g[static_cast<int64_t>(row) * st + c] : 0.f;
-  }
-}
-
-// lse and Dv of query rows [q0, q0 + kB); zero past Tq (those rows are
-// masked)
-__device__ __forceinline__ void load_rows(float* sL, float* sDv,
-                                          const float* lse, const float* dv,
-                                          int q0, int Tq) {
-  for (int r = threadIdx.x; r < kB; r += kThreads) {
-    const bool in = q0 + r < Tq;
-    sL[r] = in ? lse[q0 + r] : 0.f;
-    sDv[r] = in ? dv[q0 + r] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T for this thread's 4 x 4 (row ty + 16r, key
-// tx + 16c) of the 64 x 64 tile, unscaled
-template <int D>
-__device__ __forceinline__ void scores(const float* sQ, const float* sdO,
-                                       const float* sK, const float* sV,
-                                       int ty, int tx, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int P = D + 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 qa[4], oa[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qa[r] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * r) * P + d);
-      oa[r] = *reinterpret_cast<const float4*>(sdO + (ty + 16 * r) * P + d);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float4 kb =
-          *reinterpret_cast<const float4*>(sK + (tx + 16 * c) * P + d);
-      const float4 vb =
-          *reinterpret_cast<const float4*>(sV + (tx + 16 * c) * P + d);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float a = s[r][c], b = dp[r][c];
-        a = fmaf(qa[r].x, kb.x, a);
-        a = fmaf(qa[r].y, kb.y, a);
-        a = fmaf(qa[r].z, kb.z, a);
-        a = fmaf(qa[r].w, kb.w, a);
-        b = fmaf(oa[r].x, vb.x, b);
-        b = fmaf(oa[r].y, vb.y, b);
-        b = fmaf(oa[r].z, vb.z, b);
-        b = fmaf(oa[r].w, vb.w, b);
-        s[r][c] = a;
-        dp[r][c] = b;
-      }
-    }
-  }
-}
-
-// P = exp(scale * S - lse) and dS = P * (dP - Dv) of this thread's 4 x 4,
-// zero where masked (a key past Tk, a row past Tq, a key above the causal
-// diagonal), stored transposed (key-major, for dK/dV) or query-major (dQ)
-template <bool kKeyMajor>
-__device__ __forceinline__ void probs(const float (&s)[4][4],
-                                      const float (&dp)[4][4],
-                                      const float* sL, const float* sDv,
-                                      float* sP, float* sdS, int ty, int tx,
-                                      int q0, int k0, int Tq, int Tk,
-                                      float scale, int causal) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qr = ty + 16 * r, qg = q0 + qr;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kc = tx + 16 * c, kg = k0 + kc;
-      const bool ok = qg < Tq && kg < Tk && (!causal || kg <= qg);
-      const float p = ok ? expf(fmaf(scale, s[r][c], -sL[qr])) : 0.f;
-      const float ds = p * (dp[r][c] - sDv[qr]);
-      if constexpr (kKeyMajor) {
-        sP[kc * kPB + qr] = p;
-        sdS[kc * kPB + qr] = ds;
-      } else {
-        sdS[qr * kPB + kc] = ds;
-      }
-    }
-  }
 }
 
 template <int D, typename E>
@@ -248,245 +182,6 @@ struct Args {
   int causal;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args<float> a) {
-  constexpr int P = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kB * P;
-  float* sQ = sV + kB * P;
-  float* sdO = sQ + kB * P;
-  float* sP = sdO + kB * P;     // key-major: [key][query]
-  float* sdS = sP + kB * kPB;
-  float* sL = sdS + kB * kPB;
-  float* sDv = sL + kB;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  // the heaviest key block (the first, when causal) first
-  const int bh = blockIdx.x % a.BH, kb = blockIdx.x / a.BH;
-  const int b = bh / a.H, h = bh % a.H;
-  const int k0 = kb * kB;
-  const int64_t* st = a.st;
-  const float* qb = a.q + b * st[0] + h * st[1];
-  const float* kbase = a.k + b * st[3] + h * st[4];
-  const float* vb = a.v + b * st[6] + h * st[7];
-  const float* gb = a.dout + b * st[12] + h * st[13];
-  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
-  const float* dvec = a.dvec + static_cast<int64_t>(bh) * a.Tq;
-
-  load_tile<D>(sK, kbase, st[5], k0, a.Tk);
-  load_tile<D>(sV, vb, st[8], k0, a.Tk);
-
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
-
-  const int n_qb = (a.Tq + kB - 1) / kB;
-  // causal needs Tq == Tk: rows below k0 see none of these keys
-  for (int qb_i = a.causal ? k0 / kB : 0; qb_i < n_qb; ++qb_i) {
-    const int q0 = qb_i * kB;
-    load_tile<D>(sQ, qb, st[2], q0, a.Tq);
-    load_tile<D>(sdO, gb, st[14], q0, a.Tq);
-    load_rows(sL, sDv, lse, dvec, q0, a.Tq);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<D>(sQ, sdO, sK, sV, ty, tx, s, dp);
-    probs<true>(s, dp, sL, sDv, sP, sdS, ty, tx, q0, k0, a.Tq, a.Tk,
-                a.scale, a.causal);
-    __syncthreads();
-#pragma unroll 2
-    for (int qq = 0; qq < kB; qq += 4) {
-      float4 pr[4], dsr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pr[r] = *reinterpret_cast<const float4*>(sP + (ty + 16 * r) * kPB + qq);
-        dsr[r] =
-            *reinterpret_cast<const float4*>(sdS + (ty + 16 * r) * kPB + qq);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float go = sdO[(qq + i) * P + tx + 16 * c];
-          const float qv = sQ[(qq + i) * P + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float pv = i == 0 ? pr[r].x : i == 1 ? pr[r].y
-                           : i == 2 ? pr[r].z : pr[r].w;
-            const float dsv = i == 0 ? dsr[r].x : i == 1 ? dsr[r].y
-                            : i == 2 ? dsr[r].z : dsr[r].w;
-            dv[r][c] = fmaf(pv, go, dv[r][c]);
-            dk[r][c] = fmaf(dsv, qv, dk[r][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // the next block's loads overwrite Q, dO, P, dS
-  }
-
-  float* dkb = a.dk + b * st[18] + h * st[19];
-  float* dvb = a.dv + b * st[21] + h * st[22];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= a.Tk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkb[static_cast<int64_t>(key) * st[20] + tx + 16 * c] =
-          a.scale * dk[r][c];
-      dvb[static_cast<int64_t>(key) * st[23] + tx + 16 * c] = dv[r][c];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args<float> a) {
-  constexpr int P = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kB * P;
-  float* sK = sdO + kB * P;
-  float* sV = sK + kB * P;
-  float* sdS = sV + kB * P;     // query-major: [query][key]
-  float* sL = sdS + kB * kPB;
-  float* sDv = sL + kB;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int n_qb = (a.Tq + kB - 1) / kB;
-  // the heaviest query block (the last, when causal) first
-  const int bh = blockIdx.x % a.BH, qb_i = n_qb - 1 - blockIdx.x / a.BH;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = qb_i * kB;
-  const int64_t* st = a.st;
-  const float* kbase = a.k + b * st[3] + h * st[4];
-  const float* vb = a.v + b * st[6] + h * st[7];
-
-  load_tile<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
-  load_tile<D>(sdO, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
-  load_rows(sL, sDv, a.lse + static_cast<int64_t>(bh) * a.Tq,
-            a.dvec + static_cast<int64_t>(bh) * a.Tq, q0, a.Tq);
-
-  float dq[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
-
-  // keys these rows can see: [0, kv_end)
-  const int kv_end = a.causal ? min(q0 + kB, a.Tk) : a.Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
-    load_tile<D>(sK, kbase, st[5], k0, a.Tk);
-    load_tile<D>(sV, vb, st[8], k0, a.Tk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<D>(sQ, sdO, sK, sV, ty, tx, s, dp);
-    probs<false>(s, dp, sL, sDv, nullptr, sdS, ty, tx, q0, k0, a.Tq, a.Tk,
-                 a.scale, a.causal);
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kB; kk += 4) {
-      float4 dsr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        dsr[r] =
-            *reinterpret_cast<const float4*>(sdS + (ty + 16 * r) * kPB + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float kv = sK[(kk + i) * P + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float dsv = i == 0 ? dsr[r].x : i == 1 ? dsr[r].y
-                            : i == 2 ? dsr[r].z : dsr[r].w;
-            dq[r][c] = fmaf(dsv, kv, dq[r][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // the next block's loads overwrite K, V, dS
-  }
-
-  float* dqb = a.dq + b * st[15] + h * st[16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row >= a.Tq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dqb[static_cast<int64_t>(row) * st[17] + tx + 16 * c] =
-          a.scale * dq[r][c];
-  }
-}
-
-// fp32 on the FMA kernels
-template <int D>
-cudaError_t launch(const Args<float>& a, const float* o,
-                   cudaStream_t stream) {
-  const int rows = a.BH * a.Tq;
-  bwd_dot_kernel<D, float><<<(rows + kDotWarps - 1) / kDotWarps,
-                             kDotWarps * 32, 0, stream>>>(
-      o, a.dout, const_cast<float*>(a.dvec), a.H, a.Tq, rows, a.st[9],
-      a.st[10], a.st[11], a.st[12], a.st[13], a.st[14]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t smem1 = dkdv_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem1));
-  if (err != cudaSuccess) return err;
-  const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
-                   stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t smem2 = dq_smem_floats<D>() * sizeof(float);
-  err = cudaFuncSetAttribute(dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem2));
-  if (err != cudaSuccess) return err;
-  const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
-                 stream>>>(a);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-constexpr int kWarpsB = 4;            // 16 rows (pass 3) or keys (pass 2) each
-constexpr int kThreadsB = kWarpsB * 32;
-
-template <int D>
-constexpr int dkdv_bf16_smem_bytes() {
-  // K, V; two stages of (Q, dO); two stages of (lse, Dv)
-  return (2 + 2 * 2) * kB * (D + 8) * 2 + 2 * 2 * kB * 4;
-}
-
-template <int D>
-constexpr int dq_bf16_smem_bytes() {
-  // Q, dO; two stages of (K, V)
-  return (2 + 2 * 2) * kB * (D + 8) * 2;
-}
-
-// e^x on the SFU, `ex2.approx` of x log2(e) (relative error about 2^-22,
-// and 0 for the -1e30 of a masked score): two instructions where expf's
-// range reduction takes eight. The caller folds log2(e) into its FMA
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -512,6 +207,451 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 tensor-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kPadF = 4;              // f32 row padding, in floats
+
+template <int D>
+constexpr int dkdv_f32_smem_bytes() {
+  // K, V; two stages of (Q, dO); two stages of (lse, Dv)
+  return (2 + 2 * 2) * kB * (D + kPadF) * 4 + 2 * 2 * kB * 4;
+}
+
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  // Q, dO; two stages of (K, V)
+  return (2 + 2 * 2) * kB * (D + kPadF) * 4;
+}
+
+// x as TF32 big + small: big is x rounded to 10 mantissa bits, to nearest
+// with ties away from zero (cvt.rna.tf32.f32's rounding, done as an
+// integer add and mask: two instructions where the cvt takes four; Inf
+// and NaN stay what they are), small = x - big, exact in f32, which the
+// tensor core reads as TF32 by ignoring its low 13 bits: big + small is x
+// to within 2^-22 of it
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a * b on one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// part += a * b in 3xTF32: the small cross terms first, the big product
+// last
+__device__ __forceinline__ void mma3(float (&part)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma_tf32(part, as, bb[0], bb[1]);
+  mma_tf32(part, ab, bs[0], bs[1]);
+  mma_tf32(part, ab, bb[0], bb[1]);
+}
+
+// P = e^(scale * s - lse), by expf
+__device__ __forceinline__ float p_exp(float scale, float s, float lse) {
+  return expf(fmaf(scale, s, -lse));
+}
+
+// rows [row0, row0 + kB) of a (T, D) f32 slice with row stride `st` into
+// a tile of rows D + 4, by cp.async; rows past T are zero
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* s, const float* g,
+                                              int64_t st, int row0, int T) {
+  constexpr int P = D + kPadF, C4 = D / 4;
+  for (int e = threadIdx.x; e < kB * C4; e += kThreads) {
+    const int r = e / C4, c = (e % C4) * 4, row = row0 + r;
+    const bool in = row < T;
+    cp16(s + r * P + c, g + static_cast<int64_t>(in ? row : 0) * st + c, in);
+  }
+}
+
+// the A fragment (big and small) of k-step kk from 16 rows of a tile of
+// rows P: rows g, g + 8, columns 8kk + t, + 4
+template <int P>
+__device__ __forceinline__ void a_rows(const float* s, int kk, int g, int t,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float* r = s + g * P + 8 * kk + t;
+  split(r[0], ab[0], as[0]);
+  split(r[8 * P], ab[1], as[1]);
+  split(r[4], ab[2], as[2]);
+  split(r[8 * P + 4], ab[3], as[3]);
+}
+
+// the A fragment of k-step kk from an accumulator tile set x[8][4] (x[j]:
+// rows g, g + 8, columns 8j + 2t, + 1), split as it leaves the
+// accumulator: m16n8k8's A holds columns t and t + 4 of a k-step, so the
+// k index is permuted, logical k = t is column 2t and t + 4 is 2t + 1
+__device__ __forceinline__ void a_acc(const float (&x)[8][4], int kk,
+                                      uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  split(x[kk][0], ab[0], as[0]);
+  split(x[kk][2], ab[1], as[1]);
+  split(x[kk][1], ab[2], as[2]);
+  split(x[kk][3], ab[3], as[3]);
+}
+
+// c[8][4] = A (16 rows of sA) times B^T (64 rows of sB) over D, both
+// row-major tiles of rows D + 4: c[j] is rows g, g + 8 and columns 8j +
+// 2t, + 1. Operands split as they are read; each 16-wide k-step (two
+// m16n8k8) into a zeroed fragment, then one FADD into c
+template <int D>
+__device__ __forceinline__ void mma_abt_f32(float (&c)[8][4], const float* sA,
+                                            const float* sB, int g, int t) {
+  constexpr int P = D + kPadF;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+  // one k-step at a time: unrolled, the loads run ahead into spills
+#pragma unroll 1
+  for (int k2 = 0; k2 < D / 16; ++k2) {
+    uint32_t ab[2][4], as[2][4];
+    a_rows<P>(sA, 2 * k2, g, t, ab[0], as[0]);
+    a_rows<P>(sA, 2 * k2 + 1, g, t, ab[1], as[1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* br = sB + (8 * j + g) * P + 16 * k2 + 8 * h + t;
+        uint32_t bb[2], bs[2];
+        split(br[0], bb[0], bs[0]);
+        split(br[4], bb[1], bs[1]);
+        mma3(part, ab[h], as[h], bb, bs);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] += part[i];
+    }
+  }
+}
+
+// acc[D/8][4] += X (16 x 64, an accumulator tile set as mma_abt_f32
+// leaves it) times sB (64 rows of D + 4). k-step kk is X's n8 tile kk
+// (a_acc's permuted k), with sB's rows 8kk + 2t and 8kk + 2t + 1 in the
+// same order; two k-steps into a zeroed fragment, then one FADD
+template <int D>
+__device__ __forceinline__ void mma_xb_f32(float (&acc)[D / 8][4],
+                                           const float (&x)[8][4],
+                                           const float* sB, int g, int t) {
+  constexpr int P = D + kPadF;
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2) {
+    uint32_t ab[2][4], as[2][4];
+    a_acc(x, 2 * k2, ab[0], as[0]);
+    a_acc(x, 2 * k2 + 1, ab[1], as[1]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* br = sB + (16 * k2 + 8 * h + 2 * t) * P + 8 * n + g;
+        uint32_t bb[2], bs[2];
+        split(br[0], bb[0], bs[0]);
+        split(br[P], bb[1], bs[1]);
+        mma3(part, ab[h], as[h], bb, bs);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += part[i];
+    }
+  }
+}
+
+// the 16 x D accumulator's rows r0 and r0 + 8 (columns 8n + 2t, + 1),
+// times `scale`; rows at or past T are not written
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* g, int64_t st, int r0,
+                                               int T,
+                                               const float (&acc)[D / 8][4],
+                                               float scale, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= T) continue;
+    float* dst = g + static_cast<int64_t>(row) * st + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    dkdv_f32_kernel(const Args<float> a) {
+  constexpr int P = D + kPadF;
+  constexpr int TILE = kB * P;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;          // stage i at i * TILE
+  float* sG = sQ + 2 * TILE;      // dO, stage i at i * TILE
+  float* sL = sG + 2 * TILE;      // lse, stage i at i * kB
+  float* sDv = sL + 2 * kB;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest key block (the first, when causal) first
+  const int bh = blockIdx.x % a.BH, kb = blockIdx.x / a.BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = kb * kB;
+  const int64_t* st = a.st;
+  const float* qb = a.q + b * st[0] + h * st[1];
+  const float* gb = a.dout + b * st[12] + h * st[13];
+  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
+  const float* dvec = a.dvec + static_cast<int64_t>(bh) * a.Tq;
+
+  load_tile_f32<D>(sK, a.k + b * st[3] + h * st[4], st[5], k0, a.Tk);
+  load_tile_f32<D>(sV, a.v + b * st[6] + h * st[7], st[8], k0, a.Tk);
+  auto load_q = [&](int q0, int buf) {
+    load_tile_f32<D>(sQ + buf * TILE, qb, st[2], q0, a.Tq);
+    load_tile_f32<D>(sG + buf * TILE, gb, st[14], q0, a.Tq);
+    // kThreads == 2 * kB: one f32 copy a thread
+    const int r = threadIdx.x & (kB - 1), row = q0 + r;
+    const bool in = row < a.Tq;
+    const float* src = threadIdx.x < kB ? lse : dvec;
+    float* dst = (threadIdx.x < kB ? sL : sDv) + buf * kB + r;
+    cp4(dst, src + (in ? row : 0), in);
+  };
+  const int n_qb = (a.Tq + kB - 1) / kB;
+  // causal needs Tq == Tk: rows below k0 see none of these keys
+  const int first = a.causal ? k0 / kB : 0;
+  load_q(first * kB, 0);
+  cp_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+  // this thread's keys: kw + g and kw + g + 8
+  const int kw = k0 + 16 * warp;
+
+  for (int qi = first; qi < n_qb; ++qi) {
+    const int buf = (qi - first) & 1, q0 = qi * kB;
+    if (qi + 1 < n_qb) {
+      load_q(q0 + kB, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* Q = sQ + buf * TILE;
+    const float* G = sG + buf * TILE;
+    const float* L = sL + buf * kB;
+    const float* Dv = sDv + buf * kB;
+    // P^T = exp(scale * K_w Q^T - lse): x[j][i] is key kw + g + 8 (i >> 1),
+    // query q0 + 8j + 2t + (i & 1)
+    float x[8][4];
+    mma_abt_f32<D>(x, sK + 16 * warp * P, Q, g, t);
+    const bool edge = (a.causal && q0 < kw + 16) || q0 + kB > a.Tq ||
+                      kw + 16 > a.Tk;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = 8 * j + 2 * t + (i & 1), qg = q0 + qc;
+          const int kg = kw + g + 8 * (i >> 1);
+          const bool ok = qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg);
+          x[j][i] = ok ? p_exp(a.scale, x[j][i], L[qc]) : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[j][i] = p_exp(a.scale, x[j][i], L[8 * j + 2 * t + (i & 1)]);
+    }
+    mma_xb_f32<D>(dv, x, G, g, t);
+    // dS^T = P^T * (V_w dO^T - Dv)
+    float dp[8][4];
+    mma_abt_f32<D>(dp, sV + 16 * warp * P, G, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[j][i] *= dp[j][i] - Dv[8 * j + 2 * t + (i & 1)];
+    mma_xb_f32<D>(dk, x, Q, g, t);
+    __syncthreads();   // the next block's loads overwrite this stage
+  }
+
+  store_rows_f32<D>(a.dk + b * st[18] + h * st[19], st[20], kw + g, a.Tk, dk,
+                    a.scale, t);
+  store_rows_f32<D>(a.dv + b * st[21] + h * st[22], st[23], kw + g, a.Tk, dv,
+                    1.f, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    dq_f32_kernel(const Args<float> a) {
+  constexpr int P = D + kPadF;
+  constexpr int TILE = kB * P;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sG = sQ + TILE;
+  float* sK = sG + TILE;          // stage i: K at 2 i TILE, V after
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qb = (a.Tq + kB - 1) / kB;
+  // the heaviest query block (the last, when causal) first
+  const int bh = blockIdx.x % a.BH, qi = n_qb - 1 - blockIdx.x / a.BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = qi * kB;
+  const int64_t* st = a.st;
+  const float* kbase = a.k + b * st[3] + h * st[4];
+  const float* vb = a.v + b * st[6] + h * st[7];
+
+  load_tile_f32<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
+  load_tile_f32<D>(sG, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
+  auto load_kv = [&](int k0, int buf) {
+    load_tile_f32<D>(sK + 2 * buf * TILE, kbase, st[5], k0, a.Tk);
+    load_tile_f32<D>(sK + (2 * buf + 1) * TILE, vb, st[8], k0, a.Tk);
+  };
+  load_kv(0, 0);
+  cp_commit();
+
+  // this thread's rows: qw + g and qw + g + 8, with their lse and Dv
+  const int qw = q0 + 16 * warp;
+  float lse_r[2], dv_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = qw + g + 8 * hh;
+    const int64_t at = static_cast<int64_t>(bh) * a.Tq + row;
+    lse_r[hh] = row < a.Tq ? a.lse[at] : 0.f;
+    dv_r[hh] = row < a.Tq ? a.dvec[at] : 0.f;
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  // keys these rows can see: [0, kv_end)
+  const int kv_end = a.causal ? min(q0 + kB, a.Tk) : a.Tk;
+  const int n_kb = (kv_end + kB - 1) / kB;
+  for (int kj = 0; kj < n_kb; ++kj) {
+    const int buf = kj & 1, k0 = kj * kB;
+    if (kj + 1 < n_kb) {
+      load_kv(k0 + kB, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* K = sK + 2 * buf * TILE;
+    const float* V = K + TILE;
+    // P = exp(scale * Q_w K^T - lse): x[j][i] is row qw + g + 8 (i >> 1),
+    // key k0 + 8j + 2t + (i & 1)
+    float x[8][4];
+    mma_abt_f32<D>(x, sQ + 16 * warp * P, K, g, t);
+    const bool edge = (a.causal && k0 + kB > qw) || k0 + kB > a.Tk ||
+                      qw + 16 > a.Tq;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kg = k0 + 8 * j + 2 * t + (i & 1);
+          const int qg = qw + g + 8 * (i >> 1);
+          const bool ok = qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg);
+          x[j][i] = ok ? p_exp(a.scale, x[j][i], lse_r[i >> 1]) : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[j][i] = p_exp(a.scale, x[j][i], lse_r[i >> 1]);
+    }
+    // dS = P * (dO_w V^T - Dv)
+    float dp[8][4];
+    mma_abt_f32<D>(dp, sG + 16 * warp * P, V, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[j][i] *= dp[j][i] - dv_r[i >> 1];
+    mma_xb_f32<D>(dq, x, K, g, t);
+    __syncthreads();   // the next block's loads overwrite this stage
+  }
+
+  store_rows_f32<D>(a.dq + b * st[15] + h * st[16], st[17], qw + g, a.Tq, dq,
+                    a.scale, t);
+}
+
+// fp32 on the 3xTF32 tensor-core kernels
+template <int D>
+cudaError_t launch(const Args<float>& a, const float* o,
+                   cudaStream_t stream) {
+  const int rows = a.BH * a.Tq;
+  bwd_dot_kernel<D, float><<<(rows + kDotWarps - 1) / kDotWarps,
+                             kDotWarps * 32, 0, stream>>>(
+      o, a.dout, const_cast<float*>(a.dvec), a.H, a.Tq, rows, a.st[9],
+      a.st[10], a.st[11], a.st[12], a.st[13], a.st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem1 = dkdv_f32_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dkdv_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem1);
+  if (err != cudaSuccess) return err;
+  const int64_t n_kb = (a.Tk + kB - 1) / kB;
+  dkdv_f32_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
+                       stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem2 = dq_f32_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dq_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem2);
+  if (err != cudaSuccess) return err;
+  const int64_t n_qb = (a.Tq + kB - 1) / kB;
+  dq_f32_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
+                     stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+constexpr int dkdv_bf16_smem_bytes() {
+  // K, V; two stages of (Q, dO); two stages of (lse, Dv)
+  return (2 + 2 * 2) * kB * (D + 8) * 2 + 2 * 2 * kB * 4;
+}
+
+template <int D>
+constexpr int dq_bf16_smem_bytes() {
+  // Q, dO; two stages of (K, V)
+  return (2 + 2 * 2) * kB * (D + 8) * 2;
+}
+
+// e^x on the SFU, `ex2.approx` of x log2(e) (relative error about 2^-22,
+// and 0 for the -1e30 of a masked score): two instructions where expf's
+// range reduction takes eight. The caller folds log2(e) into its FMA
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
@@ -567,7 +707,7 @@ template <int D>
 __device__ __forceinline__ void load_tile_bf16(bf16* s, const bf16* g,
                                                int64_t st, int row0, int T) {
   constexpr int P = D + 8, C8 = D / 8;
-  for (int e = threadIdx.x; e < kB * C8; e += kThreadsB) {
+  for (int e = threadIdx.x; e < kB * C8; e += kThreads) {
     const int r = e / C8, c = (e % C8) * 8, row = row0 + r;
     const bool in = row < T;
     cp16(s + r * P + c, g + static_cast<int64_t>(in ? row : 0) * st + c, in);
@@ -642,7 +782,7 @@ __device__ __forceinline__ void store_rows(bf16* g, int64_t st, int r0, int T,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     dkdv_bf16_kernel(const Args<bf16> a) {
   constexpr int P = D + 8;
   constexpr int TILE = kB * P;
@@ -672,7 +812,7 @@ __global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
   auto load_q = [&](int q0, int buf) {
     load_tile_bf16<D>(sQ + buf * TILE, qb, st[2], q0, a.Tq);
     load_tile_bf16<D>(sG + buf * TILE, gb, st[14], q0, a.Tq);
-    // kThreadsB == 2 * kB: one f32 copy a thread
+    // kThreads == 2 * kB: one f32 copy a thread
     const int r = threadIdx.x & (kB - 1), row = q0 + r;
     const bool in = row < a.Tq;
     const float* src = threadIdx.x < kB ? lse : dvec;
@@ -743,7 +883,7 @@ __global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsB, D < 128 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     dq_bf16_kernel(const Args<bf16> a) {
   constexpr int P = D + 8;
   constexpr int TILE = kB * P;
@@ -853,7 +993,7 @@ cudaError_t launch(const Args<bf16>& a, const bf16* o, cudaStream_t stream) {
                              smem1);
   if (err != cudaSuccess) return err;
   const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_bf16_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreadsB, smem1,
+  dkdv_bf16_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
                         stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -864,7 +1004,7 @@ cudaError_t launch(const Args<bf16>& a, const bf16* o, cudaStream_t stream) {
                              smem2);
   if (err != cudaSuccess) return err;
   const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_bf16_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreadsB, smem2,
+  dq_bf16_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
                       stream>>>(a);
   return cudaGetLastError();
 }
@@ -915,11 +1055,11 @@ int dispatch(const E* q, const E* k, const E* v, const E* o, const E* dout,
 // {sb, sh, st} and unit stride along D; all fp32 (`_f32`) or all bf16
 // (`_bf16`: read into f32, every sum in f32, the gradients rounded once
 // to bf16). lse: the forward's f32 (B, H, Tq) contiguous row log-sum-exp;
-// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk. `_bf16` copies q,
+// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk. Both types copy q,
 // k, v and dout 16 bytes at a time (cp.async): their base addresses and
-// (batch, head, token) strides must be multiples of 16 bytes; `_f32` and
-// o take any strides. The caller checks shapes, strides, alignment and
-// that (Tq or Tk) / 64 times B * H fits a grid.
+// (batch, head, token) strides must be multiples of 16 bytes; o takes any
+// strides. The caller checks shapes, strides, alignment and that (Tq or
+// Tk) / 64 times B * H fits a grid.
 // Returns the first CUDA error of the three launches (0 on success), or
 // cudaErrorInvalidValue for an unsupported head size.
 extern "C" int mxt_flash_attention_bwd_f32(

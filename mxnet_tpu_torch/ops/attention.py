@@ -140,7 +140,9 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _FLASH_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P]
 _FLASH_BWD_ARGS = [_P] * 10 + [_I] * 5 + [_P, _F, _I, _I, _P]
 _PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-               _I, _F, _I, _P]
+               _I, _I, _F, _I, _P]
+# bf16: the merge counters after the scratch
+_PAGED_BF16_ARGS = _PAGED_ARGS[:9] + [_P] + _PAGED_ARGS[9:]
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)
 _FLASH_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (32, 64, 128)
@@ -313,12 +315,11 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     in ``launches`` (float32) or ``launches_bf16``. The kernels take
     q, k, v, out and d_out float32, or all bfloat16; D in {16, 32, 64,
     128}, unit stride along D, causal only with T_q == T_k, and ``lse``
-    f32 contiguous; anything else raises. The float32 kernels take any
-    other strides. The bfloat16 ones copy q, k, v and d_out 16 bytes at
-    a time, so each of them that is not 16-byte aligned (base address
-    and strides, as the forward requires) is first copied to a
-    contiguous tensor. The gradients come out in q's type, summed in
-    f32 and rounded once."""
+    f32 contiguous; anything else raises. The kernels of both types copy
+    q, k, v and d_out 16 bytes at a time, so each of them that is not
+    16-byte aligned (base address and strides, as the forward requires)
+    is first copied to a contiguous tensor. The gradients come out in
+    q's type, summed in f32 and rounded once."""
     name = "flash_attention_bwd"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -340,10 +341,10 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     _require(-(-max(t_q, t_k) // 64) * b * h < 2 ** 31, name,
              f"grid too large for {b} x {h} x {max(t_q, t_k)}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16:    # e.g. a narrow view of a gradient autograd split up
-        q, k, v, d_out = (x if _aligned(x) else
-                          x.clone(memory_format=torch.contiguous_format)
-                          for x in (q, k, v, d_out))
+    # e.g. a narrow view of a gradient autograd split up
+    q, k, v, d_out = (x if _aligned(x) else
+                      x.clone(memory_format=torch.contiguous_format)
+                      for x in (q, k, v, d_out))
     grads = [torch.empty((b, t, h, d), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
              for t in (t_q, t_k, t_k)]
@@ -363,6 +364,59 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     return tuple(g.squeeze(1) for g in grads) if squeeze else tuple(grads)
 
 
+# tokens per split CTA of the f32-cache kernel, the one chunk
+# csrc/paged_attention.cu instantiates for it
+_PAGED_CHUNK_F32 = 64
+# (device, stream handle): the bf16 kernel's merge counters, int32, zero
+# between calls, so calls in flight on two streams never share one
+_paged_counters = {}
+
+
+def _paged_chunk(b, h, d, w, bt, bf16, sms):
+    """Tokens per split CTA of the paged kernel for B sequences of H
+    heads of size D over tables of W blocks of BT tokens on a card of
+    ``sms`` SMs, from the shapes only (``seq_lens`` stays on the device).
+    f32 caches: ``_PAGED_CHUNK_F32``. bf16 caches: the f32 design's 32 KB
+    of K and V in flight a CTA, 8192 / D tokens up to 128 (128 at D 64),
+    unless the grid of B * H * ceil(W * BT / chunk) CTAs would then fall
+    under two CTAs an SM: then 64."""
+    if not bf16:
+        return _PAGED_CHUNK_F32
+    chunk = min(128, 8192 // d)
+    if chunk > 64 and b * h * -(-w * bt // chunk) < 2 * sms:
+        chunk = 64
+    return chunk
+
+
+def _paged_buffers(q, k_cache, block_tables, sms, stream):
+    """What one paged kernel call on ``stream`` (a CUDA stream handle)
+    of a card of ``sms`` SMs needs beside its inputs, on q's device:
+    (chunk, out, scratch, counters). The scratch holds each split CTA's
+    (max, sum, acc[D]) for ceil(W * BT / chunk) splits a (sequence,
+    head); its slots past a sequence's length are neither written nor
+    read. ``counters`` (bf16 caches; None for f32) is the (device,
+    stream)'s merge-counter buffer, B * H int32 at least: zeroed when
+    first made or grown, and left zero by every call."""
+    b, h, d = q.shape
+    bt = k_cache.shape[1]
+    w = block_tables.shape[1]
+    bf16 = k_cache.dtype == torch.bfloat16
+    chunk = _paged_chunk(b, h, d, w, bt, bf16, sms)
+    splits = -(-w * bt // chunk)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(b * h * splits * (2 + d), dtype=torch.float32,
+                          device=q.device)
+    counters = None
+    if bf16:
+        key = (q.device, stream)
+        counters = _paged_counters.get(key)
+        if counters is None or counters.numel() < b * h:
+            counters = torch.zeros(b * h, dtype=torch.int32,
+                                   device=q.device)
+            _paged_counters[key] = counters
+    return chunk, out, scratch, counters
+
+
 def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
                     scale=None):
     """Single-query attention over a paged KV cache (the decode step).
@@ -370,12 +424,13 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     layer; block_tables: (B, W) int32 pool block ids; seq_lens: (B,)
     int32 visible tokens (0 = padding row, output discarded). CPU
     tensors take :func:`paged_attention_plain`; CUDA tensors launch the
-    split and merge kernels of ``csrc/paged_attention.cu`` for the
-    caches' type and count one launch per call in ``launches`` (float32
-    caches) or ``launches_bf16`` (bfloat16 caches, read into f32). q is
-    float32 either way, and so is the output. The caches are read in
-    place, never copied: they must be contiguous. ``seq_lens`` is never
-    read on the host."""
+    kernels of ``csrc/paged_attention.cu`` for the caches' type (float32:
+    split and merge; bfloat16, read into f32: one kernel that merges its
+    splits itself, in chunks :func:`_paged_chunk` sizes) and count one
+    launch per call in ``launches`` (float32 caches) or
+    ``launches_bf16``. q is float32 either way, and so is the output.
+    The caches are read in place, never copied: they must be contiguous.
+    ``seq_lens`` is never read on the host."""
     name = "paged_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -414,21 +469,23 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
              f"unsupported batch {b} / heads {h} / table width "
              f"{block_tables.shape[1]}")
     w = block_tables.shape[1]
-    chunk = _fn("paged_attention", "mxt_paged_attention_chunk", [])()
-    splits = -(-w * bt // chunk)
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    # each split CTA's (max, sum, acc[d]); slots past a sequence's length
-    # are neither written nor read
-    scratch = torch.empty(b * h * splits * (2 + d), dtype=torch.float32,
-                          device=q.device)
-    bf16 = k_cache.dtype == torch.bfloat16
-    fn = _fn("paged_attention", "mxt_paged_attention_bf16" if bf16
-             else "mxt_paged_attention_f32", _PAGED_ARGS)
-    err = fn(q.data_ptr(), q.stride(0), q.stride(1), k_cache.data_ptr(),
-             v_cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-             out.data_ptr(), scratch.data_ptr(), b, h, d, nb, bt, w,
-             float(scale), q.device.index,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    chunk, out, scratch, counters = _paged_buffers(
+        q, k_cache, block_tables,
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        stream)
+    bf16 = counters is not None
+    head = [q.data_ptr(), q.stride(0), q.stride(1), k_cache.data_ptr(),
+            v_cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), scratch.data_ptr()]
+    tail = [b, h, d, nb, bt, w, chunk, float(scale), q.device.index, stream]
+    if bf16:
+        fn = _fn("paged_attention", "mxt_paged_attention_bf16",
+                 _PAGED_BF16_ARGS)
+        err = fn(*head, counters.data_ptr(), *tail)
+    else:
+        fn = _fn("paged_attention", "mxt_paged_attention_f32", _PAGED_ARGS)
+        err = fn(*head, *tail)
     _check(err, name)
     _count(paged_attention, bf16)
     return out

@@ -5,9 +5,11 @@ the seq_len-0 padding contract, the wrappers' device routing (a CPU
 tensor takes the plain path and launches nothing; anything else the
 kernel cannot take raises), and the arithmetic of the Hopper kernels
 emulated in plain torch: the flash kernel's 3xTF32 products and its
-split online softmax, the bf16 forward's one online softmax per row and
-the bf16 backward's P and dS carried as two bf16 pieces (and one piece
-shown to miss the card's bound), the paged kernel's split-KV and merge. The
+split online softmax, the fp32 backward's 3xTF32 products (and one TF32
+product shown to miss the fp32 bound), the bf16 forward's one online
+softmax per row and the bf16 backward's P and dS carried as two bf16
+pieces (and one piece shown to miss the card's bound), the paged
+kernels' split-KV and merge and their host-side chunk choice. The
 gradient: the port's plain backward and torch autograd through the
 CPU path against ``jax.grad`` of the Pallas forward (whose custom VJP is
 ``_chunked_attention_bwd``), and the backward kernel's two passes over
@@ -200,14 +202,27 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mm_3xtf32(a, b):
+def _tf32_rz(x):
+    """float32 with its 13 low mantissa bits dropped: how the tensor core
+    reads an f32 register that holds no TF32 value."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, small=_tf32):
     """a @ b as the flash kernel's 3xTF32: each operand split into a TF32
-    big part and a TF32 small part, the small cross terms summed before
-    the big product, in f32 (a product of two TF32 values is exact in
-    f32)."""
+    big part and a TF32 small part (``small`` rounds x - big), the small
+    cross terms summed before the big product, in f32 (a product of two
+    TF32 values is exact in f32)."""
     ab, bb = _tf32(a), _tf32(b)
-    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    a_s, b_s = small(a - ab), small(b - bb)
     return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def _mm_3xtf32_bwd(a, b):
+    """The backward kernels' 3xTF32: as :func:`_mm_3xtf32`, but the small
+    part x - big goes to the tensor core unrounded, which drops its low
+    13 bits."""
+    return _mm_3xtf32(a, b, small=_tf32_rz)
 
 
 def _mm_1xtf32(a, b):
@@ -275,12 +290,14 @@ def test_flash_1xtf32_emulation_misses_fp32_tolerance():
     assert np.abs(three - ref).max() < 1e-2 * np.abs(one - ref).max()
 
 
-def _paged_split_emulated(q, kc, vc, tables, lens, chunk):
+def _paged_split_emulated(q, kc, vc, tables, lens, chunk, merge=None):
     """csrc/paged_attention.cu's split-KV: each sequence cut into
     ``chunk``-token splits by position (a split may start inside a pool
     block); a split at or past the sequence's length is neither computed
-    nor merged; each live split's (max, sum, acc) merged; a seq_len-0
-    row is zeros."""
+    nor merged; each live split's (max, sum, acc) merged, all at once
+    (``merge`` None: the f32 merge kernel) or ``merge`` splits a batch
+    with the sums so far rescaled to each batch's maximum (the bf16
+    kernel's in-kernel merge); a seq_len-0 row is zeros."""
     b, h, d = q.shape
     nb, bt = kc.shape[:2]
     width = tables.shape[1]
@@ -298,35 +315,75 @@ def _paged_split_emulated(q, kc, vc, tables, lens, chunk):
             m = sc.max(-1).values
             p = torch.exp(sc - m[:, None])
             parts.append((m, p.sum(-1), torch.einsum("ht,thd->hd", p, vr)))
-        if parts:
-            mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
-            f = [torch.exp(pm - mx) for pm, _, _ in parts]
-            out[i] = sum(a * fi[:, None] for (_, _, a), fi in zip(parts, f)) \
-                / sum(pl * fi for (_, pl, _), fi in zip(parts, f))[:, None]
+        if not parts:
+            continue
+        mx = torch.full((h,), -1e30)
+        l_sum, acc = torch.zeros(h), torch.zeros(h, d)
+        for s0 in range(0, len(parts), merge or len(parts)):
+            batch = parts[s0:s0 + (merge or len(parts))]
+            mb = torch.stack([mx] + [pm for pm, _, _ in batch]).max(0).values
+            r = torch.exp(mx - mb)
+            l_sum, acc = l_sum * r, acc * r[:, None]
+            for pm, pl, pa in batch:
+                f = torch.exp(pm - mb)
+                l_sum, acc = l_sum + pl * f, acc + pa * f[:, None]
+            mx = mb
+        out[i] = acc / l_sum[:, None]
     return out
 
 
-@pytest.mark.parametrize("chunk", [64, 24, 10])
+@pytest.mark.parametrize("chunk", [128, 64, 24, 10])
 def test_paged_split_kv_emulation_matches_jax(chunk):
     """Split and merge against the JAX gather reference at the paged
     tolerance: seq_len 0, lengths 1, 15, 16, 17, on both sides of the
-    chunk, and the full table; empty splits; chunks of 64 tokens (the
-    kernel's) and of 24 and 10, whose edges fall inside 16-token blocks."""
-    width, bt = 6, 16
+    chunk, and the full table; empty splits; chunks of 128 and 64 tokens
+    (the kernels') and of 24 and 10, whose edges fall inside 16-token
+    blocks."""
+    width, bt = 10, 16
     lens = np.array([0, 1, 15, 16, 17, chunk - 1, chunk, chunk + 1,
                      width * bt], np.int32)
     rng = np.random.default_rng(chunk)
     tables = np.zeros((len(lens), width), np.int32)
-    ids = rng.permutation(np.arange(1, 64))
+    ids = rng.permutation(np.arange(1, 128))
     at = 0
     for i, n in enumerate(lens):
         need = -(-int(n) // bt)
         tables[i, :need] = ids[at:at + need]
         at += need
     q, kc, vc, tables, lens = _paged_case(seed=chunk, b=len(lens), h=2, d=64,
-                                          bt=bt, nb=64, tables=tables,
+                                          bt=bt, nb=128, tables=tables,
                                           lens=lens)
     got = _paged_split_emulated(*_t(q, kc, vc, tables, lens), chunk).numpy()
+    ref = np.asarray(pk._paged_gather_reference(q, kc, vc, tables, lens,
+                                                64 ** -0.5))
+    live = lens > 0
+    assert np.abs(got - ref)[live].max() < PAGED_ATOL
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("chunk,merge", [(64, 16), (24, 16), (10, 4)])
+def test_paged_batched_merge_emulation_matches_jax(chunk, merge):
+    """The bf16 kernel's merge, ``merge`` splits' partials a batch with
+    the sums rescaled to each batch's maximum, against the JAX gather
+    reference at the paged tolerance, over rows of more splits than one
+    batch holds (a 1,280-token table: 20 splits of 64, 54 of 24, 128 of
+    10), with one batch, a batch and one split, and seq_len 0."""
+    width, bt = 80, 16
+    lens = np.array([0, 1, chunk * merge - 1, chunk * merge,
+                     chunk * merge + 1, 700, width * bt], np.int32)
+    rng = np.random.default_rng(chunk + merge)
+    tables = np.zeros((len(lens), width), np.int32)
+    ids = rng.permutation(np.arange(1, 512))
+    at = 0
+    for i, n in enumerate(lens):
+        need = -(-int(n) // bt)
+        tables[i, :need] = ids[at:at + need]
+        at += need
+    q, kc, vc, tables, lens = _paged_case(seed=chunk, b=len(lens), h=2, d=64,
+                                          bt=bt, nb=512, tables=tables,
+                                          lens=lens)
+    got = _paged_split_emulated(*_t(q, kc, vc, tables, lens), chunk,
+                                merge).numpy()
     ref = np.asarray(pk._paged_gather_reference(q, kc, vc, tables, lens,
                                                 64 ** -0.5))
     live = lens > 0
@@ -436,14 +493,18 @@ def _mm_pieces(x, b, pieces):
     return out
 
 
-def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64, pieces=0):
+def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
+                  mm=torch.matmul):
     """csrc/flash_attention_bwd.cu's order of work on (BH, T, D):
     D = rowsum(dO * O); pass 2 walks each 64-key block's query blocks
     (from the diagonal when causal) summing dV += P^T dO and
     dK += dS^T Q; pass 3 walks each 64-row query block's key blocks
     summing dQ += dS K; P = exp(scale * S - lse) recomputed in both,
-    zero where masked. ``pieces``: how the bf16 kernels carry P and dS
-    into their products (:func:`_mm_pieces`); 0 for the fp32 kernels."""
+    zero where masked. ``mm``: how the kernels run each of the five
+    products (S, dP, and dV, dK, dQ with P and dS as their left
+    operand): the fp32 kernels' 3xTF32 (:func:`_mm_3xtf32`), or the
+    bf16 kernels' exact products with P and dS in bf16 pieces
+    (:func:`_mm_pieces`)."""
     t_q, t_k = q.shape[1], k.shape[1]
     d_vec = (g * out).sum(-1)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
@@ -451,8 +512,8 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64, pieces=0):
     def tile(q0, k0):
         rows = torch.arange(q0, min(q0 + blk, t_q))
         keys = torch.arange(k0, min(k0 + blk, t_k))
-        s = q[:, rows] @ k[:, keys].transpose(1, 2)
-        dp = g[:, rows] @ v[:, keys].transpose(1, 2)
+        s = mm(q[:, rows], k[:, keys].transpose(1, 2))
+        dp = mm(g[:, rows], v[:, keys].transpose(1, 2))
         ok = keys[None, :] <= rows[:, None] if causal else \
             torch.ones(len(rows), len(keys), dtype=torch.bool)
         p = torch.where(ok, torch.exp(scale * s - lse[:, rows, None]),
@@ -462,12 +523,12 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64, pieces=0):
     for k0 in range(0, t_k, blk):
         for q0 in range(k0 if causal else 0, t_q, blk):
             rows, keys, p, ds = tile(q0, k0)
-            dv[:, keys] += _mm_pieces(p.transpose(1, 2), g[:, rows], pieces)
-            dk[:, keys] += _mm_pieces(ds.transpose(1, 2), q[:, rows], pieces)
+            dv[:, keys] += mm(p.transpose(1, 2), g[:, rows])
+            dk[:, keys] += mm(ds.transpose(1, 2), q[:, rows])
     for q0 in range(0, t_q, blk):
         for k0 in range(0, min(q0 + blk, t_k) if causal else t_k, blk):
             rows, keys, p, ds = tile(q0, k0)
-            dq[:, rows] += _mm_pieces(ds, k[:, keys], pieces)
+            dq[:, rows] += mm(ds, k[:, keys])
     return dq * scale, dk * scale, dv
 
 
@@ -673,6 +734,67 @@ def test_flash_bf16_gradient_matches_jax_grad_of_pallas_kernel(case):
                                    atol=BF16_ATOL)
 
 
+def _bwd_tf32_case(case):
+    """(q, k, v, d_out) numpy (BH, T, D) and causal for the fp32
+    backward's emulation: causal, rectangular (non-causal 128 x 192),
+    ragged T 100 (no 64-row tiling: the JAX function differentiates its
+    dense path) at D 16, and causal at D 64."""
+    t_q, t_k, d, causal = {"causal": (128, 128, 16, True),
+                           "rect": (128, 192, 16, False),
+                           "ragged": (100, 100, 16, True),
+                           "d64": (128, 128, 64, True)}[case]
+    rng = np.random.default_rng(t_q * 7 + t_k + d)
+    q = rng.standard_normal((2, t_q, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, t_k, d)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    return (q, k, v, g), causal
+
+
+def _bwd_tf32_emulated(q, k, v, g, causal, mm):
+    """The fp32 backward kernel emulated with every product as ``mm``,
+    from the 3xTF32 forward's emulated output and the rows' log-sum-exp:
+    P and dS enter their products as f32 values, split by ``mm`` as the
+    kernel splits them leaving the accumulator."""
+    q, k, v, g = _t(q, k, v, g)
+    scale = q.shape[-1] ** -0.5
+    out = _flash_emulated(q, k, v, causal, _mm_3xtf32)
+    lse = _lse(q, k, causal, scale)
+    return _bwd_emulated(q, k, v, out, g, lse, causal, scale, mm=mm)
+
+
+def _within_fp32(got, want):
+    return [bool(np.allclose(a.numpy(), w, rtol=FLASH_RTOL, atol=FLASH_ATOL))
+            for a, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", ["causal", "rect", "ragged", "d64"])
+def test_flash_bwd_3xtf32_emulation_meets_fp32_tolerance(case):
+    """The fp32 backward kernel's arithmetic (its two-pass tiling, every
+    product 3xTF32 with the small parts unrounded, P and dS split as they
+    leave the accumulator) gives
+    ``jax.grad`` of the Pallas forward in interpret mode (whose VJP is
+    ``_chunked_attention_bwd``) within the fp32 attention bound."""
+    (q, k, v, g), causal = _bwd_tf32_case(case)
+    want = _jax_flash_grads(q, k, v, g, causal)
+    got = _bwd_tf32_emulated(q, k, v, g, causal, _mm_3xtf32_bwd)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=FLASH_RTOL,
+                                   atol=FLASH_ATOL)
+
+
+def test_flash_bwd_1xtf32_emulation_misses_fp32_tolerance():
+    """Why the backward splits every operand: one TF32 product of the
+    rounded operands (10 mantissa bits) puts dQ, dK and dV outside the
+    fp32 bound that 3xTF32 meets on the same inputs."""
+    (q, k, v, g), causal = _bwd_tf32_case("d64")
+    want = _jax_flash_grads(q, k, v, g, causal)
+    one = _bwd_tf32_emulated(q, k, v, g, causal, _mm_1xtf32)
+    three = _bwd_tf32_emulated(q, k, v, g, causal, _mm_3xtf32_bwd)
+    assert _within_fp32(one, want) == [False] * 3
+    assert all(_within_fp32(three, want))
+
+
 def _bwd_bf16_case(t_q, t_k, causal, d=16, bh=3, seed=7):
     """bf16 q, k, v, d_out (BH, T, D), and the emulated bf16 forward's
     output with the f32 log-sum-exp the forward kernel writes beside it."""
@@ -693,7 +815,7 @@ def _bwd_bf16_emulated(q, k, v, g, out, lse, causal, pieces):
     rounded once to bf16."""
     return [x.to(torch.bfloat16) for x in _bwd_emulated(
         *(x.float() for x in (q, k, v, out, g)), lse, causal,
-        q.shape[-1] ** -0.5, pieces=pieces)]
+        q.shape[-1] ** -0.5, mm=lambda x, b: _mm_pieces(x, b, pieces))]
 
 
 def _within_chip_bwd_bound(got, q, k, v, g, out, causal):
@@ -775,6 +897,57 @@ def test_paged_plain_bf16_cache_matches_jax_reference_and_pallas_kernel(
     split = _paged_split_emulated(torch.from_numpy(q), kt.float(),
                                   vt.float(), *_t(tables, lens), 64)
     assert np.abs(split.numpy() - ref)[live].max() < PAGED_ATOL
+
+
+def test_paged_chunk_chooser_and_scratch_sizing():
+    """The paged kernels' tokens per split CTA are chosen on the host
+    from the shapes and the card's SM count alone: over bf16 caches 128
+    at the serving decode
+    shape (B 32, H 8, D 64, tables of 48 blocks of 16 tokens), 64 where
+    the grid would fall under two CTAs an SM (B 1) and at D 128; over
+    f32 caches always 64 (its split and merge kernels). The wrapper's
+    buffers follow the chunk chosen: ceil(W * BT / chunk) splits of
+    (2 + D) floats a (sequence, head), and for bf16 the (device,
+    stream)'s zeroed int32 merge counters, one buffer a stream, grown
+    (fresh and zeroed) for a larger B * H."""
+    assert att._paged_chunk(32, 8, 64, 48, 16, True, 132) == 128
+    assert att._paged_chunk(1, 8, 64, 48, 16, True, 132) == 64
+    assert att._paged_chunk(32, 8, 128, 48, 16, True, 132) == 64
+    assert att._paged_chunk(32, 8, 64, 48, 16, False, 132) == 64
+    # the grid floor follows the card's SM count: 4 x 8 x 6 CTAs are
+    # under two an SM of 132 SMs, not of 66
+    assert att._paged_chunk(4, 8, 64, 48, 16, True, 132) == 64
+    assert att._paged_chunk(4, 8, 64, 48, 16, True, 66) == 128
+    tables = torch.zeros((32, 48), dtype=torch.int32)
+    q = torch.zeros((32, 8, 64))
+    att._paged_counters.clear()
+    try:
+        for cache, chunk in ((torch.bfloat16, 128), (torch.float32, 64)):
+            kc = torch.zeros((2, 16, 8, 64), dtype=cache)
+            got, out, scratch, counters = att._paged_buffers(q, kc, tables,
+                                                             132, 0)
+            assert got == chunk
+            assert out.shape == (32, 8, 64) and out.dtype == torch.float32
+            assert scratch.dtype == torch.float32
+            assert scratch.numel() == 32 * 8 * (48 * 16 // chunk) * (2 + 64)
+            if cache == torch.float32:
+                assert counters is None
+                continue
+            assert counters.dtype == torch.int32
+            assert counters.numel() == 32 * 8 and not counters.any()
+            assert att._paged_buffers(q[:4], kc, tables[:4], 132,
+                                      0)[3] is counters
+            # another stream has counters of its own
+            other = att._paged_buffers(q, kc, tables, 132, 1)[3]
+            assert other is not counters and not other.any()
+            assert att._paged_buffers(q, kc, tables, 132, 0)[3] is counters
+            wide = att._paged_buffers(torch.zeros((64, 8, 64)), kc,
+                                      torch.zeros((64, 48),
+                                                  dtype=torch.int32),
+                                      132, 0)[3]
+            assert wide.numel() == 64 * 8 and not wide.any()
+    finally:
+        att._paged_counters.clear()
 
 
 def test_bf16_kernel_entry_types_on_cpu_and_launch_counts():
