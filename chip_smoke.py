@@ -12,6 +12,9 @@ it into a directory and run::
 
     python3 chip_smoke.py --time-paged DIR
 
+and ``--time-flash DIR`` times K3 forward and backward, f32 and bf16, at
+the decoder-LM shape the way phases 3 and 13 time this checkout's.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
@@ -37,7 +40,12 @@ Phases (any failure exits non-zero and prints no result line):
    sizes 16 / 32 / 128, non-causal 128 x 192, ragged T 100 (rtol 1e-4 /
    atol 1e-5), over all cases no further from an f64 run than twice the
    plain fp32 pipeline, on unaligned views the bits of aligned copies,
-   and the same bits from two calls at the LM shape;
+   and the same bits from two calls at the LM shape. Besides, K3 forward
+   and backward at head sizes 8 and 80 (zero-padded by the wrappers to
+   the next built size) and causal with T_q 100 / T_k 256 and 64 / 1024
+   (the diagonal shifted by T_k - T_q), and K4 at head sizes 8, 16 and
+   80 over a pool laid out as ``BlockPool`` lays it out (D 80 at 128),
+   each under the same bounds;
 4. time each kernel, its plain version and, where one exists, the
    PyTorch library call that computes the same function (device time
    from CUDA events over calls queued behind a spin of the card, launch
@@ -156,7 +164,25 @@ Phases (any failure exits non-zero and prints no result line):
    decode step, tokens equal to those of the same lane with the plain
    paged attention, and how many equal ``reference_generate`` (whose
    K/V are not rounded to bf16: information, no gate);
-14. one ``{"kernels": [...]}`` line, then the result line
+14. serving at other head sizes: ``Gateway.generate`` on a default
+   ``GenerativeDecoder`` (d_model 64, 4 heads: D 16), on the JAX serving
+   tests' decoder (d_model 32, 4 heads: D 8) and on one of D 80 (its
+   pool laid out at 128), each with an f32 and a bf16 pool: f32 tokens
+   equal ``reference_generate``, bf16 tokens equal the same lane's with
+   the plain paged attention; one K3 launch a layer a prefill, one K4
+   launch of the pool's type a layer a decode step; the pools' GB;
+15. the Module API: ``train_mnist.py``'s LeNet through ``Module.fit``
+   on the card over data/'s idx files (written from the seed when
+   missing) through ``MNISTIter``: batch 64, SGD lr 0.1,
+   ``Xavier(magnitude=2)``, ``Speedometer``, one epoch; validation
+   accuracy from ``score`` at least 0.99; step ms (median), images/s
+   and the idle share of a traced window of 10 steps. The card's first
+   3 ``forward_backward`` + ``update`` steps against the port's CPU
+   Module on the same batches, each from the card's parameters (phase
+   8's bounds). Then a Module over phase 8's ResNet-50 training symbol
+   at batch 128 with SGD momentum, 5 steps, its step ms beside phase
+   8's executor + K2 step. No kernel of the port launches in this phase;
+16. one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -226,6 +252,8 @@ PARITY_BATCH = 4
 PARITY_LOSS_RTOL, PARITY_TENSOR_TOL, PARITY_F64_TOL = 1e-5, 1e-4, 1e-9
 PARITY_STEM_RATIO = 2.0
 K2_LARGEST = 512 * 512 * 3 * 3       # stage 4's 3x3 convolution weight
+# numbers one phase prints that a later one prints beside its own
+RESULTS = {}
 
 
 def log(*a):
@@ -320,14 +348,15 @@ def card_line():
 
 
 # -- phase 3/4: paged attention ---------------------------------------------
-def paged_inputs(lens, layers, nb, dev, rng, width=TABLE_WIDTH):
+def paged_inputs(lens, layers, nb, dev, rng, width=TABLE_WIDTH,
+                 hd=HEAD_DIM):
     """q, per-layer pool views, tables of ``width`` blocks, seq_lens for
     one decode step: each row's live blocks are distinct pool blocks, the
     rest pad sink."""
     b = len(lens)
     q = torch.from_numpy(rng.standard_normal(
-        (b, HEADS, HEAD_DIM), dtype=np.float32)).to(dev)
-    shape = (layers, nb, BLOCK_TOKENS, HEADS, HEAD_DIM)
+        (b, HEADS, hd), dtype=np.float32)).to(dev)
+    shape = (layers, nb, BLOCK_TOKENS, HEADS, hd)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     k = torch.randn(shape, generator=gen, device=dev)
@@ -433,6 +462,77 @@ def time_paged_tree(root):
     return 0
 
 
+# head sizes of the repo's small decoders (8: the JAX serving tests'; 16:
+# a default GenerativeDecoder's) and one the kernels are not built for,
+# served from a pool laid out at the next built size (80 -> 128)
+EXTRA_HEAD_DIMS = (8, 16, 80)
+
+
+def paged_head_sizes(att, dev, cache, name):
+    """K4 at EXTRA_HEAD_DIMS over a pool laid out as BlockPool lays it out
+    (``paged_head_dim``: zero columns past D), against the plain version
+    over the unpadded pool (PAGED_TOL), lengths about the 64- and
+    128-token splits, a padding row held to zeros. A generator of its
+    own leaves the phase's draws as they were."""
+    hrng = np.random.default_rng(SEED + 21)
+    lens = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300,
+            TABLE_WIDTH * BLOCK_TOKENS, 0]
+    live = torch.from_numpy(np.asarray(lens) > 0).to(dev)
+    for hd in EXTRA_HEAD_DIMS:
+        pd = att.paged_head_dim(hd)
+        q, k, v, tab, sl = paged_inputs(lens, 1, 512, dev, hrng, hd=hd)
+        k, v = k[0].to(cache), v[0].to(cache)
+        kp, vp = (torch.nn.functional.pad(x, (0, pd - hd)) for x in (k, v))
+        got = att.paged_attention(q, kp, vp, tab, sl)
+        want = att.paged_attention_plain(q, k, v, tab, sl)
+        torch.cuda.synchronize()
+        e = (got - want).abs()[live].max().item()
+        log(f"{name} D={hd} (pool laid out at D {pd}): max abs err "
+            f"{e:.3e} (tol {PAGED_TOL})")
+        check(got.shape == q.shape and e <= PAGED_TOL,
+              f"{name} D={hd}: error {e} (shape {tuple(got.shape)})")
+        check(bool(torch.all(got[~live] == 0)), f"{name} D={hd}: "
+              "seq_len-0 row not zeros")
+        del q, k, v, kp, vp, got, want
+
+
+def time_flash_tree(root):
+    """K3's timing rows at the decoder-LM shape (B 8, H 12, T 2048, D 64,
+    causal): the forward and the backward, f32 and bf16, for the checkout
+    at ``root``, as phases 3 and 13 time this one's (``measure``, 20
+    calls): another commit's kernels timed the same way in the same
+    call."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    root = os.path.abspath(root)
+    check(os.path.isdir(os.path.join(root, "mxnet_tpu_torch")),
+          f"no mxnet_tpu_torch package in {root}")
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mxnet_tpu_torch.ops import attention as att
+    dev = torch.device("cuda", 0)
+    log(card_line())
+    log(f"flash timing of {att.__file__}")
+    gen = torch.Generator().manual_seed(SEED)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        make = lm_qkv if dtype == torch.float32 else lm_qkv_bf16
+        q, k, v = make(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev, gen)
+        out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5,
+                                  with_lse=True)
+        d_out = torch.randn(out.shape, generator=gen).to(dev, dtype)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        rows[f"fwd_{tag}_ms"], _ = measure(
+            lambda: att.flash_attention(q, k, v, True), iters=20)
+        rows[f"bwd_{tag}_ms"], _ = measure(
+            lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+            iters=20)
+        del q, k, v, out, lse, d_out
+        torch.cuda.empty_cache()
+    log("flash_timing " + json.dumps(rows))
+    return 0
+
+
 def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
     """K4 with f32 queries over ``cache``-typed pools (float32, or
     bfloat16: the bf16 decoder's pool, read exactly into f32 by both the
@@ -527,6 +627,8 @@ def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
+    paged_head_sizes(att, dev, cache, name)
+
     # timing at the serving path's decode shape: a full batch bucket of
     # 32 rows mid-generation; then one row at the full table
     if decode_lens is None:
@@ -620,6 +722,23 @@ def flash_sass(build, lib="flash_attention", kernel="flash_attention_kernel",
     return counts
 
 
+# K3 at the head sizes of EXTRA_HEAD_DIMS that no kernel is built for
+# (padded to the next built size) and causal with T_q < T_k (the diagonal
+# shifted by T_k - T_q): (T_q, T_k, D, causal), dense (B 2, H 3 or 4)
+FLASH_EXTRA_CASES = [(100, 100, 8, True), (256, 256, 8, False),
+                     (100, 100, 80, True), (256, 256, 80, False),
+                     (100, 256, 64, True), (64, 1024, 64, True),
+                     (100, 256, 8, True), (100, 256, 80, True)]
+
+
+def extra_qkv(t_q, t_k, d, dev, rnd):
+    """Dense (2, H, T, D) q and (2, H, T_k, D) k, v from ``rnd(shape)``
+    (H 4 at D 64, else 3)."""
+    h = 4 if d == 64 else 3
+    return (rnd((2, h, t_q, d)).to(dev),
+            *(rnd((2, h, t_k, d)).to(dev) for _ in range(2)))
+
+
 def phase_flash(att, build, dev, rng):
     flash_sass(build)
     # every prefill bucket at every head size the kernel takes, causal as
@@ -634,8 +753,19 @@ def phase_flash(att, build, dev, rng):
              for t in (16, 32, 64, 128, 256, 512)]
     cases += [(48, 64, True), (48, 64, False), (512, 64, False),
               (100, 128, False)]
-    for t, hd, causal in cases:
-        q, k, v = prefill_qkv(t, dev, rng, hd)
+    xrng = np.random.default_rng(SEED + 20)
+
+    def inputs():
+        for t, hd, causal in cases:
+            yield f"T={t} D={hd}", (*prefill_qkv(t, dev, rng, hd), causal)
+        # a generator of their own: the phase's later draws stay as they
+        # were
+        for t_q, t_k, hd, causal in FLASH_EXTRA_CASES:
+            yield f"Tq={t_q} Tk={t_k} D={hd}", (*extra_qkv(
+                t_q, t_k, hd, dev, lambda shape: torch.from_numpy(
+                    xrng.standard_normal(shape, dtype=np.float32))), causal)
+
+    for tag, (q, k, v, causal) in inputs():
         got = att.flash_attention(q, k, v, causal=causal)
         want = att.flash_attention_plain(q, k, v, causal=causal)
         exact = att.flash_attention_plain(q.double(), k.double(),
@@ -644,16 +774,18 @@ def phase_flash(att, build, dev, rng):
         e = (got - want).abs().max().item()
         e_kernel = (got.double() - exact).abs().max().item()
         e_plain = (want.double() - exact).abs().max().item()
-        log(f"flash_attention T={t} D={hd} causal={causal}: max abs err "
+        log(f"flash_attention {tag} causal={causal}: max abs err "
             f"{e:.3e} (tol {FLASH_TOL}); vs f64 kernel {e_kernel:.3e}, "
             f"fp32 plain {e_plain:.3e}")
-        check(e <= FLASH_TOL, f"flash_attention T={t} D={hd} error {e} > "
+        check(got.shape == q.shape and e <= FLASH_TOL,
+              f"flash_attention {tag} causal={causal} error {e} > "
               f"{FLASH_TOL}")
         err = max(err, e)
         err_kernel = max(err_kernel, e_kernel)
         err_plain = max(err_plain, e_plain)
         worst_ratio = max(worst_ratio, e_kernel / e_plain)
-    log(f"flash_attention vs f64 over {len(cases)} cases: kernel "
+    log(f"flash_attention vs f64 over "
+        f"{len(cases) + len(FLASH_EXTRA_CASES)} cases: kernel "
         f"{err_kernel:.3e}, fp32 plain {err_plain:.3e}; worst case ratio "
         f"{worst_ratio:.3f}")
     check(err_kernel <= 2 * err_plain, f"flash_attention: {err_kernel:.3e} "
@@ -745,6 +877,8 @@ def phase_flash_bwd(att, build, dev):
              (2, 4, 128, 192, 64, False, False),
              (2, 4, 100, 100, 64, True, False),
              (2, 4, 100, 100, 64, False, True)]
+    cases += [(2, 4 if d == 64 else 3, t_q, t_k, d, causal, False)
+              for t_q, t_k, d, causal in FLASH_EXTRA_CASES]
     err, share = 0.0, 0.0
     err_kernel, err_plain = [0.0] * 3, [0.0] * 3
     for b, h, t_q, t_k, d, causal, strided in cases:
@@ -1618,6 +1752,7 @@ def phase_train(fo, dev, rng, here):
             "recorded_graph_held_gb": graph_held_gb, "step_profile": prof,
             "parity_batch4": parity}
     log("resnet50_train " + json.dumps(main))
+    RESULTS["resnet50_train_step_ms"] = main["step_ms"]
     return launches
 
 
@@ -2606,35 +2741,45 @@ def phase_flash_bf16(att, build, dev):
     same inputs; timed at the LM shape."""
     flash_sass(build, kernel="flash_attention_bf16_kernel", kind="HGMMA")
     gen = torch.Generator().manual_seed(SEED + 13)
-    cases = [(1, D_MODEL // hd, t, hd, False) for hd in (16, 32, 64, 128)
-             for t in (16, 32, 64, 128, 256, 512)]
-    cases += [(1, HEADS, 100, HEAD_DIM, False),
-              (LM_BATCH, LM_HEADS, LM_SEQ, LM_HEAD_DIM, True)]
+    cases = [(1, D_MODEL // hd, t, t, hd, True, "prefill")
+             for hd in (16, 32, 64, 128) for t in (16, 32, 64, 128, 256, 512)]
+    cases += [(1, HEADS, 100, 100, HEAD_DIM, True, "prefill"),
+              (LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, "lm")]
+    cases += [(2, None, t_q, t_k, d, causal, "dense")
+              for t_q, t_k, d, causal in FLASH_EXTRA_CASES]
     err, worst, worst_round = 0.0, 0.0, 0.0
-    for b, h, t, d, lm in cases:
-        if lm:
+    for b, h, t, t_k, d, causal, layout in cases:
+        if layout == "lm":
             q, k, v = lm_qkv_bf16(b, t, h, d, dev, gen)
-        else:    # (1, H, T, D) views of the prefill's (1, T, 3 d) output
+        elif layout == "prefill":
+            # (1, H, T, D) views of the prefill's (1, T, 3 d) output
             qkv = torch.randn((1, t, 3 * h * d), generator=gen).to(
                 dev).bfloat16()
             q, k, v = (y.view(1, t, h, d).transpose(1, 2)
                        for y in qkv.chunk(3, dim=-1))
-        got = att.flash_attention(q, k, v, causal=True)
-        want = att.flash_attention_plain(q, k, v, causal=True)
+        else:
+            q, k, v = extra_qkv(t, t_k, d, dev, lambda shape: torch.randn(
+                shape, generator=gen).bfloat16())
+            h = q.shape[1]
+        got = att.flash_attention(q, k, v, causal=causal)
+        want = att.flash_attention_plain(q, k, v, causal=causal)
         exact = att.flash_attention_plain(q.double(), k.double(),
-                                          v.double(), causal=True)
+                                          v.double(), causal=causal)
         torch.cuda.synchronize()
         check(got.dtype == torch.bfloat16, f"flash bf16 output {got.dtype}")
         ok_plain, e = within(got, want, BF16_RTOL, BF16_ATOL)
         ok_exact, _ = within(got, exact, BF16_RTOL, BF16_ATOL)
         r_kernel, r_plain = rel_l2(got, exact), rel_l2(want, exact)
         r_round = rel_l2(exact.to(torch.bfloat16), exact)
-        log(f"flash_attention bf16 B={b} H={h} T={t} D={d}: max abs err "
+        check(got.shape == q.shape, f"flash bf16 output {tuple(got.shape)}")
+        log(f"flash_attention bf16 B={b} H={h} T={t} Tk={t_k} D={d} "
+            f"causal={causal}: max abs err "
             f"{e:.3e} vs plain bf16; vs f64 (relative L2) kernel "
             f"{r_kernel:.3e}, plain bf16 {r_plain:.3e}, f64 output rounded "
             f"to bf16 {r_round:.3e}")
         check(ok_plain and ok_exact, f"flash_attention bf16 B={b} T={t} "
-              f"D={d}: outside rtol {BF16_RTOL} / atol {BF16_ATOL}")
+              f"Tk={t_k} D={d}: outside rtol {BF16_RTOL} / atol "
+              f"{BF16_ATOL}")
         check(r_kernel <= BF16_F64_RATIO * r_plain,
               f"flash_attention bf16 B={b} T={t} D={d}: {r_kernel:.3e} off "
               f"f64, more than {BF16_F64_RATIO}x the plain bf16 version's "
@@ -2745,6 +2890,8 @@ def phase_flash_bwd_bf16(att, build, dev):
     cases += [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, "lm"),
               (2, 4, 128, 192, 64, False, "dense"),
               (2, 4, 100, 100, 64, True, "dense")]
+    cases += [(2, 4 if d == 64 else 3, t_q, t_k, d, causal, "dense")
+              for t_q, t_k, d, causal in FLASH_EXTRA_CASES]
     err, worst, share = 0.0, 0.0, 0.0
     for b, h, t_q, t_k, d, causal, layout in cases:
         if layout == "lm":
@@ -3107,6 +3254,324 @@ def phase_serve_bf16(att, dev, burst, f32_main):
     torch.cuda.empty_cache()
     return {"paged_attention_bf16": counts["paged_bf16"]}
 
+# -- phase 14: serving at every head size --------------------------------
+# decoders whose heads the K3 / K4 kernels serve at sizes other than the
+# quickstart's 64: a default GenerativeDecoder (d_model 64, 4 heads: D
+# 16), the JAX package's serving tests' (d_model 32, 4 heads: D 8), and
+# D 80, which no kernel is built for (K3 pads it, the pool is laid out at
+# 128): (name, constructor arguments, register_generator arguments)
+SMALL_DECODERS = (
+    ("default", dict(vocab_size=VOCAB),
+     dict(block_tokens=16, max_blocks=256, max_new_tokens=24,
+          max_decode_batch=8)),
+    ("jax_tests", dict(vocab_size=50, d_model=32, num_layers=2,
+                       num_heads=4, max_prompt_tokens=12),
+     dict(block_tokens=4, max_blocks=64, max_new_tokens=12,
+          max_decode_batch=4)),
+    ("d80", dict(vocab_size=VOCAB, d_model=160, num_layers=2, num_heads=2,
+                 max_prompt_tokens=64),
+     dict(block_tokens=16, max_blocks=256, max_new_tokens=24,
+          max_decode_batch=8)))
+
+
+def phase_serve_heads(att, i8, fo, dev):
+    """``Gateway.generate`` on SMALL_DECODERS with an f32 and a bf16 pool:
+    f32 tokens equal ``reference_generate`` (the unpaged plain-attention
+    oracle) for every request; bf16 tokens equal the same lane's with the
+    plain paged attention on the same pool (phase 13's rule: the oracle's
+    K/V are not rounded to bf16). One flash launch a layer a prefill and
+    one paged launch a layer a decode step, of the pool's type; the pool's
+    bytes at the head size it was laid out with."""
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
+                                                  reference_generate)
+    from mxnet_tpu_torch.serving.generate import model as gen_model
+
+    prng = np.random.default_rng(SEED + 22)
+    rows = []
+    for name, cfg, lane_cfg in SMALL_DECODERS:
+        max_prompt = cfg.get("max_prompt_tokens", 64)
+        vocab = cfg["vocab_size"]
+        plens = [1, 3, max_prompt // 2, max_prompt - 1, max_prompt, 7]
+        prompts = [prng.integers(0, vocab, n).tolist() for n in plens]
+        new = [lane_cfg["max_new_tokens"] - i for i in range(len(plens))]
+        for dtype in ("float32", "bfloat16"):
+            dec = GenerativeDecoder(**cfg, device=dev, seed=SEED,
+                                    dtype=dtype)
+            bf16 = dtype == "bfloat16"
+            att.reset_launches()
+            gw = Gateway(device=dev)
+            try:
+                gen = gw.register_generator("lm", dec, **lane_cfg)
+                pool = gen.lane.pool
+                pool_d, pool_bytes = pool.pool_head_dim, pool.bytes_total
+                check(pool_bytes == 2 * pool.num_layers * pool.max_blocks
+                      * pool.block_tokens * pool.num_heads * pool_d
+                      * pool.k.element_size(), f"serve {name}: pool bytes")
+                reqs = [gw.submit_generate("lm", p, max_new_tokens=n)
+                        for p, n in zip(prompts, new)]
+                got = [r.result(300) for r in reqs]
+                calls = gw.stats()["lm"]["lanes"][0]["step_calls"]
+                counts = kernel_counts(att, i8, fo)
+                if bf16:
+                    # the plain version over the pool's first D columns
+                    def plain(q, kc, vc, *a):
+                        d = q.shape[-1]
+                        return att.paged_attention_plain(
+                            q, kc[..., :d], vc[..., :d], *a)
+
+                    paged = gen_model.paged_attention
+                    gen_model.paged_attention = plain
+                    try:
+                        want = [gw.generate("lm", p, max_new_tokens=n)
+                                for p, n in zip(prompts, new)]
+                    finally:
+                        gen_model.paged_attention = paged
+            finally:
+                gw.close()
+            if not bf16:
+                want = [reference_generate(dec, p, n)
+                        for p, n in zip(prompts, new)]
+            layers = dec.num_layers
+            paged_key = "paged_attention_bf16" if bf16 else "paged_attention"
+            check(all(len(g) == n for g, n in zip(got, new)),
+                  f"serve {name} {dtype}: lengths {[len(g) for g in got]}")
+            check(got == want, f"serve {name} {dtype} (D {dec.head_dim}): "
+                  f"tokens differ from the "
+                  f"{'plain paged lane' if bf16 else 'reference_generate'}"
+                  f":\n{got}\n{want}")
+            check(counts["flash_attention"] == calls["prefill"] * layers
+                  and counts[paged_key] == calls["decode"] * layers
+                  and counts[paged_key] > 0
+                  and counts["flash_attention_bf16"] == 0,
+                  f"serve {name} {dtype}: launches {counts}, calls {calls}")
+            row = {"decoder": name, "dtype": dtype, "head_dim": dec.head_dim,
+                   "pool_head_dim": pool_d, "pool_gb": pool_bytes / 1e9,
+                   "requests": len(prompts), "tokens": int(sum(new)),
+                   "flash_launches": counts["flash_attention"],
+                   "paged_launches": counts[paged_key], "step_calls": calls}
+            log(f"serve_heads {name} {dtype} D={dec.head_dim}: pool laid "
+                f"out at D {pool_d}, {pool_bytes / 1e9:.6f} GB; "
+                f"{len(prompts)} requests token-exact")
+            rows.append(row)
+            del dec
+    log("serve_heads " + json.dumps(rows))
+    torch.cuda.empty_cache()
+
+
+# -- phase 15: the Module API ---------------------------------------------
+MODULE_BATCH, MODULE_LR = 64, 0.1
+MODULE_PARITY_STEPS, MODULE_TRACED_STEPS = 3, 10
+MODULE_R50_STEPS = 5
+MODULE_MIN_ACCURACY = 0.99
+
+
+def lenet(sym):
+    """examples/image-classification/train_mnist.py's ``lenet()``, on the
+    port's ``sym``."""
+    data = sym.var("data")
+    c1 = sym.Convolution(data, name="conv1", kernel=(5, 5), num_filter=20)
+    a1 = sym.Activation(c1, act_type="tanh")
+    p1 = sym.Pooling(a1, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    c2 = sym.Convolution(p1, name="conv2", kernel=(5, 5), num_filter=50)
+    a2 = sym.Activation(c2, act_type="tanh")
+    p2 = sym.Pooling(a2, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    fl = sym.Flatten(p2)
+    f1 = sym.FullyConnected(fl, name="fc1", num_hidden=500)
+    a3 = sym.Activation(f1, act_type="tanh")
+    f2 = sym.FullyConnected(a3, name="fc2", num_hidden=10)
+    return sym.SoftmaxOutput(f2, name="softmax")
+
+
+def mnist_iters(mx, here, batch, ctx):
+    """train_mnist.py's data: the idx files in the checkout's data/
+    (written there from the seed by ``test_utils.get_mnist_ubyte`` when
+    missing, the bytes the JAX package writes) through the port's
+    MNISTIter (train shuffled, validation in order)."""
+    data = os.path.join(here, "data")
+    mx.test_utils.get_mnist_ubyte(data)
+    with ctx:
+        train = mx.io.MNISTIter(
+            image=os.path.join(data, "train-images-idx3-ubyte"),
+            label=os.path.join(data, "train-labels-idx1-ubyte"),
+            batch_size=batch, shuffle=True)
+        val = mx.io.MNISTIter(
+            image=os.path.join(data, "t10k-images-idx3-ubyte"),
+            label=os.path.join(data, "t10k-labels-idx1-ubyte"),
+            batch_size=batch, shuffle=False)
+    return train, val
+
+
+def module_parity(mx, net, arg_p, batches):
+    """The card's first MODULE_PARITY_STEPS ``forward_backward`` +
+    ``update`` steps of the fit's Module against the port's CPU Module
+    on the same batches, each step from the card's parameters before it
+    (phase 8's bounds, TF32 off: the loss to PARITY_LOSS_RTOL, every
+    gradient and updated parameter to PARITY_TENSOR_TOL of its largest
+    value)."""
+    mods = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        m = mx.mod.Module(net, context=ctx)
+        m.bind([("data", (MODULE_BATCH, 1, 28, 28))],
+               [("softmax_label", (MODULE_BATCH,))])
+        m.init_params(None, arg_params=arg_p, aux_params={})
+        m.init_optimizer(optimizer="sgd",
+                         optimizer_params={"learning_rate": MODULE_LR})
+        mods[where] = m
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step, (x, y) in enumerate(batches):
+        arg, aux = mods["card"].get_params()
+        mods["cpu"].set_params({k: v.asnumpy() for k, v in arg.items()}, {})
+        got = {}
+        for where, m in mods.items():
+            ctx = mx.gpu(0) if where == "card" else mx.cpu()
+            with ctx:
+                batch = mx.io.DataBatch(data=[mx.nd.array(x)],
+                                        label=[mx.nd.array(y)])
+            m.forward_backward(batch)
+            loss = float(cross_entropy(m.get_outputs()[0]._data,
+                                       batch.label[0]._data))
+            grads = {n: m._exec.grad_dict[n].asnumpy()
+                     for n in m._param_names}
+            m.update()
+            got[where] = (loss, grads,
+                          {k: v.asnumpy() for k, v in
+                           m.get_params()[0].items()})
+        (lc, gc, pc), (lu, gu, pu) = got["card"], got["cpu"]
+        r = abs(lc - lu) / abs(lu)
+        worst["loss"] = max(worst["loss"], r)
+        check(r <= PARITY_LOSS_RTOL, f"module step {step}: loss card {lc} "
+              f"vs CPU {lu}")
+        for kind, a, b in (("grad", gc, gu), ("param", pc, pu)):
+            for n in b:
+                e = float(np.abs(a[n].astype(np.float64) - b[n]).max()
+                          / max(np.abs(b[n]).max(), 1e-30))
+                worst[kind] = max(worst[kind], e)
+                check(e <= PARITY_TENSOR_TOL, f"module step {step}: {kind} "
+                      f"{n} card vs CPU {e} of its largest value")
+    log(f"module parity: {len(batches)} steps on the card within phase 8's "
+        f"bounds of the CPU Module (worst loss {worst['loss']:.3e}, "
+        f"gradient {worst['grad']:.3e}, parameter {worst['param']:.3e})")
+    return worst
+
+
+def phase_module(att, i8, fo, dev, here):
+    """train_mnist.py's LeNet through ``Module.fit`` on the card over
+    data/'s idx files (MNISTIter, batch 64, SGD lr 0.1, Xavier(2),
+    Speedometer, one epoch, validation by ``score``); the card's first
+    steps against the CPU Module; then a Module over phase 8's ResNet-50
+    training symbol at batch 128 (SGD momentum through the optimizer
+    class). No kernel of the port launches: the Module's update is the
+    optimizer class's own, not K2."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+
+    # fit's and Speedometer's lines, on stdout like the rest
+    logging.basicConfig(level=logging.INFO, format="%(message)s",
+                        stream=sys.stdout)
+    logging.getLogger().setLevel(logging.INFO)
+    before = kernel_counts(att, i8, fo)
+    net = lenet(mx.sym)
+    train, val = mnist_iters(mx, here, MODULE_BATCH, mx.gpu(0))
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    stamps = []
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, eval_metric="acc", optimizer="sgd",
+            optimizer_params={"learning_rate": MODULE_LR},
+            initializer=mx.initializer.Xavier(magnitude=2.0),
+            batch_end_callback=[mx.callback.Speedometer(MODULE_BATCH, 50),
+                                stamp],
+            num_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = np.diff(stamps)
+    step_ms = float(np.median(steps)) * 1e3
+    acc = dict(mod.score(val, "acc"))["accuracy"]
+    check(acc >= MODULE_MIN_ACCURACY, f"LeNet validation accuracy {acc} "
+          f"< {MODULE_MIN_ACCURACY}")
+    # a traced window of steps: the device's idle share
+    batches = []
+    train.reset()
+    for _ in range(MODULE_TRACED_STEPS):
+        batches.append(train.next())
+
+    def window():
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+
+    window()
+    prof = profile_step(window)
+    main = {"batch": MODULE_BATCH, "steps": len(stamps),
+            "step_ms": step_ms, "images_per_s": MODULE_BATCH / step_ms * 1e3,
+            "epoch_train_s": stamps[-1] - stamps[0] if stamps else None,
+            "fit_s": fit_s, "validation_accuracy": acc,
+            "traced_steps": MODULE_TRACED_STEPS,
+            "traced_idle_share": prof["device_idle_share"],
+            "traced_busy_ms": prof["device_busy_ms"],
+            "traced_wall_ms": prof["wall_ms"],
+            "traced_by_group_ms": prof["by_group_ms"]}
+
+    # the card's first steps against the CPU Module, from one draw
+    init = mx.mod.Module(net, context=mx.cpu())
+    init.bind([("data", (MODULE_BATCH, 1, 28, 28))],
+              [("softmax_label", (MODULE_BATCH,))])
+    init.init_params(mx.initializer.Xavier(magnitude=2.0))
+    arg_p = {k: v.asnumpy() for k, v in init.get_params()[0].items()}
+    ptrain, _ = mnist_iters(mx, here, MODULE_BATCH, mx.cpu())
+    parity_batches = []
+    for _ in range(MODULE_PARITY_STEPS):
+        b = ptrain.next()
+        parity_batches.append((b.data[0].asnumpy(), b.label[0].asnumpy()))
+    main["parity"] = module_parity(mx, net, arg_p, parity_batches)
+
+    # ResNet-50 through the Module at phase 8's batch: the optimizer
+    # class's per-parameter update against phase 8's K2 step
+    rnet, params, r_arg, r_aux = train_net(mx, here)
+    rmod = mx.mod.Module(rnet, context=mx.gpu(0))
+    rmod.bind([("data", (TRAIN_BATCH,) + R50_SHAPE[1:])],
+              [("softmax_label", (TRAIN_BATCH,))])
+    rmod.init_params(None, arg_params=r_arg, aux_params=r_aux)
+    rmod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SGD_HYPER["lr"], "momentum": SGD_HYPER["momentum"],
+        "wd": SGD_HYPER["wd"]})
+    mrng = np.random.default_rng(SEED + 23)
+    rbatch = mx.io.DataBatch(
+        data=[mx.nd.array(mrng.standard_normal(
+            (TRAIN_BATCH,) + R50_SHAPE[1:], dtype=np.float32))],
+        label=[mx.nd.array(mrng.integers(0, 1000, TRAIN_BATCH)
+                           .astype(np.float32))])
+    secs, losses = [], []
+    for _ in range(MODULE_R50_STEPS):
+        t0 = time.perf_counter()
+        rmod.forward_backward(rbatch)
+        rmod.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(cross_entropy(rmod.get_outputs()[0]._data,
+                                          rbatch.label[0]._data)))
+    check(all(np.isfinite(losses)), f"ResNet-50 Module losses {losses}")
+    r50 = {"batch": TRAIN_BATCH, "steps": MODULE_R50_STEPS,
+           "step_ms": float(np.median(secs[1:])) * 1e3,
+           "step_ms_all": [t * 1e3 for t in secs], "losses": losses,
+           "phase8_executor_k2_step_ms":
+               RESULTS.get("resnet50_train_step_ms")}
+    r50["update_profile"] = profile_step(rmod.update)
+    main["resnet50_module"] = r50
+    after = kernel_counts(att, i8, fo)
+    check(after == before, f"the Module phase launched kernels of the port: "
+          f"{before} -> {after}")
+    logging.getLogger().setLevel(logging.WARNING)
+    log("module_fit " + json.dumps(main))
+    del mod, rmod, rbatch
+    torch.cuda.empty_cache()
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3156,6 +3621,8 @@ def main():
                             kernels[2]["shape"]["decode_lens"])]
     launches.update(phase_lm_train_bf16(att, i8, fo, dev, rng))
     launches.update(phase_serve_bf16(att, dev, burst, serve_main))
+    phase_serve_heads(att, i8, fo, dev)
+    phase_module(att, i8, fo, dev, here)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log("kernel " + json.dumps(k))
@@ -3171,4 +3638,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--time-paged":
         sys.exit(time_paged_tree(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-flash":
+        sys.exit(time_flash_tree(sys.argv[2]))
     sys.exit(main())

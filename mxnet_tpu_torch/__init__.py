@@ -29,7 +29,13 @@ float32 product here is a float32 product. Ported so far:
 - decoder-LM training through gluon: the generative decoder's block
   (``serving.generate.GenerativeDecoder(...).block``) under
   ``autograd.record``, with the hand-written flash attention forward and
-  backward kernels, served afterwards from the same weights.
+  backward kernels, served afterwards from the same weights;
+- the Module API (``mod.Module`` / ``BucketingModule`` /
+  ``SequentialModule``: ``fit``, ``score``, ``predict``, checkpoints and
+  optimizer states), ``model.FeedForward``, ``callback``, and the data
+  iterators ``io.MNISTIter`` / ``CSVIter`` / ``LibSVMIter`` /
+  ``ResizeIter`` / ``PrefetchingIter`` over ``test_utils``' offline
+  MNIST.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -45,12 +51,16 @@ from . import symbol as sym
 from . import executor, io, model, model_zoo, subgraph, contrib  # noqa: F401
 from . import autograd, gluon, initializer, predictor, random  # noqa: F401
 from . import lr_scheduler, metric, optimizer  # noqa: F401
+from . import callback, checkpoint, executor_manager  # noqa: F401
+from . import module, test_utils  # noqa: F401
+from . import module as mod  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["Context", "MXNetError", "autograd", "contrib", "cpu",
-           "current_context", "executor", "get_env", "gluon", "gpu",
-           "initializer", "io", "lr_scheduler", "metric", "model",
-           "model_zoo", "nd", "optimizer", "predictor", "random",
-           "resolve_device", "subgraph", "sym"]
+__all__ = ["Context", "MXNetError", "autograd", "callback", "checkpoint",
+           "contrib", "cpu", "current_context", "executor",
+           "executor_manager", "get_env", "gluon", "gpu", "initializer",
+           "io", "lr_scheduler", "metric", "mod", "model", "model_zoo",
+           "module", "nd", "optimizer", "predictor", "random",
+           "resolve_device", "subgraph", "sym", "test_utils"]

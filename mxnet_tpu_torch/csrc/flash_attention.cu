@@ -7,6 +7,9 @@
 //
 // out[b, h] = softmax(scale * Q K^T [causal]) V for Q (Tq, D) and K, V
 // (Tk, D), without writing the (Tq, Tk) score matrix to device memory.
+// Causal takes Tq <= Tk with the queries as the last Tq key positions (the
+// JAX reference's decoder convention): query row i sees keys
+// j <= i + (Tk - Tq), the diagonal shifted by `shift` = Tk - Tq.
 // When the caller passes an `lse` buffer (training), the kernel also
 // writes each row's log-sum-exp m + log(l) of the scaled scores, f32
 // (B, H, Tq) contiguous, which the backward uses to recompute P; serving
@@ -215,7 +218,8 @@ __global__ void __launch_bounds__(kThreads)
   float* obase = o + b * o_sb + h * o_sh;
 
   // keys any row of this tile can see: [0, kv_end)
-  const int kv_end = causal ? min(q0 + kBQ, Tk) : Tk;
+  const int shift = causal ? Tk - Tq : 0;
+  const int kv_end = causal ? min(q0 + kBQ + shift, Tk) : Tk;
   const int n_st = (kv_end + kBK - 1) / kBK;
 
   for (int e = threadIdx.x; e < kBQ * Q4; e += kThreads) {
@@ -237,8 +241,9 @@ __global__ void __launch_bounds__(kThreads)
   load_kv(0);
   cp_commit();
 
-  // this thread's rows of the tile: g and g + 8
-  const int row0 = q0 + g, row1 = q0 + g + 8;
+  // this thread's rows of the tile, g and g + 8, as key positions (row +
+  // shift: the last key each sees when causal)
+  const int row0 = q0 + g + shift, row1 = row0 + 8;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   float acc[NT][4];
 #pragma unroll
@@ -670,7 +675,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   const int q0 = (n_qt - 1 - blockIdx.x / BH) * kBQ;
   const int b = bh / H, h = bh % H;
   // keys any row of this tile can see: [0, kv_end)
-  const int kv_end = causal ? min(q0 + kBQ, Tk) : Tk;
+  const int shift = causal ? Tk - Tq : 0;
+  const int kv_end = causal ? min(q0 + kBQ + shift, Tk) : Tk;
   const int n_st = (kv_end + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -707,9 +713,11 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     return;
   }
 
-  // consumer warpgroup w: rows q0 + 64 w + 16 (warp % 4) + g (and + 8)
+  // consumer warpgroup w: rows q0 + 64 w + 16 (warp % 4) + g (and + 8),
+  // held as key positions (row + shift, the last key each row sees when
+  // causal) through the loop, so the mask takes no extra register
   const int w = warp >> 2, g = lane >> 2, t = lane & 3;
-  const int rw = q0 + kRows * w;              // the warpgroup's first row
+  const int rw = q0 + kRows * w + shift;      // the warpgroup's first row
   const int row0 = rw + 16 * (warp & 3) + g, row1 = row0 + 8;
   // stages this warpgroup's rows can see
   const int n_w = causal ? (min(rw + kRows, Tk) + kBK - 1) / kBK : n_st;
@@ -820,7 +828,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = hh ? row1 : row0;
+    const int row = (hh ? row1 : row0) - (causal ? Tk - Tq : 0);
     if (row >= Tq) continue;
     const float inv = hh ? inv1 : inv0;
     __nv_bfloat16* dst = ob + row * o_st + 2 * t;
@@ -963,7 +971,8 @@ int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
 // `strides` = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,
 // o_sh, o_st} and unit stride along D; q, k and v 16-byte aligned with
 // strides of 16 bytes' multiples, as cp.async (fp32) and TMA (bf16) need
-// (checked by the caller). Causal needs Tq == Tk (checked by the caller).
+// (checked by the caller). Causal needs Tq <= Tk (checked by the caller):
+// row i sees keys j <= i + Tk - Tq.
 // `lse`: null, or f32 (B, H, Tq) contiguous for the rows' log-sum-exp.
 // Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for an unsupported head size or a tensor map the

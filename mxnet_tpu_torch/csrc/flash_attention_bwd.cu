@@ -18,7 +18,9 @@
 //     (B, H, Tq). dS = P * (dP - Dv) with dP = dO V^T is the softmax VJP.
 //  2. dK/dV: one CTA of 4 warps per (64-key block, head, batch). K_j and
 //     V_j stay in shared memory; the CTA walks the 64-row query blocks
-//     that can see them (from the diagonal on when causal), loads Q_i,
+//     that can see them (from the diagonal on when causal; with Tq < Tk
+//     the diagonal is shifted by Tk - Tq, row i seeing keys j <= i + Tk -
+//     Tq, as in csrc/flash_attention.cu), loads Q_i,
 //     dO_i, lse_i and Dv_i, recomputes the scores and accumulates dV_j +=
 //     P^T dO_i and dK_j += dS^T Q_i in registers; dK is scaled once at
 //     the end.
@@ -424,8 +426,10 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     cp4(dst, src + (in ? row : 0), in);
   };
   const int n_qb = (a.Tq + kB - 1) / kB;
-  // causal needs Tq == Tk: rows below k0 see none of these keys
-  const int first = a.causal ? k0 / kB : 0;
+  // rows i < k0 - shift see none of these keys (every key is seen by
+  // the last row, so the walk is never empty)
+  const int shift = a.causal ? a.Tk - a.Tq : 0;
+  const int first = a.causal ? max(k0 - shift, 0) / kB : 0;
   load_q(first * kB, 0);
   cp_commit();
 
@@ -455,8 +459,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     // query q0 + 8j + 2t + (i & 1)
     float x[8][4];
     mma_abt_f32<D>(x, sK + 16 * warp * P, Q, g, t);
-    const bool edge = (a.causal && q0 < kw + 16) || q0 + kB > a.Tq ||
-                      kw + 16 > a.Tk;
+    const bool edge = (a.causal && q0 + shift < kw + 16) ||
+                      q0 + kB > a.Tq || kw + 16 > a.Tk;
     if (edge) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -464,7 +468,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         for (int i = 0; i < 4; ++i) {
           const int qc = 8 * j + 2 * t + (i & 1), qg = q0 + qc;
           const int kg = kw + g + 8 * (i >> 1);
-          const bool ok = qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg);
+          const bool ok =
+              qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg + shift);
           x[j][i] = ok ? p_exp(a.scale, x[j][i], L[qc]) : 0.f;
         }
     } else {
@@ -540,7 +545,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
   // keys these rows can see: [0, kv_end)
-  const int kv_end = a.causal ? min(q0 + kB, a.Tk) : a.Tk;
+  const int shift = a.causal ? a.Tk - a.Tq : 0;
+  const int kv_end = a.causal ? min(q0 + kB + shift, a.Tk) : a.Tk;
   const int n_kb = (kv_end + kB - 1) / kB;
   for (int kj = 0; kj < n_kb; ++kj) {
     const int buf = kj & 1, k0 = kj * kB;
@@ -558,8 +564,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     // key k0 + 8j + 2t + (i & 1)
     float x[8][4];
     mma_abt_f32<D>(x, sQ + 16 * warp * P, K, g, t);
-    const bool edge = (a.causal && k0 + kB > qw) || k0 + kB > a.Tk ||
-                      qw + 16 > a.Tq;
+    const bool edge = (a.causal && k0 + kB > qw + shift) ||
+                      k0 + kB > a.Tk || qw + 16 > a.Tq;
     if (edge) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -567,7 +573,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         for (int i = 0; i < 4; ++i) {
           const int kg = k0 + 8 * j + 2 * t + (i & 1);
           const int qg = qw + g + 8 * (i >> 1);
-          const bool ok = qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg);
+          const bool ok =
+              qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg + shift);
           x[j][i] = ok ? p_exp(a.scale, x[j][i], lse_r[i >> 1]) : 0.f;
         }
     } else {
@@ -820,8 +827,10 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     cp4(dst, src + (in ? row : 0), in);
   };
   const int n_qb = (a.Tq + kB - 1) / kB;
-  // causal needs Tq == Tk: rows below k0 see none of these keys
-  const int first = a.causal ? k0 / kB : 0;
+  // rows i < k0 - shift see none of these keys (every key is seen by
+  // the last row, so the walk is never empty)
+  const int shift = a.causal ? a.Tk - a.Tq : 0;
+  const int first = a.causal ? max(k0 - shift, 0) / kB : 0;
   load_q(first * kB, 0);
   cp_commit();
 
@@ -851,8 +860,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     // query q0 + 8j + 2t + (i & 1)
     float x[8][4];
     mma_abt<D>(x, sK + 16 * warp * P, Q, lane);
-    const bool edge = (a.causal && q0 < kw + 16) || q0 + kB > a.Tq ||
-                      kw + 16 > a.Tk;
+    const bool edge = (a.causal && q0 + shift < kw + 16) ||
+                      q0 + kB > a.Tq || kw + 16 > a.Tk;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -860,7 +869,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
         const int qc = 8 * j + 2 * t + (i & 1), qg = q0 + qc;
         const int kg = kw + g + 8 * (i >> 1);
         const bool ok =
-            !edge || (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg));
+            !edge ||
+            (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg + shift));
         x[j][i] = ok ? exp2_sfu(fmaf(sl2e, x[j][i], -L[qc] * kLog2e)) : 0.f;
       }
     mma_split_b<D>(dv, x, G, lane);
@@ -931,7 +941,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
   // keys these rows can see: [0, kv_end)
-  const int kv_end = a.causal ? min(q0 + kB, a.Tk) : a.Tk;
+  const int shift = a.causal ? a.Tk - a.Tq : 0;
+  const int kv_end = a.causal ? min(q0 + kB + shift, a.Tk) : a.Tk;
   const int n_kb = (kv_end + kB - 1) / kB;
   for (int kj = 0; kj < n_kb; ++kj) {
     const int buf = kj & 1, k0 = kj * kB;
@@ -949,8 +960,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     // key k0 + 8j + 2t + (i & 1)
     float x[8][4];
     mma_abt<D>(x, sQ + 16 * warp * P, K, lane);
-    const bool edge = (a.causal && k0 + kB > qw) || k0 + kB > a.Tk ||
-                      qw + 16 > a.Tq;
+    const bool edge = (a.causal && k0 + kB > qw + shift) ||
+                      k0 + kB > a.Tk || qw + 16 > a.Tq;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -958,7 +969,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
         const int kg = k0 + 8 * j + 2 * t + (i & 1);
         const int qg = qw + g + 8 * (i >> 1);
         const bool ok =
-            !edge || (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg));
+            !edge ||
+            (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg + shift));
         x[j][i] = ok ? exp2_sfu(fmaf(sl2e, x[j][i], -lse_r[i >> 1])) : 0.f;
       }
     // dS = P * (dO_w V^T - Dv)
@@ -1055,7 +1067,8 @@ int dispatch(const E* q, const E* k, const E* v, const E* o, const E* dout,
 // {sb, sh, st} and unit stride along D; all fp32 (`_f32`) or all bf16
 // (`_bf16`: read into f32, every sum in f32, the gradients rounded once
 // to bf16). lse: the forward's f32 (B, H, Tq) contiguous row log-sum-exp;
-// dvec: f32 (B, H, Tq) scratch. Causal needs Tq == Tk. Both types copy q,
+// dvec: f32 (B, H, Tq) scratch. Causal needs Tq <= Tk (row i sees keys
+// j <= i + Tk - Tq). Both types copy q,
 // k, v and dout 16 bytes at a time (cp.async): their base addresses and
 // (batch, head, token) strides must be multiples of 16 bytes; o takes any
 // strides. The caller checks shapes, strides, alignment and that (Tq or

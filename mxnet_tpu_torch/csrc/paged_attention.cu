@@ -55,7 +55,8 @@
 //    `_paged_chunk`, which chooses the f32 kernel's 64 too) and passed
 //    in: 128 at D 64 (the f32 design's 32 KB in flight a CTA; at B 32, H
 //    8 some 700 live CTAs, one wave of six an SM), 64 where that would
-//    leave the grid under two CTAs an SM (B 1) or at D 128;
+//    leave the grid under two CTAs an SM (B 1) or at D 128; always 128 at
+//    D 8, whose row is one 16-byte piece, read by one thread a token;
 //  - K rows are read as 16-byte vectors of 8 bf16 by one thread a token
 //    (two at 64-token chunks). The tiles are unpadded; piece c of K row
 //    r sits at c ^ swz(r), so the 8 rows a quarter warp reads fall on
@@ -326,8 +327,8 @@ constexpr int bf16_smem_bytes() {
   return (D + CHUNK + 2 * kWarps) * 4 + 2 * CHUNK * D * 2;
 }
 
-// where 16-byte piece c of K row r is stored: rows of D bf16 are 64, 128
-// or 256 bytes, so a quarter warp reading one piece of 8 rows (or two
+// where 16-byte piece c of K row r is stored: rows of D bf16 are 16 to 256
+// bytes, so a quarter warp reading one piece of 8 rows (or two
 // pieces of 4) would hit one bank group; XOR the piece index with the
 // row's place among the rows that share 128 bytes of banks
 template <int D>
@@ -580,9 +581,13 @@ cudaError_t chunk_bf16(int chunk, const float* q, int64_t q_sb, int64_t q_sh,
                        float scale, cudaStream_t stream) {
   switch (chunk) {
     case 64:
-      return launch_bf16<D, 64>(q, q_sb, q_sh, kc, vc, tables, seq_lens, out,
-                                scratch, counters, B, H, NB, BT, W, scale,
-                                stream);
+      // two threads a token need at least two 16-byte pieces a row
+      if constexpr (D >= 16)
+        return launch_bf16<D, 64>(q, q_sb, q_sh, kc, vc, tables, seq_lens,
+                                  out, scratch, counters, B, H, NB, BT, W,
+                                  scale, stream);
+      else
+        return cudaErrorInvalidValue;
     case 128:
       return launch_bf16<D, 128>(q, q_sb, q_sh, kc, vc, tables, seq_lens, out,
                                  scratch, counters, B, H, NB, BT, W, scale,
@@ -599,7 +604,9 @@ cudaError_t chunk_bf16(int chunk, const float* q, int64_t q_sb, int64_t q_sh,
 // (`_bf16`, read into f32); tables: (B, W) int32; seq_lens: (B,) int32;
 // out: (B, H, D) f32 contiguous; scratch: (B, H, S) x (2 + D) floats for
 // S = ceil(W * BT / chunk). `chunk`: tokens per split CTA as the wrapper
-// chose it, 64 for `_f32`, 64 or 128 for `_bf16` (the chunks built here).
+// chose it, 64 for `_f32`, 64 or 128 for `_bf16` (the chunks built here;
+// 128 only at D 8). D: 8, 16, 32, 64 or 128; the wrapper pads any other
+// head size up to one of these (zero columns in q and the pool).
 // counters (`_bf16`): B * H int32, zero, left zero, used by one stream.
 // Returns the CUDA error of the launches (0 on success), or
 // cudaErrorInvalidValue for an unsupported head size or chunk.
@@ -617,6 +624,14 @@ extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
   if (chunk != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8:
+      return launch_f32<8, 64>(q, q_sb, q_sh, k_cache, v_cache, tables,
+                               seq_lens, out, scratch, B, H, NB, BT, W,
+                               scale, s);
+    case 16:
+      return launch_f32<16, 64>(q, q_sb, q_sh, k_cache, v_cache, tables,
+                                seq_lens, out, scratch, B, H, NB, BT, W,
+                                scale, s);
     case 32:
       return launch_f32<32, 64>(q, q_sb, q_sh, k_cache, v_cache, tables,
                                 seq_lens, out, scratch, B, H, NB, BT, W,
@@ -643,6 +658,14 @@ extern "C" int mxt_paged_attention_bf16(
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8:
+      return chunk_bf16<8>(chunk, q, q_sb, q_sh, k_cache, v_cache, tables,
+                           seq_lens, out, scratch, counters, B, H, NB, BT, W,
+                           scale, s);
+    case 16:
+      return chunk_bf16<16>(chunk, q, q_sb, q_sh, k_cache, v_cache, tables,
+                            seq_lens, out, scratch, counters, B, H, NB, BT, W,
+                            scale, s);
     case 32:
       return chunk_bf16<32>(chunk, q, q_sb, q_sh, k_cache, v_cache, tables,
                             seq_lens, out, scratch, counters, B, H, NB, BT, W,

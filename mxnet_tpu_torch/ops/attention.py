@@ -143,9 +143,62 @@ _PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _I, _F, _I, _P]
 # bf16: the merge counters after the scratch
 _PAGED_BF16_ARGS = _PAGED_ARGS[:9] + [_P] + _PAGED_ARGS[9:]
+# head sizes the kernels are built for; the wrappers pad any other size
+# up to 128 with zero columns (exact: the scores do not change, and the
+# output's extra columns are dropped), and refuse larger ones
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)
 _FLASH_TYPES = (torch.float32, torch.bfloat16)
-_PAGED_HEAD_DIMS = (32, 64, 128)
+_PAGED_HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def _built_dim(d, dims, name):
+    """The smallest of the built head sizes ``dims`` that holds ``d``."""
+    for b in dims:
+        if d <= b:
+            return b
+    raise MXNetError(f"{name}: head size {d} > {dims[-1]}: no kernel "
+                     f"is built for it (sizes {dims}, smaller ones padded)")
+
+
+def paged_head_dim(d):
+    """The head size a KV pool for heads of size ``d`` is laid out with
+    on every device: the paged kernel's built size that holds ``d``
+    (8, 16, 32, 64 or 128). The decoder writes columns ``[:d]``; the
+    rest stay zero. Past 128 no kernel is built: the pool keeps ``d``
+    (the CPU serves it, the card raises at the decode step)."""
+    d = int(d)
+    return next((b for b in _PAGED_HEAD_DIMS if d <= b), d)
+
+
+def _pad_last(size, *xs):
+    """``xs`` with their last dimension zero-padded to ``size`` (new
+    contiguous tensors; differentiable)."""
+    return [torch.nn.functional.pad(x, (0, size - x.shape[-1])) for x in xs]
+
+
+def _flash_padded(q, k, v, causal, scale, attend):
+    """``attend(q, k, v, causal, scale)`` at the flash kernels' built
+    head size: q, k and v zero-padded along D (the scores are unchanged;
+    ``scale`` is the caller's, from the true D), the output sliced back.
+    Sizes the kernels are built for pass through untouched."""
+    d = q.shape[-1]
+    d_pad = _built_dim(d, _FLASH_HEAD_DIMS, "flash_attention")
+    if d_pad == d:
+        return attend(q, k, v, causal, scale)
+    return attend(*_pad_last(d_pad, q, k, v), causal, scale)[..., :d]
+
+
+def _flash_bwd_padded(q, k, v, out, d_out, causal, scale, grads):
+    """``grads(q, k, v, out, d_out, causal, scale)`` at the flash
+    kernels' built head size: every input zero-padded along D (out's
+    and dO's zero columns leave D = rowsum(dO * O) and the scores as
+    they are), dq, dk and dv sliced back."""
+    d = q.shape[-1]
+    d_pad = _built_dim(d, _FLASH_HEAD_DIMS, "flash_attention_bwd")
+    if d_pad == d:
+        return grads(q, k, v, out, d_out, causal, scale)
+    res = grads(*_pad_last(d_pad, q, k, v, out, d_out), causal, scale)
+    return tuple(g[..., :d] for g in res)
 
 
 def _fn(name, symbol, argtypes):
@@ -224,8 +277,9 @@ def _check_flash(name, q, k, v, causal):
              f"head size {d} not in {_FLASH_HEAD_DIMS}")
     _require(all(x.stride(-1) == 1 for x in (q, k, v)), name,
              "the head dimension must be contiguous (stride 1)")
-    _require(not causal or t_q == t_k, name,
-             f"causal kernel needs t_q == t_k, got {t_q} and {t_k}")
+    _require(not causal or t_q <= t_k, name,
+             f"causal attention with t_q ({t_q}) > t_k ({t_k}) leaves "
+             "queries with no visible keys; pad K/V or drop causal")
     _require(t_q > 0 and t_k > 0 and b * h * max(t_q, t_k) < 2 ** 31,
              name, f"unsupported shape {tuple(q.shape)} x {t_k}")
     return b, h, t_q, t_k, d
@@ -279,28 +333,36 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash_cuda(q, k, v, causal, scale):
+    """The forward kernel on (B, H, T, D) CUDA tensors of a built head
+    size, through the autograd Function when a gradient is needed."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    return _flash_fwd(q, k, v, causal, scale, with_lse=False)[0]
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention. q, k, v: (B, H, T, D) or (BH, T, D). CPU
     tensors take :func:`flash_attention_plain` (differentiated by torch
     autograd); CUDA tensors launch the kernel of
     ``csrc/flash_attention.cu`` for their type (float32, or bfloat16
-    computed in f32 and written in bfloat16; D in {16, 32, 64, 128},
-    unit stride along D, 16-byte aligned base addresses and strides,
-    causal only with T_q == T_k) and count one launch in ``launches``
-    (float32) or ``launches_bf16``. When a gradient is needed on CUDA,
-    the backward is :func:`flash_attention_bwd`. The output has q's
-    shape and type; on CUDA it is laid out (B, T, H, D) so the caller's
-    head merge is a view."""
+    computed in f32 and written in bfloat16; unit stride along D, 16-byte
+    aligned base addresses and strides) and count one launch in
+    ``launches`` (float32) or ``launches_bf16``. The kernels are built
+    for D in {16, 32, 64, 128}; any other D up to 128 is zero-padded to
+    the next of them (:func:`_flash_padded`, exact) and D > 128 raises.
+    Causal takes T_q <= T_k, the queries being the last T_q key
+    positions. When a gradient is needed on CUDA, the backward is
+    :func:`flash_attention_bwd`. The output has q's shape and type; on
+    CUDA at a built D it is laid out (B, T, H, D) so the caller's head
+    merge is a view."""
     name = "flash_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _devices(name, q, k, v) == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
     (q, k, v), squeeze = _heads4(name, q, k, v)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        out = _FlashAttention.apply(q, k, v, bool(causal), float(scale))
-    else:
-        out, _ = _flash_fwd(q, k, v, causal, scale, with_lse=False)
+    out = _flash_padded(q, k, v, causal, scale, _flash_cuda)
     return out.squeeze(1) if squeeze else out
 
 
@@ -313,19 +375,32 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     softmax and ignores ``lse``); CUDA tensors launch the three kernels
     of ``csrc/flash_attention_bwd.cu`` for q's type and count one launch
     in ``launches`` (float32) or ``launches_bf16``. The kernels take
-    q, k, v, out and d_out float32, or all bfloat16; D in {16, 32, 64,
-    128}, unit stride along D, causal only with T_q == T_k, and ``lse``
-    f32 contiguous; anything else raises. The kernels of both types copy
-    q, k, v and d_out 16 bytes at a time, so each of them that is not
-    16-byte aligned (base address and strides, as the forward requires)
-    is first copied to a contiguous tensor. The gradients come out in
-    q's type, summed in f32 and rounded once."""
+    q, k, v, out and d_out float32, or all bfloat16; unit stride along
+    D, causal with T_q <= T_k, and ``lse`` f32 contiguous; anything else
+    raises. D up to 128 is padded to a built size as in the forward
+    (:func:`_flash_bwd_padded`; the ``lse`` does not change). The
+    kernels of both types copy q, k, v and d_out 16 bytes at a time, so
+    each of them that is not 16-byte aligned (base address and strides,
+    as the forward requires) is first copied to a contiguous tensor. The
+    gradients come out in q's type, summed in f32 and rounded once."""
     name = "flash_attention_bwd"
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _devices(name, q, k, v, out, d_out, lse) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, d_out, causal, scale)
     (q, k, v, out, d_out), squeeze = _heads4(name, q, k, v, out, d_out)
+
+    def kernel(q, k, v, out, d_out, causal, scale):
+        return _flash_bwd_cuda(q, k, v, out, d_out, lse, causal, scale)
+
+    grads = _flash_bwd_padded(q, k, v, out, d_out, causal, scale, kernel)
+    return tuple(g.squeeze(1) for g in grads) if squeeze else grads
+
+
+def _flash_bwd_cuda(q, k, v, out, d_out, lse, causal, scale):
+    """The backward kernels on (B, H, T, D) CUDA tensors of a built head
+    size."""
+    name = "flash_attention_bwd"
     b, h, t_q, t_k, d = _check_flash(name, q, k, v, causal)
     _require(out.shape == d_out.shape == q.shape, name,
              f"out {tuple(out.shape)} / d_out {tuple(d_out.shape)} do not "
@@ -361,7 +436,7 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
              torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
     _count(flash_attention_bwd, bf16)
-    return tuple(g.squeeze(1) for g in grads) if squeeze else tuple(grads)
+    return tuple(grads)
 
 
 # tokens per split CTA of the f32-cache kernel, the one chunk
@@ -379,9 +454,12 @@ def _paged_chunk(b, h, d, w, bt, bf16, sms):
     f32 caches: ``_PAGED_CHUNK_F32``. bf16 caches: the f32 design's 32 KB
     of K and V in flight a CTA, 8192 / D tokens up to 128 (128 at D 64),
     unless the grid of B * H * ceil(W * BT / chunk) CTAs would then fall
-    under two CTAs an SM: then 64."""
+    under two CTAs an SM: then 64. At D 8 always 128: a row is one
+    16-byte piece, read by one thread a token."""
     if not bf16:
         return _PAGED_CHUNK_F32
+    if d < 16:
+        return 128
     chunk = min(128, 8192 // d)
     if chunk > 64 and b * h * -(-w * bt // chunk) < 2 * sms:
         chunk = 64
@@ -430,10 +508,23 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     launch per call in ``launches`` (float32 caches) or
     ``launches_bf16``. q is float32 either way, and so is the output.
     The caches are read in place, never copied: they must be contiguous.
-    ``seq_lens`` is never read on the host."""
+    ``seq_lens`` is never read on the host. The kernels are built for D
+    in {8, 16, 32, 64, 128}: a pool for any other D up to 128 is laid
+    out at :func:`paged_head_dim` (``kvcache.BlockPool`` does so), with
+    zero columns past q's D; q is then zero-padded to the pool's D on
+    every device and the output sliced back (exact). ``scale`` defaults
+    to q's D ** -0.5."""
     name = "paged_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    d = q.shape[-1]
+    d_pool = k_cache.shape[-1]
+    if d_pool != d:
+        _require(d_pool > d, name, f"caches of head size {d_pool} cannot "
+                 f"hold queries of head size {d}")
+        out = paged_attention(_pad_last(d_pool, q)[0], k_cache, v_cache,
+                              block_tables, seq_lens, scale)
+        return out[..., :d]
     if _devices(name, q, k_cache, v_cache, block_tables, seq_lens) == "cpu":
         return paged_attention_plain(q, k_cache, v_cache, block_tables,
                                      seq_lens, scale)
@@ -457,7 +548,8 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
              and seq_lens.dtype == torch.int32, name,
              "block_tables and seq_lens must be int32")
     _require(d in _PAGED_HEAD_DIMS, name,
-             f"head size {d} not in {_PAGED_HEAD_DIMS}")
+             f"head size {d} not in {_PAGED_HEAD_DIMS}: lay the pool out "
+             f"at paged_head_dim({d}) (BlockPool does)")
     _require(q.stride(-1) == 1, name, "q's head dimension must be contiguous")
     _require(k_cache.is_contiguous() and v_cache.is_contiguous()
              and block_tables.is_contiguous() and seq_lens.is_contiguous(),

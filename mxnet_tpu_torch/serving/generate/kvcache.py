@@ -9,6 +9,13 @@ instead of contiguous storage. The decode kernel
 straight through the table, in place: the step writes a token's K/V
 into the pool with an indexed store, so the pool is never copied.
 
+The pool's last dimension is :func:`~mxnet_tpu_torch.ops.attention.
+paged_head_dim` of the heads' size, the paged kernel's built size that
+holds it (8, 16, 32, 64 or 128), on every device: the decoder writes
+columns ``[:head_dim]`` and the rest stay zero, since every write of a
+reused block writes only those columns. The pool's bytes count the
+padded size.
+
 Block 0 is the **pad sink**: batch-padding rows and unused prefill tail
 blocks point at it, so their writes land in storage no live request
 reads. It is never allocated (``usable = max_blocks - 1``).
@@ -27,6 +34,7 @@ import torch
 
 from ...base import MXNetError
 from ...context import resolve_device
+from ...ops.attention import paged_head_dim
 
 PAD_BLOCK = 0
 
@@ -49,12 +57,14 @@ class BlockPool:
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
+        # the allocated head size: the paged kernel's built size
+        self.pool_head_dim = paged_head_dim(self.head_dim)
         self.block_tokens = int(block_tokens)
         self.max_blocks = int(max_blocks)
         self.device = resolve_device(device)
         self.dtype = dtype
         shape = (self.num_layers, self.max_blocks, self.block_tokens,
-                 self.num_heads, self.head_dim)
+                 self.num_heads, self.pool_head_dim)
         # two separate allocations, K and V, as in the JAX pool
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -79,8 +89,8 @@ class BlockPool:
 
     @property
     def bytes_per_block(self):
-        return 2 * self.block_tokens * self.num_heads * self.head_dim \
-            * self.num_layers * self.k.element_size()
+        return 2 * self.block_tokens * self.num_heads \
+            * self.pool_head_dim * self.num_layers * self.k.element_size()
 
     def blocks_for(self, tokens):
         """Blocks covering ``tokens`` cache slots (ceil division)."""

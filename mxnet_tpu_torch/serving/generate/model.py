@@ -317,10 +317,11 @@ class DecodeSteps:
         for li, lp in enumerate(params["layers"]):
             q, k, v = _qkv(lp, x)                            # (1, T, d) each
             # in the pool's type (JAX's .at[].set casts; index_put_ does not)
-            pool.k[li][blk] = k.reshape(nblk, bt, dec.num_heads,
-                                        hd).to(pool.dtype)
-            pool.v[li][blk] = v.reshape(nblk, bt, dec.num_heads,
-                                        hd).to(pool.dtype)
+            # (columns past hd, a pool padded to the kernel's size, stay 0)
+            pool.k[li][blk, ..., :hd] = k.reshape(nblk, bt, dec.num_heads,
+                                                  hd).to(pool.dtype)
+            pool.v[li][blk, ..., :hd] = v.reshape(nblk, bt, dec.num_heads,
+                                                  hd).to(pool.dtype)
             a = flash_attention(_heads(q, dec.num_heads),
                                 _heads(k, dec.num_heads),
                                 _heads(v, dec.num_heads), causal=True)
@@ -357,10 +358,10 @@ class DecodeSteps:
             q, k, v = _qkv(lp, x)                            # (B, d) each
             # the token's own K/V lands in the cache BEFORE attention:
             # position p attends over [0, p] including itself
-            pool.k[li][blk, slot] = k.view(bsz, dec.num_heads,
-                                           hd).to(pool.dtype)
-            pool.v[li][blk, slot] = v.view(bsz, dec.num_heads,
-                                           hd).to(pool.dtype)
+            pool.k[li][blk, slot, :, :hd] = k.view(bsz, dec.num_heads,
+                                                   hd).to(pool.dtype)
+            pool.v[li][blk, slot, :, :hd] = v.view(bsz, dec.num_heads,
+                                                   hd).to(pool.dtype)
             a = paged_attention(q.view(bsz, dec.num_heads, hd), pool.k[li],
                                 pool.v[li], tab, seq_lens)   # (B, H, hd)
             x = _layer_tail(lp, x, a.reshape(bsz, dec.d_model))

@@ -13,7 +13,10 @@ kernels' split-KV and merge and their host-side chunk choice. The
 gradient: the port's plain backward and torch autograd through the
 CPU path against ``jax.grad`` of the Pallas forward (whose custom VJP is
 ``_chunked_attention_bwd``), and the backward kernel's two passes over
-64-row tiles with the forward's log-sum-exp, emulated."""
+64-row tiles with the forward's log-sum-exp, emulated. Every emulation
+shifts the causal diagonal by T_k - T_q for T_q < T_k, as the kernels
+do; and the wrappers' zero-padding of head sizes no kernel is built for
+(K3 and K4's pool) is held to the unpadded plain versions."""
 import numpy as np
 import pytest
 import torch
@@ -235,11 +238,12 @@ def _flash_emulated(q, k, v, causal, mm, stage=64, warps=4):
     an online softmax of its own over the same query rows (a masked score
     gets p = 0, a row no key has reached keeps m = -1e30), then the warps'
     (m, l, acc) merged. Chunks the kernel skips are fully masked here,
-    which leaves the state unchanged as the skip does."""
+    which leaves the state unchanged as the skip does. Causal with
+    T_q < T_k shifts the diagonal by T_k - T_q, as the kernel does."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     qs = q * d ** -0.5
-    rows = torch.arange(t_q)[:, None]
+    rows = torch.arange(t_q)[:, None] + (t_k - t_q)
     chunk = stage // warps
     m = torch.full((warps, bh, t_q), att.NEG_INF)
     l = torch.zeros(warps, bh, t_q)
@@ -504,8 +508,11 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
     products (S, dP, and dV, dK, dQ with P and dS as their left
     operand): the fp32 kernels' 3xTF32 (:func:`_mm_3xtf32`), or the
     bf16 kernels' exact products with P and dS in bf16 pieces
-    (:func:`_mm_pieces`)."""
+    (:func:`_mm_pieces`). Causal with T_q < T_k shifts the diagonal by
+    T_k - T_q: each key block's first query block and each query block's
+    last key block move with it, as in the kernels."""
     t_q, t_k = q.shape[1], k.shape[1]
+    shift = t_k - t_q if causal else 0
     d_vec = (g * out).sum(-1)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
 
@@ -514,19 +521,21 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
         keys = torch.arange(k0, min(k0 + blk, t_k))
         s = mm(q[:, rows], k[:, keys].transpose(1, 2))
         dp = mm(g[:, rows], v[:, keys].transpose(1, 2))
-        ok = keys[None, :] <= rows[:, None] if causal else \
+        ok = keys[None, :] <= rows[:, None] + shift if causal else \
             torch.ones(len(rows), len(keys), dtype=torch.bool)
         p = torch.where(ok, torch.exp(scale * s - lse[:, rows, None]),
                         torch.tensor(0.0))
         return rows, keys, p, p * (dp - d_vec[:, rows, None])
 
     for k0 in range(0, t_k, blk):
-        for q0 in range(k0 if causal else 0, t_q, blk):
+        first = max(k0 - shift, 0) // blk * blk if causal else 0
+        for q0 in range(first, t_q, blk):
             rows, keys, p, ds = tile(q0, k0)
             dv[:, keys] += mm(p.transpose(1, 2), g[:, rows])
             dk[:, keys] += mm(ds.transpose(1, 2), q[:, rows])
     for q0 in range(0, t_q, blk):
-        for k0 in range(0, min(q0 + blk, t_k) if causal else t_k, blk):
+        for k0 in range(0, min(q0 + blk + shift, t_k) if causal else t_k,
+                        blk):
             rows, keys, p, ds = tile(q0, k0)
             dq[:, rows] += mm(ds, k[:, keys])
     return dq * scale, dk * scale, dv
@@ -628,11 +637,12 @@ def _flash_bf16_emulated(q, k, v, causal, stage=64):
     exact in f32), scaled in f32; one f32 online softmax per row over
     every key it can see, in 64-key stages (a masked score gets p = 0);
     P rounded to bf16 (nearest even) for the P V product, the row sums
-    taken from the f32 P; the output rounded once to bf16."""
+    taken from the f32 P; the output rounded once to bf16. Causal with
+    T_q < T_k shifts the diagonal by T_k - T_q."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     qf, kf, vf = (x.float() for x in (q, k, v))
-    rows = torch.arange(t_q)[:, None]
+    rows = torch.arange(t_q)[:, None] + (t_k - t_q)
     m = torch.full((bh, t_q), att.NEG_INF)
     l = torch.zeros(bh, t_q)
     acc = torch.zeros(bh, t_q, d)
@@ -738,10 +748,12 @@ def _bwd_tf32_case(case):
     """(q, k, v, d_out) numpy (BH, T, D) and causal for the fp32
     backward's emulation: causal, rectangular (non-causal 128 x 192),
     ragged T 100 (no 64-row tiling: the JAX function differentiates its
-    dense path) at D 16, and causal at D 64."""
+    dense path) and causal with T_q 100 < T_k 256 (the diagonal shifted)
+    at D 16, and causal at D 64."""
     t_q, t_k, d, causal = {"causal": (128, 128, 16, True),
                            "rect": (128, 192, 16, False),
                            "ragged": (100, 100, 16, True),
+                           "offset": (100, 256, 16, True),
                            "d64": (128, 128, 64, True)}[case]
     rng = np.random.default_rng(t_q * 7 + t_k + d)
     q = rng.standard_normal((2, t_q, d)).astype(np.float32)
@@ -768,7 +780,8 @@ def _within_fp32(got, want):
             for a, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("case", ["causal", "rect", "ragged", "d64"])
+@pytest.mark.parametrize("case", ["causal", "rect", "ragged", "offset",
+                                  "d64"])
 def test_flash_bwd_3xtf32_emulation_meets_fp32_tolerance(case):
     """The fp32 backward kernel's arithmetic (its two-pass tiling, every
     product 3xTF32 with the small parts unrounded, P and dS split as they
@@ -828,7 +841,8 @@ def _within_chip_bwd_bound(got, q, k, v, g, out, causal):
 
 
 @pytest.mark.parametrize("t_q,t_k,causal", [(100, 100, True),
-                                            (130, 70, False)])
+                                            (130, 70, False),
+                                            (100, 256, True)])
 def test_flash_bwd_bf16_emulation_meets_chip_bound(t_q, t_k, causal):
     """The bf16 backward kernel's arithmetic (f32 inside, S and dP one
     exact product each, P and dS split into bf16 hi and lo for the dV,
@@ -968,3 +982,153 @@ def test_bf16_kernel_entry_types_on_cpu_and_launch_counts():
     for args in ((x16, x32, x32), (x16.half(), x16.half(), x16.half())):
         with pytest.raises(MXNetError):
             att._check_flash("flash_attention", *args, True)
+
+
+# ---------------------------------------------------------------------------
+# causal with T_q < T_k (the diagonal shifted by T_k - T_q) in the kernels'
+# arithmetic, and every head size up to 128 (zero-padded to a built size)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's first causal-offset case
+OFFSET_TQ, OFFSET_TK = 100, 256
+
+
+def _flash_offset_inputs(d, seed, bh=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((bh, OFFSET_TQ, d)).astype(np.float32)
+    k, v = (rng.standard_normal((bh, OFFSET_TK, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+def test_flash_3xtf32_emulation_with_causal_offset_meets_fp32_tolerance():
+    """The fp32 forward's stage/warp order with the shifted diagonal
+    gives the JAX ``_dense_reference`` (queries the last T_q key
+    positions) within the bound of the square case."""
+    q, k, v = _flash_offset_inputs(64, seed=60)
+    ref = np.asarray(pk._dense_reference(q, k, v, True, 64 ** -0.5))
+    got = _flash_emulated(*_t(q, k, v), True, _mm_3xtf32).numpy()
+    assert np.abs(got - ref).max() <= 1e-4
+
+
+def test_flash_bf16_emulation_with_causal_offset_meets_chip_bound():
+    """The bf16 forward's one online softmax per row with the shifted
+    diagonal: within the JAX bf16 bound of the f32 dense reference, and
+    no further from f64 than twice the plain bf16 version."""
+    (q, k, v), (qn, kn, vn) = _bf16(*_flash_offset_inputs(64, seed=61))
+    got = _flash_bf16_emulated(q, k, v, True).float().numpy()
+    exact = att.flash_attention_plain(
+        *(x.double() for x in (q, k, v)), causal=True).numpy()
+    plain = att.flash_attention_plain(q, k, v, causal=True).float().numpy()
+    dense32 = np.asarray(pk._dense_reference(qn, kn, vn, True, 64 ** -0.5))
+    np.testing.assert_allclose(got, dense32, rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert _rel_l2(got, exact) <= BF16_F64_RATIO * _rel_l2(plain, exact)
+
+
+def test_flash_bwd_bf16_emulation_with_causal_offset_meets_jax_grad():
+    """The bf16 backward's passes with the shifted diagonal against
+    ``jax.grad`` of the JAX forward (its dense path at T_q != T_k) on the
+    same bf16 inputs, within the JAX bf16 bound."""
+    q, k, v, g, out, lse = _bwd_bf16_case(OFFSET_TQ, OFFSET_TK, True)
+    got = _bwd_bf16_emulated(q, k, v, g, out, lse, True, pieces=2)
+    _, want = _jax_flash_grads_bf16(
+        *(_jbf16(x.float().numpy()) for x in (q, k, v)),
+        _jbf16(g.float().numpy()), True)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+
+
+def test_flash_kernel_check_takes_causal_offset_and_refuses_more_queries():
+    """The CUDA wrappers' shape check: causal with T_q <= T_k passes,
+    T_q > T_k raises as both references do."""
+    q, k, v = _t(*_flash_inputs((1, 2, 100, 16), seed=62))
+    kl, vl = _t(*_flash_inputs((1, 2, 256, 16), seed=63))[:2]
+    assert att._check_flash("f", q, kl, vl, True) == (1, 2, 100, 256, 16)
+    with pytest.raises(MXNetError):
+        att._check_flash("f", kl, q, v, True)
+
+
+def _grads_through(attend, q, k, v, g, scale):
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = attend(*leaves, True, scale)
+    return [out.detach(), *torch.autograd.grad(out, leaves, g)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 80])
+def test_flash_head_padding_is_exact(d, dtype):
+    """What the CUDA wrappers do for a head size the kernels are not
+    built for, run through the plain versions: q, k and v zero-padded to
+    any built size that holds D, with the true D^-0.5 as scale, the
+    output sliced back, give the unpadded output and gradients, causal
+    with T_q < T_k included; so does the backward given padded out and
+    dO (``_flash_bwd_padded``, the function the backward wrapper runs).
+    The zero columns add exact zeros, but a product over more terms may
+    sum in another order: held to 1e-6 (f32) or one ulp (bf16), far
+    inside the kernels' bounds."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 24, d))
+                         .astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 40, d))
+                             .astype(np.float32)).to(dtype)
+            for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(q.shape)
+                         .astype(np.float32)).to(dtype)
+    scale = d ** -0.5
+    tol = dict(rtol=BF16_ULP if dtype == torch.bfloat16 else 1e-6,
+               atol=1e-6)
+    want = _grads_through(att.flash_attention_plain, q, k, v, g, scale)
+    sizes = [b for b in att._FLASH_HEAD_DIMS if b >= d]
+
+    def padded_to(size):
+        def attend(q, k, v, causal, scale):
+            return att.flash_attention_plain(*att._pad_last(size, q, k, v),
+                                             causal, scale)[..., :d]
+        return attend
+
+    def through_wrapper(q, k, v, causal, scale):
+        return att._flash_padded(q, k, v, causal, scale,
+                                 att.flash_attention_plain)
+
+    for attend in [through_wrapper] + [padded_to(b) for b in sizes]:
+        for a, w in zip(_grads_through(attend, q, k, v, g, scale), want):
+            assert a.shape == w.shape and a.dtype == w.dtype
+            torch.testing.assert_close(a, w, **tol)
+    bwd = att._flash_bwd_padded(q, k, v, want[0], g, True, scale,
+                                att.flash_attention_bwd_plain)
+    plain = att.flash_attention_bwd_plain(q, k, v, want[0], g, True, scale)
+    for a, w in zip(bwd, plain):
+        torch.testing.assert_close(a, w, **tol)
+
+
+def test_head_sizes_past_128_raise():
+    q = torch.zeros(1, 4, 144)
+    with pytest.raises(MXNetError):
+        att._flash_padded(q, q, q, True, 1.0, att.flash_attention_plain)
+    assert att.paged_head_dim(144) == 144     # the card raises at launch
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 12, 16, 80])
+def test_paged_pool_padding_is_exact(d, cache):
+    """A pool laid out at ``paged_head_dim(D)`` (zero columns past D, as
+    BlockPool allocates it): the wrapper pads q to the pool's D and
+    slices the output, which equals the unpadded call to 1e-6 (a sum
+    over more, zero, terms) and the JAX gather reference within its
+    bound."""
+    assert att.paged_head_dim(d) == {8: 8, 12: 16, 16: 16, 80: 128}[d]
+    q, kc, vc, tables, lens = _paged_case(seed=d, d=d)
+    kt, vt = (torch.from_numpy(x).to(cache) for x in (kc, vc))
+    args = _t(tables, lens)
+    want = att.paged_attention(torch.from_numpy(q), kt, vt, *args)
+    ref = np.asarray(pk._paged_gather_reference(
+        q, kt.float().numpy(), vt.float().numpy(), tables, lens, d ** -0.5))
+    live = lens > 0
+    for size in [b for b in att._PAGED_HEAD_DIMS if b > d]:
+        got = att.paged_attention(torch.from_numpy(q),
+                                  *att._pad_last(size, kt, vt), *args)
+        assert got.shape == want.shape == q.shape
+        torch.testing.assert_close(got[live], want[live], rtol=1e-6,
+                                   atol=1e-6)
+        assert np.abs(got.numpy() - ref)[live].max() < PAGED_ATOL

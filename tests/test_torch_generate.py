@@ -312,3 +312,37 @@ def test_stats_count_steps_and_pool(gateway):
     assert lane["step_calls"]["prefill"] == 3 + lane["prefills"]
     assert lane["step_calls"]["decode"] == 3 + lane["decode_steps"]
     assert lane["pool"]["used_blocks"] == 0    # everything retired
+
+
+# -- a pool padded to the paged kernel's head size ---------------------------
+def test_padded_pool_gateway_equals_jax_reference():
+    """Heads of size 12 (d_model 24, 2 heads): no paged kernel is built
+    for it, so the pool is laid out at head size 16 on every device, the
+    decoder writes columns [:12] and the rest stay zero. The gateway's
+    greedy tokens over that pool equal the JAX package's unpaged
+    reference on the same weights, and the pool's bytes count its
+    padded size."""
+    cfg = dict(vocab_size=VOCAB, d_model=24, num_layers=1, num_heads=2,
+               max_prompt_tokens=12)
+    mx.random.seed(1)
+    jdec = JaxDecoder(**cfg)
+    tree = jax.tree_util.tree_map(np.asarray, jdec.param_tree())
+    dec = GenerativeDecoder(**cfg, device="cpu")
+    dec.load_state_dict(params_from_jax(tree))
+    gw = Gateway(device="cpu")
+    try:
+        gen = gw.register_generator("lm", dec, block_tokens=4,
+                                    max_blocks=16, max_new_tokens=6,
+                                    max_decode_batch=2)
+        pool = gen.lane.pool
+        assert pool.head_dim == 12 and pool.k.shape[-1] == 16
+        assert pool.bytes_total == 2 * 1 * 16 * 4 * 2 * 16 * 4
+        prompts = [[3, 7, 11, 2, 9], [5, 1]]
+        reqs = [gw.submit_generate("lm", p, max_new_tokens=6)
+                for p in prompts]
+        got = [r.result(60) for r in reqs]
+        assert not pool.k[..., 12:].any() and not pool.v[..., 12:].any()
+        assert pool.k[..., :12].any()
+    finally:
+        gw.close()
+    assert got == [jax_reference(jdec, p, 6) for p in prompts]
