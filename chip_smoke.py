@@ -41,11 +41,12 @@ Phases (any failure exits non-zero and prints no result line):
    atol 1e-5), over all cases no further from an f64 run than twice the
    plain fp32 pipeline, on unaligned views the bits of aligned copies,
    and the same bits from two calls at the LM shape. Besides, K3 forward
-   and backward at head sizes 8 and 80 (zero-padded by the wrappers to
-   the next built size) and causal with T_q 100 / T_k 256 and 64 / 1024
-   (the diagonal shifted by T_k - T_q), and K4 at head sizes 8, 16 and
-   80 over a pool laid out as ``BlockPool`` lays it out (D 80 at 128),
-   each under the same bounds;
+   and backward at head sizes 8, 80 and 200 (zero-padded by the wrappers
+   to the next built size) and 256, and causal with T_q 100 / T_k 256
+   and 64 / 1024 (the diagonal shifted by T_k - T_q), and K4 at head
+   sizes 8, 16, 80, 256 and 200 over a pool laid out as ``BlockPool``
+   lays it out (D 80 at 128, 200 at 256), each under the same bounds
+   (SASS checks count the D 256 instances too);
 4. time each kernel, its plain version and, where one exists, the
    PyTorch library call that computes the same function (device time
    from CUDA events over calls queued behind a spin of the card, launch
@@ -164,10 +165,16 @@ Phases (any failure exits non-zero and prints no result line):
    decode step, tokens equal to those of the same lane with the plain
    paged attention, and how many equal ``reference_generate`` (whose
    K/V are not rounded to bf16: information, no gate);
-14. serving at other head sizes: ``Gateway.generate`` on a default
+14. head size 256 at Gemma-7B's widths: K3 forward and backward, f32
+   and bf16 (B 4, H 16, T 2048, causal) held to their plain versions
+   there and timed beside them, SDPA and their bounds, and K4 over both
+   cache types at H 16, B 32 on phase 3's decode lengths (each kernel's
+   row in its ``kernels`` entry under ``d256``); then serving at other
+   head sizes: ``Gateway.generate`` on a default
    ``GenerativeDecoder`` (d_model 64, 4 heads: D 16), on the JAX serving
-   tests' decoder (d_model 32, 4 heads: D 8) and on one of D 80 (its
-   pool laid out at 128), each with an f32 and a bf16 pool: f32 tokens
+   tests' decoder (d_model 32, 4 heads: D 8), on one of D 80 (its pool
+   laid out at 128), of D 256 and of D 200 (laid out at 256), each with
+   an f32 and a bf16 pool: f32 tokens
    equal ``reference_generate``, bf16 tokens equal the same lane's with
    the plain paged attention; one K3 launch a layer a prefill, one K4
    launch of the pool's type a layer a decode step; the pools' GB;
@@ -182,8 +189,23 @@ Phases (any failure exits non-zero and prints no result line):
    8's bounds). Then a Module over phase 8's ResNet-50 training symbol
    at batch 128 with SGD momentum, 5 steps, its step ms beside phase
    8's executor + K2 step. No kernel of the port launches in this phase;
-16. one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+16. the KVStore and the gradient allreduce through the port's launcher
+   (``mxnet_tpu_torch/tools/launch.py``; the workers run this script
+   with ``--dist-worker``): gluon ResNet-50 v1 (25.6M parameters in 161
+   trainable tensors) at batch 64 a worker, ``Trainer("sgd", momentum)``;
+   ``dist_sync`` with 1 server (its optimizer on this card) and 2
+   workers, 3 steps with ``update_on_kvstore`` and a second job of 3
+   without: the workers' parameters the same bits after every step, and
+   step 1 the SGD class on the sum of the two workers' own gradients
+   (phase 8's bound); step ms, images/s, push and pull MB/s, the
+   server's update ms. Then ``dist_device_sync`` with ``-s 0``: one
+   worker over NCCL at world size 1, its 3 steps the same bits as a
+   ``kvstore="device"`` Trainer's from the same weights (cuDNN
+   deterministic), and the allreduce of 25M f32 as ``bench.py``
+   ``_bench_allreduce`` reports it at one rank (2 x bytes / s, CUDA
+   events; no bus bandwidth). No kernel of the port launches here;
+17. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+   entries), then the result line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
@@ -463,9 +485,10 @@ def time_paged_tree(root):
 
 
 # head sizes of the repo's small decoders (8: the JAX serving tests'; 16:
-# a default GenerativeDecoder's) and one the kernels are not built for,
-# served from a pool laid out at the next built size (80 -> 128)
-EXTRA_HEAD_DIMS = (8, 16, 80)
+# a default GenerativeDecoder's), Gemma-7B's 256, and two the kernels are
+# not built for, served from a pool laid out at the next built size (80
+# -> 128, 200 -> 256)
+EXTRA_HEAD_DIMS = (8, 16, 80, 256, 200)
 
 
 def paged_head_sizes(att, dev, cache, name):
@@ -475,7 +498,8 @@ def paged_head_sizes(att, dev, cache, name):
     128-token splits, a padding row held to zeros. A generator of its
     own leaves the phase's draws as they were."""
     hrng = np.random.default_rng(SEED + 21)
-    lens = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300,
+    # about the 32-, 64- and 128-token splits (32: bf16 at D 256)
+    lens = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 300,
             TABLE_WIDTH * BLOCK_TOKENS, 0]
     live = torch.from_numpy(np.asarray(lens) > 0).to(dev)
     for hd in EXTRA_HEAD_DIMS:
@@ -723,12 +747,15 @@ def flash_sass(build, lib="flash_attention", kernel="flash_attention_kernel",
 
 
 # K3 at the head sizes of EXTRA_HEAD_DIMS that no kernel is built for
-# (padded to the next built size) and causal with T_q < T_k (the diagonal
-# shifted by T_k - T_q): (T_q, T_k, D, causal), dense (B 2, H 3 or 4)
+# (padded to the next built size), causal with T_q < T_k (the diagonal
+# shifted by T_k - T_q), and the D 256 instances (200 padded to them):
+# (T_q, T_k, D, causal), dense (B 2, H 3 or 4)
 FLASH_EXTRA_CASES = [(100, 100, 8, True), (256, 256, 8, False),
                      (100, 100, 80, True), (256, 256, 80, False),
                      (100, 256, 64, True), (64, 1024, 64, True),
-                     (100, 256, 8, True), (100, 256, 80, True)]
+                     (100, 256, 8, True), (100, 256, 80, True),
+                     (256, 256, 256, True), (130, 70, 256, False),
+                     (100, 256, 256, True), (160, 160, 200, True)]
 
 
 def extra_qkv(t_q, t_k, d, dev, rnd):
@@ -740,7 +767,7 @@ def extra_qkv(t_q, t_k, d, dev, rnd):
 
 
 def phase_flash(att, build, dev, rng):
-    flash_sass(build)
+    flash_sass(build, count=5)
     # every prefill bucket at every head size the kernel takes, causal as
     # the prefill runs it, some lengths no bucket has, and non-causal.
     # Besides the fp32 plain version, an f64 plain run on the same inputs:
@@ -868,7 +895,7 @@ def phase_flash_bwd(att, build, dev):
     same bits from two calls and the time at the LM shape beside SDPA's
     fp32 backward. Both passes run their products on the tensor cores
     (TF32) at every head size."""
-    flash_sass(build, "flash_attention_bwd", "_f32_kernel", "TF32", 8)
+    flash_sass(build, "flash_attention_bwd", "_f32_kernel", "TF32", 10)
     gen = torch.Generator().manual_seed(SEED)
     cases = [(LM_BATCH, LM_HEADS, LM_SEQ, LM_SEQ, LM_HEAD_DIM, True, True),
              (2, 4, 256, 256, 16, True, False),
@@ -2739,7 +2766,8 @@ def phase_flash_bf16(att, build, dev):
     """bf16 K3 forward: every prefill bucket at every head size and the
     decoder-LM shape against the plain bf16 version and an f64 run on the
     same inputs; timed at the LM shape."""
-    flash_sass(build, kernel="flash_attention_bf16_kernel", kind="HGMMA")
+    flash_sass(build, kernel="flash_attention_bf16_kernel", kind="HGMMA",
+               count=5)
     gen = torch.Generator().manual_seed(SEED + 13)
     cases = [(1, D_MODEL // hd, t, t, hd, True, "prefill")
              for hd in (16, 32, 64, 128) for t in (16, 32, 64, 128, 256, 512)]
@@ -2881,7 +2909,7 @@ def phase_flash_bwd_bf16(att, build, dev):
     same bits from two calls at the LM shape; timed there beside SDPA's
     bf16 backward. Both passes run their products on the tensor cores
     at every head size."""
-    flash_sass(build, "flash_attention_bwd", "_bf16_kernel", "BF16", 8)
+    flash_sass(build, "flash_attention_bwd", "_bf16_kernel", "BF16", 10)
     gen = torch.Generator().manual_seed(SEED + 14)
     # the forward's grid (every prefill bucket at every head size, as
     # views of one projection), the LM shape, and rectangular / ragged
@@ -3271,6 +3299,14 @@ SMALL_DECODERS = (
     ("d80", dict(vocab_size=VOCAB, d_model=160, num_layers=2, num_heads=2,
                  max_prompt_tokens=64),
      dict(block_tokens=16, max_blocks=256, max_new_tokens=24,
+          max_decode_batch=8)),
+    ("d256", dict(vocab_size=VOCAB, d_model=512, num_layers=2, num_heads=2,
+                  max_prompt_tokens=64),
+     dict(block_tokens=16, max_blocks=256, max_new_tokens=24,
+          max_decode_batch=8)),
+    ("d200", dict(vocab_size=VOCAB, d_model=400, num_layers=2, num_heads=2,
+                  max_prompt_tokens=64),
+     dict(block_tokens=16, max_blocks=256, max_new_tokens=24,
           max_decode_batch=8)))
 
 
@@ -3281,14 +3317,16 @@ def phase_serve_heads(att, i8, fo, dev):
     plain paged attention on the same pool (phase 13's rule: the oracle's
     K/V are not rounded to bf16). One flash launch a layer a prefill and
     one paged launch a layer a decode step, of the pool's type; the pool's
-    bytes at the head size it was laid out with."""
+    bytes at the head size it was laid out with. Returns the D 256
+    decoder's launches ({dtype: kernel counts}), the head size's launches
+    on a serving path."""
     from mxnet_tpu_torch.serving import Gateway
     from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
                                                   reference_generate)
     from mxnet_tpu_torch.serving.generate import model as gen_model
 
     prng = np.random.default_rng(SEED + 22)
-    rows = []
+    rows, d256 = [], {}
     for name, cfg, lane_cfg in SMALL_DECODERS:
         max_prompt = cfg.get("max_prompt_tokens", 64)
         vocab = cfg["vocab_size"]
@@ -3354,9 +3392,12 @@ def phase_serve_heads(att, i8, fo, dev):
                 f"out at D {pool_d}, {pool_bytes / 1e9:.6f} GB; "
                 f"{len(prompts)} requests token-exact")
             rows.append(row)
+            if name == "d256":
+                d256[dtype] = counts
             del dec
     log("serve_heads " + json.dumps(rows))
     torch.cuda.empty_cache()
+    return d256
 
 
 # -- phase 15: the Module API ---------------------------------------------
@@ -3573,6 +3614,448 @@ def phase_module(att, i8, fo, dev, here):
     torch.cuda.empty_cache()
 
 
+# -- phases 3/4 and 13: head size 256, timed at Gemma-7B's widths ----------
+# Gemma-7B's attention (16 heads of 256): K3 causal at B 4 x T 2048, K4 at
+# B 32 over phase 3's decode lengths
+GEMMA_B, GEMMA_H, GEMMA_T, GEMMA_D = 4, 16, 2048, 256
+
+
+def d256_flash_rows(att, dev):
+    """K3 forward and backward, f32 and bf16, at the Gemma widths: held to
+    the plain versions at that shape (the f32 forward FLASH_TOL, the
+    backward BWD_RTOL / BWD_ATOL plus one bf16 ulp in bf16, the bf16
+    forward the JAX bf16 bound), then timed beside the plain versions,
+    SDPA and their bounds. {kernel name: row}."""
+    gen = torch.Generator().manual_seed(SEED + 32)
+    scale = GEMMA_D ** -0.5
+    shape = {"B": GEMMA_B, "H": GEMMA_H, "T": GEMMA_T, "D": GEMMA_D,
+             "causal": True}
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        make = lm_qkv_bf16 if bf16 else lm_qkv
+        q, k, v = make(GEMMA_B, GEMMA_T, GEMMA_H, GEMMA_D, dev, gen)
+        out, lse = att._flash_fwd(q, k, v, True, scale, with_lse=True)
+        d_out = torch.randn(out.shape, generator=gen).to(dev, dtype)
+        plain = att.flash_attention_plain(q, k, v, True)
+        if bf16:
+            ok, e = within(out, plain, BF16_RTOL, BF16_ATOL)
+        else:
+            e = (out - plain).abs().max().item()
+            ok = e <= FLASH_TOL
+        check(ok, f"flash_attention D 256 {dtype}: error {e}")
+        del plain
+        grads = att.flash_attention_bwd(q, k, v, out, d_out, lse, True)
+        want = att.flash_attention_bwd_plain(q, k, v, out, d_out, True)
+        rtol = BWD_RTOL + (BF16_ULP if bf16 else 0.0)
+        e_bwd = 0.0
+        for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+            ok, e_g = within(a, w, rtol, BWD_ATOL)
+            check(ok, f"flash_attention_bwd D 256 {dtype}: {name} off by "
+                  f"{e_g:.3e} beyond rtol {rtol} / atol {BWD_ATOL}")
+            e_bwd = max(e_bwd, e_g)
+        del grads, want
+        torch.cuda.empty_cache()
+        fwd = {"shape": shape, "max_abs_err": e}
+        fwd["ms"], _ = measure(lambda: att.flash_attention(q, k, v, True),
+                               iters=10)
+        fwd["plain_ms"], _ = measure(
+            lambda: att.flash_attention_plain(q, k, v, True), iters=3)
+        with torch.no_grad():
+            fwd["library_ms"], _ = measure(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                iters=10)
+        bwd = {"shape": shape, "max_abs_err": e_bwd}
+        bwd["ms"], _ = measure(
+            lambda: att.flash_attention_bwd(q, k, v, out, d_out, lse, True),
+            iters=5)
+        bwd["plain_ms"], _ = measure(
+            lambda: att.flash_attention_bwd_plain(q, k, v, out, d_out, True),
+            iters=2)
+        ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            torch.autograd.grad(o, (ql, kl, vl), d_out)
+
+        both, _ = measure(sdpa_fwd_bwd, iters=5)
+        bwd["library_ms"] = both - fwd["library_ms"]
+        # bounds: f32 on the card's fp32-accurate route (3xTF32), bf16 on
+        # its bf16 tensor cores; bytes each input read and output written
+        # once
+        fb, ff = flash_bf16_cost(GEMMA_B, GEMMA_H, GEMMA_T, GEMMA_D)
+        bb, bf = flash_bwd_cost(GEMMA_B, GEMMA_H, GEMMA_T, GEMMA_T, GEMMA_D,
+                                True)
+        # the timed forward writes no lse (no gradient asked for)
+        lse_b = 4 * GEMMA_B * GEMMA_H * GEMMA_T
+        fb -= lse_b
+        if bf16:
+            bb = (bb - lse_b) // 2 + lse_b
+            rate = BF16_FLOPS_PER_S
+        else:
+            fb *= 2
+            rate = TF32_FLOPS_PER_S / 3
+        for row, nbytes, flops in ((fwd, fb, ff), (bwd, bb, bf)):
+            mem_s, op_s = nbytes / HBM_BYTES_PER_S, flops / rate
+            row["bound_ms"] = max(mem_s, op_s) * 1e3
+            row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+            row["bytes"], row["flops"] = nbytes, flops
+        tag = "_bf16" if bf16 else ""
+        rows["flash_attention" + tag] = fwd
+        rows["flash_attention_bwd" + tag] = bwd
+        del q, k, v, out, lse, d_out, ql, kl, vl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def d256_paged_row(att, dev, cache):
+    """K4 over ``cache``-typed pools at GEMMA_H heads of GEMMA_D, B 32 at
+    PAGED_DECODE_LENS, one pool per layer (as paged_row: consecutive
+    calls find the L2 cold), each call within PAGED_TOL of the plain
+    version; timed beside it and its bound."""
+    prng = np.random.default_rng(SEED + 31)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    lens = PAGED_DECODE_LENS
+    need = [-(-n // BLOCK_TOKENS) for n in lens]
+    nb = 1 + sum(need)
+    ids = prng.permutation(np.arange(1, nb))
+    tab = np.zeros((len(lens), TABLE_WIDTH), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tab[i, :n] = ids[at:at + n]
+        at += n
+    tab = torch.from_numpy(tab).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((len(lens), GEMMA_H, GEMMA_D), generator=gen, device=dev)
+    pools = [[torch.randn((nb, BLOCK_TOKENS, GEMMA_H, GEMMA_D), generator=gen,
+                          device=dev).to(cache) for _ in range(2)]
+             for _ in range(LAYERS)]
+    err = 0.0
+    for kc, vc in pools:
+        got = att.paged_attention(q, kc, vc, tab, sl)
+        want = att.paged_attention_plain(q, kc, vc, tab, sl)
+        err = max(err, (got - want).abs().max().item())
+    name = "paged_attention" + ("_bf16" if cache == torch.bfloat16 else "")
+    check(err <= PAGED_TOL, f"{name} D 256: error {err}")
+    layer = [0]
+
+    def run(fn):
+        def go():
+            li = layer[0] = (layer[0] + 1) % LAYERS
+            fn(q, *pools[li], tab, sl)
+        return go
+
+    row = {"shape": {"B": len(lens), "H": GEMMA_H, "D": GEMMA_D,
+                     "BT": BLOCK_TOKENS, "W": TABLE_WIDTH,
+                     "live_tokens": sum(lens)},
+           "max_abs_err": err,
+           "chunk": att._paged_chunk(
+               len(lens), GEMMA_H, GEMMA_D, TABLE_WIDTH, BLOCK_TOKENS,
+               cache == torch.bfloat16,
+               torch.cuda.get_device_properties(dev).multi_processor_count),
+           "library_ms": None}
+    row["ms"], _ = measure(run(att.paged_attention))
+    row["plain_ms"], _ = measure(run(att.paged_attention_plain), iters=10)
+    live = sum(lens)
+    nbytes = (2 * live * GEMMA_H * GEMMA_D * pools[0][0].element_size()
+              + 2 * q.numel() * 4 + tab.numel() * 4 + sl.numel() * 4)
+    flops = 4 * live * GEMMA_H * GEMMA_D
+    mem_s, op_s = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    row["bound_ms"] = max(mem_s, op_s) * 1e3
+    row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+    del pools
+    torch.cuda.empty_cache()
+    return name, row
+
+
+def phase_d256(att, dev, kernels):
+    """The D 256 instances of K3 and K4 at Gemma-7B's widths: each
+    kernel's row goes into its entry of ``kernels`` under "d256"."""
+    rows = d256_flash_rows(att, dev)
+    for cache in (torch.float32, torch.bfloat16):
+        name, row = d256_paged_row(att, dev, cache)
+        rows[name] = row
+    log("d256_timing " + json.dumps(rows))
+    for k in kernels:
+        if k["name"] in rows:
+            k["d256"] = rows[k["name"]]
+
+
+# -- phase 16: the KVStore and the gradient allreduce -----------------------
+# bench.py's gluon ResNet-50 v1 through gluon.Trainer over the port's
+# kvstore: 2 workers at batch 64 each, through 1 parameter server
+# (dist_sync) on this card, 3 steps with the optimizer on the server
+# (update_on_kvstore) and 3 on the workers; then one worker over
+# torch.distributed (dist_device_sync, -s 0: NCCL at world size 1)
+DIST_BATCH, DIST_STEPS = 64, 3
+# bench.py _bench_allreduce's payload: 25M f32, about one ResNet-50
+# gradient
+ALLREDUCE_ELEMS = 25 * 1000 * 1000
+DIST_JOB_TIMEOUT_S = 180
+
+
+def params_digest(params):
+    """sha256 of the trainable parameters' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.data()._data.detach().contiguous().cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def dist_worker(mode, out_dir):
+    """The program of the dist phase's workers (``--dist-worker MODE
+    DIR``, started by mxnet_tpu_torch/tools/launch.py): ResNet-50 v1 on
+    the card from ``gluon_resnet``'s seeded weights, one seeded batch of
+    DIST_BATCH per worker, DIST_STEPS Trainer steps. ``ps_true`` /
+    ``ps_false``: kvstore dist_sync with update_on_kvstore True / False;
+    ``coll``: dist_device_sync beside a kvstore="device" Trainer from the
+    same weights on the same batch, cuDNN deterministic, and the
+    allreduce bandwidth. Writes DIR/MODE_WORKER.json."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wid = int(os.environ["DMLC_WORKER_ID"])
+    ctx = mx.gpu(0)
+    dev = ctx.device
+    if mode == "coll":
+        # the two Trainers' steps must be the same bits: no
+        # nondeterministic cuDNN algorithm
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    rng = np.random.default_rng(SEED + 60 + wid)
+    x = mx.nd.array(rng.standard_normal((DIST_BATCH,) + GLUON_SHAPE[1:],
+                                        dtype=np.float32), ctx=ctx)
+    y = mx.nd.array(rng.integers(0, 1000, DIST_BATCH).astype(np.float32),
+                    ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nets = {"dist": gluon_resnet(mx, None, ctx)[0]}
+    if mode == "coll":
+        nets["device"] = gluon_resnet(mx, None, ctx)[0]
+    trainable = {k: [p for p in n.collect_params().values()
+                     if p.grad_req != "null"] for k, n in nets.items()}
+    kvtype = "dist_device_sync" if mode == "coll" else "dist_sync"
+    trainers = {"dist": mx.gluon.Trainer(
+        nets["dist"].collect_params(), "sgd", GLUON_SGD, kvstore=kvtype,
+        update_on_kvstore=mode != "ps_false")}
+    if mode == "coll":
+        trainers["device"] = mx.gluon.Trainer(
+            nets["device"].collect_params(), "sgd", GLUON_SGD,
+            kvstore="device")
+    res = {"mode": mode, "worker": wid, "digests": {k: [] for k in nets},
+           "step_ms": [], "losses": []}
+    # the kvstore's push and pull, timed on the host (a pull ends with the
+    # values written on the card) with the bytes each moves
+    comm = {"push_s": 0.0, "pull_s": 0.0, "push_bytes": 0, "pull_bytes": 0}
+
+    def wrap(kv):
+        for op in ("push", "pull"):
+            fn = getattr(kv, op)
+
+            def timed(key, value=None, *a, _fn=fn, _op=op, **kw):
+                t0 = time.perf_counter()
+                r = _fn(key, value, *a, **kw)
+                if _op == "pull" and dev.type == "cuda":
+                    torch.cuda.synchronize()
+                comm[_op + "_s"] += time.perf_counter() - t0
+                v = kw.get("out") if value is None else value
+                v = v[0] if isinstance(v, (list, tuple)) else v
+                comm[_op + "_bytes"] += v.size * 4
+                return r
+            setattr(kv, op, timed)
+
+    total = DIST_BATCH * (1 if mode == "coll" else 2)
+    for step in range(DIST_STEPS):
+        for k, net in nets.items():
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            if k == "dist" and step == 0:
+                res["loss0"] = float(loss._data.float().mean())
+                if mode == "ps_true":
+                    # the worker's own step-1 gradients and the weights
+                    # before, for the summed-gradient check
+                    torch.save({"grads": [p.grad()._data.detach().cpu()
+                                          for p in trainable[k]],
+                                "weights": [p.data()._data.detach().cpu()
+                                            for p in trainable[k]]},
+                               os.path.join(out_dir, f"grads_{wid}.pt"))
+            tr = trainers[k]
+            if tr._kvstore is None and k == "dist":
+                # the kvstore made as step() makes it (the optimizer it
+                # ships scaled for the batch), then its push and pull timed
+                tr._optimizer.rescale_grad = tr._scale / total
+                tr._init_kvstore()
+                wrap(tr._kvstore)
+            t1 = time.perf_counter()
+            tr.step(total)
+            torch.cuda.synchronize()
+            if k == "dist":
+                res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["trainer_step_ms"] = (time.perf_counter() - t1) * 1e3
+                res["losses"].append(float(loss._data.float().mean()))
+            res["digests"][k].append(params_digest(trainable[k]))
+        if mode == "ps_true" and step == 0:
+            torch.save([p.data()._data.detach().cpu()
+                        for p in trainable["dist"]],
+                       os.path.join(out_dir, f"step1_{wid}.pt"))
+    res["comm"] = comm
+    res["params"] = sum(p.data().size for p in trainable["dist"])
+    res["tensors"] = len(trainable["dist"])
+    kv = trainers["dist"]._kvstore
+    res["rank"], res["num_workers"] = kv.rank, kv.num_workers
+    if mode == "coll":
+        res["backend"] = kv._coll.backend
+        # bench.py _bench_allreduce at n = 1: raw 2 x bytes / s of one
+        # rank's allreduce (no bus bandwidth at one rank), CUDA events
+        buf = torch.ones(ALLREDUCE_ELEMS, device=dev)
+        for _ in range(3):
+            kv._coll.allreduce(buf)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        iters = 10
+        start.record()
+        for _ in range(iters):
+            kv._coll.allreduce(buf)
+        end.record()
+        torch.cuda.synchronize()
+        sec = start.elapsed_time(end) / iters / 1e3
+        res["allreduce"] = {"elems": ALLREDUCE_ELEMS, "ranks": 1,
+                            "ms": sec * 1e3,
+                            "gb_per_s": 2 * ALLREDUCE_ELEMS * 4 / sec / 1e9}
+    kv.close()
+    with open(os.path.join(out_dir, f"{mode}_{wid}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dist_job(here, out, mode, workers, servers):
+    """One job of the port's launcher: ``workers`` processes running
+    ``dist_worker(mode)`` and ``servers`` parameter servers (their
+    optimizer on this card); (the workers' results, the job's output)."""
+    cmd = [sys.executable, os.path.join(here, "mxnet_tpu_torch", "tools",
+                                        "launch.py"),
+           "-n", str(workers), "-s", str(servers), sys.executable,
+           os.path.join(here, "chip_smoke.py"), "--dist-worker", mode, out]
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=DIST_JOB_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        fail(f"dist {mode}: the job ran over {DIST_JOB_TIMEOUT_S} s:\n"
+             f"{e.stdout}\n{e.stderr}")
+    log_text = p.stdout + p.stderr
+    check(p.returncode == 0, f"dist {mode}: job exit {p.returncode}:\n"
+          + log_text[-6000:])
+    res = []
+    for i in range(workers):
+        with open(os.path.join(out, f"{mode}_{i}.json")) as f:
+            res.append(json.load(f))
+    return res, log_text, time.perf_counter() - t0
+
+
+def server_line(log_text):
+    """The server's closing line (``kvstore server: {...}``)."""
+    for line in log_text.splitlines():
+        if line.startswith("kvstore server: {"):
+            return json.loads(line.split(": ", 1)[1])
+    fail("dist: no closing line of the kvstore server in the job's output")
+
+
+def phase_dist(here, dev):
+    """dist_sync (1 server, 2 workers, all on this card) with the
+    optimizer on the server, then on the workers; then dist_device_sync
+    over NCCL at world size 1."""
+    import mxnet_tpu_torch as mx
+    out = os.path.join(here, "build", "chip_smoke", "dist")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    report = {}
+    for mode in ("ps_true", "ps_false"):
+        res, text, wall = dist_job(here, out, mode, 2, 1)
+        srv = server_line(text)
+        a, b = res
+        check(sorted(r["rank"] for r in res) == [0, 1]
+              and a["num_workers"] == 2, f"dist {mode}: ranks "
+              f"{[r['rank'] for r in res]}")
+        check(a["digests"]["dist"] == b["digests"]["dist"],
+              f"dist {mode}: the workers' parameters differ after a step")
+        check(all(np.isfinite(r["losses"]).all() for r in res),
+              f"dist {mode}: losses {[r['losses'] for r in res]}")
+        check(srv["device"].startswith("cuda"),
+              f"dist {mode}: server optimizer on {srv['device']}")
+        if mode == "ps_true":
+            check(srv["updates"] == DIST_STEPS * a["tensors"],
+                  f"dist {mode}: {srv['updates']} server updates, want "
+                  f"{DIST_STEPS} x {a['tensors']}")
+            # step 1 on the server: the SGD class on the sum of the two
+            # workers' own gradients, from the weights before
+            g = [torch.load(os.path.join(out, f"grads_{i}.pt")) for i in
+                 range(2)]
+            step1 = torch.load(os.path.join(out, "step1_0.pt"))
+            opt = mx.optimizer.SGD(learning_rate=GLUON_SGD["learning_rate"],
+                                   momentum=GLUON_SGD["momentum"],
+                                   wd=GLUON_SGD["wd"],
+                                   rescale_grad=1.0 / (2 * DIST_BATCH))
+            worst = 0.0
+            for i, (w0, g0, g1, got) in enumerate(zip(
+                    g[0]["weights"], g[0]["grads"], g[1]["grads"], step1)):
+                w = mx.nd.NDArray(w0.to(dev))
+                opt.update(i, w, mx.nd.NDArray((g0 + g1).to(dev)),
+                           opt.create_state(i, w))
+                want = w._data.cpu()
+                r = float((got - want).abs().max()
+                          / want.abs().max().clamp_min(1e-30))
+                worst = max(worst, r)
+            check(worst <= PARITY_TENSOR_TOL, f"dist {mode}: step 1 off the "
+                  f"SGD class on the summed gradients by {worst} of the "
+                  f"largest (> {PARITY_TENSOR_TOL})")
+            del g, step1
+            for f in ("grads_0.pt", "grads_1.pt", "step1_0.pt", "step1_1.pt"):
+                os.remove(os.path.join(out, f))
+        step_ms = float(np.median([t for r in res for t in r["step_ms"]]))
+        push_s = max(r["comm"]["push_s"] for r in res)
+        pull_s = max(r["comm"]["pull_s"] for r in res)
+        row = {"workers": 2, "servers": 1, "batch_per_worker": DIST_BATCH,
+               "params": a["params"], "tensors": a["tensors"],
+               "steps": DIST_STEPS, "step_ms": step_ms,
+               "step_ms_all": [r["step_ms"] for r in res],
+               "images_per_s": 2 * DIST_BATCH / step_ms * 1e3,
+               "push_mb_per_s": a["comm"]["push_bytes"] / 1e6 / push_s,
+               "pull_mb_per_s": a["comm"]["pull_bytes"] / 1e6 / pull_s,
+               "comm": [r["comm"] for r in res],
+               "server": srv, "job_s": wall,
+               "losses": [r["losses"] for r in res],
+               "bitwise_equal_workers": True}
+        if mode == "ps_true":
+            row["server_update_ms_per_step"] = srv["update_ms"] / DIST_STEPS
+            row["step1_vs_sgd_on_sum"] = worst
+        report[mode] = row
+        log(f"dist_sync update_on_kvstore={mode == 'ps_true'}: "
+            f"{json.dumps(row)}")
+    res, text, wall = dist_job(here, out, "coll", 1, 0)
+    c = res[0]
+    check(c["backend"] == "nccl" and c["num_workers"] == 1,
+          f"dist_device_sync: backend {c['backend']}, "
+          f"{c['num_workers']} ranks")
+    check(c["digests"]["dist"] == c["digests"]["device"],
+          "dist_device_sync: its steps are not the device Trainer's bits")
+    report["coll"] = {"workers": 1, "backend": c["backend"],
+                      "step_ms": float(np.median(c["step_ms"])),
+                      "step_ms_all": c["step_ms"], "job_s": wall,
+                      "bitwise_equal_device_trainer": True,
+                      "allreduce_one_rank": c["allreduce"]}
+    log(f"dist_device_sync: {json.dumps(report['coll'])}")
+    log("dist_train " + json.dumps({"card": card_line(), **report}))
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3621,10 +4104,21 @@ def main():
                             kernels[2]["shape"]["decode_lens"])]
     launches.update(phase_lm_train_bf16(att, i8, fo, dev, rng))
     launches.update(phase_serve_bf16(att, dev, burst, serve_main))
-    phase_serve_heads(att, i8, fo, dev)
+    t0 = time.perf_counter()
+    phase_d256(att, dev, kernels)
+    log(f"phase_d256: {time.perf_counter() - t0:.1f} s")
+    d256_serve = phase_serve_heads(att, i8, fo, dev)
     phase_module(att, i8, fo, dev, here)
+    t0 = time.perf_counter()
+    phase_dist(here, dev)
+    log(f"phase_dist: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if "d256" in k:
+            # the D 256 decoder's serving launches (phase 14), where the
+            # kernel is on that path
+            k["d256"]["serve_launches"] = max(
+                c.get(k["name"], 0) for c in d256_serve.values()) or None
         log("kernel " + json.dumps(k))
         for extra in ("shape", "launch_ms", "step"):
             k.pop(extra, None)
@@ -3640,4 +4134,7 @@ if __name__ == "__main__":
         sys.exit(time_paged_tree(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-flash":
         sys.exit(time_flash_tree(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(dist_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -35,7 +35,12 @@ float32 product here is a float32 product. Ported so far:
   optimizer states), ``model.FeedForward``, ``callback``, and the data
   iterators ``io.MNISTIter`` / ``CSVIter`` / ``LibSVMIter`` /
   ``ResizeIter`` / ``PrefetchingIter`` over ``test_utils``' offline
-  MNIST.
+  MNIST;
+- the KVStore (``mx.kv``: ``local``, ``device``, ``dist_sync`` and
+  ``dist_async`` over the parameter server of ``_native/comm.cc``,
+  ``dist_device_sync`` over ``torch.distributed``) and the gluon
+  Trainer's distributed path, with this package's launcher
+  (``mxnet_tpu_torch/tools/launch.py``).
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -54,13 +59,20 @@ from . import lr_scheduler, metric, optimizer  # noqa: F401
 from . import callback, checkpoint, executor_manager  # noqa: F401
 from . import module, test_utils  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# last: in a launcher's server process this import enters the server
+# loop and never returns (the reference's import-time contract)
+from . import kvstore_server  # noqa: F401,E402
+
 __all__ = ["Context", "MXNetError", "autograd", "callback", "checkpoint",
            "contrib", "cpu", "current_context", "executor",
            "executor_manager", "get_env", "gluon", "gpu", "initializer",
-           "io", "lr_scheduler", "metric", "mod", "model", "model_zoo",
+           "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
+           "model_zoo",
            "module", "nd", "optimizer", "predictor", "random",
            "resolve_device", "subgraph", "sym", "test_utils"]

@@ -111,6 +111,18 @@
 //  - the output is rounded once to bf16, and lse = m + log(l) in f32.
 // The softmax of one warpgroup does not overlap its own products; the
 // other warpgroup's, and a second CTA's on the SM for D <= 64, fill in.
+//
+// Head size 256 (Gemma-7B's heads; instances of both kernels, the same
+// function and the same order of work as at the other sizes):
+//  - fp32: the 16 x 256 accumulator is 128 registers a thread, and two
+//    K/V stages would need 293 KB of shared memory, so K and V take one
+//    stage (163 KB): a stage loads after the last one is read, with no
+//    overlap of copy and product;
+//  - bf16: Q's 128 rows and two K/V stages are 193 KB (four 64-column
+//    TMA chunks a tile); O += P V is two m64n128k16 products a k-step,
+//    one for each half of V's columns, into the halves of the 128-register
+//    accumulator (wgmma's N is at most 256, but one n128 product a half
+//    keeps the fragment code of D 128).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,11 +139,20 @@ constexpr int kChunk = kBK / kWarps;     // keys per warp per stage
 constexpr int kNJ = kChunk / 8;          // n8 tiles of S per warp and stage
 constexpr float kNegInf = -1e30f;
 
+// stages of (K, V) in shared memory: two (the next loads while this one
+// computes) up to D 128; one at D 256, where two would take 293 KB of the
+// 227 KB a block may have (one stage: 163 KB). The order of work, and so
+// the arithmetic, is the same either way
+template <int D>
+__host__ __device__ constexpr int kv_stages() {
+  return D > 128 ? 1 : 2;
+}
+
 template <int D>
 constexpr int smem_floats() {
-  // Q big and small parts, then two stages of (K, V); the final merge
+  // Q big and small parts, then the stages of (K, V); the final merge
   // reuses the stage area
-  return 2 * kBQ * (D + 4) + 2 * 2 * kBK * (D + 4);
+  return 2 * kBQ * (D + 4) + kv_stages<D>() * 2 * kBK * (D + 4);
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -200,6 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KS = D / 8;      // k-steps of S = Q K^T
   constexpr int NT = D / 8;      // n-tiles of O
   constexpr int Q4 = D / 4;      // 16-byte pieces per row
+  constexpr int NS = kv_stages<D>();
   extern __shared__ __align__(16) float smem[];
   float* sQb = smem;
   float* sQs = sQb + kBQ * P;
@@ -228,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
     cp16(sQb + r * P + c, qb + (in ? tok : 0) * q_st + c, in);
   }
   auto load_kv = [&](int stage) {
-    float* sK = sKV + (stage & 1) * 2 * kBK * P;
+    float* sK = sKV + (stage % NS) * 2 * kBK * P;
     float* sV = sK + kBK * P;
     for (int e = threadIdx.x; e < kBK * Q4; e += kThreads) {
       const int r = e / Q4, c = (e % Q4) * 4, tok = stage * kBK + r;
@@ -252,11 +274,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
   for (int s = 0; s < n_st; ++s) {
-    if (s + 1 < n_st) {
+    if (NS == 2 && s + 1 < n_st) {
       load_kv(s + 1);
       cp_commit();
       cp_wait<1>();
     } else {
+      if (NS == 1 && s > 0) {   // one stage: the last stage's readers are done
+        load_kv(s);
+        cp_commit();
+      }
       cp_wait<0>();
     }
     __syncthreads();
@@ -271,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    const float* sK = sKV + (s & 1) * 2 * kBK * P + warp * kChunk * P;
+    const float* sK = sKV + (s % NS) * 2 * kBK * P + warp * kChunk * P;
     const float* sV = sK + kBK * P;
     const int c0 = s * kBK + warp * kChunk;   // this warp's first key
     if (c0 < kv_end) {
@@ -613,30 +639,32 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
-  // d += A B, A from registers, B MN-major from shared memory
-  static __device__ __forceinline__ void rs(float (&d)[64],
+  // d[OFF, OFF + 64) += A B, A from registers, B MN-major from shared
+  // memory (OFF 64: the second half of D 256's accumulator)
+  template <int N = 64, int OFF = 0>
+  static __device__ __forceinline__ void rs(float (&d)[N],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+          "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+          "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+          "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+          "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+          "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+          "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+          "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+          "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+          "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+          "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+          "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+          "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+          "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+          "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+          "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
@@ -814,9 +842,23 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         pa[kk][r] = pack_rn(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      Wgmma<D>::rs(acc, pa[kk],
-                   desc<D>(sV + kk * 16 * L::RB, kBK * L::RB, 8 * L::RB));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D <= 128) {
+        Wgmma<D>::rs(acc, pa[kk],
+                     desc<D>(sV + kk * 16 * L::RB, kBK * L::RB, 8 * L::RB));
+      } else {
+        // D 256: two n128 products, columns [0, 128) (chunks 0 and 1 of
+        // V's tile) and [128, 256) (chunks 2 and 3) into acc's halves,
+        // whose accumulator layout is acc's own (column 8n + 2t + (e & 1)
+        // at acc[4n + e])
+        Wgmma<128>::rs<D / 2, 0>(
+            acc, pa[kk], desc<D>(sV + kk * 16 * L::RB, kBK * L::RB, 8 * L::RB));
+        Wgmma<128>::rs<D / 2, 64>(
+            acc, pa[kk],
+            desc<D>(sV + 2 * kBK * L::RB + kk * 16 * L::RB, kBK * L::RB,
+                    8 * L::RB));
+      }
+    }
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -960,6 +1002,8 @@ int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
       return launch<64>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
+    case 256:
+      return launch<256>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -134,6 +134,17 @@
 // pair (S, dP, and two each for dV, dK and dQ), 10 with pass 3's
 // recomputation of S and dP, so its own floor on the tensor cores is
 // 10/5 * 0.130 = 0.26 ms; mma.sync does not reach wgmma's peak rate.
+//
+// Head size 256 (`Tiles`; the other sizes keep their tiling): a warp's
+// 16 keys (pass 2) or rows (pass 3) hold 16 x D of each gradient they
+// sum, 256 registers a thread for dK and dV together at D 256. So the
+// gradient's columns are split over two CTAs (grid.y), 128 each; both
+// recompute S and dP over the full D. bf16 keeps the 64-row tiles in two
+// stages (199 KB); fp32's six 64-row tiles would take 390 KB, so its
+// walked tiles (Q and dO in pass 2, K and V in pass 3) are 32 rows in
+// one stage (195 KB): the walk loads a tile after the last one is read,
+// and the dV, dK and dQ sums take 32 walked rows a block (the CPU
+// emulation in tests/test_torch_attention.py walks so).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -145,6 +156,27 @@ constexpr int kB = 64;                // query rows and keys per tile
 constexpr int kDotWarps = 8;
 constexpr int kWarps = 4;             // 16 rows (pass 3) or keys (pass 2) each
 constexpr int kThreads = kWarps * 32;
+
+// The tiling of passes 2 and 3 for head size D and element type E. A CTA
+// keeps kB resident rows (keys in pass 2, query rows in pass 3) and walks
+// the other side in tiles of BW rows through STAGES shared-memory
+// buffers; it holds DO of the D gradient columns, and SPLITS = D / DO
+// CTAs share a resident block (grid.y), each recomputing S and dP over
+// the full D. Up to D 128: BW 64, two stages, every column in one CTA.
+// At D 256 one CTA cannot hold every column: 16 keys x 256 columns of
+// both dK and dV are 256 registers a thread. So two CTAs hold 128 columns
+// each; and for fp32, whose six 64-row tiles would need 399 KB of shared
+// memory, the walked tiles are 32 rows in one stage (195 KB).
+template <int D, typename E>
+struct Tiles {
+  static constexpr bool kWide = D > 128;
+  static constexpr bool kF32 = sizeof(E) == 4;
+  static constexpr int BW = kWide && kF32 ? 32 : kB;
+  static constexpr int STAGES = kWide && kF32 ? 1 : 2;
+  static constexpr int DO = kWide ? 128 : D;
+  static constexpr int SPLITS = D / DO;
+  static_assert(BW % 16 == 0 && 2 * BW <= kThreads && D % DO == 0, "tiles");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -219,14 +251,17 @@ constexpr int kPadF = 4;              // f32 row padding, in floats
 
 template <int D>
 constexpr int dkdv_f32_smem_bytes() {
-  // K, V; two stages of (Q, dO); two stages of (lse, Dv)
-  return (2 + 2 * 2) * kB * (D + kPadF) * 4 + 2 * 2 * kB * 4;
+  // K, V; the stages of (Q, dO); the stages of (lse, Dv)
+  using T = Tiles<D, float>;
+  return (2 * kB + 2 * T::STAGES * T::BW) * (D + kPadF) * 4 +
+         2 * T::STAGES * T::BW * 4;
 }
 
 template <int D>
 constexpr int dq_f32_smem_bytes() {
-  // Q, dO; two stages of (K, V)
-  return (2 + 2 * 2) * kB * (D + kPadF) * 4;
+  // Q, dO; the stages of (K, V)
+  using T = Tiles<D, float>;
+  return (2 * kB + 2 * T::STAGES * T::BW) * (D + kPadF) * 4;
 }
 
 // x as TF32 big + small: big is x rounded to 10 mantissa bits, to nearest
@@ -266,13 +301,13 @@ __device__ __forceinline__ float p_exp(float scale, float s, float lse) {
   return expf(fmaf(scale, s, -lse));
 }
 
-// rows [row0, row0 + kB) of a (T, D) f32 slice with row stride `st` into
-// a tile of rows D + 4, by cp.async; rows past T are zero
-template <int D>
+// rows [row0, row0 + ROWS) of a (T, D) f32 slice with row stride `st`
+// into a tile of rows D + 4, by cp.async; rows past T are zero
+template <int D, int ROWS = kB>
 __device__ __forceinline__ void load_tile_f32(float* s, const float* g,
                                               int64_t st, int row0, int T) {
   constexpr int P = D + kPadF, C4 = D / 4;
-  for (int e = threadIdx.x; e < kB * C4; e += kThreads) {
+  for (int e = threadIdx.x; e < ROWS * C4; e += kThreads) {
     const int r = e / C4, c = (e % C4) * 4, row = row0 + r;
     const bool in = row < T;
     cp16(s + r * P + c, g + static_cast<int64_t>(in ? row : 0) * st + c, in);
@@ -291,11 +326,12 @@ __device__ __forceinline__ void a_rows(const float* s, int kk, int g, int t,
   split(r[8 * P + 4], ab[3], as[3]);
 }
 
-// the A fragment of k-step kk from an accumulator tile set x[8][4] (x[j]:
+// the A fragment of k-step kk from an accumulator tile set x[NJ][4] (x[j]:
 // rows g, g + 8, columns 8j + 2t, + 1), split as it leaves the
 // accumulator: m16n8k8's A holds columns t and t + 4 of a k-step, so the
 // k index is permuted, logical k = t is column 2t and t + 4 is 2t + 1
-__device__ __forceinline__ void a_acc(const float (&x)[8][4], int kk,
+template <int NJ>
+__device__ __forceinline__ void a_acc(const float (&x)[NJ][4], int kk,
                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
   split(x[kk][0], ab[0], as[0]);
   split(x[kk][2], ab[1], as[1]);
@@ -303,16 +339,16 @@ __device__ __forceinline__ void a_acc(const float (&x)[8][4], int kk,
   split(x[kk][3], ab[3], as[3]);
 }
 
-// c[8][4] = A (16 rows of sA) times B^T (64 rows of sB) over D, both
+// c[NJ][4] = A (16 rows of sA) times B^T (8 NJ rows of sB) over D, both
 // row-major tiles of rows D + 4: c[j] is rows g, g + 8 and columns 8j +
 // 2t, + 1. Operands split as they are read; each 16-wide k-step (two
 // m16n8k8) into a zeroed fragment, then one FADD into c
-template <int D>
-__device__ __forceinline__ void mma_abt_f32(float (&c)[8][4], const float* sA,
+template <int D, int NJ>
+__device__ __forceinline__ void mma_abt_f32(float (&c)[NJ][4], const float* sA,
                                             const float* sB, int g, int t) {
   constexpr int P = D + kPadF;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
   // one k-step at a time: unrolled, the loads run ahead into spills
@@ -322,7 +358,7 @@ __device__ __forceinline__ void mma_abt_f32(float (&c)[8][4], const float* sA,
     a_rows<P>(sA, 2 * k2, g, t, ab[0], as[0]);
     a_rows<P>(sA, 2 * k2 + 1, g, t, ab[1], as[1]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -338,26 +374,29 @@ __device__ __forceinline__ void mma_abt_f32(float (&c)[8][4], const float* sA,
   }
 }
 
-// acc[D/8][4] += X (16 x 64, an accumulator tile set as mma_abt_f32
-// leaves it) times sB (64 rows of D + 4). k-step kk is X's n8 tile kk
-// (a_acc's permuted k), with sB's rows 8kk + 2t and 8kk + 2t + 1 in the
-// same order; two k-steps into a zeroed fragment, then one FADD
-template <int D>
-__device__ __forceinline__ void mma_xb_f32(float (&acc)[D / 8][4],
-                                           const float (&x)[8][4],
-                                           const float* sB, int g, int t) {
+// acc[DO/8][4] += X (16 x 8 NJ, an accumulator tile set as mma_abt_f32
+// leaves it) times columns [c0, c0 + DO) of sB (8 NJ rows of D + 4).
+// k-step kk is X's n8 tile kk (a_acc's permuted k), with sB's rows 8kk +
+// 2t and 8kk + 2t + 1 in the same order; two k-steps into a zeroed
+// fragment, then one FADD
+template <int D, int DO, int NJ>
+__device__ __forceinline__ void mma_xb_f32(float (&acc)[DO / 8][4],
+                                           const float (&x)[NJ][4],
+                                           const float* sB, int c0, int g,
+                                           int t) {
   constexpr int P = D + kPadF;
 #pragma unroll
-  for (int k2 = 0; k2 < 4; ++k2) {
+  for (int k2 = 0; k2 < NJ / 2; ++k2) {
     uint32_t ab[2][4], as[2][4];
     a_acc(x, 2 * k2, ab[0], as[0]);
     a_acc(x, 2 * k2 + 1, ab[1], as[1]);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DO / 8; ++n) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float* br = sB + (16 * k2 + 8 * h + 2 * t) * P + 8 * n + g;
+        const float* br =
+            sB + (16 * k2 + 8 * h + 2 * t) * P + c0 + 8 * n + g;
         uint32_t bb[2], bs[2];
         split(br[0], bb[0], bs[0]);
         split(br[P], bb[1], bs[1]);
@@ -391,15 +430,17 @@ __device__ __forceinline__ void store_rows_f32(float* g, int64_t st, int r0,
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     dkdv_f32_kernel(const Args<float> a) {
+  using T = Tiles<D, float>;
   constexpr int P = D + kPadF;
   constexpr int TILE = kB * P;
+  constexpr int BW = T::BW, WT = BW * P;   // the walked tiles: Q and dO
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = sK + TILE;
-  float* sQ = sV + TILE;          // stage i at i * TILE
-  float* sG = sQ + 2 * TILE;      // dO, stage i at i * TILE
-  float* sL = sG + 2 * TILE;      // lse, stage i at i * kB
-  float* sDv = sL + 2 * kB;
+  float* sQ = sV + TILE;          // stage i at i * WT
+  float* sG = sQ + T::STAGES * WT;   // dO, stage i at i * WT
+  float* sL = sG + T::STAGES * WT;   // lse, stage i at i * BW
+  float* sDv = sL + T::STAGES * BW;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -407,6 +448,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   const int bh = blockIdx.x % a.BH, kb = blockIdx.x / a.BH;
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = kb * kB;
+  // the gradient columns this CTA holds: [c0, c0 + DO)
+  const int c0 = T::SPLITS > 1 ? blockIdx.y * T::DO : 0;
   const int64_t* st = a.st;
   const float* qb = a.q + b * st[0] + h * st[1];
   const float* gb = a.dout + b * st[12] + h * st[13];
@@ -416,54 +459,60 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   load_tile_f32<D>(sK, a.k + b * st[3] + h * st[4], st[5], k0, a.Tk);
   load_tile_f32<D>(sV, a.v + b * st[6] + h * st[7], st[8], k0, a.Tk);
   auto load_q = [&](int q0, int buf) {
-    load_tile_f32<D>(sQ + buf * TILE, qb, st[2], q0, a.Tq);
-    load_tile_f32<D>(sG + buf * TILE, gb, st[14], q0, a.Tq);
-    // kThreads == 2 * kB: one f32 copy a thread
-    const int r = threadIdx.x & (kB - 1), row = q0 + r;
-    const bool in = row < a.Tq;
-    const float* src = threadIdx.x < kB ? lse : dvec;
-    float* dst = (threadIdx.x < kB ? sL : sDv) + buf * kB + r;
-    cp4(dst, src + (in ? row : 0), in);
+    load_tile_f32<D, BW>(sQ + buf * WT, qb, st[2], q0, a.Tq);
+    load_tile_f32<D, BW>(sG + buf * WT, gb, st[14], q0, a.Tq);
+    // one f32 copy a thread of the first 2 BW (all of them at BW 64)
+    if (2 * BW == kThreads || threadIdx.x < 2 * BW) {
+      const int r = threadIdx.x % BW, row = q0 + r;
+      const bool in = row < a.Tq;
+      const float* src = threadIdx.x < BW ? lse : dvec;
+      float* dst = (threadIdx.x < BW ? sL : sDv) + buf * BW + r;
+      cp4(dst, src + (in ? row : 0), in);
+    }
   };
-  const int n_qb = (a.Tq + kB - 1) / kB;
+  const int n_qb = (a.Tq + BW - 1) / BW;
   // rows i < k0 - shift see none of these keys (every key is seen by
   // the last row, so the walk is never empty)
   const int shift = a.causal ? a.Tk - a.Tq : 0;
-  const int first = a.causal ? max(k0 - shift, 0) / kB : 0;
-  load_q(first * kB, 0);
+  const int first = a.causal ? max(k0 - shift, 0) / BW : 0;
+  load_q(first * BW, 0);
   cp_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[T::DO / 8][4], dv[T::DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < T::DO / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
   // this thread's keys: kw + g and kw + g + 8
   const int kw = k0 + 16 * warp;
 
   for (int qi = first; qi < n_qb; ++qi) {
-    const int buf = (qi - first) & 1, q0 = qi * kB;
-    if (qi + 1 < n_qb) {
-      load_q(q0 + kB, buf ^ 1);
+    const int buf = T::STAGES == 1 ? 0 : (qi - first) & 1, q0 = qi * BW;
+    if (T::STAGES == 2 && qi + 1 < n_qb) {
+      load_q(q0 + BW, buf ^ 1);
       cp_commit();
       cp_wait<1>();
     } else {
+      if (T::STAGES == 1 && qi > first) {   // the last block's readers are done
+        load_q(q0, 0);
+        cp_commit();
+      }
       cp_wait<0>();
     }
     __syncthreads();
-    const float* Q = sQ + buf * TILE;
-    const float* G = sG + buf * TILE;
-    const float* L = sL + buf * kB;
-    const float* Dv = sDv + buf * kB;
+    const float* Q = sQ + buf * WT;
+    const float* G = sG + buf * WT;
+    const float* L = sL + buf * BW;
+    const float* Dv = sDv + buf * BW;
     // P^T = exp(scale * K_w Q^T - lse): x[j][i] is key kw + g + 8 (i >> 1),
     // query q0 + 8j + 2t + (i & 1)
-    float x[8][4];
+    float x[BW / 8][4];
     mma_abt_f32<D>(x, sK + 16 * warp * P, Q, g, t);
     const bool edge = (a.causal && q0 + shift < kw + 16) ||
-                      q0 + kB > a.Tq || kw + 16 > a.Tk;
+                      q0 + BW > a.Tq || kw + 16 > a.Tk;
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int qc = 8 * j + 2 * t + (i & 1), qg = q0 + qc;
@@ -474,39 +523,41 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           x[j][i] = p_exp(a.scale, x[j][i], L[8 * j + 2 * t + (i & 1)]);
     }
-    mma_xb_f32<D>(dv, x, G, g, t);
+    mma_xb_f32<D, T::DO>(dv, x, G, c0, g, t);
     // dS^T = P^T * (V_w dO^T - Dv)
-    float dp[8][4];
+    float dp[BW / 8][4];
     mma_abt_f32<D>(dp, sV + 16 * warp * P, G, g, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         x[j][i] *= dp[j][i] - Dv[8 * j + 2 * t + (i & 1)];
-    mma_xb_f32<D>(dk, x, Q, g, t);
+    mma_xb_f32<D, T::DO>(dk, x, Q, c0, g, t);
     __syncthreads();   // the next block's loads overwrite this stage
   }
 
-  store_rows_f32<D>(a.dk + b * st[18] + h * st[19], st[20], kw + g, a.Tk, dk,
-                    a.scale, t);
-  store_rows_f32<D>(a.dv + b * st[21] + h * st[22], st[23], kw + g, a.Tk, dv,
-                    1.f, t);
+  store_rows_f32<T::DO>(a.dk + b * st[18] + h * st[19] + c0, st[20], kw + g,
+                        a.Tk, dk, a.scale, t);
+  store_rows_f32<T::DO>(a.dv + b * st[21] + h * st[22] + c0, st[23], kw + g,
+                        a.Tk, dv, 1.f, t);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     dq_f32_kernel(const Args<float> a) {
+  using T = Tiles<D, float>;
   constexpr int P = D + kPadF;
   constexpr int TILE = kB * P;
+  constexpr int BW = T::BW, WT = BW * P;   // the walked tiles: K and V
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
   float* sG = sQ + TILE;
-  float* sK = sG + TILE;          // stage i: K at 2 i TILE, V after
+  float* sK = sG + TILE;          // stage i: K at 2 i WT, V after
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_qb = (a.Tq + kB - 1) / kB;
@@ -514,6 +565,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   const int bh = blockIdx.x % a.BH, qi = n_qb - 1 - blockIdx.x / a.BH;
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = qi * kB;
+  // the gradient columns this CTA holds: [c0, c0 + DO)
+  const int c0 = T::SPLITS > 1 ? blockIdx.y * T::DO : 0;
   const int64_t* st = a.st;
   const float* kbase = a.k + b * st[3] + h * st[4];
   const float* vb = a.v + b * st[6] + h * st[7];
@@ -521,8 +574,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   load_tile_f32<D>(sQ, a.q + b * st[0] + h * st[1], st[2], q0, a.Tq);
   load_tile_f32<D>(sG, a.dout + b * st[12] + h * st[13], st[14], q0, a.Tq);
   auto load_kv = [&](int k0, int buf) {
-    load_tile_f32<D>(sK + 2 * buf * TILE, kbase, st[5], k0, a.Tk);
-    load_tile_f32<D>(sK + (2 * buf + 1) * TILE, vb, st[8], k0, a.Tk);
+    load_tile_f32<D, BW>(sK + 2 * buf * WT, kbase, st[5], k0, a.Tk);
+    load_tile_f32<D, BW>(sK + (2 * buf + 1) * WT, vb, st[8], k0, a.Tk);
   };
   load_kv(0, 0);
   cp_commit();
@@ -538,37 +591,41 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     dv_r[hh] = row < a.Tq ? a.dvec[at] : 0.f;
   }
 
-  float dq[D / 8][4];
+  float dq[T::DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < T::DO / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
   // keys these rows can see: [0, kv_end)
   const int shift = a.causal ? a.Tk - a.Tq : 0;
   const int kv_end = a.causal ? min(q0 + kB + shift, a.Tk) : a.Tk;
-  const int n_kb = (kv_end + kB - 1) / kB;
+  const int n_kb = (kv_end + BW - 1) / BW;
   for (int kj = 0; kj < n_kb; ++kj) {
-    const int buf = kj & 1, k0 = kj * kB;
-    if (kj + 1 < n_kb) {
-      load_kv(k0 + kB, buf ^ 1);
+    const int buf = T::STAGES == 1 ? 0 : kj & 1, k0 = kj * BW;
+    if (T::STAGES == 2 && kj + 1 < n_kb) {
+      load_kv(k0 + BW, buf ^ 1);
       cp_commit();
       cp_wait<1>();
     } else {
+      if (T::STAGES == 1 && kj > 0) {   // the last block's readers are done
+        load_kv(k0, 0);
+        cp_commit();
+      }
       cp_wait<0>();
     }
     __syncthreads();
-    const float* K = sK + 2 * buf * TILE;
-    const float* V = K + TILE;
+    const float* K = sK + 2 * buf * WT;
+    const float* V = K + WT;
     // P = exp(scale * Q_w K^T - lse): x[j][i] is row qw + g + 8 (i >> 1),
     // key k0 + 8j + 2t + (i & 1)
-    float x[8][4];
+    float x[BW / 8][4];
     mma_abt_f32<D>(x, sQ + 16 * warp * P, K, g, t);
-    const bool edge = (a.causal && k0 + kB > qw + shift) ||
-                      k0 + kB > a.Tk || qw + 16 > a.Tq;
+    const bool edge = (a.causal && k0 + BW > qw + shift) ||
+                      k0 + BW > a.Tk || qw + 16 > a.Tq;
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kg = k0 + 8 * j + 2 * t + (i & 1);
@@ -579,24 +636,24 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           x[j][i] = p_exp(a.scale, x[j][i], lse_r[i >> 1]);
     }
     // dS = P * (dO_w V^T - Dv)
-    float dp[8][4];
+    float dp[BW / 8][4];
     mma_abt_f32<D>(dp, sG + 16 * warp * P, V, g, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[j][i] *= dp[j][i] - dv_r[i >> 1];
-    mma_xb_f32<D>(dq, x, K, g, t);
+    mma_xb_f32<D, T::DO>(dq, x, K, c0, g, t);
     __syncthreads();   // the next block's loads overwrite this stage
   }
 
-  store_rows_f32<D>(a.dq + b * st[15] + h * st[16], st[17], qw + g, a.Tq, dq,
-                    a.scale, t);
+  store_rows_f32<T::DO>(a.dq + b * st[15] + h * st[16] + c0, st[17], qw + g,
+                        a.Tq, dq, a.scale, t);
 }
 
 // fp32 on the 3xTF32 tensor-core kernels
@@ -616,9 +673,10 @@ cudaError_t launch(const Args<float>& a, const float* o,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem1);
   if (err != cudaSuccess) return err;
+  constexpr int splits = Tiles<D, float>::SPLITS;
   const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_f32_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
-                       stream>>>(a);
+  dkdv_f32_kernel<D><<<dim3(static_cast<unsigned>(n_kb * a.BH), splits),
+                       kThreads, smem1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -628,8 +686,8 @@ cudaError_t launch(const Args<float>& a, const float* o,
                              smem2);
   if (err != cudaSuccess) return err;
   const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_f32_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
-                     stream>>>(a);
+  dq_f32_kernel<D><<<dim3(static_cast<unsigned>(n_qb * a.BH), splits),
+                     kThreads, smem2, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -747,21 +805,24 @@ __device__ __forceinline__ void mma_abt(float (&c)[8][4], const bf16* sA,
   }
 }
 
-// acc[D/8][4] += X (16 x 64, an accumulator tile set, as hi + lo) times
-// sB (64 rows of D + 8, read transposed by ldmatrix)
-template <int D>
-__device__ __forceinline__ void mma_split_b(float (&acc)[D / 8][4],
+// acc[DO/8][4] += X (16 x 64, an accumulator tile set, as hi + lo) times
+// columns [c0, c0 + DO) of sB (64 rows of D + 8, read transposed by
+// ldmatrix)
+template <int D, int DO>
+__device__ __forceinline__ void mma_split_b(float (&acc)[DO / 8][4],
                                             const float (&x)[8][4],
-                                            const bf16* sB, int lane) {
+                                            const bf16* sB, int c0,
+                                            int lane) {
   constexpr int P = D + 8;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t hi[4], lo[4];
     a_split(x, kk, hi, lo);
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
+    for (int np = 0; np < DO / 16; ++np) {
       uint32_t b[4];
-      ldsm4_t(b, sB + (16 * kk + (lane & 15)) * P + 16 * np + (lane >> 4) * 8);
+      ldsm4_t(b, sB + (16 * kk + (lane & 15)) * P + c0 + 16 * np +
+                     (lane >> 4) * 8);
       mma16816(acc[2 * np], hi, b[0], b[1]);
       mma16816(acc[2 * np], lo, b[0], b[1]);
       mma16816(acc[2 * np + 1], hi, b[2], b[3]);
@@ -791,6 +852,7 @@ __device__ __forceinline__ void store_rows(bf16* g, int64_t st, int r0, int T,
 template <int D>
 __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     dkdv_bf16_kernel(const Args<bf16> a) {
+  using T = Tiles<D, bf16>;
   constexpr int P = D + 8;
   constexpr int TILE = kB * P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -808,6 +870,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
   const int bh = blockIdx.x % a.BH, kb = blockIdx.x / a.BH;
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = kb * kB;
+  // the gradient columns this CTA holds: [c0, c0 + DO)
+  const int c0 = T::SPLITS > 1 ? blockIdx.y * T::DO : 0;
   const int64_t* st = a.st;
   const bf16* qb = a.q + b * st[0] + h * st[1];
   const bf16* gb = a.dout + b * st[12] + h * st[13];
@@ -834,9 +898,9 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
   load_q(first * kB, 0);
   cp_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[T::DO / 8][4], dv[T::DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < T::DO / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
   // this thread's keys: kw + g and kw + g + 8
@@ -873,7 +937,7 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
             (qg < a.Tq && kg < a.Tk && (!a.causal || kg <= qg + shift));
         x[j][i] = ok ? exp2_sfu(fmaf(sl2e, x[j][i], -L[qc] * kLog2e)) : 0.f;
       }
-    mma_split_b<D>(dv, x, G, lane);
+    mma_split_b<D, T::DO>(dv, x, G, c0, lane);
     // dS^T = P^T * (V_w dO^T - Dv)
     float dp[8][4];
     mma_abt<D>(dp, sV + 16 * warp * P, G, lane);
@@ -882,19 +946,20 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         x[j][i] *= dp[j][i] - Dv[8 * j + 2 * t + (i & 1)];
-    mma_split_b<D>(dk, x, Q, lane);
+    mma_split_b<D, T::DO>(dk, x, Q, c0, lane);
     __syncthreads();   // the next block's loads overwrite this stage
   }
 
-  store_rows<D>(a.dk + b * st[18] + h * st[19], st[20], kw + g, a.Tk, dk,
-                a.scale, t);
-  store_rows<D>(a.dv + b * st[21] + h * st[22], st[23], kw + g, a.Tk, dv,
-                1.f, t);
+  store_rows<T::DO>(a.dk + b * st[18] + h * st[19] + c0, st[20], kw + g,
+                    a.Tk, dk, a.scale, t);
+  store_rows<T::DO>(a.dv + b * st[21] + h * st[22] + c0, st[23], kw + g,
+                    a.Tk, dv, 1.f, t);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     dq_bf16_kernel(const Args<bf16> a) {
+  using T = Tiles<D, bf16>;
   constexpr int P = D + 8;
   constexpr int TILE = kB * P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -909,6 +974,8 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
   const int bh = blockIdx.x % a.BH, qi = n_qb - 1 - blockIdx.x / a.BH;
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = qi * kB;
+  // the gradient columns this CTA holds: [c0, c0 + DO)
+  const int c0 = T::SPLITS > 1 ? blockIdx.y * T::DO : 0;
   const int64_t* st = a.st;
   const bf16* kbase = a.k + b * st[3] + h * st[4];
   const bf16* vb = a.v + b * st[6] + h * st[7];
@@ -934,9 +1001,9 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     dv_r[hh] = row < a.Tq ? a.dvec[at] : 0.f;
   }
 
-  float dq[D / 8][4];
+  float dq[T::DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < T::DO / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
@@ -980,12 +1047,12 @@ __global__ void __launch_bounds__(kThreads, D < 128 ? 3 : 2)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[j][i] *= dp[j][i] - dv_r[i >> 1];
-    mma_split_b<D>(dq, x, K, lane);
+    mma_split_b<D, T::DO>(dq, x, K, c0, lane);
     __syncthreads();   // the next block's loads overwrite this stage
   }
 
-  store_rows<D>(a.dq + b * st[15] + h * st[16], st[17], qw + g, a.Tq, dq,
-                a.scale, t);
+  store_rows<T::DO>(a.dq + b * st[15] + h * st[16] + c0, st[17], qw + g,
+                    a.Tq, dq, a.scale, t);
 }
 
 // bf16 on the tensor-core kernels
@@ -1004,9 +1071,10 @@ cudaError_t launch(const Args<bf16>& a, const bf16* o, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem1);
   if (err != cudaSuccess) return err;
+  constexpr int splits = Tiles<D, bf16>::SPLITS;
   const int64_t n_kb = (a.Tk + kB - 1) / kB;
-  dkdv_bf16_kernel<D><<<static_cast<unsigned>(n_kb * a.BH), kThreads, smem1,
-                        stream>>>(a);
+  dkdv_bf16_kernel<D><<<dim3(static_cast<unsigned>(n_kb * a.BH), splits),
+                        kThreads, smem1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1016,8 +1084,8 @@ cudaError_t launch(const Args<bf16>& a, const bf16* o, cudaStream_t stream) {
                              smem2);
   if (err != cudaSuccess) return err;
   const int64_t n_qb = (a.Tq + kB - 1) / kB;
-  dq_bf16_kernel<D><<<static_cast<unsigned>(n_qb * a.BH), kThreads, smem2,
-                      stream>>>(a);
+  dq_bf16_kernel<D><<<dim3(static_cast<unsigned>(n_qb * a.BH), splits),
+                      kThreads, smem2, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1055,6 +1123,8 @@ int dispatch(const E* q, const E* k, const E* v, const E* o, const E* dout,
       return launch<64>(a, o, s);
     case 128:
       return launch<128>(a, o, s);
+    case 256:
+      return launch<256>(a, o, s);
     default:
       return cudaErrorInvalidValue;
   }

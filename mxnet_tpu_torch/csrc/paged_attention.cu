@@ -80,6 +80,12 @@
 //    calls in flight on two streams never share one;
 //  - a row with seq_len 0 has no live split: split 0's CTA writes its
 //    zeros.
+// Head size 256 (Gemma-7B's heads): the f32 kernel keeps its 64-token
+// chunks (133 KB of K and V in shared memory, one CTA an SM), each thread
+// summing P V for D / 128 columns over the chunk's tokens, and its merge
+// kernel runs 256 threads; the bf16 kernel takes the chunk 8192 / D = 32
+// (32 KB in flight a CTA, as at D 64), four threads a token for the
+// scores, and each thread writes and merges two output columns.
 // What is left between this kernel and its bound: the 128-byte pieces
 // the (NB, BT, H, D) pool scatters a head's rows into arrive at well
 // under the HBM's peak rate, all of one wave's loads start together and
@@ -237,23 +243,32 @@ __global__ void __launch_bounds__(kThreads)
   cp_wait<0>();
   __syncthreads();
 
-  // acc[d] = sum_i p_i v_i[d]: D columns x (kThreads / D) token ranges
-  constexpr int PARTS = kThreads / D;
-  constexpr int PER = CHUNK / PARTS;
-  const int d = threadIdx.x % D, part = threadIdx.x / D;
-  float a = 0.f;
-  const int lo = part * PER, hi = min(lo + PER, n);
-  for (int j = lo; j < hi; ++j) a = fmaf(sP[j], to_f32(sV[j * P + d]), a);
   const int64_t slot = (static_cast<int64_t>(b) * H + h) * S + split;
-  if (PARTS > 1) {
-    sAcc[threadIdx.x] = a;
-    __syncthreads();
-    if (part == 0) {
-#pragma unroll
-      for (int r = 1; r < PARTS; ++r) a += sAcc[r * D + d];
+  if constexpr (D > kThreads) {
+    // D 256: D / kThreads columns a thread, each over every token
+    for (int d = threadIdx.x; d < D; d += kThreads) {
+      float a = 0.f;
+      for (int j = 0; j < n; ++j) a = fmaf(sP[j], to_f32(sV[j * P + d]), a);
+      part_acc[slot * D + d] = a;
     }
+  } else {
+    // acc[d] = sum_i p_i v_i[d]: D columns x (kThreads / D) token ranges
+    constexpr int PARTS = kThreads / D;
+    constexpr int PER = CHUNK / PARTS;
+    const int d = threadIdx.x % D, part = threadIdx.x / D;
+    float a = 0.f;
+    const int lo = part * PER, hi = min(lo + PER, n);
+    for (int j = lo; j < hi; ++j) a = fmaf(sP[j], to_f32(sV[j * P + d]), a);
+    if (PARTS > 1) {
+      sAcc[threadIdx.x] = a;
+      __syncthreads();
+      if (part == 0) {
+#pragma unroll
+        for (int r = 1; r < PARTS; ++r) a += sAcc[r * D + d];
+      }
+    }
+    if (part == 0) part_acc[slot * D + d] = a;
   }
-  if (part == 0) part_acc[slot * D + d] = a;
   if (threadIdx.x == 0) {
     float l = 0.f;
 #pragma unroll
@@ -386,7 +401,8 @@ __global__ void __launch_bounds__(kThreads)
                                 int* __restrict__ counters, int H, int NB,
                                 int BT, int W, int S, float scale) {
   constexpr int C = D / 8;                  // 16-byte pieces a row
-  constexpr int TPT = kThreads / CHUNK;     // threads a token: 1 or 2
+  constexpr int TPT = kThreads / CHUNK;     // threads a token: 1, 2 or 4
+  constexpr int COLS = (D + kThreads - 1) / kThreads;  // output columns a thread
   constexpr int PAIRS = D / 2;              // column pairs of V
   constexpr int PARTS = kThreads / PAIRS;   // token ranges of P V
   constexpr int TPP = CHUNK / PARTS;        // tokens a range
@@ -451,7 +467,9 @@ __global__ void __launch_bounds__(kThreads)
     s = dot8(*reinterpret_cast<const uint4*>(sK + i * D + 8 * swz<D>(i, c)),
              sQ + 8 * c, s);
   }
-  if (TPT == 2) s += __shfl_xor_sync(0xffffffffu, s, 1);
+#pragma unroll
+  for (int off = 1; off < TPT; off <<= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
   const bool live = i < n;
   s = live ? s : kNegInf;
   float mx = s;
@@ -490,19 +508,33 @@ __global__ void __launch_bounds__(kThreads)
   float l = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) l += sRed[kWarps + w];
-  const int d = threadIdx.x;               // kThreads >= D
-  float acc = 0.f;
-  if (d < D) {
+  // this thread's output columns: threadIdx.x + kThreads c for c < COLS
+  // (one column, or none past D, up to D 128; two at D 256)
+  float acc[COLS];
 #pragma unroll
-    for (int r = 0; r < PARTS; ++r) acc += sAcc[r * D + d];
+  for (int c = 0; c < COLS; ++c) {
+    const int d = threadIdx.x + kThreads * c;
+    acc[c] = 0.f;
+    if (d < D) {
+#pragma unroll
+      for (int r = 0; r < PARTS; ++r) acc[c] += sAcc[r * D + d];
+    }
   }
   if (ns == 1) {                           // the row's only split
-    if (d < D) out[row * D + d] = acc / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int d = threadIdx.x + kThreads * c;
+      if (d < D) out[row * D + d] = acc[c] / fmaxf(l, 1e-30f);
+    }
     return;
   }
 
   const int64_t slot = row * S + split;
-  if (d < D) part_acc[slot * D + d] = acc;
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int d = threadIdx.x + kThreads * c;
+    if (d < D) part_acc[slot * D + d] = acc[c];
+  }
   if (threadIdx.x == 0) part_ml[slot] = make_float2(m, l);
   // the partial before the count: the barrier orders the block's stores
   // before thread 0's count, an acq_rel atomic at GPU scope, whose
@@ -519,7 +551,10 @@ __global__ void __launch_bounds__(kThreads)
   // splits (all of serving's) a batch. Past the first batch the sums so
   // far are rescaled to the new maximum, as the online softmax does; on
   // the first, M starts at kNegInf and the rescale is by 0
-  if (d < D) {
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int d = threadIdx.x + kThreads * c;
+    if (d >= D) continue;
     const float2* ml = part_ml + row * S;
     const float* pa = part_acc + row * S * D + d;
     float M = kNegInf, L = 0.f, A = 0.f;
@@ -592,6 +627,14 @@ cudaError_t chunk_bf16(int chunk, const float* q, int64_t q_sb, int64_t q_sh,
       return launch_bf16<D, 128>(q, q_sb, q_sh, kc, vc, tables, seq_lens, out,
                                  scratch, counters, B, H, NB, BT, W, scale,
                                  stream);
+    case 32:
+      // four threads a token: D 256's chunk (8192 / D tokens)
+      if constexpr (D == 256)
+        return launch_bf16<D, 32>(q, q_sb, q_sh, kc, vc, tables, seq_lens,
+                                  out, scratch, counters, B, H, NB, BT, W,
+                                  scale, stream);
+      else
+        return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -605,8 +648,9 @@ cudaError_t chunk_bf16(int chunk, const float* q, int64_t q_sb, int64_t q_sh,
 // out: (B, H, D) f32 contiguous; scratch: (B, H, S) x (2 + D) floats for
 // S = ceil(W * BT / chunk). `chunk`: tokens per split CTA as the wrapper
 // chose it, 64 for `_f32`, 64 or 128 for `_bf16` (the chunks built here;
-// 128 only at D 8). D: 8, 16, 32, 64 or 128; the wrapper pads any other
-// head size up to one of these (zero columns in q and the pool).
+// 128 only at D 8, 32 only at D 256). D: 8, 16, 32, 64, 128 or 256; the
+// wrapper pads any other head size up to one of these (zero columns in q
+// and the pool).
 // counters (`_bf16`): B * H int32, zero, left zero, used by one stream.
 // Returns the CUDA error of the launches (0 on success), or
 // cudaErrorInvalidValue for an unsupported head size or chunk.
@@ -644,6 +688,10 @@ extern "C" int mxt_paged_attention_f32(const float* q, int64_t q_sb,
       return launch_f32<128, 64>(q, q_sb, q_sh, k_cache, v_cache, tables,
                                  seq_lens, out, scratch, B, H, NB, BT, W,
                                  scale, s);
+    case 256:
+      return launch_f32<256, 64>(q, q_sb, q_sh, k_cache, v_cache, tables,
+                                 seq_lens, out, scratch, B, H, NB, BT, W,
+                                 scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -676,6 +724,10 @@ extern "C" int mxt_paged_attention_bf16(
                             scale, s);
     case 128:
       return chunk_bf16<128>(chunk, q, q_sb, q_sh, k_cache, v_cache, tables,
+                             seq_lens, out, scratch, counters, B, H, NB, BT,
+                             W, scale, s);
+    case 256:
+      return chunk_bf16<256>(chunk, q, q_sb, q_sh, k_cache, v_cache, tables,
                              seq_lens, out, scratch, counters, B, H, NB, BT,
                              W, scale, s);
     default:

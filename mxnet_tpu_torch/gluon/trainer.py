@@ -1,14 +1,17 @@
 """Trainer (the port of ``mxnet_tpu/gluon/trainer.py``; ref:
 python/mxnet/gluon/trainer.py): applies an Optimizer to a set of
-Parameters on one card.
+Parameters.
 
-The JAX Trainer makes a kvstore only for ``dist*`` types (or a given
-``KVStore``); single-device training updates locally, and that is the
-path ported here. A ``dist*`` type or a ``KVStore`` instance raises
-until the kvstore and its gradient allreduce are ported. The JAX step's
-health probe, tracing span, telemetry boundary and out-of-memory
-postmortem wait for the runtime planes; they are no-ops there unless
-enabled.
+On one card it updates locally, as the JAX Trainer does for every type
+that is not ``dist*``. A ``dist*`` type or a ``KVStore`` instance makes
+a kvstore at the first step (:mod:`..kvstore`): with
+``update_on_kvstore`` (the default there) each step pushes every
+gradient and pulls the updated weight (the parameter server, or the
+collective plane's replicated update); without it, each step allreduces
+the gradients through the kvstore (push, then pull into the gradient)
+and updates locally. Rank 0's values seed every worker at init. The JAX
+step's health probe, tracing span, telemetry boundary and out-of-memory
+postmortem wait for the runtime planes.
 """
 from __future__ import annotations
 
@@ -25,10 +28,6 @@ class Trainer:
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a list/dict of Parameters")
-        if not isinstance(kvstore, (str, type(None))) or \
-                str(kvstore).startswith("dist"):
-            raise MXNetError(f"Trainer: kvstore {kvstore!r} is not ported "
-                             "yet; train on one card (kvstore='device')")
         self._params = []
         self._param2idx = {}
         for i, p in enumerate(params):
@@ -43,8 +42,11 @@ class Trainer:
             **optimizer_params)
         self._updaters = opt_mod.get_updater(self._optimizer)
         self._kvstore_type = kvstore
+        self._kvstore = None
         self._update_on_kvstore = update_on_kvstore
         self._compression_params = compression_params
+        self._kv_initialized = False
+        self._shipped_rescale = None
 
     @property
     def learning_rate(self):
@@ -57,17 +59,76 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self):
+        """The kvstore of a ``dist*`` type (on the parameters' device) or
+        the ``KVStore`` given; none for the one-card types."""
+        from ..kvstore import KVStore, create
+        if isinstance(self._kvstore_type, KVStore):
+            self._kvstore = self._kvstore_type
+        elif self._kvstore_type and self._kvstore_type != "None" and \
+                str(self._kvstore_type).startswith("dist"):
+            ready = [p for p in self._params if p._data is not None]
+            self._kvstore = create(
+                self._kvstore_type,
+                ready[0].data()._data.device if ready else None)
+        if self._kvstore is not None:
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            if self._update_on_kvstore is None:
+                self._update_on_kvstore = True
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+            for i, p in enumerate(self._params):
+                if p._data is not None:
+                    self._kvstore.init(i, p.data())
+                    if not self._update_on_kvstore:
+                        # worker-side updates never pull weights later, so
+                        # rank 0's values land here (ref: trainer.py
+                        # _init_params pulls after init)
+                        self._kvstore.pull(i, out=p.data())
+        self._kv_initialized = True
+
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale by ``1 / batch_size`` and update every parameter (one
-        card: no allreduce)."""
+        """Rescale by ``1 / batch_size``, allreduce the gradients through
+        the kvstore (when there is one and it does not update), update."""
+        # before the kvstore's init: update_on_kvstore pickles the
+        # optimizer to the server, which must see the batch scaling
         self._optimizer.rescale_grad = self._scale / batch_size
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._sync_server_rescale()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
+    def _sync_server_rescale(self):
+        """Re-ship the optimizer when the batch scale changes after the
+        first step (a short last batch): the server's updater would keep
+        the stale ``rescale_grad``."""
+        if self._kvstore is None or not self._update_on_kvstore:
+            return
+        if self._shipped_rescale is None:
+            self._shipped_rescale = self._optimizer.rescale_grad
+        elif self._shipped_rescale != self._optimizer.rescale_grad:
+            self._kvstore.set_optimizer(self._optimizer)
+            self._shipped_rescale = self._optimizer.rescale_grad
+
     def allreduce_grads(self):
-        """Nothing to reduce on one card."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if self._kvstore is not None and not self._update_on_kvstore:
+            for i, p in enumerate(self._params):
+                if p.grad_req != "null":
+                    self._kvstore.push(i, p.grad())
+                    self._kvstore.pull(i, p.grad())
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
@@ -79,16 +140,40 @@ class Trainer:
                     raise MXNetError(f"parameter {p.name} not initialized "
                                      "before step()")
                 continue
-            self._updaters(i, p.grad(), p.data())
+            if self._kvstore is not None and self._update_on_kvstore:
+                self._kvstore.push(i, p.grad())
+                self._kvstore.pull(i, p.data())
+            else:
+                self._updaters(i, p.grad(), p.data())
 
     def save_states(self, fname):
-        """The optimizer states (ref: trainer.py save_states); the JAX
-        package's CRC manifest entry waits for the checkpoint plane."""
-        with open(fname, "wb") as f:
-            f.write(self._updaters.get_states())
+        """The optimizer states (ref: trainer.py save_states), written
+        atomically with a CRC manifest entry; with the optimizer on the
+        kvstore, the kvstore's states."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=False)
+        else:
+            from ..checkpoint import atomic_write
+            with atomic_write(fname) as f:
+                f.write(self._updaters.get_states())
 
     def load_states(self, fname):
-        with open(fname, "rb") as f:
-            self._updaters.set_states(f.read())
-        # set_states may swap in a pickled optimizer
-        self._optimizer = self._updaters.optimizer
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+            # the local updater mirrors the loaded states, so a later local
+            # update does not resume from stale ones
+            self._updaters.set_states(
+                self._kvstore._updater.get_states(dump_optimizer=False))
+            self._updaters.optimizer = self._optimizer
+        else:
+            from ..checkpoint import verify
+            verify(fname)
+            with open(fname, "rb") as f:
+                self._updaters.set_states(f.read())
+            # set_states may swap in a pickled optimizer
+            self._optimizer = self._updaters.optimizer

@@ -144,11 +144,11 @@ _PAGED_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
 # bf16: the merge counters after the scratch
 _PAGED_BF16_ARGS = _PAGED_ARGS[:9] + [_P] + _PAGED_ARGS[9:]
 # head sizes the kernels are built for; the wrappers pad any other size
-# up to 128 with zero columns (exact: the scores do not change, and the
+# up to 256 with zero columns (exact: the scores do not change, and the
 # output's extra columns are dropped), and refuse larger ones
-_FLASH_HEAD_DIMS = (16, 32, 64, 128)
+_FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 _FLASH_TYPES = (torch.float32, torch.bfloat16)
-_PAGED_HEAD_DIMS = (8, 16, 32, 64, 128)
+_PAGED_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 
 
 def _built_dim(d, dims, name):
@@ -163,8 +163,8 @@ def _built_dim(d, dims, name):
 def paged_head_dim(d):
     """The head size a KV pool for heads of size ``d`` is laid out with
     on every device: the paged kernel's built size that holds ``d``
-    (8, 16, 32, 64 or 128). The decoder writes columns ``[:d]``; the
-    rest stay zero. Past 128 no kernel is built: the pool keeps ``d``
+    (8, 16, 32, 64, 128 or 256). The decoder writes columns ``[:d]``; the
+    rest stay zero. Past 256 no kernel is built: the pool keeps ``d``
     (the CPU serves it, the card raises at the decode step)."""
     d = int(d)
     return next((b for b in _PAGED_HEAD_DIMS if d <= b), d)
@@ -349,8 +349,9 @@ def flash_attention(q, k, v, causal=False, scale=None):
     computed in f32 and written in bfloat16; unit stride along D, 16-byte
     aligned base addresses and strides) and count one launch in
     ``launches`` (float32) or ``launches_bf16``. The kernels are built
-    for D in {16, 32, 64, 128}; any other D up to 128 is zero-padded to
-    the next of them (:func:`_flash_padded`, exact) and D > 128 raises.
+    for D in {16, 32, 64, 128, 256}; any other D up to 256 is zero-padded
+    to the next of them (:func:`_flash_padded`, exact) and D > 256
+    raises.
     Causal takes T_q <= T_k, the queries being the last T_q key
     positions. When a gradient is needed on CUDA, the backward is
     :func:`flash_attention_bwd`. The output has q's shape and type; on
@@ -377,7 +378,7 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     in ``launches`` (float32) or ``launches_bf16``. The kernels take
     q, k, v, out and d_out float32, or all bfloat16; unit stride along
     D, causal with T_q <= T_k, and ``lse`` f32 contiguous; anything else
-    raises. D up to 128 is padded to a built size as in the forward
+    raises. D up to 256 is padded to a built size as in the forward
     (:func:`_flash_bwd_padded`; the ``lse`` does not change). The
     kernels of both types copy q, k, v and d_out 16 bytes at a time, so
     each of them that is not 16-byte aligned (base address and strides,
@@ -452,10 +453,10 @@ def _paged_chunk(b, h, d, w, bt, bf16, sms):
     heads of size D over tables of W blocks of BT tokens on a card of
     ``sms`` SMs, from the shapes only (``seq_lens`` stays on the device).
     f32 caches: ``_PAGED_CHUNK_F32``. bf16 caches: the f32 design's 32 KB
-    of K and V in flight a CTA, 8192 / D tokens up to 128 (128 at D 64),
-    unless the grid of B * H * ceil(W * BT / chunk) CTAs would then fall
-    under two CTAs an SM: then 64. At D 8 always 128: a row is one
-    16-byte piece, read by one thread a token."""
+    of K and V in flight a CTA, 8192 / D tokens up to 128 (128 at D 64,
+    32 at D 256), unless the grid of B * H * ceil(W * BT / chunk) CTAs
+    would then fall under two CTAs an SM: then 64. At D 8 always 128: a
+    row is one 16-byte piece, read by one thread a token."""
     if not bf16:
         return _PAGED_CHUNK_F32
     if d < 16:
@@ -509,7 +510,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     ``launches_bf16``. q is float32 either way, and so is the output.
     The caches are read in place, never copied: they must be contiguous.
     ``seq_lens`` is never read on the host. The kernels are built for D
-    in {8, 16, 32, 64, 128}: a pool for any other D up to 128 is laid
+    in {8, 16, 32, 64, 128, 256}: a pool for any other D up to 256 is laid
     out at :func:`paged_head_dim` (``kvcache.BlockPool`` does so), with
     zero columns past q's D; q is then zero-padded to the pool's D on
     every device and the output sliced back (exact). ``scale`` defaults

@@ -11,7 +11,7 @@ into the pool with an indexed store, so the pool is never copied.
 
 The pool's last dimension is :func:`~mxnet_tpu_torch.ops.attention.
 paged_head_dim` of the heads' size, the paged kernel's built size that
-holds it (8, 16, 32, 64 or 128), on every device: the decoder writes
+holds it (8, 16, 32, 64, 128 or 256), on every device: the decoder writes
 columns ``[:head_dim]`` and the rest stay zero, since every write of a
 reused block writes only those columns. The pool's bytes count the
 padded size.

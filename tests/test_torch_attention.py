@@ -336,13 +336,13 @@ def _paged_split_emulated(q, kc, vc, tables, lens, chunk, merge=None):
     return out
 
 
-@pytest.mark.parametrize("chunk", [128, 64, 24, 10])
+@pytest.mark.parametrize("chunk", [128, 64, 32, 24, 10])
 def test_paged_split_kv_emulation_matches_jax(chunk):
     """Split and merge against the JAX gather reference at the paged
     tolerance: seq_len 0, lengths 1, 15, 16, 17, on both sides of the
     chunk, and the full table; empty splits; chunks of 128 and 64 tokens
-    (the kernels') and of 24 and 10, whose edges fall inside 16-token
-    blocks."""
+    (the kernels'; 32, the bf16 kernel's at D 256) and of 24 and 10,
+    whose edges fall inside 16-token blocks."""
     width, bt = 10, 16
     lens = np.array([0, 1, 15, 16, 17, chunk - 1, chunk, chunk + 1,
                      width * bt], np.int32)
@@ -365,7 +365,8 @@ def test_paged_split_kv_emulation_matches_jax(chunk):
     assert not got[~live].any()
 
 
-@pytest.mark.parametrize("chunk,merge", [(64, 16), (24, 16), (10, 4)])
+@pytest.mark.parametrize("chunk,merge", [(64, 16), (32, 16), (24, 16),
+                                         (10, 4)])
 def test_paged_batched_merge_emulation_matches_jax(chunk, merge):
     """The bf16 kernel's merge, ``merge`` splits' partials a batch with
     the sums rescaled to each batch's maximum, against the JAX gather
@@ -498,13 +499,15 @@ def _mm_pieces(x, b, pieces):
 
 
 def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
-                  mm=torch.matmul):
+                  mm=torch.matmul, walk=None):
     """csrc/flash_attention_bwd.cu's order of work on (BH, T, D):
     D = rowsum(dO * O); pass 2 walks each 64-key block's query blocks
     (from the diagonal when causal) summing dV += P^T dO and
     dK += dS^T Q; pass 3 walks each 64-row query block's key blocks
     summing dQ += dS K; P = exp(scale * S - lse) recomputed in both,
-    zero where masked. ``mm``: how the kernels run each of the five
+    zero where masked. ``walk``: the rows of a walked block (query
+    blocks in pass 2, key blocks in pass 3), ``blk`` unless given; the
+    fp32 kernels walk 32 at D 256. ``mm``: how the kernels run each of the five
     products (S, dP, and dV, dK, dQ with P and dS as their left
     operand): the fp32 kernels' 3xTF32 (:func:`_mm_3xtf32`), or the
     bf16 kernels' exact products with P and dS in bf16 pieces
@@ -513,12 +516,13 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
     last key block move with it, as in the kernels."""
     t_q, t_k = q.shape[1], k.shape[1]
     shift = t_k - t_q if causal else 0
+    walk = walk or blk
     d_vec = (g * out).sum(-1)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
 
-    def tile(q0, k0):
-        rows = torch.arange(q0, min(q0 + blk, t_q))
-        keys = torch.arange(k0, min(k0 + blk, t_k))
+    def tile(q0, n_q, k0, n_k):
+        rows = torch.arange(q0, min(q0 + n_q, t_q))
+        keys = torch.arange(k0, min(k0 + n_k, t_k))
         s = mm(q[:, rows], k[:, keys].transpose(1, 2))
         dp = mm(g[:, rows], v[:, keys].transpose(1, 2))
         ok = keys[None, :] <= rows[:, None] + shift if causal else \
@@ -528,15 +532,15 @@ def _bwd_emulated(q, k, v, out, g, lse, causal, scale, blk=64,
         return rows, keys, p, p * (dp - d_vec[:, rows, None])
 
     for k0 in range(0, t_k, blk):
-        first = max(k0 - shift, 0) // blk * blk if causal else 0
-        for q0 in range(first, t_q, blk):
-            rows, keys, p, ds = tile(q0, k0)
+        first = max(k0 - shift, 0) // walk * walk if causal else 0
+        for q0 in range(first, t_q, walk):
+            rows, keys, p, ds = tile(q0, walk, k0, blk)
             dv[:, keys] += mm(p.transpose(1, 2), g[:, rows])
             dk[:, keys] += mm(ds.transpose(1, 2), q[:, rows])
     for q0 in range(0, t_q, blk):
         for k0 in range(0, min(q0 + blk + shift, t_k) if causal else t_k,
-                        blk):
-            rows, keys, p, ds = tile(q0, k0)
+                        walk):
+            rows, keys, p, ds = tile(q0, blk, k0, walk)
             dq[:, rows] += mm(ds, k[:, keys])
     return dq * scale, dk * scale, dv
 
@@ -663,7 +667,8 @@ def _flash_bf16_emulated(q, k, v, causal, stage=64):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,d", [(16, 16), (48, 64), (512, 64), (130, 128)])
+@pytest.mark.parametrize("t,d", [(16, 16), (48, 64), (512, 64), (130, 128),
+                                 (80, 256)])
 def test_flash_bf16_emulation_meets_chip_bound(t, d, causal):
     """The bf16 kernel's arithmetic meets the bound chip_smoke.py holds the
     kernel to: within the JAX bf16 bound of an f32 dense run elementwise,
@@ -749,12 +754,14 @@ def _bwd_tf32_case(case):
     backward's emulation: causal, rectangular (non-causal 128 x 192),
     ragged T 100 (no 64-row tiling: the JAX function differentiates its
     dense path) and causal with T_q 100 < T_k 256 (the diagonal shifted)
-    at D 16, and causal at D 64."""
+    at D 16, causal at D 64, and causal at D 256 with T_q 100 < T_k 160
+    (the kernels' 32-row walked tiles)."""
     t_q, t_k, d, causal = {"causal": (128, 128, 16, True),
                            "rect": (128, 192, 16, False),
                            "ragged": (100, 100, 16, True),
                            "offset": (100, 256, 16, True),
-                           "d64": (128, 128, 64, True)}[case]
+                           "d64": (128, 128, 64, True),
+                           "d256": (100, 160, 256, True)}[case]
     rng = np.random.default_rng(t_q * 7 + t_k + d)
     q = rng.standard_normal((2, t_q, d)).astype(np.float32)
     k, v = (rng.standard_normal((2, t_k, d)).astype(np.float32)
@@ -767,12 +774,14 @@ def _bwd_tf32_emulated(q, k, v, g, causal, mm):
     """The fp32 backward kernel emulated with every product as ``mm``,
     from the 3xTF32 forward's emulated output and the rows' log-sum-exp:
     P and dS enter their products as f32 values, split by ``mm`` as the
-    kernel splits them leaving the accumulator."""
+    kernel splits them leaving the accumulator; walked tiles of 32 rows
+    at D 256, as the kernels take them there."""
     q, k, v, g = _t(q, k, v, g)
     scale = q.shape[-1] ** -0.5
     out = _flash_emulated(q, k, v, causal, _mm_3xtf32)
     lse = _lse(q, k, causal, scale)
-    return _bwd_emulated(q, k, v, out, g, lse, causal, scale, mm=mm)
+    return _bwd_emulated(q, k, v, out, g, lse, causal, scale, mm=mm,
+                         walk=32 if q.shape[-1] > 128 else None)
 
 
 def _within_fp32(got, want):
@@ -781,7 +790,7 @@ def _within_fp32(got, want):
 
 
 @pytest.mark.parametrize("case", ["causal", "rect", "ragged", "offset",
-                                  "d64"])
+                                  "d64", "d256"])
 def test_flash_bwd_3xtf32_emulation_meets_fp32_tolerance(case):
     """The fp32 backward kernel's arithmetic (its two-pass tiling, every
     product 3xTF32 with the small parts unrounded, P and dS split as they
@@ -918,8 +927,9 @@ def test_paged_chunk_chooser_and_scratch_sizing():
     from the shapes and the card's SM count alone: over bf16 caches 128
     at the serving decode
     shape (B 32, H 8, D 64, tables of 48 blocks of 16 tokens), 64 where
-    the grid would fall under two CTAs an SM (B 1) and at D 128; over
-    f32 caches always 64 (its split and merge kernels). The wrapper's
+    the grid would fall under two CTAs an SM (B 1) and at D 128, 32 at
+    D 256 (B 32 and B 1); over f32 caches always 64 (its split and merge
+    kernels, D 256 too). The wrapper's
     buffers follow the chunk chosen: ceil(W * BT / chunk) splits of
     (2 + D) floats a (sequence, head), and for bf16 the (device,
     stream)'s zeroed int32 merge counters, one buffer a stream, grown
@@ -928,6 +938,9 @@ def test_paged_chunk_chooser_and_scratch_sizing():
     assert att._paged_chunk(1, 8, 64, 48, 16, True, 132) == 64
     assert att._paged_chunk(32, 8, 128, 48, 16, True, 132) == 64
     assert att._paged_chunk(32, 8, 64, 48, 16, False, 132) == 64
+    assert att._paged_chunk(32, 16, 256, 48, 16, True, 132) == 32
+    assert att._paged_chunk(1, 16, 256, 256, 16, True, 132) == 32
+    assert att._paged_chunk(32, 16, 256, 48, 16, False, 132) == 64
     # the grid floor follows the card's SM count: 4 x 8 x 6 CTAs are
     # under two an SM of 132 SMs, not of 66
     assert att._paged_chunk(4, 8, 64, 48, 16, True, 132) == 64
@@ -1056,7 +1069,7 @@ def _grads_through(attend, q, k, v, g, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 16, 80])
+@pytest.mark.parametrize("d", [8, 16, 80, 200])
 def test_flash_head_padding_is_exact(d, dtype):
     """What the CUDA wrappers do for a head size the kernels are not
     built for, run through the plain versions: q, k and v zero-padded to
@@ -1103,21 +1116,31 @@ def test_flash_head_padding_is_exact(d, dtype):
 
 
 def test_head_sizes_past_128_raise():
-    q = torch.zeros(1, 4, 144)
+    """Past 128 the wrappers pad to the D 256 instances; past 256, the
+    largest built size, K3's wrappers raise and a pool keeps its D (the
+    card raises at the paged launch)."""
+    for d, size in ((129, 256), (144, 256), (200, 256), (256, 256)):
+        assert att._built_dim(d, att._FLASH_HEAD_DIMS, "f") == size
+        assert att.paged_head_dim(d) == size
+    q = torch.zeros(1, 4, 288)
     with pytest.raises(MXNetError):
         att._flash_padded(q, q, q, True, 1.0, att.flash_attention_plain)
-    assert att.paged_head_dim(144) == 144     # the card raises at launch
+    with pytest.raises(MXNetError):
+        att._flash_bwd_padded(q, q, q, q, q, True, 1.0,
+                              att.flash_attention_bwd_plain)
+    assert att.paged_head_dim(288) == 288     # the card raises at launch
 
 
 @pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 12, 16, 80])
+@pytest.mark.parametrize("d", [8, 12, 16, 80, 200])
 def test_paged_pool_padding_is_exact(d, cache):
     """A pool laid out at ``paged_head_dim(D)`` (zero columns past D, as
     BlockPool allocates it): the wrapper pads q to the pool's D and
     slices the output, which equals the unpadded call to 1e-6 (a sum
     over more, zero, terms) and the JAX gather reference within its
     bound."""
-    assert att.paged_head_dim(d) == {8: 8, 12: 16, 16: 16, 80: 128}[d]
+    assert att.paged_head_dim(d) == {8: 8, 12: 16, 16: 16, 80: 128,
+                                     200: 256}[d]
     q, kc, vc, tables, lens = _paged_case(seed=d, d=d)
     kt, vt = (torch.from_numpy(x).to(cache) for x in (kc, vc))
     args = _t(tables, lens)
@@ -1132,3 +1155,94 @@ def test_paged_pool_padding_is_exact(d, cache):
         torch.testing.assert_close(got[live], want[live], rtol=1e-6,
                                    atol=1e-6)
         assert np.abs(got.numpy() - ref)[live].max() < PAGED_ATOL
+
+
+# ---------------------------------------------------------------------------
+# head size 256 (Gemma-7B's heads): the plain versions against the JAX
+# package, and the bf16 backward's arithmetic at that size
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t_q,t_k,causal", [(64, 64, True), (40, 96, True)])
+def test_d256_plain_forward_and_gradient_match_jax(t_q, t_k, causal):
+    """At D 256 the plain forward is the JAX ``_dense_reference`` and the
+    interpret-mode Pallas forward, and the plain backward and torch
+    autograd through the CPU path are ``jax.grad`` of that forward, at
+    the fp32 attention bound (the JAX package serves any D)."""
+    rng = np.random.default_rng(t_q * 100 + t_k)
+    q = rng.standard_normal((2, t_q, 256)).astype(np.float32)
+    k, v = (rng.standard_normal((2, t_k, 256)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    got = att.flash_attention(*_t(q, k, v), causal=causal)
+    ref = np.asarray(pk._dense_reference(q, k, v, causal, 256 ** -0.5))
+    kern = np.asarray(pk.flash_attention(q, k, v, causal=causal, force=True,
+                                         interpret=True, block_q=64,
+                                         block_k=64))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=FLASH_RTOL,
+                               atol=FLASH_ATOL)
+    np.testing.assert_allclose(got.numpy(), kern, rtol=FLASH_RTOL,
+                               atol=FLASH_ATOL)
+    want = _jax_flash_grads(q, k, v, g, causal)
+    plain = att.flash_attention_bwd_plain(*_t(q, k, v), got,
+                                          torch.from_numpy(g), causal)
+    leaves = [x.requires_grad_(True) for x in _t(q, k, v)]
+    auto = torch.autograd.grad(att.flash_attention(*leaves, causal=causal),
+                               leaves, torch.from_numpy(g))
+    for grads in (plain, auto):
+        for a, w in zip(grads, want):
+            np.testing.assert_allclose(a.numpy(), w, rtol=FLASH_RTOL,
+                                       atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_d256_paged_plain_matches_jax(cache):
+    """The plain paged version at D 256 (the kernels' chunk 64 for f32
+    caches and 32 for bf16) against the JAX gather reference and the
+    Pallas kernel in interpret mode, lengths about both chunks, a padding
+    row; and the split-KV emulation at the bf16 kernel's chunk."""
+    width, bt = 8, 16
+    lens = np.array([0, 1, 31, 32, 33, 64, 65, 100, width * bt], np.int32)
+    tables = np.zeros((len(lens), width), np.int32)
+    ids = np.random.default_rng(5).permutation(np.arange(1, 64))
+    at = 0
+    for i, n in enumerate(lens):
+        need = -(-int(n) // bt)
+        tables[i, :need] = ids[at:at + need]
+        at += need
+    q, kc, vc, tables, lens = _paged_case(seed=256, b=len(lens), h=2,
+                                          d=256, bt=bt, nb=64,
+                                          tables=tables, lens=lens)
+    (kt, vt), (kn, vn) = _bf16(kc, vc) if cache == torch.bfloat16 else \
+        (_t(kc, vc), (kc, vc))
+    got = att.paged_attention(torch.from_numpy(q), kt, vt,
+                              *_t(tables, lens)).numpy()
+    ref = np.asarray(pk._paged_gather_reference(q, kn, vn, tables, lens,
+                                                256 ** -0.5))
+    kern = np.asarray(pk.paged_attention(q, kn, vn, tables, lens,
+                                         force=True))
+    live = lens > 0
+    assert np.abs(got - ref)[live].max() < PAGED_ATOL
+    assert np.abs(got - kern)[live].max() < PAGED_ATOL
+    chunk = att._paged_chunk(len(lens), 2, 256, width, bt,
+                             cache == torch.bfloat16, 132)
+    split = _paged_split_emulated(torch.from_numpy(q), kt.float(),
+                                  vt.float(), *_t(tables, lens), chunk,
+                                  16 if cache == torch.bfloat16 else None)
+    assert np.abs(split.numpy() - ref)[live].max() < PAGED_ATOL
+
+
+def test_d256_flash_bwd_bf16_emulation_meets_chip_bound():
+    """The bf16 backward at D 256 (its gradient columns split over two
+    CTAs, which leaves each column's sums as they are): within phase
+    13's bound of the plain backward given the same forward output, and
+    no further from an f64 backward than twice the plain bf16 one."""
+    q, k, v, g, out, lse = _bwd_bf16_case(80, 144, True, d=256, bh=2)
+    got = _bwd_bf16_emulated(q, k, v, g, out, lse, True, pieces=2)
+    assert all(_within_chip_bwd_bound(got, q, k, v, g, out, True))
+    qd, kd, vd, gd = (x.double() for x in (q, k, v, g))
+    exact = att.flash_attention_bwd_plain(
+        qd, kd, vd, att.flash_attention_plain(qd, kd, vd, True), gd, True)
+    plain = att.flash_attention_bwd_plain(
+        q, k, v, att.flash_attention_plain(q, k, v, True), g, True)
+    for a, p, e in zip(got, plain, exact):
+        assert _rel_l2(a.float(), e) <= BF16_F64_RATIO * _rel_l2(p.float(), e)

@@ -346,3 +346,33 @@ def test_padded_pool_gateway_equals_jax_reference():
     finally:
         gw.close()
     assert got == [jax_reference(jdec, p, 6) for p in prompts]
+
+
+@pytest.mark.parametrize("d_model,head,pool_head", [(400, 200, 256)])
+def test_wide_head_gateway_equals_jax_reference(d_model, head, pool_head):
+    """Heads of size 200 (2 heads): the pool is laid out at the paged
+    kernel's D 256 (zero columns past 200), and the gateway's greedy
+    tokens equal the JAX package's unpaged reference on the same weights
+    (the JAX package serves any head size)."""
+    cfg = dict(vocab_size=VOCAB, d_model=d_model, num_layers=1, num_heads=2,
+               max_prompt_tokens=8)
+    mx.random.seed(2)
+    jdec = JaxDecoder(**cfg)
+    tree = jax.tree_util.tree_map(np.asarray, jdec.param_tree())
+    dec = GenerativeDecoder(**cfg, device="cpu")
+    dec.load_state_dict(params_from_jax(tree))
+    gw = Gateway(device="cpu")
+    try:
+        gen = gw.register_generator("lm", dec, block_tokens=4,
+                                    max_blocks=12, max_new_tokens=4,
+                                    max_decode_batch=2)
+        pool = gen.lane.pool
+        assert pool.head_dim == head and pool.k.shape[-1] == pool_head
+        prompts = [[3, 7, 11, 2, 9], [5, 1]]
+        reqs = [gw.submit_generate("lm", p, max_new_tokens=4)
+                for p in prompts]
+        got = [r.result(60) for r in reqs]
+        assert not pool.k[..., head:].any()
+    finally:
+        gw.close()
+    assert got == [jax_reference(jdec, p, 4) for p in prompts]

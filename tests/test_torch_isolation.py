@@ -7,8 +7,13 @@
 raise on a host without one unless the caller asks for the CPU, and its
 kernel build raises instead of falling back when ``nvcc`` is missing.
 The import check covers the training modules too (``optimizer``,
-``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``) and the
-ops the decoder-LM training path adds (``ops.contrib``)."""
+``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``), the
+ops the decoder-LM training path adds (``ops.contrib``) and the
+distribution layer (``kvstore.*``, ``kvstore_server``, the ``_native``
+loader and the launcher, which imports no torch either). The transport
+``_native/comm.cc`` builds under ``build/``, never beside a source, and
+the dist entry points (a ``dist_device_sync`` worker, the server) take
+the card unless asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -24,6 +29,7 @@ from mxnet_tpu_torch.serving import Gateway, ServingError
 from mxnet_tpu_torch.serving.generate import BlockPool, GenerativeDecoder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LAUNCH = os.path.join(REPO, "mxnet_tpu_torch", "tools", "launch.py")
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 # numpy's bfloat16: the card's machine need not have it, so the port
 # imports it only inside the function that turns bf16 into numpy
@@ -61,6 +67,13 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.optimizer, mxnet_tpu_torch.metric\n"
         "import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.gluon.loss\n"
         "import mxnet_tpu_torch.gluon.trainer\n"
+        "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.kvstore.kvstore\n"
+        "import mxnet_tpu_torch.kvstore.dist, mxnet_tpu_torch.kvstore.fault\n"
+        "import mxnet_tpu_torch.kvstore.collective\n"
+        "import mxnet_tpu_torch.kvstore.gradient_compression\n"
+        "import mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch._native\n"
+        "import runpy\n"
+        f"runpy.run_path({LAUNCH!r})\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN + LAZY!r}))\n")
@@ -353,3 +366,57 @@ def test_gluon_and_oneshot_entry_points_run_on_the_cpu_when_asked(tmp_path):
     fwd, params = quantize_net(net, 2, x, ctx=tmx.cpu())
     out = fwd(params, x)
     assert out.device == torch.device("cpu") and out.shape == (2, 2)
+
+
+def test_launcher_imports_no_torch_and_no_package():
+    """The launcher runs as a script in a bare interpreter: loading it
+    and printing its help imports neither torch nor any package of this
+    repository."""
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({LAUNCH!r})\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'mxnet_tpu', 'mxnet_tpu_torch')))\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+    out = subprocess.run([sys.executable, "-I", LAUNCH, "--help"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    assert "--env-server" in out.stdout and "--restart-policy" in out.stdout
+
+
+def test_comm_builds_under_build_never_beside_a_source():
+    from mxnet_tpu_torch import _native
+    lib = _native.load_comm()
+    path = os.path.realpath(lib._name)
+    assert path == os.path.realpath(str(_native.comm_library_path()))
+    assert path.startswith(os.path.join(os.path.realpath(REPO), "build",
+                                        "native") + os.sep)
+    for src_dir in ("mxnet_tpu_torch/_native", "mxnet_tpu/_native"):
+        assert os.path.dirname(path) != os.path.realpath(
+            os.path.join(REPO, src_dir))
+    assert not [f for f in os.listdir(os.path.join(
+        REPO, "mxnet_tpu_torch", "_native")) if f.endswith(".so")]
+
+
+def test_dist_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """A serverless dist_device_sync worker takes its device from the
+    context (NCCL on a card, gloo on the CPU, never chosen by probing),
+    and the server its own from MXNET_KVSTORE_SERVER_DEVICE: both raise
+    on a host without CUDA unless asked for the CPU."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.kvstore import dist
+    _require_no_cuda()
+    monkeypatch.setenv("DMLC_NUM_SERVER", "0")
+    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
+    monkeypatch.setenv("DMLC_PS_ROOT_PORT", "1")
+    with pytest.raises(MXNetError):
+        tmx.kv.create("dist_device_sync")
+    monkeypatch.delenv(dist.SERVER_DEVICE_ENV, raising=False)
+    with pytest.raises(MXNetError):
+        dist.server_device()
+    monkeypatch.setenv(dist.SERVER_DEVICE_ENV, "cpu")
+    assert dist.server_device() == torch.device("cpu")
