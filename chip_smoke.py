@@ -204,8 +204,30 @@ Phases (any failure exits non-zero and prints no result line):
    deterministic), and the allreduce of 25M f32 as ``bench.py``
    ``_bench_allreduce`` reports it at one rank (2 x bytes / s, CUDA
    events; no bus bandwidth). No kernel of the port launches here;
-17. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
-   entries), then the result line ``{"ok": true, "device": {...}}``.
+17. the serving planes on the one card, at phase 5's decoder widths
+   (2.147 GB f32 pool a lane) and burst, the burst's
+   ``reference_generate`` tokens computed once: ``Gateway(devices=
+   [cuda:0])`` with ``register_generator(replicas=2)`` (degraded, its
+   warning logged once), lane 0 killed mid-stream with ``GenLane.kill``:
+   every stream equal to ``reference_generate``, at least one KV-block
+   migration with ``bytes_moved`` = blocks x ``bytes_per_block``, K4
+   still launching on the survivor and ``memory_allocated`` down by one
+   pool; the same kill under ``MXNET_KVSTORE_FAULT_PLAN=replay_storm``
+   (every rescue a replay: K3, then K4 at batch 1) and under
+   ``migrate_wedge@round=1``; one lane scaled to 3 and back to 1 while
+   streams run (two pools released); a bf16 pool killed mid-stream,
+   tokens equal to the plain paged lane's; ``MXTPU_GEN_MAX_RECOVERIES=0``,
+   a fast ``RejectedError(reason="lane_lost")``; phase 10's exported
+   ResNet-50 with two replicas, a fault injected into replica 0 (its
+   batch redistributes, replies bitwise the one-replica replies),
+   ``check_health(revive=True)``, ``scale`` 2 -> 3 -> 1 leaving one lane
+   thread. Each scenario's K3 / K4 launches equal its lanes' prefill and
+   decode calls (warmups, prefills, replays, batched and batch-1 steps) x
+   layers. Prints tokens/s, kill-to-next-token ms, migrated bytes and
+   migration / replay ms per scenario; 60 s at most;
+18. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+   entries, phase 17's launches as ``planes_launches``), then the result
+   line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
@@ -213,6 +235,7 @@ file), it exits with a non-zero code.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -276,6 +299,8 @@ PARITY_STEM_RATIO = 2.0
 K2_LARGEST = 512 * 512 * 3 * 3       # stage 4's 3x3 convolution weight
 # numbers one phase prints that a later one prints beside its own
 RESULTS = {}
+# wall seconds of each phase function, summed over its calls
+PHASE_S = {}
 
 
 def log(*a):
@@ -1086,7 +1111,7 @@ def phase_serve(att, dev, burst):
         gen = gw.register_generator(
             "lm", dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
             max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH)
-        pool_bytes = gen.lane.pool.bytes_total
+        pool_bytes = gen.lanes[0].pool.bytes_total
         log(f"register_generator: pool {pool_bytes / 1e9:.3f} GB, warmup "
             f"{time.perf_counter() - t0:.2f}s")
         check(pool_bytes == 2 * LAYERS * MAX_BLOCKS * BLOCK_TOKENS * HEADS
@@ -3219,7 +3244,7 @@ def phase_serve_bf16(att, dev, burst, f32_main):
         gen = gw.register_generator(
             "lm16", dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
             max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH)
-        pool = gen.lane.pool
+        pool = gen.lanes[0].pool
         pool_bytes = pool.bytes_total
         check(pool.k.dtype == torch.bfloat16 and pool_bytes == 2 * LAYERS
               * MAX_BLOCKS * BLOCK_TOKENS * HEADS * HEAD_DIM * 2,
@@ -3341,7 +3366,7 @@ def phase_serve_heads(att, i8, fo, dev):
             gw = Gateway(device=dev)
             try:
                 gen = gw.register_generator("lm", dec, **lane_cfg)
-                pool = gen.lane.pool
+                pool = gen.lanes[0].pool
                 pool_d, pool_bytes = pool.pool_head_dim, pool.bytes_total
                 check(pool_bytes == 2 * pool.num_layers * pool.max_blocks
                       * pool.block_tokens * pool.num_heads * pool_d
@@ -4056,6 +4081,509 @@ def phase_dist(here, dev):
     return report
 
 
+# -- phase 17: the serving planes ------------------------------------------
+# a lane is killed once one of its streams has decoded PLANES_KILL_AFTER
+# tokens and has at least PLANES_KILL_BEFORE still to come, so the kill
+# lands mid-stream
+PLANES_KILL_AFTER, PLANES_KILL_BEFORE = 4, 8
+PLANES_REPLICA_ROWS, PLANES_ONESHOT_REQUESTS = 4, 6
+# the gateway's degraded-placement warning, counted over the phase
+PLANES_WARNINGS = []
+
+
+class _WarningCount(logging.Handler):
+    def emit(self, record):
+        if record.getMessage().startswith("serving: 2 replicas requested"):
+            PLANES_WARNINGS.append(record.getMessage())
+
+
+def planes_submit(gw, name, prompts, new):
+    """The burst streamed, a consumer thread a request stamping each
+    token's arrival (host monotonic ns). Returns (requests, stamps,
+    consumer threads, errors by request index)."""
+    reqs, stamps, threads, errors = [], [], [], {}
+
+    def consume(i, req):
+        try:
+            for _ in req.stream():
+                stamps[i].append(time.monotonic_ns())
+        except Exception as e:  # noqa: BLE001 — read by the caller
+            errors[i] = (e, time.monotonic_ns())
+
+    for i, (p, n) in enumerate(zip(prompts, new)):
+        req = gw.generate(name, p, max_new_tokens=int(n), stream=True)
+        stamps.append([])
+        th = threading.Thread(target=consume, args=(i, req), daemon=True)
+        th.start()
+        reqs.append(req)
+        threads.append(th)
+    return reqs, stamps, threads, errors
+
+
+def planes_join(threads):
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "stream consumer still running")
+
+
+def planes_kill(gen, lane, cause):
+    """Kill ``lane`` with ``GenLane.kill`` while one of its streams is
+    mid-decode; returns the kill's host time (monotonic ns)."""
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with gen.cond:
+            mid = [r for r in lane.running
+                   if len(r.tokens) >= PLANES_KILL_AFTER
+                   and r.max_new_tokens - len(r.tokens) >= PLANES_KILL_BEFORE]
+        if mid:
+            t_kill = time.monotonic_ns()
+            lane.kill(cause)
+            return t_kill
+        time.sleep(0.0005)
+    fail(f"serving_planes: no stream of lane {lane.idx} seen mid-decode")
+
+
+def planes_wait_finalized(lane):
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and not lane.finalized:
+        time.sleep(0.001)
+    check(lane.finalized and lane.pool.closed and lane.pool.k is None,
+          f"serving_planes: lane {lane.idx} not finalized")
+
+
+def planes_calls(gen, lanes, layers, counts, bf16=False):
+    """Hold the kernels' launch counts of a scenario to its lanes' step
+    calls (finalized lanes included): K3 one a layer a prefill call
+    (warmups, prefills, replays' re-prefills), K4 one a layer a decode
+    call (warmups, batched steps, replays' batch-1 re-decodes)."""
+    tot = {"prefill_calls": 0, "decode_calls": 0, "warmup_prefills": 0,
+           "warmup_decodes": 0, "prefills": 0, "replays": 0,
+           "decode_steps": 0, "replay_decodes": 0, "migrations": 0}
+    for ln in lanes:
+        tot["prefill_calls"] += ln.steps.prefills
+        tot["decode_calls"] += ln.steps.decodes
+        tot["warmup_prefills"] += len(gen.prompt_buckets)
+        tot["warmup_decodes"] += len(gen.decode_buckets)
+        for key in ("prefills", "replays", "decode_steps", "replay_decodes",
+                    "migrations"):
+            tot[key] += getattr(ln, key)
+    check(tot["prefill_calls"] == tot["warmup_prefills"] + tot["prefills"]
+          + tot["replays"] and tot["decode_calls"] == tot["warmup_decodes"]
+          + tot["decode_steps"] + tot["replay_decodes"],
+          f"serving_planes: step calls {tot}")
+    paged = "paged_attention_bf16" if bf16 else "paged_attention"
+    other = "paged_attention" if bf16 else "paged_attention_bf16"
+    check(counts["flash_attention"] == tot["prefill_calls"] * layers
+          and counts[paged] == tot["decode_calls"] * layers
+          and counts[other] == 0 and counts["flash_attention_bf16"] == 0
+          and counts[paged] > 0,
+          f"serving_planes: launches {counts} against calls {tot} x "
+          f"{layers} layers")
+    return tot
+
+
+def planes_recoveries(reqs, stamps, t_kill):
+    """Recovery spans of the evacuated streams: modes, host ms of each
+    migration (salvage on the dying lane to landing on the survivor) and
+    each replay, migrated bytes, and the kill-to-next-token ms of each
+    evacuated stream (its first token after its rescue landed)."""
+    out = {"migrate_ms": [], "replay_ms": [], "land_call_ms": [],
+           "migrated_bytes": [], "migrated_blocks": [], "next_token_ms": []}
+    modes = set()
+    for req, st in zip(reqs, stamps):
+        for t0, t1, a in req.recover_spans:
+            modes.add(a["mode"])
+            out[f"{a['mode']}_ms"].append((t1 - t0) / 1e6)
+            if a["mode"] == "migrate":
+                out["migrated_bytes"].append(a["bytes_moved"])
+                out["migrated_blocks"].append(a["blocks"])
+                out["land_call_ms"].append(a["wall_ns"] / 1e6)
+        if req.recover_spans:
+            end = req.recover_spans[-1][1]
+            nxt = [s for s in st if s >= end]
+            check(nxt, "serving_planes: an evacuated stream emitted no "
+                  "token after its rescue")
+            out["next_token_ms"].append((nxt[0] - t_kill) / 1e6)
+    summary = {"recovered_streams": len(out["next_token_ms"]),
+               "modes": sorted(modes)}
+    for key, vals in out.items():
+        vals = sorted(vals)
+        summary[key] = ({"n": len(vals), "p50": vals[len(vals) // 2],
+                         "max": vals[-1]} if vals and key.endswith("ms")
+                        else sum(vals) if vals else 0)
+    return summary, modes
+
+
+def planes_kill_scenario(att, i8, fo, gw, dec, name, burst, refs,
+                         plan=None):
+    """Two lanes on the one card, lane 0 killed mid-stream (under fault
+    plan ``plan`` when given): every stream equal to ``refs``, the dead
+    lane's pool gone from the card, K4 still launching on the survivor,
+    K3 / K4 launches equal to the lanes' step calls. Returns the printed
+    row, the recovery modes, the migrator's totals and the launches."""
+    plens, new, prompts = burst
+    bf16 = dec.dtype == torch.bfloat16
+    att.reset_launches()
+    if plan:
+        os.environ["MXNET_KVSTORE_FAULT_PLAN"] = plan
+    try:
+        gen = gw.register_generator(
+            name, dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
+            max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH, replicas=2)
+        check(gen.degraded and len(gen.lanes) == 2
+              and len({str(ln.device) for ln in gen.lanes}) == 1,
+              f"serving_planes {name}: two lanes not degraded onto one card")
+        lanes = list(gen.lanes)
+        pool = lanes[0].pool
+        pool_bytes, block_bytes = pool.bytes_total, pool.bytes_per_block
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reqs, stamps, threads, errors = planes_submit(gw, name, prompts, new)
+        t_kill = planes_kill(gen, lanes[0], f"chip_smoke: {name} kill")
+        decodes_at_kill = lanes[1].steps.decodes
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        planes_join(threads)
+        check(not errors, f"serving_planes {name}: stream errors {errors}")
+        planes_wait_finalized(lanes[0])
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        counts = kernel_counts(att, i8, fo)
+        mig = gen.stats()["recovery"]
+        calls = planes_calls(gen, lanes, dec.num_layers, counts, bf16)
+    finally:
+        os.environ.pop("MXNET_KVSTORE_FAULT_PLAN", None)
+        gw.unregister(name)
+    if refs is not None:
+        bad = [i for i, (r, w) in enumerate(zip(results, refs)) if r != w]
+        check(not bad, f"serving_planes {name}: requests {bad} differ "
+              "from reference_generate")
+    rec, modes = planes_recoveries(reqs, stamps, t_kill)
+    check(rec["recovered_streams"] >= 1, f"serving_planes {name}: the kill "
+          "crossed no live stream")
+    check(mig["bytes_moved"] == rec["migrated_bytes"]
+          == rec["migrated_blocks"] * block_bytes
+          and mig["migrations"] == rec["migrate_ms"]["n"]
+          if rec["migrate_ms"] else mig["migrations"] == 0,
+          f"serving_planes {name}: migrator {mig}, spans {rec}")
+    check(lanes[1].steps.decodes > decodes_at_kill,
+          f"serving_planes {name}: K4 stopped on the survivor")
+    check(abs((mem0 - mem1) - pool_bytes) <= 2 ** 20,
+          f"serving_planes {name}: memory_allocated fell by {mem0 - mem1} "
+          f"bytes, the dead lane's pool is {pool_bytes}")
+    gen_tokens = int(sum(new))
+    paged = "paged_attention_bf16" if bf16 else "paged_attention"
+    row = {"scenario": name, "fault_plan": plan,
+           "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+           "generated_tokens": gen_tokens, "recovery": rec,
+           "migrator": mig, "calls": calls,
+           "launches": {"flash_attention": counts["flash_attention"],
+                        paged: counts[paged]},
+           "memory_freed_bytes": mem0 - mem1, "pool_bytes": pool_bytes}
+    return row, modes, mig, counts, results
+
+
+def planes_scale(att, i8, fo, gw, dec, burst, refs):
+    """One lane, scaled to 3 while the first half of the burst decodes
+    (the new lanes built and warmed on their own streams), the second
+    half submitted, then scaled to 1 while streams run on the two new
+    lanes: every stream equal to ``refs``, two pools released."""
+    plens, new, prompts = burst
+    half = len(prompts) // 2
+    att.reset_launches()
+    try:
+        gen = gw.register_generator(
+            "lm_scale", dec, block_tokens=BLOCK_TOKENS,
+            max_blocks=MAX_BLOCKS, max_new_tokens=MAX_NEW,
+            max_decode_batch=MAX_BATCH)
+        torch.cuda.synchronize()
+        mem_base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        first = planes_submit(gw, "lm_scale", prompts[:half], new[:half])
+        t1 = time.perf_counter()
+        out = gw.scale("lm_scale", 3)
+        scale_out_s = time.perf_counter() - t1
+        check(out["added"] == 2 and gw.replica_count("lm_scale") == 3,
+              f"serving_planes scale out: {out}")
+        lanes = list(gen.lanes)
+        second = planes_submit(gw, "lm_scale", prompts[half:], new[half:])
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            with gen.cond:
+                busy = all(any(len(r.tokens) >= PLANES_KILL_AFTER
+                               for r in ln.running) for ln in lanes[1:])
+            if busy:
+                break
+            time.sleep(0.0005)
+        check(busy, "serving_planes scale: the new lanes never decoded")
+        t_in = time.monotonic_ns()
+        t2 = time.perf_counter()
+        back = gw.scale("lm_scale", 1)
+        scale_in_s = time.perf_counter() - t2
+        reqs = first[0] + second[0]
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        for part in (first, second):
+            planes_join(part[2])
+            check(not part[3], f"serving_planes scale: errors {part[3]}")
+        torch.cuda.synchronize()
+        mem_end = torch.cuda.memory_allocated()
+        counts = kernel_counts(att, i8, fo)
+        calls = planes_calls(gen, lanes, dec.num_layers, counts)
+        pool_bytes = lanes[0].pool.bytes_total
+    finally:
+        gw.unregister("lm_scale")
+    check(back["retired"] == 2 and back["freed_bytes"] == 2 * pool_bytes
+          and all(ln.finalized and ln.pool.k is None for ln in lanes[1:]),
+          f"serving_planes scale in: {back}, pool {pool_bytes}")
+    # idle before the scale-out and after the scale-in: the same one pool
+    # (the new lanes' threads leave their cuBLAS workspaces, 32 MiB each)
+    check(mem_end - mem_base <= pool_bytes // 16,
+          f"serving_planes scale: memory_allocated {mem_end - mem_base} "
+          f"bytes above the one-lane start, a pool is {pool_bytes}")
+    bad = [i for i, (r, w) in enumerate(zip(results, refs)) if r != w]
+    check(not bad, f"serving_planes scale: requests {bad} differ from "
+          "reference_generate")
+    rec, _ = planes_recoveries(reqs, first[1] + second[1], t_in)
+    gen_tokens = int(sum(new))
+    return {"scenario": "scale_1_3_1", "tokens_per_s": gen_tokens / wall,
+            "wall_s": wall, "generated_tokens": gen_tokens,
+            "scale_out_s": scale_out_s, "scale_in_s": scale_in_s,
+            "freed_bytes": back["freed_bytes"],
+            "memory_after_vs_before_bytes": mem_end - mem_base,
+            "recovery": rec,
+            "calls": calls,
+            "launches": {k: counts[k] for k in ("flash_attention",
+                                                "paged_attention")}}, counts
+
+
+def planes_budget(att, i8, fo, gw, dec, burst):
+    """MXTPU_GEN_MAX_RECOVERIES=0: the killed lane's token-holding
+    streams end in a fast RejectedError(reason="lane_lost")."""
+    from mxnet_tpu_torch.serving import RejectedError
+
+    plens, new, prompts = burst
+    os.environ["MXTPU_GEN_MAX_RECOVERIES"] = "0"
+    try:
+        gen = gw.register_generator(
+            "lm_budget", dec, block_tokens=BLOCK_TOKENS,
+            max_blocks=MAX_BLOCKS, max_new_tokens=MAX_NEW,
+            max_decode_batch=MAX_BATCH, replicas=2)
+    finally:
+        os.environ.pop("MXTPU_GEN_MAX_RECOVERIES")
+    try:
+        check(gen.max_recoveries == 0, "serving_planes budget: knob unread")
+        n = 8
+        reqs, stamps, threads, errors = planes_submit(
+            gw, "lm_budget", prompts[:n], new[:n])
+        t_kill = planes_kill(gen, gen.lanes[0], "chip_smoke: budget kill")
+        planes_join(threads)
+        rejected = gen.lane_lost_rejections
+    finally:
+        gw.unregister("lm_budget")
+    check(errors and all(isinstance(e, RejectedError)
+                         and e.reason == "lane_lost"
+                         for e, _ in errors.values())
+          and rejected == len(errors),
+          f"serving_planes budget: errors {errors}, {rejected} rejected")
+    reject_ms = sorted((t - t_kill) / 1e6 for _, t in errors.values())
+    check(reject_ms[-1] < 2000, f"serving_planes budget: lane_lost after "
+          f"{reject_ms[-1]} ms")
+    return {"scenario": "no_recovery_budget", "requests": n,
+            "lane_lost": len(errors), "kill_to_reject_ms":
+            {"p50": reject_ms[len(reject_ms) // 2], "max": reject_ms[-1]}}
+
+
+def planes_oneshot(gw, here, rng):
+    """Phase 10's exported ResNet-50 with two replicas on the one card:
+    a fault injected into replica 0 drains it and its batch
+    redistributes (replies bitwise the one-replica ones), check_health
+    revives it, and scale 2 -> 3 -> 1 leaves one lane thread."""
+    prefix = os.path.join(here, "build", "chip_smoke", "gluon_r50")
+    shape = GLUON_SHAPE[1:]
+    xs = [rng.standard_normal((PLANES_REPLICA_ROWS,) + shape,
+                              dtype=np.float32)
+          for _ in range(PLANES_ONESHOT_REQUESTS)]
+    kw = dict(variants=("fp32",), buckets=(PLANES_REPLICA_ROWS,),
+              max_wait_ms=0.0)
+    t0 = time.perf_counter()
+    gw.register_checkpoint("r50_one", prefix, 0, {"data": shape}, **kw)
+    want = [gw.infer("r50_one", x)[0] for x in xs]
+    gw.unregister("r50_one")
+    gw.register_checkpoint("r50_two", prefix, 0, {"data": shape},
+                           replicas=2, **kw)
+    reg_s = time.perf_counter() - t0
+    try:
+        m = gw._get_model("r50_two")
+        rep0, rep1 = m.replicas
+        check(rep0.variant_set is not rep1.variant_set
+              and rep0.variant_set._fns == rep1.variant_set._fns,
+              "serving_planes one-shot: replicas do not share weights")
+        release = threading.Event()
+        run1 = rep1.variant_set.run
+
+        def parked(variant, batch):
+            release.wait(60)
+            return run1(variant, batch)
+
+        def broken(variant, batch):
+            raise RuntimeError("chip_smoke: injected replica fault")
+
+        run0 = rep0.variant_set.run
+        rep1.variant_set.run = parked
+        rep0.variant_set.run = broken
+        t1 = time.perf_counter()
+        reqs = []
+        for x in xs:
+            reqs.append(gw.submit("r50_two", x))
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and rep0.healthy \
+                    and m.queue.depth():
+                time.sleep(0.0005)
+            if not rep0.healthy:
+                break
+        check(not rep0.healthy, "serving_planes one-shot: the fault never "
+              "drained replica 0")
+        release.set()
+        rep1.variant_set.run = run1
+        reqs += [gw.submit("r50_two", x) for x in xs[len(reqs):]]
+        got = [r.result(timeout=120)[0] for r in reqs]
+        redistribute_s = time.perf_counter() - t1
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "serving_planes one-shot: redistributed replies differ from "
+              "the one-replica replies")
+        check(gw.health()["r50_two"] == [False, True]
+              and max(r.attempts for r in reqs) == 2,
+              f"serving_planes one-shot: health {gw.health()}")
+        rep0.variant_set.run = run0
+        check(gw.check_health("r50_two", revive=True)["r50_two"]
+              == [True, True], "serving_planes one-shot: no revive")
+        again = [gw.infer("r50_two", x)[0] for x in xs]
+        check(all(np.array_equal(g, w) for g, w in zip(again, want)),
+              "serving_planes one-shot: revived replies differ")
+        up = gw.scale("r50_two", 3)
+        down = gw.scale("r50_two", 1)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            lanes = [t for t in threading.enumerate()
+                     if t.name.startswith("mxtpu-serve-r50_two-r")]
+            if len(lanes) == 1:
+                break
+            for x in xs[:2]:      # wake parked lanes so they exit
+                gw.infer("r50_two", x)
+        check(len(lanes) == 1 and up["added"] == 1 and down["retired"] == 2,
+              f"serving_planes one-shot: {len(lanes)} lane threads after "
+              f"scale {up} {down}")
+        st = gw.stats()["r50_two"]
+    finally:
+        gw.unregister("r50_two")
+    return {"scenario": "oneshot_replicas", "requests": len(xs),
+            "rows": PLANES_REPLICA_ROWS, "register_s": reg_s,
+            "redistribute_s": redistribute_s,
+            "failures": st["failures"], "replicas_after_scale": 1}
+
+
+def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
+    """Several lanes per generator and per model on the one card, decode
+    failover over K3 and K4, health probes with revival, and scale: see
+    the module docstring's phase 17. Returns the phase's K3 / K4
+    launches."""
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
+                                                  reference_generate)
+    from mxnet_tpu_torch.serving.generate import model as gen_model
+
+    t_phase = time.perf_counter()
+    plens, new, prompts = burst
+    handler = _WarningCount()
+    gw_log = logging.getLogger("mxnet_tpu_torch.serving.gateway")
+    gw_log.addHandler(handler)
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED)
+    t0 = time.perf_counter()
+    refs = [reference_generate(dec, p, int(n)) for p, n in zip(prompts, new)]
+    ref_s = time.perf_counter() - t0
+    rows, totals = [], {"flash_attention": 0, "paged_attention": 0,
+                        "paged_attention_bf16": 0}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    gw = Gateway(devices=[dev])
+    try:
+        row, modes, mig, counts, _ = planes_kill_scenario(
+            att, i8, fo, gw, dec, "lm_kill", burst, refs)
+        check("migrate" in modes and mig["migrations"] >= 1,
+              f"serving_planes kill: no migration ({modes}, {mig})")
+        rows.append(row)
+        add(counts)
+        row, modes, mig, counts, _ = planes_kill_scenario(
+            att, i8, fo, gw, dec, "lm_storm", burst, refs,
+            plan="replay_storm")
+        check(modes == {"replay"} and mig["attempts"] == 0,
+              f"serving_planes replay_storm: modes {modes}, {mig}")
+        rows.append(row)
+        add(counts)
+        row, modes, mig, counts, _ = planes_kill_scenario(
+            att, i8, fo, gw, dec, "lm_wedge", burst, refs,
+            plan="migrate_wedge@round=1")
+        check("replay" in modes and mig["wedged"] == 1,
+              f"serving_planes migrate_wedge: modes {modes}, {mig}")
+        rows.append(row)
+        add(counts)
+        row, counts = planes_scale(att, i8, fo, gw, dec, burst, refs)
+        rows.append(row)
+        add(counts)
+        rows.append(planes_budget(att, i8, fo, gw, dec, burst))
+        del dec
+        # a bf16 pool: the killed run's tokens against the same survivor
+        # lane with the plain paged attention (phase 13's rule)
+        dec16 = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                                  num_layers=LAYERS, num_heads=HEADS,
+                                  max_prompt_tokens=MAX_PROMPT, device=dev,
+                                  seed=SEED, dtype="bfloat16")
+        row, modes, mig, counts, got16 = planes_kill_scenario(
+            att, i8, fo, gw, dec16, "lm_bf16", burst, None)
+        check("migrate" in modes, f"serving_planes bf16: modes {modes}")
+        add(counts)
+        gw.register_generator("lm_plain16", dec16, block_tokens=BLOCK_TOKENS,
+                              max_blocks=MAX_BLOCKS, max_new_tokens=MAX_NEW,
+                              max_decode_batch=MAX_BATCH)
+        paged = gen_model.paged_attention
+        gen_model.paged_attention = att.paged_attention_plain
+        try:
+            want16 = [gw.generate("lm_plain16", p, max_new_tokens=int(n))
+                      for p, n in zip(prompts, new)]
+        finally:
+            gen_model.paged_attention = paged
+            gw.unregister("lm_plain16")
+        bad = [i for i, (a, b) in enumerate(zip(got16, want16)) if a != b]
+        check(not bad, f"serving_planes bf16: requests {bad} differ from "
+              "the plain paged lane")
+        row["equal_to_plain_paged_lane"] = len(got16)
+        rows.append(row)
+        del dec16
+        rows.append(planes_oneshot(gw, here, rng))
+    finally:
+        gw.close()
+        gw_log.removeHandler(handler)
+    check(len(PLANES_WARNINGS) == 1, f"serving_planes: the degraded "
+          f"placement of two lanes warned {len(PLANES_WARNINGS)} times, "
+          "want once")
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log("serving_planes " + json.dumps({
+        "card": card_line(), "phase_s": phase_s,
+        "reference_generate_s": ref_s, "scenarios": rows,
+        "launches": totals}))
+    check(phase_s <= 60.0, f"serving_planes took {phase_s:.1f} s, over 60")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -4084,36 +4612,46 @@ def main():
     build_s = _build.build_all()
     log(f"build: {build_s:.1f}s for {', '.join(_build.KERNELS)}")
 
-    kernels = [phase_flash(att, _build, dev, rng),
-               phase_flash_bwd(att, _build, dev),
-               phase_paged(att, dev, rng),
-               phase_int8(i8, dev),
-               *phase_fused_opt(fo, dev)]
+    def timed(fn, *args):
+        """Run one phase, logging its wall seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        PHASE_S[fn.__name__] = PHASE_S.get(fn.__name__, 0.0) \
+            + time.perf_counter() - t0
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kernels = [timed(phase_flash, att, _build, dev, rng),
+               timed(phase_flash_bwd, att, _build, dev),
+               timed(phase_paged, att, dev, rng),
+               timed(phase_int8, i8, dev),
+               *timed(phase_fused_opt, fo, dev)]
 
     burst = generate_burst(rng)
-    launches, serve_main = phase_serve(att, dev, burst)
-    launches.update(phase_resnet(i8, dev, rng, here))
-    launches["fused_sgd_mom"] = phase_train(fo, dev, rng, here)
-    launches["fused_adam"] = phase_train_adam(fo, dev, rng, here)
-    phase_gluon(att, i8, fo, dev, rng, here)
-    phase_gluon_train(att, i8, fo, dev, rng, here)
-    launches.update(phase_lm_train(att, i8, fo, dev, rng))
-    kernels += [phase_flash_bf16(att, _build, dev),
-                phase_flash_bwd_bf16(att, _build, dev),
-                phase_paged(att, dev, rng, torch.bfloat16,
-                            kernels[2]["shape"]["decode_lens"])]
-    launches.update(phase_lm_train_bf16(att, i8, fo, dev, rng))
-    launches.update(phase_serve_bf16(att, dev, burst, serve_main))
-    t0 = time.perf_counter()
-    phase_d256(att, dev, kernels)
-    log(f"phase_d256: {time.perf_counter() - t0:.1f} s")
-    d256_serve = phase_serve_heads(att, i8, fo, dev)
-    phase_module(att, i8, fo, dev, here)
-    t0 = time.perf_counter()
-    phase_dist(here, dev)
-    log(f"phase_dist: {time.perf_counter() - t0:.1f} s")
+    launches, serve_main = timed(phase_serve, att, dev, burst)
+    launches.update(timed(phase_resnet, i8, dev, rng, here))
+    launches["fused_sgd_mom"] = timed(phase_train, fo, dev, rng, here)
+    launches["fused_adam"] = timed(phase_train_adam, fo, dev, rng, here)
+    timed(phase_gluon, att, i8, fo, dev, rng, here)
+    timed(phase_gluon_train, att, i8, fo, dev, rng, here)
+    launches.update(timed(phase_lm_train, att, i8, fo, dev, rng))
+    kernels += [timed(phase_flash_bf16, att, _build, dev),
+                timed(phase_flash_bwd_bf16, att, _build, dev),
+                timed(phase_paged, att, dev, rng, torch.bfloat16,
+                      kernels[2]["shape"]["decode_lens"])]
+    launches.update(timed(phase_lm_train_bf16, att, i8, fo, dev, rng))
+    launches.update(timed(phase_serve_bf16, att, dev, burst, serve_main))
+    timed(phase_d256, att, dev, kernels)
+    d256_serve = timed(phase_serve_heads, att, i8, fo, dev)
+    timed(phase_module, att, i8, fo, dev, here)
+    timed(phase_dist, here, dev)
+    planes = timed(phase_serving_planes, att, i8, fo, dev, burst, here, rng)
+    log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        # the serving planes' launches (phase 17), where the kernel is on
+        # that path
+        k["planes_launches"] = planes.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path

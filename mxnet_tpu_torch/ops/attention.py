@@ -17,7 +17,8 @@ Each entry point has three parts:
   tensors on a CUDA device to the kernel of their type. It raises on any
   input the kernels do not take; nothing falls back and nothing is cast.
   Each kernel launch adds one to the wrapper's ``launches`` (float32) or
-  ``launches_bf16`` count.
+  ``launches_bf16`` count, under a lock (serving lanes launch from
+  several threads).
 
 :func:`flash_attention` is differentiable. On the CPU torch autograd
 differentiates the plain version. On CUDA, when a gradient is needed,
@@ -30,6 +31,7 @@ log-sum-exp is not written.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -39,9 +41,15 @@ from . import _build
 NEG_INF = -1e30
 
 
+# several serving lanes launch from their own threads: the counts'
+# read-modify-write is done under this lock so no increment is lost
+_launch_lock = threading.Lock()
+
+
 def reset_launches():
-    for fn in (flash_attention, flash_attention_bwd, paged_attention):
-        fn.launches = fn.launches_bf16 = 0
+    with _launch_lock:
+        for fn in (flash_attention, flash_attention_bwd, paged_attention):
+            fn.launches = fn.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +228,11 @@ def _aligned(x):
 
 def _count(wrapper, bf16):
     """One launch of the wrapper's float32 or bfloat16 kernel."""
-    if bf16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    with _launch_lock:
+        if bf16:
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
 
 
 def _check(err, what):
@@ -444,7 +453,10 @@ def _flash_bwd_cuda(q, k, v, out, d_out, lse, causal, scale):
 # csrc/paged_attention.cu instantiates for it
 _PAGED_CHUNK_F32 = 64
 # (device, stream handle): the bf16 kernel's merge counters, int32, zero
-# between calls, so calls in flight on two streams never share one
+# between calls, so calls in flight on two streams never share one. The
+# serving lanes of one card each decode on a stream of their own
+# (serving/generate/scheduler.py), so each lane has its own counters and
+# only that lane's thread launches on them
 _paged_counters = {}
 
 

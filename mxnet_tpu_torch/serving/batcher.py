@@ -54,7 +54,7 @@ class Request:
     """
 
     __slots__ = ("model", "variant", "data", "rows", "submit_ns",
-                 "exec_end_ns", "_event", "_result", "_error")
+                 "exec_end_ns", "attempts", "_event", "_result", "_error")
 
     def __init__(self, model, variant, data):
         self.model = model
@@ -62,6 +62,9 @@ class Request:
         self.data = data
         self.rows = int(data.shape[0])
         self.submit_ns = now_ns()
+        # executions tried: a request that failed on every replica is
+        # the poison pill, failed instead of redistributed again
+        self.attempts = 0
         self.exec_end_ns = 0
         self._event = threading.Event()
         self._result = None
@@ -159,17 +162,24 @@ class ModelQueue:
             self._rows -= r.rows
         return rows
 
-    def take_batch(self):
+    def wake(self):
+        """Wake every lane blocked in :meth:`take_batch`, so a lane whose
+        ``stop`` turned true leaves now instead of at the next request."""
+        with self._cond:
+            self._cond.notify_all()
+
+    def take_batch(self, stop=None):
         """Block until work arrives, then coalesce one same-variant
         batch: ``(variant, [requests])``, or None once the queue closed
-        empty."""
+        empty or, waiting, the lane's ``stop()`` is true (a retired or
+        superseded lane leaves without taking work)."""
         with self._cond:
             while True:
                 pending = [(v, d) for v, d in self._by_variant.items()
                            if d]
                 if pending:
                     break
-                if self.closed:
+                if self.closed or (stop is not None and stop()):
                     return None
                 self._cond.wait()
             # the oldest head request goes first: no variant starves

@@ -1,26 +1,36 @@
 """The serving front (the port of ``mxnet_tpu/serving/gateway.py``):
 one-shot models (``register`` / ``submit`` / ``infer``) and generative
-decode (``register_generator`` / ``generate``) on one device.
+decode (``register_generator`` / ``generate``) over one or more devices.
 
 A one-shot model gets a :class:`~.batcher.ModelQueue` fed by client
-threads through :meth:`Gateway.submit` under admission control, and one
-:class:`Replica` lane: a :class:`~.variants.VariantSet` with one
+threads through :meth:`Gateway.submit` under admission control, and N
+:class:`Replica` lanes: each a :class:`~.variants.VariantSet` with one
 executable per (variant, bucket), warmed at registration, and a thread
 that takes coalesced batches, pads them to a bucket, runs them under
-``torch.inference_mode()`` on the gateway's device and replies with
-host numpy arrays. Admission is fast-reject: a request that would pass
-the queue-depth limit or the model's latency budget (``slo_ms``,
-estimated from EWMA service rates) raises :class:`RejectedError` in the
-caller's thread without entering the queue.
+``torch.inference_mode()`` on the replica's device and replies with host
+numpy arrays. Admission is fast-reject: a request that would pass the
+queue-depth limit or the model's latency budget (``slo_ms``, estimated
+from EWMA service rates) raises :class:`RejectedError` in the caller's
+thread without entering the queue.
 
-Several replicas, health probes and revival, ``scale`` and the
-autoscaler, tensor-parallel slices, the cluster ledger, telemetry and
-tracing wait for a later slice: ``register`` raises on ``replicas > 1``
-and ``tp >= 2``.
+Replicas are placed over the gateway's devices and wrap onto shared
+devices when there are fewer devices than replicas (``degraded``, warned
+once): on one card every lane shares it. A replica whose execution
+fails drains itself and its batch redistributes to the healthy ones (a
+request that failed on every replica fails instead); ``check_health``
+probes every replica off the queue and revives the drained ones whose
+probe passes, as a fresh lane thread. ``scale`` resizes a model or a
+generator: a generator lane scaled in evacuates its in-flight
+generations to the surviving lanes (``generate/scheduler.py``) and
+releases its KV pool.
+
+The autoscaler, tensor-parallel slices (``tp >= 2`` raises), the cluster
+ledger, telemetry and tracing wait for a later slice.
 
 Quickstart::
 
-    gw = Gateway()                       # cuda:0; Gateway(device="cpu")
+    gw = Gateway()          # [cuda:0]; Gateway(device="cpu"), or
+                            # Gateway(devices=["cuda:0", "cuda:1"])
     gw.register_checkpoint("r50", "r50", 0, {"data": (3, 224, 224)},
                            variants=("fp32", "bf16", "int8"),
                            calib_data=calib, buckets=(1, 2, 4, 8, 16, 32))
@@ -28,7 +38,8 @@ Quickstart::
     dec = GenerativeDecoder(vocab_size=32000, d_model=512, num_layers=8,
                             num_heads=8, max_prompt_tokens=512)
     gw.register_generator("lm", dec, block_tokens=16, max_blocks=4096,
-                          max_new_tokens=256, max_decode_batch=32)
+                          max_new_tokens=256, max_decode_batch=32,
+                          replicas=2)
     tokens = gw.generate("lm", prompt_ids, max_new_tokens=128)
     gw.close()
 """
@@ -41,7 +52,8 @@ import numpy as np
 import torch
 
 from ..base import get_env
-from ..context import resolve_device
+from ..context import Context, resolve_device
+from ..parallel.mesh import replica_devices, should_warn_degraded
 from .batcher import (ModelQueue, RejectedError, Request, ServingError,
                       now_ns, pad_batch)
 from .variants import VariantSet, default_buckets, pick_bucket
@@ -54,8 +66,12 @@ _EWMA = 0.2
 
 
 class Replica:
-    """The serving lane of a one-shot model: its VariantSet and the
-    thread that takes coalesced batches for it."""
+    """One serving lane of a one-shot model: its VariantSet and the
+    thread that takes coalesced batches for it. ``_gen`` is the lane's
+    generation, bumped by every :meth:`start`: a thread serves only its
+    own generation, so a revive can always start a fresh thread without
+    racing a parked old one (which leaves at its next wakeup, handing
+    back a batch it took)."""
 
     def __init__(self, model, idx, device, variant_set):
         self._model = model
@@ -64,19 +80,24 @@ class Replica:
         self.variant_set = variant_set
         self.healthy = True
         self.last_error = None
+        self.batches = 0
+        self.rows = 0
+        self.failures = 0
         self._thread = None
+        self._gen = 0
 
     def start(self, warmup_buckets=()):
-        """Start the lane thread; it first runs every (variant, bucket)
-        of ``warmup_buckets`` once, and the call returns when that is
-        done (re-raising its failure). The warmup runs on the lane's own
-        thread because cuBLAS and cuDNN keep their handles and
+        """Start a fresh lane thread; it first runs every (variant,
+        bucket) of ``warmup_buckets`` once, and the call returns when
+        that is done (re-raising its failure). The warmup runs on the
+        lane's own thread because cuBLAS and cuDNN keep their handles and
         workspaces per thread: warmed on another thread, the first
         batches would pay for them."""
+        self._gen += 1
         ready = threading.Event()
         warm = {}
         self._thread = threading.Thread(
-            target=self._loop, args=(warmup_buckets, ready, warm),
+            target=self._loop, args=(self._gen, warmup_buckets, ready, warm),
             daemon=True, name=f"mxtpu-serve-{self._model.name}-r{self.idx}")
         self._thread.start()
         ready.wait()
@@ -89,8 +110,28 @@ class Replica:
         if self._thread is not None:
             self._thread.join(timeout)
 
-    def _loop(self, warmup_buckets, ready, warm):
+    def probe(self):
+        """Health check: a smallest-bucket zeros batch through every
+        variant, off the queue, on the caller's thread. Healthy = all
+        succeed."""
+        vs = self.variant_set
+        b = self._model.buckets[0]
+        try:
+            with torch.inference_mode():
+                for variant in vs.variants:
+                    vs.run(variant, np.zeros((b,) + vs.feature_shape,
+                                             vs.input_dtype))
+        except Exception as e:  # noqa: BLE001 — any failure = unhealthy
+            self.last_error = e
+            return False
+        return True
+
+    def _loop(self, gen, warmup_buckets, ready, warm):
         m = self._model
+
+        def stale():
+            return not self.healthy or self._gen != gen
+
         # torch state is per thread: inference mode is entered here, and
         # the device is the VariantSet's own, never a thread's default
         with torch.inference_mode():
@@ -102,26 +143,54 @@ class Replica:
                 return
             finally:
                 ready.set()
-            while self.healthy and not m.queue.closed:
-                item = m.queue.take_batch()
-                if item is None:        # closed empty
+            while not stale() and not m.queue.closed:
+                item = m.queue.take_batch(stop=stale)
+                if item is None:        # closed empty, or stale
                     break
                 variant, batch = item
+                if stale():
+                    self._hand_back(batch)
+                    break
                 try:
                     self._run_batch(variant, batch)
-                except Exception as e:  # noqa: BLE001 — any failure
-                    self._fail(batch, e)  # drains the lane
+                except Exception as e:  # noqa: BLE001 — one bad execution
+                    self._fail(batch, e)  # drains THIS replica
+
+    def _hand_back(self, batch):
+        """Drained by a probe (or superseded by a revived generation)
+        while blocked in take_batch: requeue instead of serving on a
+        stale or bad lane — any live lane takes it, this replica's own
+        fresh generation included. Fail directly only when nothing will
+        ever serve it."""
+        m = self._model
+        err = self.last_error or ServingError("replica drained")
+        if m.queue.closed:
+            for r in batch:
+                r._set_error(ServingError(
+                    f"serving: model {m.name!r} shut down before the "
+                    "request executed"))
+            return
+        m.queue.requeue(batch)
+        if not any(r.healthy for r in m.replicas):
+            for r in m.queue.drain():
+                r._set_error(ServingError(
+                    f"serving: no healthy replica left for {m.name!r} "
+                    f"(last error: {err!r})"))
 
     def _run_batch(self, variant, batch):
         m = self._model
         rows = sum(r.rows for r in batch)
         bucket = pick_bucket(m.buckets, rows)
+        for r in batch:
+            r.attempts += 1
         padded, _ = pad_batch(batch, bucket, self.variant_set.feature_shape,
                               self.variant_set.input_dtype)
         t0 = now_ns()
         outs = self.variant_set.run(variant, padded)
         t1 = now_ns()
         m._count_batch(variant, rows, bucket)
+        self.batches += 1
+        self.rows += rows
         off = 0
         for r in batch:
             r.exec_end_ns = t1
@@ -130,21 +199,57 @@ class Replica:
         m._observe_rate(rows, (t1 - t0) / 1e9)
 
     def _fail(self, batch, err):
-        """One failed execution drains the lane; with no other lane its
-        batch and everything queued fail with a clean error."""
+        """One failed execution drains THIS replica; its batch
+        redistributes to the healthy ones."""
         m = self._model
         self.healthy = False
         self.last_error = err
-        logger.error("serving: lane %d of %r drained after: %r", self.idx,
-                     m.name, err)
-        for r in batch + m.queue.drain():
+        self.failures += 1
+        with m._rate_lock:
+            m.counts["failures"] += 1
+        logger.error("serving: replica %d of %r drained after: %r — "
+                     "redistributing %d request(s)", self.idx, m.name, err,
+                     len(batch))
+        self._redistribute(batch, err)
+
+    def _redistribute(self, batch, err):
+        m = self._model
+        survivors = [r for r in m.replicas if r.healthy and r is not self]
+        # a request that has failed on every replica is the poison pill,
+        # not the victim — fail it instead of cycling forever
+        retry = [r for r in batch if r.attempts <= len(m.replicas)]
+        poison = [r for r in batch if r.attempts > len(m.replicas)]
+        for r in poison:
             r._set_error(ServingError(
-                f"serving: no healthy replica left for {m.name!r} (last "
-                f"error: {err!r})"))
+                f"serving: request failed on every replica of "
+                f"{m.name!r}: {err!r}"))
+        if survivors and retry:
+            m.queue.requeue(retry)
+        else:
+            for r in retry:
+                r._set_error(ServingError(
+                    f"serving: no healthy replica left for {m.name!r} "
+                    f"(last error: {err!r})"))
+        # the last live lane — or the survivors died in the same window
+        # (two replicas failing together each see the other alive):
+        # drain-fail everything queued rather than strand it in a queue
+        # no lane serves
+        if not any(r.healthy for r in m.replicas):
+            for r in m.queue.drain():
+                r._set_error(ServingError(
+                    f"serving: no healthy replica left for {m.name!r} "
+                    f"(last error: {err!r})"))
+
+    def stats(self):
+        return {"idx": self.idx, "device": str(self.device),
+                "healthy": self.healthy, "batches": self.batches,
+                "rows": self.rows, "failures": self.failures,
+                "last_error": (repr(self.last_error)
+                               if self.last_error is not None else None)}
 
 
 class Model:
-    """One registered one-shot model: configuration, queue, lane and
+    """One registered one-shot model: configuration, queue, replicas and
     service-rate estimates (the admission controller's inputs)."""
 
     def __init__(self, name, buckets, max_wait_s, max_queue, slo_s,
@@ -161,8 +266,14 @@ class Model:
         self._rows_per_s = None   # EWMA serviced rows per second
         self.warmup_seconds = 0.0
         self.executables = 0
+        self.degraded = False     # replicas wrap onto shared devices
+        # Gateway.scale's seams: the factory that builds one more replica
+        # lane on a device, and a monotonic lane id (a retired idx is
+        # never reissued)
+        self._replica_factory = None
+        self._next_idx = 0
         self.counts = {"requests": {}, "batches": {}, "rejected": {},
-                       "rows": 0, "padding_rows": 0}
+                       "rows": 0, "padding_rows": 0, "failures": 0}
 
     def _count(self, key, label, n=1):
         with self._rate_lock:
@@ -187,8 +298,9 @@ class Model:
 
     def estimate_latency_s(self, rows):
         """Predicted end-to-end latency of a new request: the queued rows
-        drained at the observed rate, plus one execution. None before
-        the first batch (no data: admit)."""
+        drained at the observed rate (scaled by the healthy replicas),
+        plus one execution. None before the first batch (no data:
+        admit)."""
         with self._rate_lock:
             exec_s, rate = self._exec_s, self._rows_per_s
         if exec_s is None or not rate:
@@ -200,28 +312,58 @@ class Model:
             + exec_s
 
 
-def _check_one_replica(replicas):
-    """Resolve ``replicas`` (None reads ``MXTPU_SERVING_REPLICAS``, as
-    the JAX package does) and refuse more than one: each model or
-    generator is served by one lane until replicas are ported."""
+def _resolve_tp(tp):
+    """``tp`` (None reads ``MXTPU_SERVING_TP``, as the JAX package
+    does): None or 1 is a plain lane; tensor-parallel slices raise."""
+    if tp is None:
+        tp = int(get_env("MXTPU_SERVING_TP", 0, int)) or None
+    if tp is None:
+        return
+    tp = int(tp)
+    if tp < 1:
+        raise ServingError(f"serving: tp must be >= 1, got {tp}")
+    if tp >= 2:
+        raise ServingError(
+            f"serving: tp={tp} asks for tensor-parallel mesh slices "
+            "(serving/sharded.py, parallel/mesh.py replica_slices, the "
+            "mesh-sliced decode steps), which are not ported yet; serve "
+            "replicated single-device lanes (replicas=N)")
+
+
+def _resolve_replicas(replicas):
+    """``replicas`` (None reads ``MXTPU_SERVING_REPLICAS``)."""
     if replicas is None:
         replicas = int(get_env("MXTPU_SERVING_REPLICAS", 1, int))
+    replicas = int(replicas)
     if replicas < 1:
         raise ServingError(
             f"serving: replicas must be >= 1, got {replicas}")
-    if replicas > 1:
-        raise ServingError(
-            "serving: several replicas per model are not ported yet "
-            "(one lane per model)")
+    return replicas
 
 
 class Gateway:
-    """Serves registered models and generators on one device: ``cuda:0``
-    unless ``device`` says otherwise; without CUDA it raises unless
-    ``device`` is ``"cpu"``. See the module docstring."""
+    """Serves registered models and generators on ``devices``: ``[cuda:0]``
+    unless ``devices`` (a list) or ``device`` (one device, the spelling
+    of earlier slices) say otherwise; without CUDA it raises unless the
+    CPU is asked for. Replicas and decode lanes are placed over the
+    devices by :func:`~mxnet_tpu_torch.parallel.mesh.replica_devices`,
+    wrapping onto shared devices (``degraded``) when there are fewer
+    devices than lanes. ``MXTPU_SERVING_HEALTH_SEC`` > 0 starts a thread
+    that runs :meth:`check_health` at that period. See the module
+    docstring."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, devices=None, device=None):
+        if isinstance(devices, (str, torch.device, Context)):
+            devices = [devices]
+        if devices is not None and device is not None:
+            raise ServingError(
+                "serving: pass devices= (a list) or device=, not both")
+        if devices is None:
+            devices = [device]
+        self._devices = [resolve_device(d) for d in devices]
+        if not self._devices:
+            raise ServingError("serving: devices is empty")
+        self.device = self._devices[0]
         # greedy decode is held token for token against fp32 references:
         # cuBLAS float32 products stay full float32, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,6 +371,33 @@ class Gateway:
         self._models = {}              # name -> Model (None while built)
         self._gen_lock = threading.Lock()
         self._closed = False
+        self._health_thread = None
+        self._health_stop = threading.Event()
+        period = get_env("MXTPU_SERVING_HEALTH_SEC", 0.0, float)
+        if period > 0:
+            self._health_thread = threading.Thread(
+                target=self._health_loop, args=(period,), daemon=True,
+                name="mxtpu-torch-serve-health")
+            self._health_thread.start()
+
+    # -- placement -----------------------------------------------------------
+    def _pick_devices(self, n, busy=()):
+        """Devices for ``n`` new lanes, away from ``busy`` (the devices
+        existing lanes hold) while others exist: ``(devices,
+        degraded)``. The degraded wrap is warned once per (ask,
+        devices)."""
+        picked, degraded = replica_devices(n, devices=self._devices,
+                                           exclude=busy)
+        if degraded and should_warn_degraded(n, picked):
+            logger.warning(
+                "serving: %d replicas requested but only %d device(s); "
+                "degrading (replicas share devices)", n,
+                len(set(map(str, picked))))
+        return picked, degraded
+
+    def device_count(self):
+        """Distinct devices available to replica placement."""
+        return len(self._devices)
 
     # -- one-shot models -----------------------------------------------------
     def register(self, name, symbol, arg_params, aux_params,
@@ -239,7 +408,7 @@ class Gateway:
                  input_dtype="float32", int8_lowering="auto",
                  warmup=True, tp=None):
         """Register a model and build (and, with ``warmup``, run once)
-        its executables on the gateway's device.
+        its executables on each replica's device.
 
         ``input_shapes`` is ``{input_name: feature_shape}`` for the ONE
         data input, without the batch dim (requests are coalesced along
@@ -247,16 +416,14 @@ class Gateway:
         32). ``slo_ms`` of 0/None turns latency-budget rejection off;
         ``max_wait_ms`` / ``max_queue`` / ``replicas`` default from
         ``MXTPU_SERVING_MAX_WAIT_MS`` / ``MXTPU_SERVING_MAX_QUEUE`` /
-        ``MXTPU_SERVING_REPLICAS``. One lane per model: ``replicas > 1``
-        (given or read from the knob) and ``tp >= 2`` raise.
+        ``MXTPU_SERVING_REPLICAS``. ``replicas`` lanes share the queue;
+        replicas on one device share one set of executables and weights
+        (:meth:`VariantSet.replica`). ``tp >= 2`` raises.
         """
         if self._closed:
             raise ServingError("serving: gateway is closed")
-        if tp is not None and int(tp) >= 2:
-            raise ServingError(
-                "serving: tensor-parallel slices (tp >= 2) are not ported "
-                "yet; serve on one device")
-        _check_one_replica(replicas)
+        _resolve_tp(tp)
+        replicas = _resolve_replicas(replicas)
         if len(input_shapes) != 1:
             raise ServingError(
                 "serving: exactly one data input per model (got "
@@ -276,42 +443,62 @@ class Gateway:
             max_queue = get_env("MXTPU_SERVING_MAX_QUEUE", 256, int)
         if slo_ms is None:
             slo_ms = get_env("MXTPU_SERVING_SLO_MS", 0.0, float)
+        model = Model(name, buckets, max_wait_s=max_wait_ms / 1e3,
+                      max_queue=max_queue,
+                      slo_s=(slo_ms / 1e3) if slo_ms else None,
+                      variants=tuple(variants))
         self._claim(name)
         try:
-            model = Model(name, buckets, max_wait_s=max_wait_ms / 1e3,
-                          max_queue=max_queue,
-                          slo_s=(slo_ms / 1e3) if slo_ms else None,
-                          variants=tuple(variants))
             t0 = now_ns()
-            vs = VariantSet(symbol, arg_params, aux_params, input_name,
-                            feature_shape, variants=variants,
-                            device=self.device, calib_data=calib_data,
-                            calib_mode=calib_mode,
-                            excluded_sym_names=excluded_sym_names,
-                            input_dtype=input_dtype,
-                            int8_lowering=int8_lowering)
-            rep = Replica(model, 0, self.device, vs)
-            model.replicas.append(rep)
-            model.executables = rep.start(buckets if warmup else ())
+
+            def build_replica(m, idx, device):
+                # the one place a serving lane is built: registration and
+                # Gateway.scale share it, so a scaled-out replica is
+                # built and warmed exactly like a registered one
+                same = [r for r in m.replicas if r.device == device]
+                if same:
+                    vs = same[0].variant_set.replica()
+                else:
+                    vs = VariantSet(
+                        symbol, arg_params, aux_params, input_name,
+                        feature_shape, variants=variants, device=device,
+                        calib_data=calib_data, calib_mode=calib_mode,
+                        excluded_sym_names=excluded_sym_names,
+                        input_dtype=input_dtype,
+                        int8_lowering=int8_lowering)
+                rep = Replica(m, idx, device, vs)
+                return rep, rep.start(buckets if warmup else ())
+
+            model._replica_factory = build_replica
+            picked, model.degraded = self._pick_devices(replicas)
+            for device in picked:
+                rep, n_exec = build_replica(model, model._next_idx, device)
+                model._next_idx += 1
+                model.executables += n_exec
+                model.replicas.append(rep)
             model.warmup_seconds = (now_ns() - t0) / 1e9
         except BaseException:
+            model.queue.close()
+            for rep in model.replicas:
+                rep.join(timeout=30.0)
             with self._gen_lock:
                 del self._models[name]
             raise
         with self._gen_lock:
             self._models[name] = model
         logger.info(
-            "serving: registered %r on %s — %d variant(s) x %d bucket(s), "
-            "warmup %.1fs", name, self.device, len(model.variants),
-            len(buckets), model.warmup_seconds)
+            "serving: registered %r on %s — %d replica(s) x %d variant(s) "
+            "x %d bucket(s), warmup %.1fs", name,
+            sorted({str(r.device) for r in model.replicas}),
+            len(model.replicas), len(model.variants), len(buckets),
+            model.warmup_seconds)
         return model
 
     def register_checkpoint(self, name, prefix, epoch, input_shapes,
                             **kwargs):
         """Register from ``prefix-symbol.json`` + ``prefix-####.params``
-        (the Predictor's file contract), loaded onto the gateway's
+        (the Predictor's file contract), loaded onto the gateway's first
         device."""
-        from ..context import Context
         from ..model import load_checkpoint
         symbol, arg_params, aux_params = load_checkpoint(
             prefix, epoch, ctx=Context(self.device))
@@ -334,6 +521,10 @@ class Gateway:
             raise ServingError(
                 f"serving: unknown model {name!r} (registered: {known})")
         return m
+
+    def _all_models(self):
+        with self._gen_lock:
+            return [m for m in self._models.values() if m is not None]
 
     def submit(self, model, data, variant="fp32"):
         """Admit and enqueue one request; returns the
@@ -369,8 +560,8 @@ class Gateway:
             raise
         m._count("requests", variant)
         if not any(r.healthy for r in m.replicas):
-            # the lane died between admission and enqueue: its drain has
-            # run, so nothing would ever serve this request
+            # the last lane died between admission and enqueue: its
+            # drain has run, so nothing would ever serve this request
             for r in m.queue.drain():
                 r._set_error(ServingError(
                     f"serving: no healthy replica left for {model!r}"))
@@ -415,32 +606,43 @@ class Gateway:
                 f"serving: model {model.name!r} shut down before the "
                 "request executed"))
 
+    # -- generative decode ---------------------------------------------------
     def register_generator(self, name, decoder, block_tokens=None,
                            max_blocks=None, max_new_tokens=None,
                            max_decode_batch=8, max_queue=None,
-                           replicas=None, warmup=True):
+                           replicas=None, warmup=True, tp=None):
         """Register a decoder LM for token-granular generation.
 
-        ``decoder`` is a :class:`~.generate.GenerativeDecoder` on this
-        gateway's device. The lane gets a paged KV block pool of
-        ``max_blocks`` x ``block_tokens``-token blocks and, with
-        ``warmup``, runs every prefill and decode bucket once.
+        ``decoder`` is a :class:`~.generate.GenerativeDecoder` on one of
+        this gateway's devices. Each of the ``replicas`` lanes gets a
+        device (the one-shot placement), a paged KV block pool of
+        ``max_blocks`` x ``block_tokens``-token blocks, a CUDA stream on
+        a card and, with ``warmup``, runs every prefill and decode bucket
+        once. Lanes on the decoder's device share its parameters.
         ``max_new_tokens`` is the per-request generation cap (and the
         default for requests that don't pass one); the knob defaults
         come from ``MXTPU_GEN_BLOCK_TOKENS`` / ``MXTPU_GEN_MAX_BLOCKS``
-        / ``MXTPU_GEN_MAX_NEW_TOKENS`` / ``MXTPU_SERVING_MAX_QUEUE``.
-        One lane per generator: ``replicas > 1`` (given or read from
-        ``MXTPU_SERVING_REPLICAS``) raises.
+        / ``MXTPU_GEN_MAX_NEW_TOKENS`` / ``MXTPU_SERVING_MAX_QUEUE`` /
+        ``MXTPU_SERVING_REPLICAS``.
+
+        In-flight generations survive lane loss: a killed, failed or
+        scaled-in lane's requests migrate their KV blocks to surviving
+        lanes — or replay prompt + accepted tokens deterministically —
+        and continue token for token, budgeted by
+        ``MXTPU_GEN_MAX_RECOVERIES`` (exhaustion = a fast
+        ``RejectedError(reason="lane_lost")`` on the stream). ``tp >= 2``
+        raises.
         """
         from .generate.scheduler import GenModel
 
         if self._closed:
             raise ServingError("serving: gateway is closed")
-        _check_one_replica(replicas)
-        if decoder.device != self.device:
+        _resolve_tp(tp)
+        replicas = _resolve_replicas(replicas)
+        if decoder.device not in self._devices:
             raise ServingError(
                 f"serving: decoder on {decoder.device}, gateway on "
-                f"{self.device}")
+                f"{[str(d) for d in self._devices]}")
         if block_tokens is None:
             block_tokens = get_env("MXTPU_GEN_BLOCK_TOKENS", 16, int)
         if max_blocks is None:
@@ -449,28 +651,28 @@ class Gateway:
             max_new_tokens = get_env("MXTPU_GEN_MAX_NEW_TOKENS", 64, int)
         if max_queue is None:
             max_queue = get_env("MXTPU_SERVING_MAX_QUEUE", 256, int)
-        with self._gen_lock:
-            if name in self._generators or name in self._models:
-                raise ServingError(
-                    f"serving: generator {name!r} already registered")
-            # claim the name before paying for the pool and warmup
-            self._generators[name] = None
+        self._claim(name)
         try:
-            gen = GenModel(name, decoder, block_tokens=block_tokens,
+            devices, degraded = self._pick_devices(replicas)
+            gen = GenModel(name, decoder, devices,
+                           block_tokens=block_tokens,
                            max_blocks=max_blocks,
                            max_new_tokens=max_new_tokens,
                            max_decode_batch=max_decode_batch,
                            max_queue=max_queue, warmup=warmup)
+            gen.degraded = degraded
         except BaseException:
             with self._gen_lock:
-                del self._generators[name]
+                del self._models[name]
             raise
         with self._gen_lock:
+            del self._models[name]
             self._generators[name] = gen
         logger.info(
-            "serving: registered generator %r on %s — %d-token blocks x "
-            "%d, warmup %.1fs", name, self.device, block_tokens, max_blocks,
-            gen.warmup_seconds)
+            "serving: registered generator %r — %d lane(s) on %s, "
+            "%d-token blocks x %d, warmup %.1fs", name, len(gen.lanes),
+            sorted({str(ln.device) for ln in gen.lanes}), block_tokens,
+            max_blocks, gen.warmup_seconds)
         return gen
 
     def unregister(self, name):
@@ -486,7 +688,7 @@ class Gateway:
     def _get_generator(self, name):
         with self._gen_lock:
             gen = self._generators.get(name)
-            known = sorted(n for n, g in self._generators.items() if g)
+            known = sorted(self._generators)
         if gen is None:
             raise ServingError(
                 f"serving: unknown generator {name!r} (registered: "
@@ -496,8 +698,8 @@ class Gateway:
     def submit_generate(self, model, prompt, max_new_tokens=None):
         """Admit one generation request; returns the streaming
         :class:`~.generate.GenRequest` future. Fast-rejects with
-        :class:`RejectedError` (reason ``kv_cache_full`` when the
-        block pool cannot cover the request's token budget)."""
+        :class:`RejectedError` (reason ``kv_cache_full`` when no lane's
+        block pool can cover the request's token budget)."""
         from .generate.scheduler import GenRequest
 
         gen = self._get_generator(model)
@@ -521,13 +723,19 @@ class Gateway:
 
     def _gen_reject_msg(self, gen, reason, plen, max_new):
         if reason == "kv_cache_full":
-            need = gen.lane.pool.blocks_for(plen + max_new)
+            need = gen.lanes[0].pool.blocks_for(plen + max_new)
             return (f"serving: {gen.name!r} KV block pool cannot cover "
                     f"{plen}+{max_new} tokens ({need} blocks) — shed "
                     "(retry with backoff, or lower max_new_tokens)")
         if reason == "queue_full":
             return (f"serving: {gen.name!r} generation queue at depth "
                     f"limit {gen.max_queue} — shed")
+        if reason == "lane_lost":
+            # admission never gives this reason; the recovery path builds
+            # its own message (scheduler._recover_requests) — kept so
+            # every RejectedError reason renders
+            return (f"serving: {gen.name!r} request lost its decode "
+                    "lane and exhausted its recovery budget — resubmit")
         return f"serving: {gen.name!r} is shutting down"
 
     def generate(self, model, prompt, max_new_tokens=None,
@@ -541,15 +749,162 @@ class Gateway:
             return req
         return req.result(timeout)
 
-    def stats(self):
-        """Bounded per-model snapshot: queue, buckets, service-rate
-        estimates, lane state, executables and request / batch / reject
-        counts; generators report their queue, batch, pool and steps."""
-        with self._gen_lock:
-            models = [m for m in self._models.values() if m is not None]
-            gens = [g for g in self._generators.values() if g is not None]
+    # -- health --------------------------------------------------------------
+    def check_health(self, model=None, revive=True):
+        """Probe every replica off the queue; drained replicas whose
+        probe passes rejoin (a fresh lane thread) when ``revive``.
+        Returns ``{model: [healthy, ...]}``."""
+        models = [self._get_model(model)] if model is not None \
+            else self._all_models()
         out = {}
         for m in models:
+            states = []
+            for rep in list(m.replicas):
+                ok = rep.probe()
+                if ok and not rep.healthy and revive and \
+                        not m.queue.closed:
+                    rep.healthy = True
+                    # always a FRESH lane: the generation bump retires
+                    # any parked old thread (it hands back its next batch
+                    # and exits), so a revive neither races a thread that
+                    # is mid-exit nor leaks one that is not
+                    rep.start()
+                    m.queue.wake()    # the superseded thread leaves now
+                    logger.info("serving: replica %d of %r revived",
+                                rep.idx, m.name)
+                elif not ok and rep.healthy:
+                    rep.healthy = False
+                    logger.warning(
+                        "serving: replica %d of %r failed its health "
+                        "probe — drained", rep.idx, m.name)
+                states.append(rep.healthy)
+            if not m.queue.closed and not any(states):
+                # the probe drained the LAST lane: lanes that exit
+                # between batches never touch the queue, so pending
+                # requests drain-fail here
+                for req in m.queue.drain():
+                    req._set_error(ServingError(
+                        f"serving: no healthy replica left for "
+                        f"{m.name!r} (health probe drained the last "
+                        "lane)"))
+            out[m.name] = states
+        return out
+
+    def _health_loop(self, period):
+        while not self._health_stop.wait(period):
+            try:
+                self.check_health()
+            except Exception:  # noqa: BLE001 — health must not crash
+                logger.exception("serving: health probe failed")
+
+    def health(self):
+        """``{model: [replica healthy flags]}`` without probing."""
+        return {m.name: [r.healthy for r in m.replicas]
+                for m in self._all_models()}
+
+    # -- elasticity ----------------------------------------------------------
+    def replica_count(self, name):
+        """Current serving lanes of a model or generator (retiring
+        generator lanes excluded — they take no new work)."""
+        with self._gen_lock:
+            gen = self._generators.get(name)
+        if gen is not None:
+            with gen.cond:
+                return sum(1 for ln in gen.lanes if not ln.retiring)
+        return len(self._get_model(name).replicas)
+
+    def scale(self, name, replicas):
+        """Resize a registered model (or generator) to ``replicas``
+        serving lanes. Scale-out builds, warms and starts fresh lanes
+        through the same factory registration used, placed away from the
+        devices existing lanes hold while others exist. Scale-in drains
+        before retiring: a retired one-shot replica stops taking new
+        batches (a batch it already took is requeued to survivors, one
+        it is executing completes), and a retiring generator lane
+        evacuates its in-flight generations to the surviving lanes
+        (KV-block migration, deterministic replay fallback) and releases
+        its KV block pool. Returns a report dict."""
+        if self._closed:
+            raise ServingError("serving: gateway is closed")
+        n = int(replicas)
+        if n < 1:
+            raise ServingError(
+                f"serving: cannot scale {name!r} below 1 replica (asked "
+                f"{n}); use unregister() to remove the model")
+        with self._gen_lock:
+            gen = self._generators.get(name)
+        if gen is not None:
+            # existing lanes keep their devices; only the NEW lanes are
+            # placed
+            with gen.cond:
+                active = [ln.device for ln in gen.lanes
+                          if not ln.retiring]
+            extra = max(n - len(active), 0)
+            new_devs, new_deg = self._pick_devices(extra, busy=active) \
+                if extra else ([], False)
+            report = gen.scale_to(n, list(active) + new_devs)
+            gen.degraded = new_deg or n > self.device_count()
+            report["degraded"] = gen.degraded
+            return report
+        m = self._get_model(name)
+        cur = len(m.replicas)
+        report = {"model": name, "from": cur, "to": n,
+                  "added": 0, "retired": 0}
+        if n == cur:
+            return report
+        if n > cur:
+            existing = [r.device for r in m.replicas]
+            new_devs, new_deg = self._pick_devices(n - cur, busy=existing)
+            m.degraded = new_deg or n > self.device_count()
+            for device in new_devs:
+                idx = m._next_idx
+                m._next_idx += 1
+                rep, n_exec = m._replica_factory(m, idx, device)
+                m.executables += n_exec
+                m.replicas.append(rep)
+                report["added"] += 1
+        else:
+            # retire drained/unhealthy lanes FIRST (retiring the only
+            # healthy lane would wedge the model behind dead threads),
+            # then the newest healthy ones
+            doomed = sorted(m.replicas,
+                            key=lambda r: (r.healthy, -r.idx))[:cur - n]
+            for rep in doomed:
+                self._retire_replica(m, rep)
+                report["retired"] += 1
+            m.degraded = n > self.device_count()
+        report["degraded"] = m.degraded
+        return report
+
+    def _retire_replica(self, m, rep):
+        """Drain-before-retire: the lane stops at its next take_batch
+        wakeup — a batch it already took is requeued to survivors, a
+        batch it is executing completes and replies — and leaves the
+        list at once, so admission, poison accounting and health all see
+        the new width."""
+        rep.healthy = False
+        rep.last_error = ServingError(
+            f"serving: replica {rep.idx} of {m.name!r} retired by "
+            "scale-in")
+        rep._gen += 1   # a lane that took a batch hands it back
+        if rep in m.replicas:
+            m.replicas.remove(rep)
+        # a lane parked in take_batch leaves at this wakeup; one that is
+        # executing a batch completes it first — retirement does not
+        # block on it
+        m.queue.wake()
+        rep.join(timeout=0.5)
+
+    def stats(self):
+        """Bounded per-model snapshot: queue, buckets, service-rate
+        estimates, per-replica state and counts, executables and request
+        / batch / reject / failure counts; generators report their
+        queue, lanes (each with its pool and step counts), recovery
+        totals and placement."""
+        with self._gen_lock:
+            gens = [g for g in self._generators.values() if g is not None]
+        out = {}
+        for m in self._all_models():
             with m._rate_lock:
                 exec_s, rate = m._exec_s, m._rows_per_s
                 counts = {k: (dict(v) if isinstance(v, dict) else v)
@@ -562,9 +917,10 @@ class Gateway:
                 "max_queue": m.max_queue,
                 "slo_ms": m.slo_s * 1e3 if m.slo_s else None,
                 "max_wait_ms": m.queue.max_wait_s * 1e3,
-                "replicas": [{"idx": r.idx, "device": str(r.device),
-                              "healthy": r.healthy} for r in m.replicas],
-                "int8_lowering": m.replicas[0].variant_set.int8_lowering,
+                "replicas": [r.stats() for r in m.replicas],
+                "degraded": m.degraded,
+                "int8_lowering": (m.replicas[0].variant_set.int8_lowering
+                                  if m.replicas else None),
                 "ewma_exec_s": exec_s,
                 "ewma_rows_per_s": rate,
                 "executables": m.executables,
@@ -579,6 +935,9 @@ class Gateway:
         if self._closed:
             return
         self._closed = True
+        self._health_stop.set()
+        if self._health_thread is not None:
+            self._health_thread.join(timeout=30.0)
         with self._gen_lock:
             names = sorted(n for n, g in list(self._generators.items())
                            + list(self._models.items()) if g)

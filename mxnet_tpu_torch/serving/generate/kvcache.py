@@ -24,6 +24,12 @@ Admission reserves a request's worst-case block budget
 (``blocks_for(prompt + max_new_tokens)``); allocation itself is
 incremental (prefill takes the prompt's blocks, decode one more each
 time a position crosses a block boundary).
+
+Decode failover moves a request's blocks between two lanes' pools:
+:meth:`BlockPool.gather` copies them out of the source pool,
+:meth:`BlockPool.scatter` writes them into blocks of the destination
+pool in place and :meth:`BlockTable.adopt` records them in the
+request's new table (:mod:`.migrate`).
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ class BlockPool:
         shape = (self.num_layers, self.max_blocks, self.block_tokens,
                  self.num_heads, self.pool_head_dim)
         # two separate allocations, K and V, as in the JAX pool
+        self._itemsize = torch.empty((), dtype=dtype).element_size()
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self._lock = threading.Lock()
@@ -90,7 +97,7 @@ class BlockPool:
     @property
     def bytes_per_block(self):
         return 2 * self.block_tokens * self.num_heads \
-            * self.pool_head_dim * self.num_layers * self.k.element_size()
+            * self.pool_head_dim * self.num_layers * self._itemsize
 
     def blocks_for(self, tokens):
         """Blocks covering ``tokens`` cache slots (ceil division)."""
@@ -163,9 +170,31 @@ class BlockPool:
             "closed": closed,
         }
 
+    # -- migration -----------------------------------------------------------
+    def gather(self, block_ids):
+        """Copies of blocks ``block_ids`` of every layer: ``(k, v)``,
+        each ``(layers, len(block_ids), BT, H, D)``, tensors that own
+        their bytes (the pool can close right after), on the current
+        stream of the pool's device."""
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=self.device)
+        return (self.k.index_select(1, idx), self.v.index_select(1, idx))
+
+    def scatter(self, block_ids, k, v):
+        """Write ``k`` / ``v`` (as :meth:`gather` returns them, on this
+        pool's device) into blocks ``block_ids``, in place, on the
+        current stream: the migration landing, which in the JAX package
+        swaps in the arrays its scatter returned."""
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=self.device)
+        self.k.index_copy_(1, idx, k)
+        self.v.index_copy_(1, idx, v)
+
     def close(self):
-        """Release the pool's device tensors. Idempotent; any later
-        alloc/reserve is a ledger bug and raises or refuses."""
+        """Release the pool's device tensors: the pool holds the only
+        references to them (steps and tables hold the pool, never its
+        tensors), so their bytes leave the device here. Idempotent; any
+        later alloc/reserve is a ledger bug and raises or refuses."""
         with self._lock:
             if self.closed:
                 return
@@ -200,6 +229,28 @@ class BlockTable:
                 "— admission should have rejected this request"
                 % (len(self.blocks) + n, len(self.row)))
         for b in self.pool.alloc(n):
+            self.row[len(self.blocks)] = b
+            self.blocks.append(b)
+        return self
+
+    def adopt(self, block_ids):
+        """Append blocks the caller already allocated from this pool —
+        the migration landing: :class:`~.migrate.KVMigrator` allocs the
+        destination blocks, writes the salvaged K/V into them, and the
+        table only records ownership and the row mapping (pad-sink
+        padding beyond the adopted prefix is untouched). Same overflow
+        discipline as :meth:`extend`."""
+        ids = [int(b) for b in block_ids]
+        if any(b == PAD_BLOCK for b in ids):
+            raise MXNetError(
+                "generate: cannot adopt the pad sink into a block "
+                "table — block 0 is storage no live request may own")
+        if len(self.blocks) + len(ids) > len(self.row):
+            raise MXNetError(
+                "generate: block table overflow (%d blocks, width %d) "
+                "— admission should have rejected this request"
+                % (len(self.blocks) + len(ids), len(self.row)))
+        for b in ids:
             self.row[len(self.blocks)] = b
             self.blocks.append(b)
         return self

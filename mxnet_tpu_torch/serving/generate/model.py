@@ -284,20 +284,29 @@ def _heads(y, num_heads):
 
 
 class DecodeSteps:
-    """One lane's prefill/decode steps over a decoder and a
-    :class:`~.kvcache.BlockPool` on the same device. ``prefills`` and
-    ``decodes`` count the calls (warmup included): each launches one
-    attention kernel per layer on a CUDA device."""
+    """One lane's prefill/decode steps over a decoder and the lane's
+    :class:`~.kvcache.BlockPool`. ``prefills`` and ``decodes`` count the
+    calls (warmup included): each launches one attention kernel per
+    layer on a CUDA device.
+
+    Lanes on the decoder's device share its parameters (read at every
+    call, so training after registration is served). A lane on another
+    device serves a copy of the weights taken when its steps were built,
+    as the JAX package places each lane's parameters on its device."""
 
     def __init__(self, decoder, pool):
-        if decoder.device != pool.device:
-            raise MXNetError(
-                f"generate: decoder on {decoder.device} but block pool on "
-                f"{pool.device}")
         self.decoder = decoder
         self.pool = pool
+        self._copy = None
+        if decoder.device != pool.device:
+            self._copy = _tree_to(decoder.param_tree(), pool.device)
         self.prefills = 0
         self.decodes = 0
+
+    def _param_tree(self):
+        if self._copy is not None:
+            return self._copy
+        return self.decoder.param_tree()
 
     @torch.inference_mode()
     def prefill(self, tokens, n_valid, blocks):
@@ -312,7 +321,7 @@ class DecodeSteps:
         tok = torch.as_tensor(np.asarray(tokens, np.int64),
                               device=dev).view(1, t)
         blk = torch.as_tensor(np.asarray(blocks, np.int64), device=dev)
-        params = dec.param_tree()
+        params = self._param_tree()
         x = embedding(tok, params["embed_w"])                # (1, T, d)
         for li, lp in enumerate(params["layers"]):
             q, k, v = _qkv(lp, x)                            # (1, T, d) each
@@ -352,7 +361,7 @@ class DecodeSteps:
         blk, slot = blk.long(), slot.long()
         tab = packed[4 * bsz:].view(bsz, width)
         hd = dec.head_dim
-        params = dec.param_tree()
+        params = self._param_tree()
         x = embedding(tok, params["embed_w"])                # (B, d)
         for li, lp in enumerate(params["layers"]):
             q, k, v = _qkv(lp, x)                            # (B, d) each
@@ -367,6 +376,15 @@ class DecodeSteps:
             x = _layer_tail(lp, x, a.reshape(bsz, dec.d_model))
         self.decodes += 1
         return torch.argmax(_final_logits(params, x), dim=-1)
+
+
+def _tree_to(tree, device):
+    """A detached copy of a :meth:`GenerativeDecoder.param_tree` on
+    ``device``."""
+    with torch.no_grad():
+        return {k: ([{n: t.detach().to(device) for n, t in lp.items()}
+                     for lp in v] if k == "layers"
+                    else v.detach().to(device)) for k, v in tree.items()}
 
 
 def _hidden_plain(params, tokens, num_heads):

@@ -15,15 +15,35 @@ Each lane re-forms its in-flight batch every decode step:
   reply stream closes, and the batch shrinks without stalling anyone.
 
 Admission reserves a request's worst-case block budget
-(``blocks_for(prompt + max_new_tokens)``) at submit; when the pool
-cannot cover it the request raises :class:`RejectedError` with reason
-``kv_cache_full`` in the caller's thread, before anything queues.
+(``blocks_for(prompt + max_new_tokens)``) on the lane with the most
+headroom at submit; when no pool can cover it the request raises
+:class:`RejectedError` with reason ``kv_cache_full`` in the caller's
+thread, before anything queues.
 
-The lane thread runs under ``torch.inference_mode()``: grad mode is
-thread-local and a new thread starts with it on, so without this every
-step would record autograd state. Decode failover, elastic scaling,
-tensor-parallel slices, telemetry and tracing spans of the JAX
-scheduler are not ported yet.
+**Decode failover**: a lane that dies (:meth:`GenLane.kill`), fails a
+step, or is scaled in evacuates its in-flight generations instead of
+failing them — one code path for planned and unplanned loss. Each
+evacuated request's KV blocks are salvaged through
+:class:`~.migrate.KVMigrator` and landed on a surviving lane's pool
+(``mode=migrate``); when the blocks are unsalvageable the survivor
+deterministically replays prompt + accepted tokens (``mode=replay``: a
+re-prefill, then a batch-1 re-decode that must reproduce every accepted
+token). Either way the stream continues token for token, and the
+replayable ``stream()`` iterator gives consumers one seamless sequence.
+A per-request budget (``MXTPU_GEN_MAX_RECOVERIES``, backoff base
+``MXTPU_GEN_RECOVERY_BACKOFF_MS``) degrades to a fast
+``RejectedError(reason="lane_lost")`` when exhausted; re-admission
+re-reserves blocks atomically on the target pool, so a full pool queues
+the recovery rather than double-booking.
+
+Every lane thread runs under ``torch.inference_mode()`` (grad mode is
+thread-local, and a new thread starts with it on) and warms its shapes
+itself before it serves. A lane on a CUDA device owns a CUDA stream: its
+pool is allocated, its steps run and its warmup is waited for on that
+stream, so lanes sharing one card overlap their kernels and a lane
+scaled out while others serve waits for no one's work but its own.
+Metric gauges and tracing spans of the JAX scheduler, and its
+tensor-parallel lanes, are not ported.
 """
 from __future__ import annotations
 
@@ -35,12 +55,37 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..batcher import ServingError
+from ...base import MXNetError, get_env
+from ...kvstore import fault as _fault
+from ..batcher import RejectedError, ServingError
 from ..variants import default_buckets, pick_bucket
 from .kvcache import BlockPool, BlockTable
+from .migrate import KVMigrator
 from .model import DecodeSteps
 
 logger = logging.getLogger(__name__)
+
+# CUDA streams of finalized lanes, by device, handed to the next lane
+# built there: cuBLAS keeps a workspace per stream, so a scale-in /
+# scale-out cycle that reuses a stream adds none
+_spare_streams = {}
+_spare_lock = threading.Lock()
+
+
+def _lane_stream(device):
+    if device.type != "cuda":
+        return None
+    with _spare_lock:
+        spare = _spare_streams.get(device)
+        if spare:
+            return spare.pop()
+    return torch.cuda.Stream(device)
+
+
+def _return_stream(device, stream):
+    if stream is not None:
+        with _spare_lock:
+            _spare_streams.setdefault(device, []).append(stream)
 
 
 class GenRequest:
@@ -48,12 +93,17 @@ class GenRequest:
 
     ``stream()`` yields token ids as the scheduler emits them;
     ``result(timeout)`` blocks for the full greedy completion. Either
-    raises the serving-side error if the request failed."""
+    raises the serving-side error if the request failed. ``recoveries``
+    counts the lanes it survived; ``recover_spans`` holds one
+    ``(start_ns, end_ns, attrs)`` per rescue (``attrs["mode"]`` is
+    ``migrate`` or ``replay``)."""
 
     __slots__ = ("model", "prompt", "max_new_tokens", "submit_ns",
                  "first_token_ns", "last_token_ns", "tokens", "table",
-                 "next_pos", "reserved_blocks", "finish_reason", "_cv",
-                 "_done", "_error")
+                 "next_pos", "reserved_blocks", "finish_reason",
+                 "recoveries", "recover_spans", "_recover_cause",
+                 "_salvage", "_recover_t0", "_recovered", "_cv", "_done",
+                 "_error")
 
     def __init__(self, model, prompt, max_new_tokens):
         self.model = model
@@ -67,6 +117,12 @@ class GenRequest:
         self.next_pos = 0
         self.reserved_blocks = 0
         self.finish_reason = None
+        self.recoveries = 0       # times this request survived a lane
+        self.recover_spans = []   # (start_ns, end_ns, attrs) per rescue
+        self._recover_cause = None
+        self._salvage = None      # KV blocks gathered off a dead lane
+        self._recover_t0 = 0
+        self._recovered = False   # next emit is the post-rescue token
         self._cv = threading.Condition(threading.Lock())
         self._done = threading.Event()
         self._error = None
@@ -118,82 +174,192 @@ class GenRequest:
 
 class GenLane:
     """One decode lane: decoder steps + block pool + the scheduler
-    thread that re-forms its batch every step. ``prefill_ns`` /
-    ``decode_ns`` sum the host wall time of the requests' ``prefills``
-    and ``decode_steps``, each ending in the token read (a device
-    sync); warmup calls are not in them."""
+    thread that re-forms its batch every step (on ``stream`` when the
+    lane is on a CUDA device). ``prefill_ns`` / ``decode_ns`` sum the
+    host wall time of the requests' ``prefills`` and ``decode_steps``,
+    each ending in the token read (a sync of the lane's stream);
+    ``replays`` and ``replay_decodes`` count the deterministic replays
+    this lane ran and their batch-1 re-decode steps, ``migrations`` the
+    KV-block landings. Warmup calls are in none of them."""
 
-    def __init__(self, model, steps, pool):
+    def __init__(self, model, idx, device, steps, pool, stream=None):
         self._model = model
+        self.idx = idx
+        self.device = device
         self.steps = steps
         self.pool = pool
+        self.stream = stream
         self.waiting = deque()
         self.running = []
         self._thread = None
+        # a retiring lane takes no new admissions and EVACUATES its
+        # waiting + running requests onto the surviving lanes (migrate /
+        # replay), then exits so its pool can be released: planned
+        # scale-in and a kill are one code path
+        self.retiring = False
+        self.cause = None        # why the lane went away
+        self.finalized = False   # pool closed + lane removed (once)
+        self.warmed = 0          # shapes its warmup ran
         self.prefills = 0
         self.prefill_ns = 0
         self.decode_steps = 0
         self.decode_ns = 0
         self.decode_rows = 0
+        self.replays = 0
+        self.replay_decodes = 0
+        self.migrations = 0
 
     def start(self):
+        """Start the lane thread. When its model warms, the thread first
+        runs every prefill and decode shape once (:meth:`GenModel.
+        _warmup`, counted in ``warmed``) and waits for it on the lane's
+        stream, and the call returns when that is done (re-raising its
+        failure): the warmup runs on the lane's own thread because cuBLAS
+        keeps its handles and workspaces per thread — warmed on another
+        thread, the first steps would pay for them."""
+        ready = threading.Event()
+        warm = {}
         self._thread = threading.Thread(
-            target=self._loop, daemon=True,
-            name=f"mxtpu-torch-generate-{self._model.name}")
+            target=self._loop, args=(ready, warm), daemon=True,
+            name=f"mxtpu-torch-generate-{self._model.name}-l{self.idx}")
         self._thread.start()
+        ready.wait()
+        if "error" in warm:
+            self.join()
+            raise warm["error"]
 
     def join(self, timeout=None):
         if self._thread is not None:
             self._thread.join(timeout)
 
-    # -- scheduler loop ------------------------------------------------------
-    def _loop(self):
+    def kill(self, cause=None):
+        """Abrupt lane loss (the chaos seam): stop scheduling at the
+        next step boundary and evacuate every in-flight generation onto
+        the surviving lanes — blocks migrate while the pool still
+        answers, replay covers the truly-gone case."""
         m = self._model
-        with torch.inference_mode():
-            while True:
-                with m.cond:
-                    while not m.closed:
-                        admit = self._pop_admissions()
-                        if admit or self.running:
-                            break
-                        m.cond.wait(0.1)
-                    if m.closed:
+        with m.cond:
+            if self.retiring:
+                return
+            self.cause = cause or f"lane {self.idx} killed"
+            self.retiring = True
+            m.cond.notify_all()
+
+    # -- scheduler loop ------------------------------------------------------
+    def _loop(self, ready, warm):
+        m = self._model
+        with torch.inference_mode(), torch.cuda.stream(self.stream):
+            try:
+                if m._warmup_lanes:
+                    self.warmed = m._warmup(self.steps)
+                if self.stream is not None:
+                    # the lane's own stream, never the whole device:
+                    # lanes already serving on the card keep going
+                    self.stream.synchronize()
+            except BaseException as e:  # noqa: BLE001 — re-raised by start
+                warm["error"] = e
+                return
+            finally:
+                ready.set()
+            self._serve()
+
+    def _serve(self):
+        m = self._model
+        while True:
+            doomed = None
+            admit = []
+            with m.cond:
+                while True:
+                    if m.closed or self.retiring:
                         break
-                try:
-                    for req in admit:
-                        self._prefill(req)
-                    if self.running:
-                        self._step()
-                except Exception as e:  # noqa: BLE001 — the lane survives
-                    # a failed step: its requests fail with the cause,
-                    # new work still runs
-                    logger.exception("generate: step on %r failed", m.name)
-                    err = ServingError(f"generate: step on {m.name!r} "
-                                       f"failed: {e!r}")
-                    err.__cause__ = e
-                    self._fail_inflight(admit, err, waiting=False)
+                    admit = self._pop_admissions()
+                    if admit or self.running:
+                        break
+                    # idle, or the queue head is a recovery whose
+                    # re-reservation cannot fit yet: wait for a submit
+                    # or a retire freeing budget (bounded: the freeing
+                    # unreserve may race this probe)
+                    m.cond.wait(0.1)
+                if m.closed:
+                    break
+                if self.retiring:
+                    doomed = list(self.running) + list(self.waiting)
+                    self.running = []
+                    self.waiting.clear()
+            if doomed is not None:
+                # evacuate, then finalize (outside the cond lock): the
+                # scale-in initiator may have given up on its join long
+                # ago, and a pool nobody closes would stay on the device
+                self._evacuate(doomed)
+                return
+            try:
+                for req in admit:
+                    self._start(req)
+                if self.running:
+                    self._step()
+            except Exception as e:  # noqa: BLE001 — a failed step
+                # evacuates ITS requests onto the surviving lanes
+                # (possibly this one); the lane survives for new work
+                logger.exception("generate: step on lane %d of %r failed",
+                                 self.idx, m.name)
+                self._recover_inflight(admit, e)
         self._fail_inflight([], ServingError(
             f"generate: model {m.name!r} shut down before the request "
-            "completed"), waiting=True)
+            "completed"))
 
     def _pop_admissions(self):
-        """Pop waiting requests into the batch up to max_decode_batch
-        (caller holds m.cond; admission already reserved their blocks)."""
+        """Pop admittable waiting requests (caller holds m.cond). A
+        recovery re-queued without a reservation re-reserves atomically
+        HERE, on the pool it will decode on — a full pool leaves it
+        queued (no double-booking), retried when a retire frees
+        budget."""
         m = self._model
         admit = []
         while self.waiting and \
                 len(self.running) + len(admit) < m.max_decode_batch:
-            admit.append(self.waiting.popleft())
+            req = self.waiting[0]
+            if req.reserved_blocks == 0:
+                need = self.pool.blocks_for(
+                    len(req.prompt) + req.max_new_tokens)
+                if not self.pool.reserve(need):
+                    break
+                req.reserved_blocks = need
+            self.waiting.popleft()
+            admit.append(req)
         return admit
 
-    def _fail_inflight(self, extra, err, waiting):
+    def _evacuate(self, doomed):
+        """Retiring or killed lane: hand every admitted request to the
+        surviving lanes (migrate preferred, replay as the fallback),
+        then finalize."""
+        m = self._model
+        m._recover_requests(
+            self, doomed, self.cause or f"lane {self.idx} retired")
+        m._finalize_retired_lane(self)
+
+    def _recover_inflight(self, extra, err):
+        """A failed prefill/step: route the affected requests through
+        migrate/replay instead of failing them (budget-bounded — a
+        persistently failing request degrades to ``lane_lost``)."""
         m = self._model
         with m.cond:
-            doomed = list(self.running) + list(extra)
-            if waiting:
-                doomed += list(self.waiting)
-                self.waiting.clear()
+            doomed = list(self.running)
             self.running = []
+        seen = set()
+        uniq = []
+        for req in doomed + [r for r in extra if not r.done()]:
+            if id(req) not in seen:
+                seen.add(id(req))
+                uniq.append(req)
+        m._recover_requests(self, uniq, repr(err))
+
+    def _fail_inflight(self, extra, err):
+        m = self._model
+        with m.cond:
+            doomed = list(self.running) + list(self.waiting) + \
+                [r for r in extra if not r.done()]
+            self.running = []
+            self.waiting.clear()
         seen = set()
         for req in doomed:
             # an admitted request can sit in both `running` and `extra`
@@ -203,6 +369,104 @@ class GenLane:
             self._retire(req, error=err)
 
     # -- phases --------------------------------------------------------------
+    def _start(self, req):
+        """Dispatch one admitted request: land a KV-block migration,
+        deterministically replay a recovery, or fresh-prefill."""
+        if req._salvage is not None and self._land_migration(req):
+            return
+        if req.tokens:
+            self._replay(req)
+        else:
+            self._prefill(req)
+
+    def _land_migration(self, req):
+        """Write the request's salvaged KV blocks into THIS pool and
+        rejoin it to the running batch — the migrate recovery mode.
+        False when the landing fails (wedged/closed): the caller falls
+        back to deterministic replay, which only needs the tokens."""
+        m = self._model
+        salvage, req._salvage = req._salvage, None
+        try:
+            table, handoff = m.migrator.land(salvage, self.pool,
+                                             m.table_width)
+        except MXNetError:
+            return False
+        req.table = table
+        # between steps the cache holds prompt + tokens[:-1]; the very
+        # next decode step feeds tokens[-1] at next_pos — the invariant
+        # the migrated table keeps byte for byte
+        req.next_pos = len(req.prompt) + len(req.tokens) - 1
+        now = time.monotonic_ns()
+        req.recover_spans.append((
+            req._recover_t0 or now, now,
+            {"mode": "migrate", "lane": self.idx,
+             "cause": req._recover_cause,
+             "blocks": handoff["blocks"],
+             "bytes_moved": handoff["bytes_moved"],
+             "est_s": handoff["est_s"],
+             "wall_ns": handoff["wall_ns"]}))
+        req._recovered = True
+        self.migrations += 1
+        self.running.append(req)
+        return True
+
+    def _replay(self, req):
+        """Deterministic replay on THIS lane: re-prefill the prompt,
+        silently re-decode the already-accepted tokens at batch 1 (no
+        re-emission — consumers see one seamless stream), rejoin the
+        running batch. Greedy decode makes the continuation token for
+        token the never-killed run's; a divergence raises."""
+        m = self._model
+        t0 = time.monotonic_ns()
+        accepted = list(req.tokens)
+        plen = len(req.prompt)
+        tpad = pick_bucket(m.prompt_buckets, plen)
+        req.table = BlockTable(self.pool, m.table_width)
+        req.table.extend(self.pool.blocks_for(plen))
+        tokens = np.zeros(tpad, np.int32)
+        tokens[:plen] = req.prompt
+        first = int(self._host_tokens(self.steps.prefill(
+            tokens, plen,
+            req.table.row[:tpad // self.pool.block_tokens])))
+        req.next_pos = plen
+        if first != accepted[0]:
+            raise MXNetError(
+                "generate: replay diverged at the first token "
+                f"({first} != accepted {accepted[0]}) — greedy decode "
+                "must be deterministic")
+        # batch-1 silent re-decode through the warmed bucket: feed each
+        # accepted token at its original position, checking the
+        # re-derived successor
+        bucket = pick_bucket(m.decode_buckets, 1)
+        for j in range(1, len(accepted)):
+            req.table.ensure_position(req.next_pos)
+            tkn = np.zeros(bucket, np.int32)
+            pos = np.zeros(bucket, np.int32)
+            tab = np.zeros((bucket, m.table_width), np.int32)
+            tkn[0] = accepted[j - 1]
+            pos[0] = req.next_pos
+            tab[0] = req.table.row
+            nxt = int(self._host_tokens(
+                self.steps.decode(tkn, pos, tab))[0])
+            self.replay_decodes += 1
+            req.next_pos += 1
+            if nxt != accepted[j]:
+                raise MXNetError(
+                    f"generate: replay diverged at token {j} "
+                    f"({nxt} != accepted {accepted[j]}) — greedy "
+                    "decode must be deterministic")
+        now = time.monotonic_ns()
+        req.recover_spans.append((
+            req._recover_t0 or now, now,
+            {"mode": "replay", "lane": self.idx,
+             "cause": req._recover_cause,
+             "prompt_tokens": plen,
+             "replayed_tokens": len(accepted),
+             "wall_ns": now - t0}))
+        req._recovered = True
+        self.replays += 1
+        self.running.append(req)
+
     def _prefill(self, req):
         """One request's padded prompt through the causal stack; emits
         the first greedy token and joins the running set."""
@@ -259,13 +523,15 @@ class GenLane:
     def _host_tokens(self, tok_dev):
         """The token reply transfer: generated ids must reach the host
         to be streamed to clients and to drive stopping and the next
-        step's feed. The one device read (and sync) per step."""
+        step's feed. The one device read (a sync of the lane's stream)
+        per step."""
         return tok_dev.cpu().numpy()
 
     def _emit(self, req, tok, now_ns):
         """Record + stream one generated token; marks the request
         finished when it hits EOS or its budget."""
         m = self._model
+        req._recovered = False
         if not req.tokens:
             req.first_token_ns = now_ns
         req.last_token_ns = now_ns
@@ -277,35 +543,48 @@ class GenLane:
 
     # -- retirement ----------------------------------------------------------
     def _retire(self, req, error=None):
+        m = self._model
         if req.table is not None:
             req.table.release()
             req.table = None
         if req.reserved_blocks:
             self.pool.unreserve(req.reserved_blocks)
             req.reserved_blocks = 0
+        req._salvage = None
+        # the freed reservation may be exactly what a queued recovery
+        # on another lane is waiting to re-reserve
+        with m.cond:
+            m.cond.notify_all()
         req._finish(error)
 
     def stats(self):
-        return {"device": str(self.pool.device),
+        return {"idx": self.idx,
+                "device": str(self.device),
+                "retiring": self.retiring,
                 "pool": self.pool.occupancy(),
                 "prefills": self.prefills,
                 "prefill_ns": self.prefill_ns,
                 "decode_steps": self.decode_steps,
                 "decode_ns": self.decode_ns,
                 "decode_rows": self.decode_rows,
-                # every step call, warmup included: one attention
-                # launch per layer each
+                "replays": self.replays,
+                "replay_decodes": self.replay_decodes,
+                "migrations": self.migrations,
+                # every step call, warmup and replays included: one
+                # attention launch per layer each
                 "step_calls": {"prefill": self.steps.prefills,
                                "decode": self.steps.decodes}}
 
 
 class GenModel:
-    """One registered generator: decoder + one lane + admission state.
-    Built by ``Gateway.register_generator``; requests enter through
-    :meth:`try_admit` (via the gateway, which owns the error messages)."""
+    """One registered generator: decoder + N lanes + admission state.
+    Built by ``Gateway.register_generator`` with the lanes' ``devices``
+    (the gateway's placement); requests enter through :meth:`try_admit`
+    (via the gateway, which owns the error messages)."""
 
-    def __init__(self, name, decoder, block_tokens, max_blocks,
-                 max_new_tokens, max_decode_batch, max_queue, warmup=True):
+    def __init__(self, name, decoder, devices, block_tokens, max_blocks,
+                 max_new_tokens, max_decode_batch, max_queue,
+                 warmup=True):
         self.name = name
         self.decoder = decoder
         self.eos_id = decoder.eos_id
@@ -316,6 +595,19 @@ class GenModel:
         self.max_queue = int(max_queue)
         self.closed = False
         self.cond = threading.Condition(threading.Lock())
+        # decode failover: how many lane losses one request survives
+        # before degrading to a fast lane_lost reject, and the backoff
+        # base between REPEAT recoveries of the same request (doubling,
+        # capped at 40x base — the first rescue is always immediate)
+        self.max_recoveries = max(
+            int(get_env("MXTPU_GEN_MAX_RECOVERIES", 2, int)), 0)
+        self.recovery_backoff_ms = max(
+            float(get_env("MXTPU_GEN_RECOVERY_BACKOFF_MS", 50.0,
+                          float)), 0.0)
+        self.fault_plan = None   # None -> MXNET_KVSTORE_FAULT_PLAN
+        self.migrator = KVMigrator(name)
+        self.lane_lost_rejections = 0
+        self._recovery_round = 0
         bt = self.block_tokens
         max_prompt_pad = _ceil_mul(decoder.max_prompt_tokens, bt)
         # prompt pads: the bucket ladder in units of blocks — <2x pad
@@ -332,21 +624,48 @@ class GenModel:
                 f"{self.max_blocks - 1} usable (raise "
                 "MXTPU_GEN_MAX_BLOCKS or lower max_prompt_tokens/"
                 "max_new_tokens)")
+        self.lanes = []
+        self.executables = 0
+        self.degraded = False
+        self._warmup_lanes = bool(warmup)
+        self._next_idx = 0
         t0 = time.perf_counter()
-        pool = BlockPool(decoder.num_layers, decoder.num_heads,
-                         decoder.head_dim, bt, self.max_blocks,
-                         device=decoder.device, dtype=decoder.dtype)
-        steps = DecodeSteps(decoder, pool)
-        self.lane = GenLane(self, steps, pool)
-        if warmup:
-            self._warmup(steps)
+        try:
+            for device in devices:
+                self.lanes.append(self._start_lane(device))
+        except BaseException:
+            self.close()
+            raise
         self.warmup_seconds = time.perf_counter() - t0
-        self.lane.start()
+
+    def _start_lane(self, device):
+        """One decode lane (pool + steps + scheduler thread), started
+        and, when the model warms, warmed on its own thread —
+        registration and scale-out share this. On a CUDA device the lane
+        gets its own stream, and its pool, warmup and steps run on it."""
+        dec = self.decoder
+        stream = _lane_stream(device)
+        with torch.cuda.stream(stream):
+            pool = BlockPool(dec.num_layers, dec.num_heads, dec.head_dim,
+                             self.block_tokens, self.max_blocks,
+                             device=device, dtype=dec.dtype)
+        lane = GenLane(self, self._next_idx, pool.device,
+                       DecodeSteps(dec, pool), pool, stream)
+        self._next_idx += 1
+        try:
+            lane.start()
+        except BaseException:
+            pool.close()
+            _return_stream(lane.device, stream)
+            raise
+        self.executables += lane.warmed
+        return lane
 
     def _warmup(self, steps):
         """Run every (prefill pad, decode bucket) shape once with
         pad-sink-only writes: the first request of each shape then pays
-        no one-time library and allocator set-up."""
+        no one-time library and allocator set-up. Returns the number of
+        shapes run."""
         bt = self.block_tokens
         for tpad in self.prompt_buckets:
             steps.prefill(np.zeros(tpad, np.int32), 1,
@@ -354,44 +673,250 @@ class GenModel:
         for b in self.decode_buckets:
             steps.decode(np.zeros(b, np.int32), np.zeros(b, np.int32),
                          np.zeros((b, self.table_width), np.int32))
-        if steps.pool.device.type == "cuda":
-            torch.cuda.synchronize(steps.pool.device)
+        return len(self.prompt_buckets) + len(self.decode_buckets)
 
     # -- admission -----------------------------------------------------------
     def try_admit(self, req):
         """None on success, else the rejection reason (pure
-        bookkeeping — fast-reject in the caller's thread)."""
-        lane = self.lane
+        bookkeeping — fast-reject in the caller's thread). The request
+        reserves its budget on the live lane with the most headroom."""
+        if self.closed:
+            return "closed"
         with self.cond:
-            if self.closed:
-                return "closed"
-            if len(lane.waiting) >= self.max_queue:
-                return "queue_full"
-        need = lane.pool.blocks_for(len(req.prompt) + req.max_new_tokens)
-        if not lane.pool.reserve(need):
-            return "kv_cache_full"
-        req.reserved_blocks = need
+            depth = sum(len(ln.waiting) for ln in self.lanes)
+            # retiring lanes drain, they do not admit: their pools are
+            # about to be released
+            live = [ln for ln in self.lanes if not ln.retiring]
+        if not live:
+            return "closed"
+        if depth >= self.max_queue:
+            return "queue_full"
+        need = live[0].pool.blocks_for(
+            len(req.prompt) + req.max_new_tokens)
+        # most-headroom lane first; reservation is atomic per pool, so a
+        # racing submit simply falls through to the next lane
+        for lane in sorted(live, key=lambda ln: ln.pool.reserved_blocks()):
+            if lane.pool.reserve(need):
+                req.reserved_blocks = need
+                with self.cond:
+                    if self.closed:
+                        lane.pool.unreserve(need)
+                        req.reserved_blocks = 0
+                        return "closed"
+                    if lane.retiring:
+                        # scale-in landed between the reserve and the
+                        # enqueue: hand the budget back, try the next
+                        lane.pool.unreserve(need)
+                        req.reserved_blocks = 0
+                        continue
+                    lane.waiting.append(req)
+                    self.cond.notify_all()
+                return None
+        return "kv_cache_full"
+
+    # -- decode failover -----------------------------------------------------
+    def _recover_requests(self, src_lane, reqs, cause):
+        """Evacuate ``reqs`` off ``src_lane`` onto surviving lanes (on
+        the source lane's thread and stream).
+
+        Per request: enforce the recovery budget (exhaustion = fast
+        ``lane_lost`` reject), salvage its KV blocks while the source
+        pool still answers (unless a ``replay_storm`` fault forces the
+        device-truly-gone case), detach it from the source pool, then
+        re-admit on the lane with the most headroom — reserving
+        atomically on the target, or queueing unreserved when every
+        pool is full (the target's admission loop re-reserves the
+        moment a retire frees budget; nothing double-books). Requests
+        that never decoded a token just requeue: they lost no state, so
+        they spend no budget."""
+        reqs = [r for r in reqs if not r.done()]
+        if not reqs:
+            return
         with self.cond:
+            self._recovery_round += 1
+            rround = self._recovery_round
+        storm = _fault.replay_storm_active(rround, plan=self.fault_plan)
+        for req in reqs:
+            req._recover_cause = cause
             if self.closed:
-                lane.pool.unreserve(need)
+                src_lane._retire(req, error=ServingError(
+                    f"generate: model {self.name!r} shut down before "
+                    "the request completed"))
+                continue
+            if req.tokens:
+                req.recoveries += 1
+                if req.recoveries > self.max_recoveries:
+                    with self.cond:
+                        self.lane_lost_rejections += 1
+                    src_lane._retire(req, error=RejectedError(
+                        "lane_lost",
+                        f"generate: request on {self.name!r} lost its "
+                        f"lane {req.recoveries} time(s) ({cause}) and "
+                        "exhausted its recovery budget (MXTPU_GEN_MAX_"
+                        f"RECOVERIES={self.max_recoveries}); resubmit "
+                        "to retry"))
+                    continue
+                if req.recoveries > 1:
+                    # bounded backoff between REPEAT rescues of one
+                    # request: a request ping-ponging across dying lanes
+                    # must not busy-spin the recovery path (pacing, not
+                    # polling: nothing signals "retry now")
+                    time.sleep(min(
+                        self.recovery_backoff_ms
+                        * 2.0 ** (req.recoveries - 2),
+                        self.recovery_backoff_ms * 40.0) / 1e3)
+                req._recover_t0 = time.monotonic_ns()
+                if req._salvage is None and not storm \
+                        and req.table is not None and req.table.blocks:
+                    try:
+                        req._salvage = self.migrator.salvage(
+                            src_lane.pool, req.table.blocks)
+                    except MXNetError:
+                        req._salvage = None   # replay covers it
+            # detach from the source pool (the salvage, when taken, owns
+            # its bytes — the pool can close right after)
+            if req.table is not None:
+                req.table.release()
+                req.table = None
+            if req.reserved_blocks:
+                src_lane.pool.unreserve(req.reserved_blocks)
                 req.reserved_blocks = 0
-                return "closed"
-            lane.waiting.append(req)
-            self.cond.notify_all()
-        return None
+            req.next_pos = 0
+            need = src_lane.pool.blocks_for(
+                len(req.prompt) + req.max_new_tokens)
+            while True:
+                with self.cond:
+                    live = [ln for ln in self.lanes
+                            if not ln.retiring and not ln.finalized]
+                if not live:
+                    with self.cond:
+                        self.lane_lost_rejections += 1
+                    src_lane._retire(req, error=RejectedError(
+                        "lane_lost",
+                        f"generate: model {self.name!r} has no "
+                        f"surviving decode lanes to recover onto "
+                        f"({cause})"))
+                    break
+                order = sorted(live,
+                               key=lambda ln: ln.pool.reserved_blocks())
+                target = None
+                for ln in order:
+                    if ln.pool.reserve(need):
+                        req.reserved_blocks = need
+                        target = ln
+                        break
+                if target is None:
+                    # kv_cache_full during recovery: queue on the
+                    # least-booked lane with NO reservation — its
+                    # admission loop re-reserves atomically once a
+                    # retire frees budget
+                    target = order[0]
+                with self.cond:
+                    if not target.retiring:
+                        target.waiting.append(req)
+                        self.cond.notify_all()
+                        break
+                # the target started retiring between selection and
+                # enqueue: hand the budget back and pick again
+                if req.reserved_blocks:
+                    target.pool.unreserve(req.reserved_blocks)
+                    req.reserved_blocks = 0
 
     # -- lifecycle -----------------------------------------------------------
+    def scale_to(self, n, devices, drain_timeout=30.0):
+        """Resize to ``n`` decode lanes (``Gateway.scale``'s generator
+        arm). ``devices`` is the full n-lane placement. Scale-out
+        builds, warms and starts fresh lanes; scale-in retires the
+        newest lanes evacuate-first: all stop admitting at once, and each
+        hands its waiting + running requests to the surviving lanes
+        through the migrate/replay path (no request waits out a drain)
+        and releases its KV block pool — ``freed_bytes`` of device
+        memory.
+        Returns a report dict."""
+        n = int(n)
+        if n < 1:
+            raise ServingError(
+                f"generate: cannot scale {self.name!r} below 1 lane")
+        with self.cond:
+            active = [ln for ln in self.lanes if not ln.retiring]
+        report = {"model": self.name, "from": len(active), "to": n,
+                  "added": 0, "retired": 0, "freed_bytes": 0}
+        if n > len(active):
+            for device in devices[len(active):n]:
+                # warmed before it joins: no request waits on a warmup
+                lane = self._start_lane(device)
+                with self.cond:
+                    self.lanes.append(lane)
+                    self.cond.notify_all()
+                report["added"] += 1
+        elif n < len(active):
+            doomed = active[n:]
+            sizes = [lane.pool.bytes_total for lane in doomed]
+            # every doomed lane stops admitting at once, so the first
+            # one's evacuees land on survivors, not on the next to go
+            with self.cond:
+                for lane in doomed:
+                    lane.retiring = True
+                self.cond.notify_all()
+            for lane, size in zip(doomed, sizes):
+                report["freed_bytes"] += self._retire_lane(
+                    lane, timeout=drain_timeout, pending=size)
+                report["retired"] += 1
+        return report
+
+    def _retire_lane(self, lane, timeout=30.0, pending=None):
+        """Evacuate-then-retire one lane; returns the pool bytes
+        released (``pending``, its pool's bytes before it started
+        retiring, by default read now). A lane that cannot evacuate
+        within ``timeout`` stays retiring (no new work) with its pool
+        intact — closing storage under an in-flight copy would corrupt
+        live requests — and finalizes ITSELF the moment it empties."""
+        if pending is None:
+            pending = lane.pool.bytes_total
+        with self.cond:
+            lane.retiring = True
+            self.cond.notify_all()
+        lane.join(timeout)
+        if lane._thread is not None and lane._thread.is_alive():
+            return 0   # still draining: the lane self-finalizes
+        # the lane thread usually finalized itself on its way out; this
+        # is the idempotent backstop (and the whole release for lanes
+        # retired before ever starting)
+        self._finalize_retired_lane(lane)
+        return pending
+
+    def _finalize_retired_lane(self, lane):
+        """Close the retired lane's pool and drop it from the lane list,
+        exactly once, whichever of the initiator's join and the lane
+        thread's own exit gets here first."""
+        with self.cond:
+            if lane.finalized:
+                return 0
+            lane.finalized = True
+        freed = lane.pool.bytes_total
+        lane.pool.close()
+        with self.cond:
+            if lane in self.lanes:
+                self.lanes.remove(lane)
+        _return_stream(lane.device, lane.stream)
+        return freed
+
     def close(self):
         with self.cond:
             self.closed = True
             self.cond.notify_all()
-        self.lane.join(timeout=30.0)
-        self.lane.pool.close()
+            lanes = list(self.lanes)
+        for lane in lanes:
+            lane.join(timeout=30.0)
+        for lane in lanes:
+            lane.pool.close()
+            _return_stream(lane.device, lane.stream)
 
     def stats(self):
         with self.cond:
-            waiting = len(self.lane.waiting)
-            running = len(self.lane.running)
+            lanes = list(self.lanes)
+            waiting = sum(len(ln.waiting) for ln in lanes)
+            running = sum(len(ln.running) for ln in lanes)
         return {
             "waiting": waiting,
             "running": running,
@@ -401,8 +926,14 @@ class GenModel:
             "prompt_buckets": list(self.prompt_buckets),
             "decode_buckets": list(self.decode_buckets),
             "table_width": self.table_width,
+            "executables": self.executables,
             "warmup_seconds": round(self.warmup_seconds, 3),
-            "lanes": [self.lane.stats()],
+            "degraded": self.degraded,
+            "recovery": dict(
+                self.migrator.stats(),
+                max_recoveries=self.max_recoveries,
+                lane_lost_rejections=self.lane_lost_rejections),
+            "lanes": [ln.stats() for ln in lanes],
         }
 
 

@@ -20,10 +20,13 @@ bucket), sharing one weight load, all on one device. A
   CPU.
 
 ``warmup`` runs every (variant, bucket) once, so cuDNN and cuBLAS have
-chosen their algorithms before the first request.
+chosen their algorithms before the first request. Several replicas of a
+model on one device share one set of executables and weights through
+:meth:`VariantSet.replica`.
 """
 from __future__ import annotations
 
+import copy
 import logging
 
 import numpy as np
@@ -160,6 +163,16 @@ class VariantSet:
         bindings.update(aux_params)
         return compile_symbol_forward(symbol, bindings, device=self.device,
                                       cast=cast)
+
+    def replica(self):
+        """Another ``VariantSet`` over the same compiled forwards and
+        weights: the replicas of one model on one device share them,
+        while each replica holds its own object, so a probe of one, or
+        a fault injected into its ``run``, touches that replica
+        alone."""
+        twin = copy.copy(self)
+        twin._fns = dict(self._fns)
+        return twin
 
     # -- dispatch ----------------------------------------------------------
     def run(self, variant, batch):

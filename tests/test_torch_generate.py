@@ -147,17 +147,23 @@ def test_seeded_init_follows_gluon_defaults():
     assert w.abs().max() <= 0.07 and w.std() > 0.03   # Uniform(0.07)
 
 
-def test_port_reference_equals_jax_reference(jax_decoder, decoder):
+@pytest.fixture(scope="module")
+def greedy_ref(jax_decoder):
+    """The JAX reference of the prompt two tests hold to it, computed
+    once (the eager JAX decode dispatches every op of every step)."""
     prompt = [3, 7, 11, 2, 9]
-    assert reference_generate(decoder, prompt, 8) == \
-        jax_reference(jax_decoder, prompt, 8)
+    return prompt, jax_reference(jax_decoder, prompt, 8)
+
+
+def test_port_reference_equals_jax_reference(greedy_ref, decoder):
+    prompt, want = greedy_ref
+    assert reference_generate(decoder, prompt, 8) == want
 
 
 # -- gateway greedy decode vs the JAX oracle ---------------------------------
-def test_gateway_greedy_equals_jax_reference(gateway, jax_decoder):
-    prompt = [3, 7, 11, 2, 9]
-    assert gateway.generate("lm", prompt, max_new_tokens=8) == \
-        jax_reference(jax_decoder, prompt, 8)
+def test_gateway_greedy_equals_jax_reference(gateway, greedy_ref):
+    prompt, want = greedy_ref
+    assert gateway.generate("lm", prompt, max_new_tokens=8) == want
 
 
 def test_midflight_join_keeps_streams_token_exact(gateway, jax_decoder):
@@ -248,7 +254,7 @@ def test_queue_full_fast_reject(decoder, monkeypatch):
             gw.submit_generate("lm_q", [3], max_new_tokens=4)
         assert ei.value.reason == "queue_full"
         monkeypatch.undo()
-        gen.lane.start()
+        gen.lanes[0].start()
         assert len(r1.result(30)) == 4
     finally:
         gw.close()
@@ -334,7 +340,7 @@ def test_padded_pool_gateway_equals_jax_reference():
         gen = gw.register_generator("lm", dec, block_tokens=4,
                                     max_blocks=16, max_new_tokens=6,
                                     max_decode_batch=2)
-        pool = gen.lane.pool
+        pool = gen.lanes[0].pool
         assert pool.head_dim == 12 and pool.k.shape[-1] == 16
         assert pool.bytes_total == 2 * 1 * 16 * 4 * 2 * 16 * 4
         prompts = [[3, 7, 11, 2, 9], [5, 1]]
@@ -366,7 +372,7 @@ def test_wide_head_gateway_equals_jax_reference(d_model, head, pool_head):
         gen = gw.register_generator("lm", dec, block_tokens=4,
                                     max_blocks=12, max_new_tokens=4,
                                     max_decode_batch=2)
-        pool = gen.lane.pool
+        pool = gen.lanes[0].pool
         assert pool.head_dim == head and pool.k.shape[-1] == pool_head
         prompts = [[3, 7, 11, 2, 9], [5, 1]]
         reqs = [gw.submit_generate("lm", p, max_new_tokens=4)

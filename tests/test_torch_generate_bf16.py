@@ -88,7 +88,7 @@ def test_gateway_tokens_equal_the_jax_gateway(decoders, jax_tokens,
     gw = Gateway(device="cpu")
     try:
         gen = gw.register_generator("lm", dec, **LANE)
-        pool = gen.lane.pool
+        pool = gen.lanes[0].pool
         assert pool.k.dtype == pool.v.dtype == torch.bfloat16
         assert pool.bytes_total == 2 * CFG["num_layers"] * LANE[
             "max_blocks"] * LANE["block_tokens"] * CFG["d_model"] * 2

@@ -662,13 +662,16 @@ def _jax_snapshot(net, trainer, out, loss):
 
 @pytest.fixture(scope="module")
 def r18_gluon():
+    from mxnet_tpu.gluon.block import infer_shapes as j_infer_shapes
     from mxnet_tpu.gluon.model_zoo import vision as jvision
     from mxnet_tpu_torch.gluon.block import infer_shapes
     from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
     rng = np.random.default_rng(31)
     jnet = jvision.resnet18_v1(prefix=PREFIX)
     jnet.initialize()
-    jnet(mx.nd.array(np.zeros((1,) + R18[1:], F32)))
+    # the parameters' shapes from one abstract pass: every value is set
+    # below, so no eager forward needs to compile for it
+    j_infer_shapes(jnet, (1,) + R18[1:])
     weights = {}
     for name, p in jnet.collect_params().items():
         if name.endswith("gamma"):

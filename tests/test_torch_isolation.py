@@ -6,7 +6,9 @@
 ``quantize_net``) default to the first CUDA card and
 raise on a host without one unless the caller asks for the CPU, and its
 kernel build raises instead of falling back when ``nvcc`` is missing.
-The import check covers the training modules too (``optimizer``,
+The import check covers the serving planes' placement and migration
+(``parallel.mesh``, ``serving.generate.migrate``) and the training
+modules too (``optimizer``,
 ``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``), the
 ops the decoder-LM training path adds (``ops.contrib``) and the
 distribution layer (``kvstore.*``, ``kvstore_server``, the ``_native``
@@ -50,6 +52,8 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "before = set(sys.modules)\n"
         "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
         "import mxnet_tpu_torch.serving.generate\n"
+        "import mxnet_tpu_torch.serving.generate.migrate\n"
+        "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.mesh\n"
         "import mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops._build\n"
         "import mxnet_tpu_torch.ops.contrib\n"
         "import mxnet_tpu_torch.ops.int8, mxnet_tpu_torch.ops.quantized\n"

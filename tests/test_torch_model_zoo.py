@@ -13,6 +13,7 @@ import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as tmx
+from mxnet_tpu.gluon.block import infer_shapes as j_infer_shapes
 from mxnet_tpu.gluon.model_zoo import vision as jv
 from mxnet_tpu_torch import initializer as tinit
 from mxnet_tpu_torch.gluon.block import infer_shapes
@@ -65,7 +66,9 @@ def jax_logits(request):
     for layout, stem in CONFIGS:
         jnet = getattr(jv, name)(prefix="net_", layout=layout, stem=stem)
         jnet.initialize()
-        jnet(mx.nd.array(x[:1]))
+        # shapes from one abstract pass: every value is set below, so no
+        # eager forward at another batch needs to compile for it
+        j_infer_shapes(jnet, (1,) + x.shape[1:])
         if weights is None:
             weights = _weights(jnet, 7)
         else:

@@ -319,11 +319,23 @@ def test_admission_slo_budget_reject(gw):
 
 
 def test_register_rejects_zero_and_several_replicas_and_tp(gw):
+    """Zero replicas and tensor-parallel slices (tp >= 2, not ported)
+    raise; several replicas register, each a lane of its own on the one
+    device (degraded)."""
     symbol, args, aux, feature = tiny_mlp(tmx)
-    for kwargs in ({"replicas": 0}, {"replicas": 2}, {"tp": 2}):
+    for kwargs in ({"replicas": 0}, {"tp": 2}):
         with pytest.raises(ServingError):
             gw.register("m", symbol, _tnd(args), _tnd(aux),
                         input_shapes={"data": feature}, **kwargs)
+    with pytest.raises(ServingError, match="tensor-parallel"):
+        gw.register("m", symbol, _tnd(args), _tnd(aux),
+                    input_shapes={"data": feature}, tp=2)
+    gw.register("two", symbol, _tnd(args), _tnd(aux),
+                input_shapes={"data": feature}, buckets=(1,), replicas=2)
+    st = gw.stats()["two"]
+    assert [r["idx"] for r in st["replicas"]] == [0, 1]
+    assert st["degraded"] is True and st["executables"] == 2
+    assert gw.infer("two", _x(feature))[0].shape == (1, 4)
     # a warmup that fails (a feature shape the graph cannot take) fails
     # the registration, on the caller's thread
     with pytest.raises(RuntimeError):
@@ -336,27 +348,37 @@ def test_register_rejects_zero_and_several_replicas_and_tp(gw):
 
 
 def test_replicas_knob_raises_instead_of_serving_one(gw, monkeypatch):
-    """MXTPU_SERVING_REPLICAS=2 asks the JAX package for two replicas per
-    model (and per generator); the port has one lane, so registration
-    raises instead of serving one replica silently."""
+    """MXTPU_SERVING_REPLICAS=2 asks for two replicas per model and per
+    generator, and the port serves two, as the JAX package does;
+    MXTPU_SERVING_TP=2 asks for tensor-parallel slices, which the port
+    does not have, so registration raises instead of serving one plain
+    lane silently."""
     symbol, args, aux, feature = tiny_mlp(tmx)
-    monkeypatch.setenv("MXTPU_SERVING_REPLICAS", "2")
-    with pytest.raises(ServingError, match="replicas"):
-        gw.register("m", symbol, _tnd(args), _tnd(aux),
-                    input_shapes={"data": feature}, warmup=False)
     from mxnet_tpu_torch.serving.generate import GenerativeDecoder
     dec = GenerativeDecoder(vocab_size=32, d_model=16, num_layers=1,
                             num_heads=2, max_prompt_tokens=16,
                             device="cpu")
-    with pytest.raises(ServingError, match="replicas"):
+    monkeypatch.setenv("MXTPU_SERVING_TP", "2")
+    with pytest.raises(ServingError, match="tp"):
+        gw.register("m", symbol, _tnd(args), _tnd(aux),
+                    input_shapes={"data": feature}, warmup=False)
+    with pytest.raises(ServingError, match="tp"):
         gw.register_generator("lm", dec, warmup=False)
-    assert "m" not in gw.stats()
-    # the knob at 1, or an explicit replicas=1, registers
+    assert "m" not in gw.stats() and "lm" not in gw.stats()
+    monkeypatch.delenv("MXTPU_SERVING_TP")
+    monkeypatch.setenv("MXTPU_SERVING_REPLICAS", "2")
     gw.register("m", symbol, _tnd(args), _tnd(aux),
+                input_shapes={"data": feature}, warmup=False)
+    gw.register_generator("lm", dec, max_blocks=64, warmup=False)
+    assert len(gw.stats()["m"]["replicas"]) == 2
+    assert gw.replica_count("lm") == 2
+    # the knob at 1, or an explicit replicas=1, registers one lane
+    gw.register("m1", symbol, _tnd(args), _tnd(aux),
                 input_shapes={"data": feature}, warmup=False, replicas=1)
     monkeypatch.setenv("MXTPU_SERVING_REPLICAS", "1")
     gw.register("m2", symbol, _tnd(args), _tnd(aux),
                 input_shapes={"data": feature}, warmup=False)
+    assert gw.replica_count("m1") == gw.replica_count("m2") == 1
 
 
 def test_close_fails_pending_cleanly():
