@@ -225,7 +225,27 @@ Phases (any failure exits non-zero and prints no result line):
    decode calls (warmups, prefills, replays, batched and batch-1 steps) x
    layers. Prints tokens/s, kill-to-next-token ms, migrated bytes and
    migration / replay ms per scenario; 60 s at most;
-18. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+18. the record input pipeline: a seeded ``.rec`` / ``.idx`` of 128 x N
+   x 4 JPEGs of 256 x 256 (N the decode workers the host's cores allow:
+   its cores less two) written under ``build/`` with ``recordio``; then
+   ``ImageRecordIter(num_workers=N)`` at batch 128, ``data_shape`` (3,
+   224, 224), ``rand_crop``, ``rand_mirror``, ``shuffle``, the ImageNet
+   mean and std, through the pinned-memory device feeder
+   (``PrefetchingIter(prefetch_to_device=True)``): its first two batches
+   on the card the bits of the same iterator's built for the CPU; the
+   pipeline's images/s at N = 1 and at N, with the decoder the workers
+   ran (libjpeg where the host has it, else PIL) and the parent's
+   seconds blocked on a slot, allocating pinned memory and copying the
+   slot into it; one worker SIGKILLed
+   mid-epoch, the epoch after its respawn the undisturbed run's batches
+   (CRC-32 of each batch's bytes); then ``Module.fit`` over phase 8's
+   ResNet-50 training symbol on the card (SGD momentum, one epoch of 4N
+   steps) fed by that pipeline through the feeder: step ms (median and
+   the window's mean), the parent's work inside each step, the data
+   wait's share of the step (the consumer's blocked time in the feeder)
+   and the step ms of the same Module fed a batch already on the card.
+   No kernel of the port launches here; 60 s at most;
+19. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``), then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -234,14 +254,17 @@ file), it exits with a non-zero code.
 """
 from __future__ import annotations
 
+import io
 import json
 import logging
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -4584,6 +4607,267 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
     return totals
 
 
+# -- phase 18: the record input pipeline ------------------------------------
+# ImageNet training's input at phase 8's batch: 256 x 256 JPEGs cropped
+# at random to 224, mirrored at random, normalized by the ImageNet mean
+# and std (example/image-classification's ImageRecordIter settings)
+IO_BATCH, IO_SHAPE, IO_SRC_HW = 128, (3, 224, 224), 256
+IO_MEAN, IO_STD = (123.68, 116.28, 103.53), (58.395, 57.12, 57.375)
+IO_EPOCH_BATCHES_PER_WORKER = 4
+IO_RESIDENT_STEPS = 6
+IO_TIMEOUT_S = 60.0
+
+
+def io_workers():
+    """The decode workers the host's cores allow: all but two (the
+    training loop and the feeder's thread keep theirs)."""
+    return max(1, (os.cpu_count() or 4) - 2)
+
+
+def io_records(mx, here, n, rng):
+    """A seeded .rec / .idx of ``n`` JPEGs (256 x 256, quality 90: a
+    smooth random image, bilinear from 8 x 8, plus one of four noise
+    fields), labels i % 1000. Returns (path, seconds, mean bytes)."""
+    from PIL import Image
+    t0 = time.perf_counter()
+    d = os.path.join(here, "build", "chip_smoke", "records")
+    os.makedirs(d, exist_ok=True)
+    rec = os.path.join(d, "train.rec")
+    noise = rng.normal(0, 12, (4, IO_SRC_HW, IO_SRC_HW, 3))
+    w = mx.recordio.MXIndexedRecordIO(os.path.join(d, "train.idx"), rec,
+                                      "w")
+    total = 0
+    for i in range(n):
+        base = Image.fromarray(rng.integers(0, 256, (8, 8, 3),
+                                            dtype=np.uint8))
+        px = np.asarray(base.resize((IO_SRC_HW, IO_SRC_HW),
+                                    Image.BILINEAR), np.float64)
+        px = np.clip(px + noise[i % 4], 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, format="JPEG", quality=90)
+        total += buf.tell()
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % 1000), i, 0), buf.getvalue()))
+    w.close()
+    return rec, time.perf_counter() - t0, total / n
+
+
+def io_iter_kwargs(rec, workers, **extra):
+    return dict(path_imgrec=rec, data_shape=IO_SHAPE, batch_size=IO_BATCH,
+                num_workers=workers, rand_crop=True, rand_mirror=True,
+                shuffle=True, seed=SEED, mean_r=IO_MEAN[0],
+                mean_g=IO_MEAN[1], mean_b=IO_MEAN[2], std_r=IO_STD[0],
+                std_g=IO_STD[1], std_b=IO_STD[2], timeout=IO_TIMEOUT_S,
+                **extra)
+
+
+def io_crc(batch):
+    """CRC-32 of a host batch's data and label bytes."""
+    crc = zlib.crc32(np.ascontiguousarray(batch.data[0]._data.numpy()).data)
+    return zlib.crc32(np.ascontiguousarray(batch.label[0]._data.numpy())
+                      .data, crc)
+
+
+def io_rate(mx, rec, workers, nbatches):
+    """Images/s of the pipeline alone (CPU context, nothing trains, each
+    batch dropped at once as a training loop drops it), from the first
+    batch's arrival to the last's, and the parent's seconds in next()
+    over that window."""
+    with mx.cpu():
+        it = mx.io.ImageRecordIter(**io_iter_kwargs(rec, workers))
+        try:
+            stamps, parent = [], []
+            while len(stamps) < nbatches:
+                try:
+                    it.next()
+                except StopIteration:
+                    it.reset()
+                    continue
+                stamps.append(time.perf_counter())
+                parent.append(io_parent(it))
+            decoders = it.decoders()
+        finally:
+            it.close()
+    rate = (nbatches - 1) * IO_BATCH / (stamps[-1] - stamps[0])
+    return {"workers": workers, "images_per_s": rate,
+            "images_per_s_per_worker": rate / workers,
+            "batches": nbatches, "decoders": decoders,
+            "window_s": stamps[-1] - stamps[0],
+            "parent": {k: parent[-1][k] - parent[0][k] for k in parent[0]}}
+
+
+def io_parent(it):
+    """The pipeline parent's seconds in next() so far: blocked on a
+    worker's slot, allocating the (pinned) host tensors, copying the
+    slot into them; and the minor page faults during those copies."""
+    return {"wait_s": it.wait_seconds, "alloc_s": it.alloc_seconds,
+            "copy_s": it.copy_seconds, "copy_faults": it.copy_faults}
+
+
+def io_epoch_crcs(mx, rec, workers, kill_after=None):
+    """The CRCs of one epoch's batches, with two ring slots; with
+    ``kill_after``, worker 0 SIGKILLed after that many batches (with two
+    slots it cannot have decoded the rest of its epoch, so it must
+    respawn). Returns (crcs, respawns)."""
+    with mx.cpu():
+        it = mx.io.ImageRecordIter(**io_iter_kwargs(rec, workers,
+                                                    ring_batches=2))
+        try:
+            crcs = []
+            for b in it:
+                crcs.append(io_crc(b))
+                if len(crcs) == kill_after:
+                    proc = it._workers[0].proc
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait(timeout=30)
+            return crcs, it.respawns
+        finally:
+            it.close()
+
+
+def io_respawn(mx, rec, workers):
+    """The epoch after a SIGKILL of worker 0 two batches in must be the
+    undisturbed run's, batch for batch."""
+    want_crcs, _ = io_epoch_crcs(mx, rec, workers)
+    crcs, respawns = io_epoch_crcs(mx, rec, workers, kill_after=2)
+    check(respawns == 1, f"the killed worker respawned {respawns} times")
+    check(crcs == want_crcs, "the batches after a worker's respawn differ "
+          "from the undisturbed run's")
+    return {"killed_after_batches": 2, "respawns": respawns,
+            "batches_equal": len(crcs)}
+
+
+def phase_records(att, i8, fo, dev, here, rng):
+    """The module docstring's phase 18: the record pipeline on the host,
+    the device feeder to the card, and ResNet-50's Module.fit fed by it.
+    No kernel of the port launches."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    before = kernel_counts(att, i8, fo)
+    workers = io_workers()
+    rec, write_s, jpeg_bytes = io_records(
+        mx, here, IO_BATCH * workers * IO_EPOCH_BATCHES_PER_WORKER, rng)
+
+    # the card's first two batches against the same iterator's on the CPU
+    kw = io_iter_kwargs(rec, workers)
+    feed = mx.io.PrefetchingIter(mx.io.ImageRecordIter(**kw),
+                                 prefetch_to_device=True)
+    try:
+        card = [feed.next() for _ in range(2)]
+        for b in card:
+            for a in (b.data[0], b.label[0]):
+                check(a._data.device == dev, f"a fed batch lies on "
+                      f"{a._data.device}, not {dev}")
+        card = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in card]
+    finally:
+        feed.feeder.close()
+        feed.iters[0].close()
+    with mx.cpu():
+        it = mx.io.ImageRecordIter(**kw)
+        try:
+            host = [it.next() for _ in range(2)]
+            host = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                    for b in host]
+        finally:
+            it.close()
+    for (cd, cl), (hd, hl) in zip(card, host):
+        check(cd.shape == (IO_BATCH,) + IO_SHAPE and np.isfinite(cd).all(),
+              f"fed batch {cd.shape}")
+        check(np.array_equal(cd, hd) and np.array_equal(cl, hl),
+              "the card's batches differ from the CPU's")
+
+    rates = {"1": io_rate(mx, rec, 1, 8),
+             str(workers): io_rate(mx, rec, workers,
+                                   IO_EPOCH_BATCHES_PER_WORKER * workers)}
+    respawn = io_respawn(mx, rec, workers)
+
+    # ResNet-50's Module.fit on the card, fed through the feeder
+    rnet, _, r_arg, r_aux = train_net(mx, here)
+    it = mx.io.ImageRecordIter(**kw)
+    feed = mx.io.PrefetchingIter(it, prefetch_to_device=True)
+    rmod = mx.mod.Module(rnet, context=mx.gpu(0))
+    stamps, waits, parent = [], [], []
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        waits.append(feed.feeder.wait_seconds)
+        parent.append(io_parent(it))
+
+    opt = {"learning_rate": SGD_HYPER["lr"],
+           "momentum": SGD_HYPER["momentum"], "wd": SGD_HYPER["wd"]}
+    try:
+        t0 = time.perf_counter()
+        rmod.fit(feed, optimizer="sgd", optimizer_params=opt,
+                 arg_params=r_arg, aux_params=r_aux, num_epoch=1,
+                 eval_metric="acc", batch_end_callback=stamp)
+        fit_s = time.perf_counter() - t0
+        fed_items = feed.feeder.items
+    finally:
+        feed.feeder.close()
+        it.close()
+    steps = len(stamps)
+    check(steps == len(it) == fed_items,
+          f"fit took {steps} steps of a {len(it)}-batch epoch")
+    out = rmod.get_outputs()[0]._data
+    check(out.device == dev, f"the Module's outputs lie on {out.device}")
+    fed_ms = float(np.median(np.diff(stamps))) * 1e3
+    fed_mean_ms = (stamps[-1] - stamps[0]) / (steps - 1) * 1e3
+    wait_share = (waits[-1] - waits[0]) / (stamps[-1] - stamps[0])
+    # the parent's work (pull wait, pinned alloc, copy, the copy's page
+    # faults) inside each step
+    fed_parent = {k.replace("_s", "_ms") if k.endswith("_s") else k:
+                  [(b[k] - a[k]) * (1e3 if k.endswith("_s") else 1)
+                   for a, b in zip(parent, parent[1:])]
+                  for k in parent[0]}
+
+    # the same Module fed a batch already on the card
+    with mx.gpu(0):
+        xb = mx.io.DataBatch(data=[mx.nd.array(card[0][0])],
+                             label=[mx.nd.array(card[0][1])])
+    metric = mx.metric.create("acc")
+    secs, losses = [], []
+    for _ in range(IO_RESIDENT_STEPS):
+        t0 = time.perf_counter()
+        rmod.forward_backward(xb)
+        rmod.update()
+        rmod.update_metric(metric, xb.label)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(cross_entropy(rmod.get_outputs()[0]._data,
+                                          xb.label[0]._data)))
+    check(all(np.isfinite(losses)), f"ResNet-50 Module losses {losses}")
+    resident_ms = float(np.median(secs[1:])) * 1e3
+    resident_mean_ms = float(np.mean(secs[1:])) * 1e3
+    after = kernel_counts(att, i8, fo)
+    check(after == before, f"the record phase launched kernels of the "
+          f"port: {before} -> {after}")
+    phase_s = time.perf_counter() - t_phase
+    main = {"card": card_line(), "workers": workers,
+            "host_cpus": os.cpu_count(), "records": len(it) * IO_BATCH,
+            "jpeg_mean_bytes": jpeg_bytes, "write_s": write_s,
+            "card_vs_cpu_batches_bitwise": 2, "pipeline": rates,
+            "respawn": respawn,
+            "fit": {"batch": IO_BATCH, "steps": steps, "fit_s": fit_s,
+                    "fed_step_ms": fed_ms,
+                    "fed_step_ms_mean": fed_mean_ms,
+                    "fed_step_ms_all": list(np.diff(stamps) * 1e3),
+                    "fed_parent_all": fed_parent,
+                    "fed_images_per_s": IO_BATCH / fed_mean_ms * 1e3,
+                    "data_wait_share": wait_share,
+                    "resident_step_ms": resident_ms,
+                    "resident_step_ms_mean": resident_mean_ms,
+                    "resident_step_ms_all": [t * 1e3 for t in secs],
+                    "resident_losses": losses,
+                    "phase8_executor_k2_step_ms":
+                        RESULTS.get("resnet50_train_step_ms")},
+            "phase_s": phase_s}
+    log("record_pipeline " + json.dumps(main))
+    check(phase_s <= 60.0, f"record_pipeline took {phase_s:.1f} s, over 60")
+    del rmod, xb
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -4646,6 +4930,7 @@ def main():
     timed(phase_module, att, i8, fo, dev, here)
     timed(phase_dist, here, dev)
     planes = timed(phase_serving_planes, att, i8, fo, dev, burst, here, rng)
+    timed(phase_records, att, i8, fo, dev, here, rng)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]

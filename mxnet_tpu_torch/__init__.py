@@ -40,7 +40,14 @@ float32 product here is a float32 product. Ported so far:
   ``dist_async`` over the parameter server of ``_native/comm.cc``,
   ``dist_device_sync`` over ``torch.distributed``) and the gluon
   Trainer's distributed path, with this package's launcher
-  (``mxnet_tpu_torch/tools/launch.py``).
+  (``mxnet_tpu_torch/tools/launch.py``);
+- the record input pipeline: ``recordio`` (``MXRecordIO``,
+  ``MXIndexedRecordIO``, the JAX package's bytes both ways),
+  ``io.ImageRecordIter`` in process or over the sharded decode workers
+  (``io.ShardedRecordPipeline``: worker processes, a shared-memory
+  ring, the port's libjpeg decoder ``_native/imgdec.cc``), the
+  pinned-memory device feeder (``io.DeviceFeeder``), and ``image``
+  (``imdecode``, the augmenters, ``ImageIter``).
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -61,6 +68,7 @@ from . import module, test_utils  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import image, recordio  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -71,8 +79,8 @@ from . import kvstore_server  # noqa: F401,E402
 
 __all__ = ["Context", "MXNetError", "autograd", "callback", "checkpoint",
            "contrib", "cpu", "current_context", "executor",
-           "executor_manager", "get_env", "gluon", "gpu", "initializer",
-           "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
-           "model_zoo",
-           "module", "nd", "optimizer", "predictor", "random",
-           "resolve_device", "subgraph", "sym", "test_utils"]
+           "executor_manager", "get_env", "gluon", "gpu", "image",
+           "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
+           "mod", "model", "model_zoo", "module", "nd", "optimizer",
+           "predictor", "random", "recordio", "resolve_device",
+           "subgraph", "sym", "test_utils"]

@@ -1,25 +1,29 @@
 """Data iterators (the port of ``mxnet_tpu/io/io.py``): batches are
 assembled with numpy on the host and handed out as NDArrays on the
-current context. ``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``
-and the file iterators ``CSVIter``, ``MNISTIter`` and ``LibSVMIter``
-give the JAX package's batches for the same inputs and seed, and
-checkpoint their position (``state_dict``) with its semantics.
+current context. ``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``,
+the file iterators ``CSVIter``, ``MNISTIter`` and ``LibSVMIter``, and
+``ImageRecordIter`` over RecordIO files give the JAX package's batches
+for the same inputs and seed, and checkpoint their position
+(``state_dict``) with its semantics. ``ImageRecordIter(num_workers=N)``
+routes to the sharded decode pipeline of ``pipeline.py``.
 
-Not ported yet: ``ImageRecordIter`` (with the record pipeline) and the
-JAX package's data-wait telemetry, tracing span and memory-census tag
-around ``__next__``.
+Not ported yet: the JAX package's data-wait telemetry, tracing span and
+memory-census tag around ``__next__``, and the host dependency engine's
+scheduling of the in-process ``ImageRecordIter`` (it runs the producer
+thread that ``MXTPU_IO_HOST_ENGINE=0`` selects in the JAX package).
 """
 from __future__ import annotations
 
 import queue
 import struct
 import threading
+import warnings
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import cpu, current_context, resolve_device
+from ..context import current_context
 from ..ndarray import NDArray, array
 
 
@@ -332,9 +336,20 @@ def _batch_arrays(batch):
     return [*(batch.data or []), *(batch.label or [])]
 
 
+def _next_all(iters):
+    """The next batch of every iterator, until the first is exhausted."""
+    while True:
+        try:
+            batches = [it.next() for it in iters]
+        except StopIteration:
+            return
+        yield batches
+
+
 def _feed(batch, device, stream):
-    """``batch``'s arrays on ``device`` for :class:`PrefetchingIter`'s
-    producer: on a CUDA device, host arrays are pinned and copied on the
+    """``batch``'s arrays on ``device`` for the device feeder
+    (``pipeline.DeviceFeeder``): on a CUDA device, host arrays are pinned
+    (a copy, unless they already are) and copied on the
     side ``stream``, and the event returned marks their arrival (None
     when nothing was copied that way)."""
     if device.type != "cuda":
@@ -355,13 +370,17 @@ class PrefetchingIter(DataIter):
     consumer (ref: io.py PrefetchingIter), ``prefetch_depth`` batches
     deep; several iterators' batches are concatenated.
 
-    The producer builds batches in the context current when the iterator
-    was made (or last reset). ``prefetch_to_device=True`` builds them on
-    the host and moves each batch to that context's device: on a CUDA
-    device from pinned host memory on a side stream, while the consumer
-    computes; :meth:`next` makes the consumer's current stream wait for
-    the copy and records the stream on the arrays, so the batch is safe
-    to use and to free there.
+    The producer (a ``pipeline.DeviceFeeder``) starts at the first
+    :meth:`next` or :meth:`reset`, so the reset ``Module.fit`` makes
+    before its first batch reads nothing ahead of it, and builds batches
+    in the context current when the iterator was made (or last reset).
+    ``prefetch_to_device=True`` builds them on the host and moves each
+    batch to that context's device: on a CUDA device from pinned host
+    memory on a side stream, while the consumer computes; :meth:`next`
+    makes the consumer's current stream wait for the copy and records
+    the stream on the arrays, so the batch is safe to use and to free
+    there. ``feeder.wait_seconds`` is the time :meth:`next` spent
+    blocked.
 
     ``state_dict`` is (inner state at the epoch's start, batches
     delivered to the caller), as in the JAX package: the producer's
@@ -381,11 +400,10 @@ class PrefetchingIter(DataIter):
         self.rename_label = rename_label
         self._depth = prefetch_depth
         self._to_device = prefetch_to_device
-        self._queue = None
-        self._thread = None
+        self.feeder = None
+        self._ctx = current_context()
         self._inner_state0 = self._capture_inner()
         self._delivered = 0
-        self._start()
 
     def _capture_inner(self):
         try:
@@ -394,35 +412,11 @@ class PrefetchingIter(DataIter):
             return None
 
     def _start(self):
-        q = queue.Queue(maxsize=self._depth)
-        stop = threading.Event()
-        self._queue, self._stop = q, stop
-        ctx = current_context()
-        device = resolve_device(ctx) if self._to_device else None
-        stream = torch.cuda.Stream(device) \
-            if device is not None and device.type == "cuda" else None
-        self._device = device
-        build = cpu() if self._to_device else ctx
-
-        def producer():
-            # its own queue and stop flag: a producer left from an
-            # earlier epoch never feeds the new queue
-            with build:
-                while not stop.is_set():
-                    try:
-                        batches = [it.next() for it in self.iters]
-                        events = [_feed(b, device, stream) for b in batches] \
-                            if device is not None else []
-                    except StopIteration:
-                        q.put(None)
-                        return
-                    except Exception as e:  # noqa: BLE001 (raised at next())
-                        q.put(e)
-                        return
-                    q.put((batches, [e for e in events if e is not None]))
-
-        self._thread = threading.Thread(target=producer, daemon=True)
-        self._thread.start()
+        from .pipeline import DeviceFeeder
+        with self._ctx:
+            self.feeder = DeviceFeeder(_next_all(self.iters),
+                                       depth=self._depth,
+                                       to_device=self._to_device)
 
     @property
     def provide_data(self):
@@ -441,38 +435,22 @@ class PrefetchingIter(DataIter):
                     for r, i in zip(self.rename_label, self.iters)], [])
 
     def _stop_producer(self):
-        self._stop.set()
-        # drain until the producer exits: it may be blocked on put()
-        while self._thread.is_alive():
-            try:
-                while True:
-                    self._queue.get_nowait()
-            except queue.Empty:
-                pass
-            self._thread.join(timeout=0.2)
+        if self.feeder is not None:
+            self.feeder.close()
 
     def reset(self):
         self._stop_producer()
         for it in self.iters:
             it.reset()
+        self._ctx = current_context()
         self._inner_state0 = self._capture_inner()
         self._delivered = 0
         self._start()
 
     def next(self):
-        item = self._queue.get()
-        if item is None:
-            raise StopIteration
-        if isinstance(item, Exception):
-            raise item
-        batches, events = item
-        for event in events:
-            cur = torch.cuda.current_stream(self._device)
-            cur.wait_event(event)
-            for b in batches:
-                for a in _batch_arrays(b):
-                    if a._data.is_cuda:
-                        a._data.record_stream(cur)
+        if self.feeder is None:
+            self._start()
+        batches = self.feeder.get()
         self._delivered += 1
         if len(batches) == 1:
             return batches[0]
@@ -653,3 +631,383 @@ class LibSVMIter(_WrapIter):
         self._inner = NDArrayIter(
             {"data": data}, {"softmax_label": label}, batch_size=batch_size,
             last_batch_handle="pad" if round_batch else "discard")
+
+
+class ImageRecordIter(DataIter):
+    """RecordIO-packed image iterator with augmentation (ref:
+    src/io/iter_image_recordio_2.cc:50 ImageRecordIOParser2).
+
+    The .rec file is indexed once (offsets only: records stream from
+    disk, the file is never loaded into memory). ``num_workers > 0`` (or
+    ``MXTPU_IO_WORKERS``) routes to :class:`pipeline.ShardedRecordPipeline`:
+    N worker processes, each driving its own libjpeg pool into a
+    shared-memory ring, with the same record format and augment
+    semantics. Otherwise, and with ``resize=`` or records that do not
+    divide into ``num_workers x batch_size``, a producer thread reads,
+    decodes (the native libjpeg batch decoder where every payload is a
+    JPEG, else per record through libjpeg, cv2 or PIL on a thread pool)
+    and emits batches in order, ``prefetch_buffer`` ahead. Batches are
+    made on the context current at construction or the last reset.
+
+    The in-process iterator's random crops and mirrors are drawn per
+    decode thread (seeded with ``seed`` + the thread's id), so they are
+    not reproducible across processes; the sharded pipeline draws them
+    per (worker, batch) and is.
+    """
+
+    _SENTINEL = object()
+
+    def __new__(cls, path_imgrec=None, data_shape=None, batch_size=1,
+                label_width=1, shuffle=False, rand_crop=False,
+                rand_mirror=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                std_r=1.0, std_g=1.0, std_b=1.0, resize=-1,
+                round_batch=True, preprocess_threads=4, prefetch_buffer=2,
+                seed=0, num_workers=None, **kwargs):
+        from .pipeline import ShardedRecordPipeline, io_workers_default
+        if num_workers is None:
+            num_workers = io_workers_default()
+        if num_workers and int(num_workers) > 0 and resize <= 0:
+            from ..recordio import load_record_offsets
+            offsets = load_record_offsets(path_imgrec)
+            if len(offsets) % (int(num_workers) * batch_size) == 0:
+                return ShardedRecordPipeline(
+                    path_imgrec, data_shape, batch_size=batch_size,
+                    num_workers=int(num_workers), label_width=label_width,
+                    shuffle=shuffle, rand_crop=rand_crop,
+                    rand_mirror=rand_mirror, mean=(mean_r, mean_g, mean_b),
+                    std=(std_r, std_g, std_b), seed=seed,
+                    streaming=bool(kwargs.get("streaming", False)),
+                    readahead_mb=kwargs.get("readahead_mb"),
+                    ring_batches=kwargs.get("ring_batches"),
+                    timeout=kwargs.get("timeout", 120.0), offsets=offsets)
+            warnings.warn(
+                f"ImageRecordIter: {len(offsets)} records do not divide "
+                f"into num_workers={num_workers} x batch_size="
+                f"{batch_size}: the sharded pipeline would drop the "
+                "remainder each epoch, so the in-process iterator runs "
+                "(pad the .rec or change workers or batch to engage the "
+                "pipeline)", stacklevel=2)
+        return super().__new__(cls)
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1,
+                 label_width=1, shuffle=False, rand_crop=False,
+                 rand_mirror=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, resize=-1,
+                 round_batch=True, preprocess_threads=4, prefetch_buffer=2,
+                 seed=0, num_workers=None, **kwargs):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.mean = np.array([mean_r, mean_g, mean_b],
+                             np.float32).reshape(3, 1, 1)
+        self.std = np.array([std_r, std_g, std_b],
+                            np.float32).reshape(3, 1, 1)
+        self.resize = resize
+        self.shuffle = shuffle
+        self._nthreads = max(int(preprocess_threads), 1)
+        self._nbuffer = max(int(prefetch_buffer), 1)
+        self._epoch_rng = np.random.RandomState(seed)
+        self._aug_seed = seed
+        self._aug_local = threading.local()
+        from ..recordio import load_record_offsets
+        self._file = open(path_imgrec, "rb")
+        self._io_lock = threading.Lock()
+        self._offsets = load_record_offsets(path_imgrec)
+        self._pool = None
+        self._producer = None
+        self._gen = 0
+        # the native threaded libjpeg decoder (the reference's OMP
+        # decode, iter_image_recordio_2.cc:445); None only on a host
+        # without libjpeg
+        self._native = None
+        if self.data_shape[0] == 3:
+            from .._native import load_imgdec
+            self._native = load_imgdec()
+        # checkpoint-resume bookkeeping: epochs begun, batches handed to
+        # the caller this epoch, and the epoch RNG state captured before
+        # the epoch's shuffle (so a resume regenerates the same order)
+        self._epochs = 0
+        self._consumed = 0
+        self._rng_at_reset = self._epoch_rng.get_state()
+        self.reset()
+
+    def _read_at(self, off):
+        from ..recordio import _LFLAG_MASK, _MAGIC
+        with self._io_lock:
+            self._file.seek(off)
+            magic, lrec = struct.unpack("<II", self._file.read(8))
+            if magic != _MAGIC:
+                raise MXNetError(f"invalid RecordIO magic at {off}")
+            return self._file.read(lrec & _LFLAG_MASK)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        shape = ((self.batch_size,) if self.label_width == 1
+                 else (self.batch_size, self.label_width))
+        return [DataDesc("softmax_label", shape)]
+
+    def reset(self):
+        self._gen += 1
+        gen = self._gen
+        if self._producer is not None:
+            self._producer.join(timeout=5)
+            self._producer = None
+        self._peek = None
+        self._rng_at_reset = self._epoch_rng.get_state()
+        self._epochs += 1
+        self._consumed = 0
+        order = np.arange(len(self._offsets))
+        if self.shuffle:
+            self._epoch_rng.shuffle(order)
+        self._queue = queue.Queue(self._nbuffer)
+        self._producer = threading.Thread(
+            target=self._produce, args=(gen, order, self._queue,
+                                        current_context()),
+            daemon=True)
+        self._producer.start()
+
+    def _produce(self, gen, order, q, ctx):
+        """Stream raw records, decode a batch at a time, emit batches on
+        ``ctx``; exits promptly when reset() bumps the generation."""
+        try:
+            n = (len(order) // self.batch_size) * self.batch_size
+            for start in range(0, n, self.batch_size):
+                if self._gen != gen:
+                    return
+                sel = order[start:start + self.batch_size]
+                raws = [self._read_at(self._offsets[i]) for i in sel]
+                imgs, labels = self._decode_batch(raws)
+                if self.label_width == 1:
+                    labels = labels[:, 0]
+                with ctx:
+                    batch = DataBatch(data=[array(imgs)],
+                                      label=[array(labels)], pad=0)
+                self._put(gen, q, batch)
+        except Exception as e:  # noqa: BLE001 (raised in next())
+            self._put(gen, q, e)
+            return
+        self._put(gen, q, self._SENTINEL)
+
+    def _decode_batch(self, raws):
+        """One batch of raw records -> (imgs NCHW f32, labels): the
+        native libjpeg pool when possible, else the per-record path on
+        a thread pool."""
+        native = self._try_native_batch(raws)
+        if native is not None:
+            return native
+        if self._pool is None and self._nthreads > 1:
+            from multiprocessing.pool import ThreadPool
+            self._pool = ThreadPool(self._nthreads)
+        if self._pool is not None:
+            results = self._pool.map(self._decode, raws)
+        else:
+            results = [self._decode(r) for r in raws]
+        imgs = np.stack([r[0] for r in results])
+        labels = np.stack([r[1][:self.label_width] for r in results])
+        return imgs, labels
+
+    def _put(self, gen, q, item):
+        while self._gen == gen:
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def close(self):
+        self._gen += 1  # stops the producer at its next put or check
+        if self._producer is not None:
+            self._producer.join(timeout=5)
+            self._producer = None
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool = None
+        if self._file is not None and not self._file.closed:
+            self._file.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 (interpreter shutdown)
+            pass
+
+    def _try_native_batch(self, raws):
+        """Decode a whole batch through the C++ libjpeg pool; None when
+        the host has no libjpeg, ``resize`` is set (the shorter-side
+        resize runs in the per-record path) or a payload is no JPEG."""
+        if self._native is None or self.resize > 0:
+            return None
+        from .. import _native
+        from ..recordio import unpack
+        c, h, w = self.data_shape
+        n = len(raws)
+        payloads, labels = [], []
+        for raw in raws:
+            header, payload = unpack(raw)
+            if payload[:2] != b"\xff\xd8":
+                return None
+            payloads.append(payload)
+            label = header.label
+            if isinstance(label, (int, float)):
+                label = np.array([label], np.float32)
+            labels.append(np.asarray(label, np.float32)[:self.label_width])
+        rng = self._rng()
+        if self.rand_crop:
+            uv = rng.rand(n, 2).astype(np.float32)
+        else:
+            uv = np.full((n, 2), -1.0, np.float32)
+        mirror = ((rng.rand(n) < 0.5) if self.rand_mirror
+                  else np.zeros(n)).astype(np.uint8)
+        out = _native.decode_batch(payloads, h, w, uv, mirror,
+                                   self.mean.ravel(), self.std.ravel(),
+                                   nthreads=self._nthreads)
+        return out, np.stack(labels)
+
+    def decoders(self):
+        """The decoders this iterator decodes JPEG payloads with: the
+        native ``libjpeg`` where the host has it, else the per-record
+        path's ``cv2`` (BGR, flipped to RGB) or ``pil``."""
+        if self._native is not None:
+            return ["libjpeg"]
+        from ..recordio import cv2_present
+        return ["cv2"] if cv2_present() else ["pil"]
+
+    @staticmethod
+    def _resize_shorter(img, size):
+        """Resize so the shorter side equals ``size`` (the reference's
+        resize= augmentation, image_aug_default.cc)."""
+        from PIL import Image
+        ih, iw = img.shape[:2]
+        if ih < iw:
+            nh, nw = size, max(int(round(iw * size / ih)), size)
+        else:
+            nh, nw = max(int(round(ih * size / iw)), size), size
+        return np.asarray(Image.fromarray(img.astype(np.uint8))
+                          .resize((nw, nh), Image.BILINEAR))
+
+    def _rng(self):
+        rng = getattr(self._aug_local, "rng", None)
+        if rng is None:
+            rng = np.random.RandomState(
+                (self._aug_seed + threading.get_ident()) % (2 ** 31))
+            self._aug_local.rng = rng
+        return rng
+
+    def _decode(self, raw):
+        from .._native import decode_jpeg
+        from ..recordio import cv2_present, unpack, unpack_img
+        header, payload = unpack(raw)
+        c, h, w = self.data_shape
+        try:
+            img = decode_jpeg(payload)        # native libjpeg, RGB HWC
+            if img is None:
+                _, img = unpack_img(raw)      # HWC uint8
+                if img.ndim == 2:
+                    img = img[:, :, None].repeat(3, axis=2)
+                if cv2_present() and payload[:6] != b"\x93NUMPY":
+                    # cv2 decodes BGR; the pipeline is RGB (npy payloads
+                    # bypass cv2 inside unpack_img)
+                    img = img[:, :, ::-1]
+            if self.resize > 0:
+                img = self._resize_shorter(img, self.resize)
+            img = img.astype(np.float32).transpose(2, 0, 1)  # CHW
+        except Exception:  # noqa: BLE001 (a raw float32 CHW payload)
+            img = np.frombuffer(payload, np.float32)
+            img = img.reshape(self.data_shape)
+        rng = self._rng()
+        _, ih, iw = img.shape
+        if (ih, iw) != (h, w):
+            if ih < h or iw < w:
+                raise MXNetError(
+                    f"image {ih}x{iw} smaller than data_shape {h}x{w}")
+            if self.rand_crop:
+                top = rng.randint(0, ih - h + 1)
+                left = rng.randint(0, iw - w + 1)
+            else:
+                top, left = (ih - h) // 2, (iw - w) // 2
+            img = img[:, top:top + h, left:left + w]
+        if self.rand_mirror and rng.rand() < 0.5:
+            img = img[:, :, ::-1]
+        img = (img - self.mean) / self.std
+        label = header.label
+        if isinstance(label, (int, float)):
+            label = np.array([label], np.float32)
+        return img, np.asarray(label, np.float32)
+
+    def _pull(self):
+        item = self._queue.get()
+        if item is self._SENTINEL:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def next(self):
+        peek = getattr(self, "_peek", None)
+        if peek is not None:
+            self._peek = None
+        else:
+            peek = self._pull()
+        self._consumed += 1
+        return peek
+
+    def iter_next(self):
+        if getattr(self, "_peek", None) is not None:
+            return True
+        try:
+            self._peek = self._pull()
+            return True
+        except StopIteration:
+            return False
+
+    def state_dict(self):
+        """Resumable position: the epoch counter, batches consumed this
+        epoch and the pre-shuffle epoch RNG state, in the JAX package's
+        layout. Capture it after next(), not between iter_next() and
+        next(). Augment draws are per decode thread and not part of it:
+        an exact resume holds without rand_crop / rand_mirror."""
+        if getattr(self, "_peek", None) is not None:
+            raise MXNetError(
+                "cannot checkpoint ImageRecordIter with an un-consumed "
+                "lookahead batch: capture state after next()")
+        return {"version": 1, "type": "ImageRecordIter",
+                "num_records": len(self._offsets),
+                "batch_size": int(self.batch_size),
+                "shuffle": bool(self.shuffle),
+                "epoch": int(self._epochs),
+                "consumed": int(self._consumed),
+                "seed": self._aug_seed,
+                "rng": self._rng_at_reset}
+
+    def load_state_dict(self, state):
+        """Rewind the epoch RNG to its pre-shuffle state, regenerate the
+        epoch order, then replay the consumed batches through the
+        decoder."""
+        if not isinstance(state, dict) or \
+                state.get("type") != "ImageRecordIter" or \
+                state.get("version") != 1:
+            raise MXNetError(
+                "load_state_dict: not a version-1 ImageRecordIter state")
+        if int(state["num_records"]) != len(self._offsets):
+            raise MXNetError(
+                f"load_state_dict: iterator holds {len(self._offsets)} "
+                f"records but the state was captured over "
+                f"{state['num_records']}: not the same .rec file")
+        for attr in ("batch_size", "shuffle"):
+            if state.get(attr) != getattr(self, attr):
+                raise MXNetError(
+                    f"load_state_dict: iterator {attr}="
+                    f"{getattr(self, attr)!r} but the state was captured "
+                    f"with {attr}={state.get(attr)!r}: construct the "
+                    "iterator with the same configuration to resume")
+        self._epoch_rng.set_state(state["rng"])
+        self.reset()
+        self._epochs = int(state["epoch"])
+        for _ in range(int(state["consumed"])):
+            self.next()

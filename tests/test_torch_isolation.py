@@ -12,10 +12,13 @@ modules too (``optimizer``,
 ``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``), the
 ops the decoder-LM training path adds (``ops.contrib``) and the
 distribution layer (``kvstore.*``, ``kvstore_server``, the ``_native``
-loader and the launcher, which imports no torch either). The transport
-``_native/comm.cc`` builds under ``build/``, never beside a source, and
-the dist entry points (a ``dist_device_sync`` worker, the server) take
-the card unless asked for the CPU."""
+loader and the launcher, which imports no torch either), and the record
+input pipeline (``recordio``, ``image``, ``io.pipeline`` and the decode
+worker ``io/_pipeline_worker.py``, which imports neither torch nor
+either package). The transport ``_native/comm.cc`` builds under
+``build/``, never beside a source, and the dist entry points (a
+``dist_device_sync`` worker, the server) take the card unless asked for
+the CPU."""
 import ast
 import os
 import subprocess
@@ -76,6 +79,9 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.kvstore.collective\n"
         "import mxnet_tpu_torch.kvstore.gradient_compression\n"
         "import mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch._native\n"
+        "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image\n"
+        "import mxnet_tpu_torch.io.pipeline\n"
+        "import mxnet_tpu_torch.io._pipeline_worker\n"
         "import runpy\n"
         f"runpy.run_path({LAUNCH!r})\n"
         "new = set(sys.modules) - before\n"
@@ -391,6 +397,22 @@ def test_launcher_imports_no_torch_and_no_package():
     assert "--env-server" in out.stdout and "--restart-policy" in out.stdout
 
 
+def test_pipeline_worker_imports_no_torch_and_no_package():
+    """The decode worker runs as a plain script in a bare interpreter:
+    loading it imports neither torch nor jax nor either package."""
+    worker = os.path.join(REPO, "mxnet_tpu_torch", "io",
+                          "_pipeline_worker.py")
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({worker!r}, run_name='worker')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'mxnet_tpu', 'mxnet_tpu_torch')))\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_comm_builds_under_build_never_beside_a_source():
     from mxnet_tpu_torch import _native
     lib = _native.load_comm()
@@ -424,3 +446,37 @@ def test_dist_entry_points_default_to_cuda_and_raise_without_it(
         dist.server_device()
     monkeypatch.setenv(dist.SERVER_DEVICE_ENV, "cpu")
     assert dist.server_device() == torch.device("cpu")
+
+
+def test_record_pipeline_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    """ImageRecordIter's batches, the device feeder and mx.image's
+    NDArrays go to the card unless the caller asks for the CPU."""
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+
+    import mxnet_tpu_torch as tmx
+    _require_no_cuda()
+    buf = _io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="PNG")
+    rec = str(tmp_path / "one.rec")
+    w = tmx.recordio.MXRecordIO(rec, "w")
+    w.write(tmx.recordio.pack(tmx.recordio.IRHeader(0, 1.0, 0, 0),
+                              buf.getvalue()))
+    w.close()
+    kw = dict(path_imgrec=rec, data_shape=(3, 8, 8), batch_size=1)
+    it = tmx.io.ImageRecordIter(**kw)
+    with pytest.raises(MXNetError):
+        it.next()
+    it.close()
+    with pytest.raises(MXNetError):
+        tmx.io.DeviceFeeder(iter([]))
+    with pytest.raises(MXNetError):
+        tmx.image.imdecode(buf.getvalue())
+    with tmx.cpu():
+        it = tmx.io.ImageRecordIter(**kw)
+        assert it.next().data[0].context == tmx.cpu()
+        it.close()
+        assert tmx.image.imdecode(buf.getvalue()).context == tmx.cpu()
