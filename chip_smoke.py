@@ -245,7 +245,43 @@ Phases (any failure exits non-zero and prints no result line):
    wait's share of the step (the consumer's blocked time in the feeder)
    and the step ms of the same Module fed a batch already on the card.
    No kernel of the port launches here; 60 s at most;
-19. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+19. gluon.data over phase 18's records (written if missing):
+   ``ImageRecordDataset(...).transform_first(Compose([
+   RandomFlipLeftRight(), CenterCrop(224), ToTensor(), Normalize(the
+   ImageNet mean and std)]))`` through ``DataLoader(batch_size=128,
+   num_workers=N)`` on each path: the thread pool's Python path, the
+   native plan (libjpeg where the host has it; the line says whether it
+   ran, or "libjpeg absent: Python path") and ``thread_pool=False`` over
+   the sharded decode workers. On each, the first two batches through
+   the device feeder (``prefetch_to_device=True``) on the card against
+   the same loader's built on the CPU (the sharded workers' the same
+   bits; the pool's threads draw the mirror from numpy's global
+   generator in no fixed order, so each image is the CPU's bits or
+   their exact mirror), and images/s on the host (the pool at one
+   thread too). Then phase 11's gluon ResNet-50 v1 step at batch 128
+   fed by the native-plan and the sharded loader through the feeder,
+   against the same step on a batch already on the card: step ms
+   (median and window mean) and the data wait's share of the step;
+   then ``contrib.io.DataLoaderIter`` over the sharded loader for one
+   short ``Module.fit`` epoch (a batch a worker, over a copy of the
+   first records) of phase 8's ResNet-50 training symbol. No kernel of
+   the port launches here; 60 s at most;
+20. the SSD detector of ``examples/ssd`` (the port's block
+   ``ssd_class``: 2 classes, 64 x 64 images, 344 anchors) on the card
+   from seeded weights: a seeded ``.rec`` of ``train_ssd.py``'s
+   synthetic rectangles through ``ImageDetIter(rand_crop, rand_mirror,
+   max_objects=8)`` into ``train_ssd.py``'s step (``MultiBoxTarget``
+   with 3:1 hard negatives, softmax cross-entropy and the masked L1
+   loss, SGD momentum 0.9, wd 5e-4) at batch 8: the first step's class
+   targets the CPU's bits, its loss, gradients and updated weights
+   within phase 11's fp32 bounds of the port's CPU step on the same
+   batch and weights; ``MultiBoxDetection`` (NMS 0.45, threshold 0.01)
+   on the card against the CPU on the same inputs (kept ids, scores and
+   order the same bits, boxes within 1e-6), ``MultiBoxTarget`` on tied
+   inputs the CPU's bits; step ms, data wait, and the ms of
+   ``box_nms``, ``MultiBoxDetection`` and ``MultiBoxTarget`` at the
+   path's shapes. No kernel of the port launches here; 60 s at most;
+21. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``), then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -2421,6 +2457,7 @@ def phase_gluon_train(att, i8, fo, dev, rng, here):
     runs = [gluon_train_run(mx, weights, ctx, x, y, dt)
             for dt in ("float32", "bfloat16")]
     fp32, bf16 = runs
+    RESULTS["gluon_train_step_ms"] = fp32["step_ms"]
     loss_err = abs(fp32["losses"][0] - exec_loss)
     check(loss_err <= GLUON_EXEC_LOSS_RTOL * abs(exec_loss),
           f"gluon first-step loss {fp32['losses'][0]} vs executor "
@@ -4627,27 +4664,36 @@ def io_workers():
 def io_records(mx, here, n, rng):
     """A seeded .rec / .idx of ``n`` JPEGs (256 x 256, quality 90: a
     smooth random image, bilinear from 8 x 8, plus one of four noise
-    fields), labels i % 1000. Returns (path, seconds, mean bytes)."""
+    fields), labels i % 1000, encoded by a pool of threads (PIL releases
+    the GIL) and written in order. Returns (path, seconds, mean
+    bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
     t0 = time.perf_counter()
     d = os.path.join(here, "build", "chip_smoke", "records")
     os.makedirs(d, exist_ok=True)
     rec = os.path.join(d, "train.rec")
     noise = rng.normal(0, 12, (4, IO_SRC_HW, IO_SRC_HW, 3))
-    w = mx.recordio.MXIndexedRecordIO(os.path.join(d, "train.idx"), rec,
-                                      "w")
-    total = 0
-    for i in range(n):
-        base = Image.fromarray(rng.integers(0, 256, (8, 8, 3),
-                                            dtype=np.uint8))
-        px = np.asarray(base.resize((IO_SRC_HW, IO_SRC_HW),
-                                    Image.BILINEAR), np.float64)
+    bases = [rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+             for _ in range(n)]
+
+    def jpeg(i):
+        px = np.asarray(Image.fromarray(bases[i]).resize(
+            (IO_SRC_HW, IO_SRC_HW), Image.BILINEAR), np.float64)
         px = np.clip(px + noise[i % 4], 0, 255).astype(np.uint8)
         buf = io.BytesIO()
         Image.fromarray(px).save(buf, format="JPEG", quality=90)
-        total += buf.tell()
-        w.write_idx(i, mx.recordio.pack(
-            mx.recordio.IRHeader(0, float(i % 1000), i, 0), buf.getvalue()))
+        return buf.getvalue()
+
+    w = mx.recordio.MXIndexedRecordIO(os.path.join(d, "train.idx"), rec,
+                                      "w")
+    total = 0
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        for i, payload in enumerate(pool.map(jpeg, range(n))):
+            total += len(payload)
+            w.write_idx(i, mx.recordio.pack(
+                mx.recordio.IRHeader(0, float(i % 1000), i, 0), payload))
     w.close()
     return rec, time.perf_counter() - t0, total / n
 
@@ -4868,6 +4914,667 @@ def phase_records(att, i8, fo, dev, here, rng):
     torch.cuda.empty_cache()
 
 
+# -- phase 19: gluon.data ----------------------------------------------------
+# gluon's ImageNet input over phase 18's records: a random mirror, the
+# 224 center crop, ToTensor and the ImageNet mean and std in [0, 1] units
+GD_MEAN, GD_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+GD_FED_STEPS = 6
+GD_ONE_WORKER_BATCHES = 1
+# "thread": the pool's per-item Python path (a batchify_fn keeps the
+# native plan out); "native": the default loader, whose plan runs the
+# libjpeg batch decoder where the host has libjpeg; "sharded":
+# thread_pool=False, the sharded decode worker processes
+GD_PATHS = ("thread", "native", "sharded")
+
+
+def gd_records(mx, here, rng):
+    """Phase 18's .rec / .idx, written anew where missing or of another
+    size."""
+    n = IO_BATCH * io_workers() * IO_EPOCH_BATCHES_PER_WORKER
+    rec = os.path.join(here, "build", "chip_smoke", "records", "train.rec")
+    idx = rec[:-len(".rec")] + ".idx"
+    if os.path.exists(rec) and os.path.exists(idx):
+        with open(idx) as f:
+            if sum(1 for _ in f) == n:
+                return rec
+    return io_records(mx, here, n, rng)[0]
+
+
+def gd_loader(mx, rec, path, batches=None, **kw):
+    """DataLoader(batch 128, the decode workers phase 18 takes) over
+    ImageRecordDataset(rec).transform_first(the ImageNet Compose), on one
+    of GD_PATHS. ``batches``: the pool's paths read only the first that
+    many batches in order (a pool stopped early still finishes the
+    batches its threads hold); the sharded path takes its whole epoch."""
+    T = mx.gluon.data.vision.transforms
+    ds = mx.gluon.data.vision.ImageRecordDataset(rec).transform_first(
+        T.Compose([T.RandomFlipLeftRight(), T.CenterCrop(IO_SHAPE[1]),
+                   T.ToTensor(), T.Normalize(GD_MEAN, GD_STD)]))
+    if path == "thread":
+        kw["batchify_fn"] = mx.gluon.data.dataloader.default_batchify_fn
+    if path == "sharded":
+        kw["thread_pool"] = False
+    elif batches is not None:
+        kw["sampler"] = mx.gluon.data.SequentialSampler(batches * IO_BATCH)
+    kw.setdefault("num_workers", io_workers())
+    loader = mx.gluon.data.DataLoader(ds, batch_size=IO_BATCH, **kw)
+    check((loader._native is None) == (path == "thread")
+          and (loader._mp_config is not None) == (path == "sharded"),
+          f"the {path} loader took another path")
+    return loader
+
+
+def gd_first(loader, n, stamps=None):
+    """One pass of ``loader`` over ``n`` batches, each dropped as a
+    training loop drops it but the first two, returned as numpy (data,
+    label) after the pass; ``stamps`` gets each batch's arrival time."""
+    kept = []
+    it = iter(loader)
+    try:
+        for i, batch in enumerate(it):
+            if stamps is not None:
+                stamps.append(time.perf_counter())
+            if i < 2:
+                kept.append(batch)
+            if i + 1 == n:
+                break
+    finally:
+        it.close()
+    return [(d.asnumpy(), lab.asnumpy()) for d, lab in kept]
+
+
+def gd_host_rate(mx, rec, path):
+    """One seeded pass of the path's loader on the CPU: its first two
+    batches (numpy) and its images/s. The pool hands each thread a whole
+    batch, so its first N batches arrive almost together, a round after
+    the start: its rate runs from the start over N batches. The sharded
+    workers fill their rings while the parent waits for the first batch:
+    their rate runs from the first batch's arrival over GD_FED_STEPS."""
+    n = io_workers()
+    count = GD_FED_STEPS if path == "sharded" else n
+    np.random.seed(SEED)
+    stamps = []
+    with mx.cpu():
+        loader = gd_loader(mx, rec, path, count)
+        t0 = time.perf_counter()
+        host = gd_first(loader, count, stamps)
+        decoders = (loader._mp_pipeline.decoders()
+                    if loader._mp_pipeline is not None else None)
+        loader.close()
+    rate = ((count - 1) * IO_BATCH / (stamps[-1] - stamps[0])
+            if path == "sharded" else count * IO_BATCH / (stamps[-1] - t0))
+    return host, {"images_per_s": rate, "batches": count,
+                  "first_batch_s": stamps[0] - t0, "decoders": decoders}
+
+
+def gd_card_check(path, card, host):
+    """The card's first two batches against the CPU's: the sharded
+    workers draw their mirrors from the seed, so the same bits; the
+    pool's threads draw them from numpy's global generator in no fixed
+    order, so each image the CPU's bits or their exact mirror (the
+    crop's margins are even)."""
+    mirrored = 0
+    for (cd, cl), (hd, hl) in zip(card, host):
+        check(cd.shape == (IO_BATCH,) + IO_SHAPE and np.isfinite(cd).all(),
+              f"gluon_data {path}: batch {cd.shape}")
+        check(np.array_equal(cl, hl), f"gluon_data {path}: labels differ")
+        if path == "sharded":
+            check(np.array_equal(cd, hd), "gluon_data sharded: the card's "
+                  "batches differ from the CPU's")
+            continue
+        for c, h in zip(cd, hd):
+            same = np.array_equal(c, h)
+            check(same or np.array_equal(c, h[:, :, ::-1]),
+                  f"gluon_data {path}: an image is neither the CPU's nor "
+                  "its mirror")
+            mirrored += not same
+    return "bitwise" if path == "sharded" else (
+        f"bitwise up to the mirror draw ({mirrored} of {2 * IO_BATCH} "
+        "images mirrored differently)")
+
+
+def gd_card_batches(batches, dev, path):
+    """The next two batches of ``batches`` (fed to the card) as numpy."""
+    out = []
+    for _ in range(2):
+        x, y = next(batches)
+        for a in (x, y):
+            check(a._data.device == dev, f"gluon_data {path}: a fed batch "
+                  f"lies on {a._data.device}")
+        out.append((x.asnumpy(), y.asnumpy()))
+    return out
+
+
+def gd_steps(mx, net, trainer, loss_fn, batches, steps):
+    """``steps`` gluon training steps (record -> forward -> loss ->
+    backward -> Trainer.step, ended by a sync) after a warm one, each on
+    the next (x, y) of ``batches``: the steps' ms, the ms each waited
+    for its batch, and the losses."""
+    secs, waits, losses = [], [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        x, y = next(batches)
+        t1 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+        waits.append((t1 - t0) * 1e3)
+        losses.append(float(loss._data.detach().float().mean()))
+    check(all(np.isfinite(losses)), f"gluon_data losses {losses}")
+    return {"step_ms": float(np.median(secs[1:])),
+            "step_ms_mean": float(np.mean(secs[1:])),
+            "step_ms_all": secs[1:], "wait_ms_all": waits[1:],
+            "data_wait_share": sum(waits[1:]) / sum(secs[1:]),
+            "losses": losses}
+
+
+def gd_fit_records(mx, rec):
+    """The first batch a worker of ``rec``'s records (the record bytes
+    copied), so that a sharded epoch is one batch a worker."""
+    n = IO_BATCH * io_workers()
+    src = mx.recordio.MXIndexedRecordIO(rec[:-len(".rec")] + ".idx", rec,
+                                        "r")
+    out = rec[:-len(".rec")] + "_fit.rec"
+    dst = mx.recordio.MXIndexedRecordIO(out[:-len(".rec")] + ".idx", out,
+                                        "w")
+    for i in src.keys[:n]:
+        dst.write_idx(i, src.read_idx(i))
+    dst.close()
+    src.close()
+    return out
+
+
+def gd_fit(mx, here, rec, dev):
+    """DataLoaderIter over the sharded loader (through the feeder) for
+    one short Module.fit epoch (a batch a worker) of phase 8's ResNet-50
+    training symbol."""
+    rnet, _, r_arg, r_aux = train_net(mx, here)
+    loader = gd_loader(mx, gd_fit_records(mx, rec), "sharded",
+                       prefetch_to_device=True)
+    it = mx.contrib.io.DataLoaderIter(loader)
+    mod = mx.mod.Module(rnet, context=mx.gpu(0))
+    stamps = []
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    opt = {"learning_rate": SGD_HYPER["lr"],
+           "momentum": SGD_HYPER["momentum"], "wd": SGD_HYPER["wd"]}
+    try:
+        t0 = time.perf_counter()
+        mod.fit(it, optimizer="sgd", optimizer_params=opt,
+                arg_params=r_arg, aux_params=r_aux, num_epoch=1,
+                eval_metric="acc", batch_end_callback=stamp)
+        fit_s = time.perf_counter() - t0
+    finally:
+        it.reset()
+        loader.close()
+    check(len(stamps) == len(loader), f"fit took {len(stamps)} steps of a "
+          f"{len(loader)}-batch epoch")
+    out = mod.get_outputs()[0]._data
+    check(out.device == dev and bool(torch.isfinite(out).all()),
+          "the Module's outputs after the fit")
+    del mod
+    return {"steps": len(stamps), "fit_s": fit_s,
+            "first_step_s": stamps[0] - t0,
+            "step_ms": float(np.median(np.diff(stamps))) * 1e3}
+
+
+def phase_gluon_data(att, i8, fo, dev, here, rng):
+    """The module docstring's phase 19: gluon.data's three loader paths
+    on the host and through the device feeder, feeding phase 11's gluon
+    ResNet-50 step, and DataLoaderIter under Module.fit. No kernel of
+    the port launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native
+    t_phase = time.perf_counter()
+    before = kernel_counts(att, i8, fo)
+    part_s = {}
+    rec = gd_records(mx, here, rng)
+    part_s["records"] = time.perf_counter() - t_phase
+    host, paths = {}, {}
+    for path in GD_PATHS:
+        host[path], paths[path] = gd_host_rate(mx, rec, path)
+    native_taken = _native.load_imgdec() is not None
+    paths["native"]["plan"] = ("libjpeg batch decoder" if native_taken
+                               else "libjpeg absent: Python path")
+    # the pool at one thread: how far N threads scale past it
+    with mx.cpu():
+        stamps = []
+        loader = gd_loader(mx, rec, "thread", GD_ONE_WORKER_BATCHES,
+                           num_workers=1)
+        t0 = time.perf_counter()
+        gd_first(loader, GD_ONE_WORKER_BATCHES, stamps)
+    paths["thread"]["images_per_s_one_worker"] = \
+        GD_ONE_WORKER_BATCHES * IO_BATCH / (stamps[-1] - t0)
+    np.random.seed(SEED)
+    loader = gd_loader(mx, rec, "thread", 2, prefetch_to_device=True)
+    it = iter(loader)
+    try:
+        paths["thread"]["card_vs_cpu"] = gd_card_check(
+            "thread", gd_card_batches(it, dev, "thread"), host["thread"])
+    finally:
+        it.close()
+    part_s["paths"] = time.perf_counter() - t_phase - part_s["records"]
+
+    # phase 11's gluon ResNet-50 step fed through the feeder by the
+    # default loader and by the sharded one (their first two batches the
+    # card check), against the step on a batch already on the card
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    net, _ = gluon_resnet(mx, None, ctx)
+    part_s["resnet_build"] = time.perf_counter() - t0
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+    x = mx.nd.array(np.random.default_rng(SEED).standard_normal(
+        (IO_BATCH,) + IO_SHAPE, dtype=np.float32), ctx=ctx)
+    y = mx.nd.array(np.arange(IO_BATCH) % 1000, ctx=ctx)
+    # the resident steps first: their warm step takes the net's first
+    # training step's set-up, which would hide a loader's wait
+    resident = gd_steps(mx, net, trainer, loss_fn,
+                        iter([(x, y)] * (GD_FED_STEPS + 1)), GD_FED_STEPS)
+    fed = {}
+    # the pool: 2N batches, all in flight from the start, so its second
+    # round of N decodes while the timed steps run
+    for path, count in (("native", 2 * io_workers()),
+                        ("sharded", GD_FED_STEPS + 3)):
+        np.random.seed(SEED)
+        loader = gd_loader(mx, rec, path, count, prefetch_to_device=True)
+        it = iter(loader)
+        try:
+            paths[path]["card_vs_cpu"] = gd_card_check(
+                path, gd_card_batches(it, dev, path), host[path])
+            fed[path] = gd_steps(mx, net, trainer, loss_fn, it, count - 3)
+        finally:
+            it.close()
+            loader.close()
+    part_s["steps"] = time.perf_counter() - t0 - part_s["resnet_build"]
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fit = gd_fit(mx, here, rec, dev)
+    part_s["fit"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    after = kernel_counts(att, i8, fo)
+    check(after == before, f"the gluon_data phase launched kernels of the "
+          f"port: {before} -> {after}")
+    phase_s = time.perf_counter() - t_phase
+    log("gluon_data " + json.dumps({
+        "card": card_line(), "batch": IO_BATCH, "workers": io_workers(),
+        "host_cpus": os.cpu_count(), "native_plan_taken": native_taken,
+        "paths": paths,
+        "gluon_resnet50_step": {
+            "fed": fed, "resident_step_ms": resident["step_ms"],
+            "resident_step_ms_mean": resident["step_ms_mean"],
+            "resident_step_ms_all": resident["step_ms_all"],
+            "phase11_step_ms": RESULTS.get("gluon_train_step_ms")},
+        "module_fit_dataloaderiter": fit, "phase_s": phase_s,
+        "phase_part_s": part_s}))
+    check(phase_s <= 60.0, f"gluon_data took {phase_s:.1f} s, over 60")
+
+
+# -- phase 20: the SSD detector ---------------------------------------------
+# examples/ssd (BASELINE config 4): 64 x 64 images of one solid rectangle
+# whose class is its color channel, 2 classes, 5 pyramid levels of 4
+# anchors a pixel (344 anchors), trained with SGD momentum as
+# train_ssd.py trains it
+SSD_CLASSES, SSD_IMG, SSD_BATCH, SSD_MAX_OBJECTS = 2, 64, 8, 8
+SSD_SIZES = [(0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79), (0.88, 0.961)]
+SSD_RATIOS = [(1.0, 2.0, 0.5)] * 5
+SSD_ANCHORS = 344
+SSD_PREFIX = "ssd0_"
+SSD_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 5e-4}
+SSD_RECORDS = 32 * SSD_BATCH
+SSD_STEPS = 12
+
+
+def ssd_class(mx):
+    """examples/ssd/model.py's ``SSD`` written over ``mx``'s gluon (the
+    port's): a small conv backbone (16 / 32 / 64), three 128-wide
+    stages and a global pool, a class head and a box head a level.
+    forward(x) -> (anchors (1, N, 4), cls_preds (B, N, C + 1),
+    box_preds (B, N * 4))."""
+    nn = mx.gluon.nn
+
+    def down_block(channels):
+        """Two conv + BN + relu, then a 2 x 2 pool: one pyramid step."""
+        blk = nn.HybridSequential()
+        for _ in range(2):
+            blk.add(nn.Conv2D(channels, 3, padding=1, use_bias=False),
+                    nn.BatchNorm(), nn.Activation("relu"))
+        blk.add(nn.MaxPool2D(2, 2))
+        return blk
+
+    class SSD(mx.gluon.HybridBlock):
+        def __init__(self, num_classes, base_channels=(16, 32, 64),
+                     **kwargs):
+            super().__init__(**kwargs)
+            self.num_classes = num_classes
+            napp = len(SSD_SIZES[0]) + len(SSD_RATIOS[0]) - 1
+            with self.name_scope():
+                self.stages = []
+                base = nn.HybridSequential(prefix="base_")
+                with base.name_scope():
+                    for c in base_channels:
+                        base.add(down_block(c))
+                blocks = [base, down_block(128), down_block(128),
+                          down_block(128)]
+                self.cls_heads, self.box_heads = [], []
+                for i, blk in enumerate(blocks + [None]):
+                    if blk is not None:
+                        setattr(self, f"stage{i}", blk)
+                        self.stages.append(blk)
+                    cls = nn.Conv2D(napp * (num_classes + 1), 3, padding=1,
+                                    prefix=f"cls{i}_")
+                    box = nn.Conv2D(napp * 4, 3, padding=1,
+                                    prefix=f"box{i}_")
+                    setattr(self, f"clshead{i}", cls)
+                    setattr(self, f"boxhead{i}", box)
+                    self.cls_heads.append(cls)
+                    self.box_heads.append(box)
+
+        def hybrid_forward(self, F, x):
+            anchors, cls_preds, box_preds = [], [], []
+            feat = x
+            for i in range(len(self.cls_heads)):
+                if i < len(self.stages):
+                    feat = self.stages[i](feat)
+                else:  # the last level: one global pixel
+                    feat = F.Pooling(feat, global_pool=True, kernel=(1, 1),
+                                     pool_type="max")
+                anchors.append(F.MultiBoxPrior(feat, sizes=SSD_SIZES[i],
+                                               ratios=SSD_RATIOS[i]))
+                c = F.transpose(self.cls_heads[i](feat), axes=(0, 2, 3, 1))
+                cls_preds.append(F.reshape(
+                    c, shape=(0, -1, self.num_classes + 1)))
+                b = F.transpose(self.box_heads[i](feat), axes=(0, 2, 3, 1))
+                box_preds.append(F.reshape(b, shape=(0, -1)))
+            return (F.concat(*anchors, dim=1), F.concat(*cls_preds, dim=1),
+                    F.concat(*box_preds, dim=1))
+
+    return SSD
+
+
+def ssd_synth(rng, n):
+    """train_ssd.py's ``synth_batch``: images (n, 3, 64, 64) of noise
+    with one rectangle (+1 in the channel of its class), labels (n, 1,
+    5) rows [cls, x1, y1, x2, y2] in normalized corners."""
+    x = rng.normal(0.0, 0.05, (n, 3, SSD_IMG, SSD_IMG)).astype(np.float32)
+    labels = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        cls = int(rng.integers(0, SSD_CLASSES))
+        w = int(rng.integers(16, 40))
+        h = int(rng.integers(16, 40))
+        x0 = int(rng.integers(0, SSD_IMG - w))
+        y0 = int(rng.integers(0, SSD_IMG - h))
+        x[i, cls, y0:y0 + h, x0:x0 + w] += 1.0
+        labels[i, 0] = [cls, x0 / SSD_IMG, y0 / SSD_IMG,
+                        (x0 + w) / SSD_IMG, (y0 + h) / SSD_IMG]
+    return x, labels
+
+
+def ssd_step(mx, net, trainer, x, y):
+    """train_ssd.py's training step: targets by MultiBoxTarget with
+    3:1 hard negatives, softmax cross-entropy plus the masked L1 box
+    loss, backward, one SGD step (none without a trainer). Returns
+    (loss (B,), class targets)."""
+    cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    l1_loss = mx.gluon.loss.L1Loss()
+    with mx.autograd.record():
+        anchors, cls_preds, box_preds = net(x)
+        box_t, box_m, cls_t = mx.nd.MultiBoxTarget(
+            anchors, y, mx.nd.transpose(cls_preds, axes=(0, 2, 1)),
+            negative_mining_ratio=3.0)
+        loss = cls_loss(cls_preds, cls_t) \
+            + l1_loss(box_preds * box_m, box_t * box_m)
+    loss.backward()
+    if trainer is not None:
+        trainer.step(x.shape[0])
+    return loss, cls_t
+
+
+def ssd_detect(mx, net, x):
+    """train_ssd.py's predict: softmax over the classes, then
+    MultiBoxDetection (NMS at 0.45, score threshold 0.01). Returns
+    (detections (B, N, 6), class probabilities, box predictions,
+    anchors)."""
+    anchors, cls_preds, box_preds = net(x)
+    probs = mx.nd.transpose(mx.nd.softmax(cls_preds, axis=-1),
+                            axes=(0, 2, 1))
+    dets = mx.nd.MultiBoxDetection(probs, box_preds, anchors,
+                                   nms_threshold=0.45, threshold=0.01)
+    return dets, probs, box_preds, anchors
+
+
+def ssd_records(mx, here, rng):
+    """SSD_RECORDS of ssd_synth's images (x 255 as HWC uint8 PNGs) with
+    their box rows as vector labels: a .rec / .idx under build/."""
+    from PIL import Image
+    d = os.path.join(here, "build", "chip_smoke", "ssd")
+    os.makedirs(d, exist_ok=True)
+    rec = os.path.join(d, "train.rec")
+    x, labels = ssd_synth(rng, SSD_RECORDS)
+    w = mx.recordio.MXIndexedRecordIO(os.path.join(d, "train.idx"), rec, "w")
+    for i in range(SSD_RECORDS):
+        px = np.clip(x[i].transpose(1, 2, 0) * 255, 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, format="PNG")
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, labels[i].ravel(), i, 0),
+            buf.getvalue()))
+    w.close()
+    return rec
+
+
+def ssd_net(mx, weights, ctx):
+    """The SSD on ``ctx`` with ``weights`` ({name: numpy}; None: zeros),
+    shapes resolved without a forward, hybridized."""
+    from mxnet_tpu_torch.gluon.block import infer_shapes
+    net = ssd_class(mx)(SSD_CLASSES, prefix=SSD_PREFIX)
+    net.initialize(mx.initializer.Zero(), ctx=ctx)
+    infer_shapes(net, (1, 3, SSD_IMG, SSD_IMG))
+    if weights is not None:
+        for name, p in net.collect_params().items():
+            p.set_data(torch.from_numpy(weights[name]))
+    net.hybridize()
+    return net
+
+
+def ssd_grads(mx, net, x, y, trainer=None):
+    """One ssd_step: (mean loss, class targets, {name: gradient},
+    {name: weight after})."""
+    params = net.collect_params()
+    loss, cls_t = ssd_step(mx, net, trainer, x, y)
+    return (float(loss.asnumpy().astype(np.float64).mean()), cls_t.asnumpy(),
+            {n: p.grad().asnumpy() for n, p in params.items()
+             if p.grad_req != "null"},
+            {n: p.data().asnumpy() for n, p in params.items()})
+
+
+def ssd_parity(mx, weights, card_step, x_np, y_np):
+    """The card's first step against the port's CPU step on the same
+    batch and weights, at phase 11's fp32 bounds: the loss to 1e-5, each
+    gradient and updated weight to 1e-4 of its largest value; a
+    gradient past that (an ill-conditioned one) no further from the CPU
+    f64 run than PARITY_STEM_RATIO times the CPU's own f32 run."""
+    with mx.cpu():
+        net = ssd_net(mx, weights, mx.cpu())
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(SSD_SGD))
+        cpu = ssd_grads(mx, net, mx.nd.array(x_np), mx.nd.array(y_np),
+                        trainer)
+        net64 = ssd_net(mx, weights, mx.cpu())
+        net64.cast("float64")
+        f64 = ssd_grads(mx, net64, mx.nd.array(x_np, dtype="float64"),
+                        mx.nd.array(y_np, dtype="float64"))
+    loss, cls_t, grads, updated = card_step
+    check(np.array_equal(cls_t, cpu[1]), "ssd: the card's MultiBoxTarget "
+          "class targets differ from the CPU's")
+    check(np.array_equal(cls_t, f64[1]), "ssd: the f64 run's class targets "
+          "differ")
+    loss_rel = abs(loss - cpu[0]) / abs(cpu[0])
+    check(loss_rel <= PARITY_LOSS_RTOL, f"ssd loss card {loss} vs CPU "
+          f"{cpu[0]}")
+
+    def rel(a, b):
+        return float(np.abs(a.astype(np.float64) - b).max()
+                     / max(np.abs(b).max(), 1e-30))
+
+    worst, by_f64 = {}, {}
+    for n, g in grads.items():
+        r = rel(g, cpu[2][n])
+        if r > PARITY_TENSOR_TOL:
+            card_err, cpu_err = rel(g, f64[2][n]), rel(cpu[2][n], f64[2][n])
+            check(card_err <= PARITY_STEM_RATIO * cpu_err,
+                  f"ssd gradient {n}: card {card_err} vs CPU {cpu_err} of "
+                  "the largest off the f64 run")
+            by_f64[n] = {"card_vs_f64": card_err, "cpu_vs_f64": cpu_err}
+        worst["grad"] = max(worst.get("grad", 0.0), r)
+    for n, w in updated.items():
+        r = rel(w, cpu[3][n])
+        if n not in by_f64:
+            check(r <= PARITY_TENSOR_TOL, f"ssd updated {n}: card vs CPU "
+                  f"differ by {r} of the largest")
+        worst["updated"] = max(worst.get("updated", 0.0), r)
+    return {"loss_card": loss, "loss_cpu": cpu[0], "loss_f64": f64[0],
+            "loss_rel": loss_rel, "grad_rel_max": worst["grad"],
+            "updated_rel_max": worst["updated"], "tensors": len(grads),
+            "grads_held_to_f64": by_f64}
+
+
+def ssd_ties(mx, anchors):
+    """MultiBoxTarget on the card and the CPU on ties: two equal ground
+    truths (every matching round ties) and equal class scores (the
+    mining sort ties): class targets and masks the same bits, box
+    targets within 1e-6."""
+    rng = np.random.default_rng(SEED + 21)
+    n = anchors.shape[1]
+    lab = np.full((4, 3, 5), -1, np.float32)
+    lab[:, 0] = [0, 0.1, 0.1, 0.5, 0.6]
+    lab[:, 1] = lab[:, 0]
+    lab[2:, 2] = [1, 0.4, 0.3, 0.95, 0.9]
+    cls = rng.random((4, SSD_CLASSES + 1, n)).astype(np.float32)
+    cls[:, :, 20:80] = 0.5
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            outs.append([o.asnumpy() for o in mx.nd.MultiBoxTarget(
+                mx.nd.array(anchors), mx.nd.array(lab), mx.nd.array(cls),
+                negative_mining_ratio=3.0)])
+    (cl, cm, cc), (hl, hm, hc) = outs
+    check(np.array_equal(cm, hm) and np.array_equal(cc, hc),
+          "ssd: MultiBoxTarget on ties differs between the card and CPU")
+    err = float(np.abs(cl - hl).max())
+    check(err <= 1e-6, f"ssd: tied box targets differ by {err}")
+    return {"box_target_max_abs": err, "positives": int((cc > 0).sum())}
+
+
+def phase_ssd(att, i8, fo, dev, here, rng):
+    """The module docstring's phase 20: ImageDetIter into the SSD's
+    training step on the card, its first step against the CPU, the
+    detections against the CPU, and the detection ops' times. No kernel
+    of the port launches."""
+    import mxnet_tpu_torch as mx
+    import random as pyrandom
+
+    from mxnet_tpu_torch.ops.detection import decode_detections
+    t_phase = time.perf_counter()
+    before = kernel_counts(att, i8, fo)
+    rec = ssd_records(mx, here, rng)
+    ctx = mx.gpu(0)
+    wrng = np.random.default_rng(SEED + 20)
+    net = ssd_net(mx, None, ctx)
+    weights = {n: seeded_value(n, p.shape, wrng)
+               for n, p in net.collect_params().items()}
+    net = ssd_net(mx, weights, ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SSD_SGD))
+    pyrandom.seed(SEED)
+    it = mx.image.ImageDetIter(
+        batch_size=SSD_BATCH, data_shape=(3, SSD_IMG, SSD_IMG),
+        path_imgrec=rec, shuffle=True, rand_crop=1, rand_mirror=True,
+        max_objects=SSD_MAX_OBJECTS, mean=True, std=True)
+
+    def batches():
+        while True:
+            for b in it:
+                yield b.data[0], b.label[0]
+            it.reset()
+
+    feed = batches()
+    x, y = next(feed)
+    check(x._data.device == dev and x.shape == (SSD_BATCH, 3, SSD_IMG,
+                                                  SSD_IMG)
+          and y.shape == (SSD_BATCH, SSD_MAX_OBJECTS, 5),
+          f"ImageDetIter batch {x.shape} {y.shape} on {x._data.device}")
+    x_np, y_np = x.asnumpy(), y.asnumpy()
+    first = ssd_grads(mx, net, x, y, trainer)
+    parity = ssd_parity(mx, weights, first, x_np, y_np)
+
+    # the training loop fed by ImageDetIter
+    secs, waits, losses = [], [], [first[0]]
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        x, y = next(feed)
+        t1 = time.perf_counter()
+        loss, _ = ssd_step(mx, net, trainer, x, y)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+        waits.append((t1 - t0) * 1e3)
+        losses.append(float(loss._data.detach().mean()))
+    check(all(np.isfinite(losses)), f"ssd losses {losses}")
+
+    # detections on the card against the CPU on the same inputs
+    dets, probs, box_preds, anchors = ssd_detect(mx, net, x)
+    with mx.cpu():
+        want = mx.nd.MultiBoxDetection(
+            mx.nd.array(probs.asnumpy()), mx.nd.array(box_preds.asnumpy()),
+            mx.nd.array(anchors.asnumpy()), nms_threshold=0.45,
+            threshold=0.01).asnumpy()
+    got = dets.asnumpy()
+    check(got.shape == (SSD_BATCH, SSD_ANCHORS, 6), f"detections {got.shape}")
+    check(np.array_equal(got[..., :2], want[..., :2]), "ssd: the card's "
+          "kept cls_id, scores or order differ from the CPU's")
+    box_err = float(np.abs(got[..., 2:] - want[..., 2:]).max())
+    check(box_err <= 1e-6, f"ssd: detection boxes differ by {box_err}")
+    ties = ssd_ties(mx, anchors.asnumpy())
+
+    # the detection ops' times at the path's shapes (host clock, each
+    # call ended by a sync: box_nms reads one flag a sweep)
+    raw = decode_detections(probs._data, box_preds._data, anchors._data)
+    nms_s, _ = timed_forwards(lambda: mx.nd.box_nms(
+        mx.nd.NDArray(raw), overlap_thresh=0.45, valid_thresh=0.0,
+        coord_start=2, score_index=1, id_index=0), iters=20)
+    det_s, _ = timed_forwards(lambda: mx.nd.MultiBoxDetection(
+        probs, box_preds, anchors, nms_threshold=0.45, threshold=0.01),
+        iters=20)
+    tgt_s, _ = timed_forwards(lambda: mx.nd.MultiBoxTarget(
+        anchors, y, probs, negative_mining_ratio=3.0), iters=20)
+    after = kernel_counts(att, i8, fo)
+    check(after == before, f"the ssd phase launched kernels of the port: "
+          f"{before} -> {after}")
+    phase_s = time.perf_counter() - t_phase
+    log("ssd " + json.dumps({
+        "card": card_line(), "classes": SSD_CLASSES, "image": SSD_IMG,
+        "anchors": SSD_ANCHORS, "batch": SSD_BATCH, "records": SSD_RECORDS,
+        "parameters": int(sum(w.size for w in weights.values())),
+        "first_step_vs_cpu": parity, "steps": SSD_STEPS,
+        "step_ms": float(np.median(secs)), "step_ms_all": secs,
+        "data_wait_ms_all": waits,
+        "data_wait_share": sum(waits) / sum(secs), "losses": losses,
+        "detections_kept": int((got[..., 0] >= 0).sum()),
+        "detection_box_max_abs_vs_cpu": box_err, "target_ties": ties,
+        "box_nms_ms": nms_s * 1e3, "multibox_detection_ms": det_s * 1e3,
+        "multibox_target_ms": tgt_s * 1e3, "phase_s": phase_s}))
+    check(phase_s <= 60.0, f"ssd took {phase_s:.1f} s, over 60")
+    del net, trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -4931,6 +5638,8 @@ def main():
     timed(phase_dist, here, dev)
     planes = timed(phase_serving_planes, att, i8, fo, dev, burst, here, rng)
     timed(phase_records, att, i8, fo, dev, here, rng)
+    timed(phase_gluon_data, att, i8, fo, dev, here, rng)
+    timed(phase_ssd, att, i8, fo, dev, here, rng)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]

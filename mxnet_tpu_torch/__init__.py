@@ -47,7 +47,13 @@ float32 product here is a float32 product. Ported so far:
   (``io.ShardedRecordPipeline``: worker processes, a shared-memory
   ring, the port's libjpeg decoder ``_native/imgdec.cc``), the
   pinned-memory device feeder (``io.DeviceFeeder``), and ``image``
-  (``imdecode``, the augmenters, ``ImageIter``).
+  (``imdecode``, the augmenters, ``ImageIter``);
+- the rest of the input pipeline: ``gluon.data`` (datasets, samplers,
+  vision transforms and datasets, the ``DataLoader`` over a thread
+  pool, the libjpeg batch decoder or the sharded decode workers),
+  ``contrib.io.DataLoaderIter`` for ``Module.fit``, and the detection
+  input (``image.ImageDetIter``, the detection augmenters) with the
+  MultiBox ops and ``box_nms`` that train and run the SSD detector.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """

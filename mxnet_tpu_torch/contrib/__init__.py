@@ -1,3 +1,3 @@
-"""Contributed components of the port (``mxnet_tpu/contrib``): so far the
-INT8 quantization flow."""
-from . import quantization  # noqa: F401
+"""Contributed components of the port (``mxnet_tpu/contrib``): the INT8
+quantization flow and ``io.DataLoaderIter``."""
+from . import io, quantization  # noqa: F401

@@ -1,6 +1,7 @@
 """Gluon, the imperative / hybrid layer API of the port
 (``mxnet_tpu/gluon``): parameters, blocks, layers, the ResNet model
-zoo, losses, the single-card ``Trainer`` and utilities."""
+zoo, losses, the single-card ``Trainer``, utilities and ``data``
+(datasets, samplers, the DataLoader, vision transforms)."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from .block import Block, HybridBlock, SymbolBlock
@@ -11,3 +12,4 @@ from . import trainer
 from .trainer import Trainer
 from . import utils
 from .utils import clip_global_norm, split_and_load, split_data
+from . import data

@@ -1,7 +1,6 @@
-"""mx.image: image loading and the augmenter zoo (the port of
-``mxnet_tpu/image``; ref: python/mxnet/image/). The detection
-augmenters and ``ImageDetIter`` (``image/detection.py``) are not ported
-yet."""
+"""mx.image: image loading, the augmenter zoo, and the detection
+augmenters with ``ImageDetIter`` (the port of ``mxnet_tpu/image``; ref:
+python/mxnet/image/)."""
 from .image import (Augmenter, BrightnessJitterAug, CastAug,
                     CenterCropAug, ColorJitterAug, ContrastJitterAug,
                     CreateAugmenter, ForceResizeAug, HorizontalFlipAug,
@@ -11,9 +10,14 @@ from .image import (Augmenter, BrightnessJitterAug, CastAug,
                     SaturationJitterAug, SequentialAug, color_normalize,
                     imdecode, imread, imresize, random_crop,
                     center_crop, fixed_crop, scale_down)
+from .detection import (CreateDetAugmenter, DetBorderAug,
+                        DetHorizontalFlipAug, DetRandomCropAug,
+                        ImageDetIter)
 
 __all__ = ["Augmenter", "BrightnessJitterAug", "CastAug", "CenterCropAug",
            "ColorJitterAug", "ContrastJitterAug", "CreateAugmenter",
+           "CreateDetAugmenter", "DetBorderAug", "DetHorizontalFlipAug",
+           "DetRandomCropAug", "ImageDetIter",
            "ForceResizeAug", "HorizontalFlipAug", "HueJitterAug",
            "ImageIter", "LightingAug", "RandomCropAug", "RandomGrayAug",
            "RandomOrderAug", "RandomRotateAug", "RandomShearAug",

@@ -346,18 +346,18 @@ def _next_all(iters):
         yield batches
 
 
-def _feed(batch, device, stream):
-    """``batch``'s arrays on ``device`` for the device feeder
+def _feed(arrays, device, stream):
+    """``arrays`` (NDArrays) moved to ``device`` for the device feeder
     (``pipeline.DeviceFeeder``): on a CUDA device, host arrays are pinned
-    (a copy, unless they already are) and copied on the
-    side ``stream``, and the event returned marks their arrival (None
-    when nothing was copied that way)."""
+    (a copy, unless they already are) and copied on the side ``stream``,
+    and the event returned marks their arrival (None when nothing was
+    copied that way)."""
     if device.type != "cuda":
-        for a in _batch_arrays(batch):
+        for a in arrays:
             a._data = a._data.to(device)
         return None
     with torch.cuda.stream(stream):
-        for a in _batch_arrays(batch):
+        for a in arrays:
             if a._data.device != device:
                 a._data = a._data.pin_memory().to(device, non_blocking=True)
         event = torch.cuda.Event()

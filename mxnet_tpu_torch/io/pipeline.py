@@ -513,7 +513,8 @@ def _no_sharding(sharding):
 
 
 def _flat_arrays(item):
-    """The NDArrays of a batch, a list of batches or an NDArray."""
+    """The NDArrays of a batch, a list of batches or NDArrays, or an
+    NDArray."""
     if isinstance(item, DataBatch):
         return _batch_arrays(item)
     if isinstance(item, (list, tuple)):
@@ -549,7 +550,8 @@ class DeviceFeeder:
     """Double-buffered device prefetch over any batch source.
 
     A feeder thread pulls item k+1 from ``source`` (an iterator of
-    DataBatches, or of lists of them) while the consumer runs step k.
+    DataBatches, or of lists of them or of NDArrays) while the consumer
+    runs step k.
     With ``to_device`` (the default) the source builds on the host and
     the feeder moves each item to the current context's device: on a
     card from pinned host memory on a side stream, with an event;
@@ -643,9 +645,7 @@ class DeviceFeeder:
 
 
 def _feed_all(item, device, stream):
-    """``_feed`` over a batch or a list of batches: one event (the last
-    copy's) marks the arrival of all of them on the side stream."""
-    event = None
-    for b in (item if isinstance(item, (list, tuple)) else [item]):
-        event = _feed(b, device, stream) or event
-    return event
+    """``_feed`` over the arrays of a batch, a list of batches or a list
+    of NDArrays (a DataLoader's [data, label]): one event marks the
+    arrival of all of them on the side stream."""
+    return _feed(_flat_arrays(item), device, stream)

@@ -21,6 +21,16 @@ def _const(x, value):
     return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
+def _div_scalar(x, s):
+    """``x / s`` as the JAX package's jitted op computes it: XLA rewrites
+    a division by a constant into a product with the constant's
+    reciprocal, rounded to ``x``'s type (CUDA's division by a host
+    scalar does the same)."""
+    if not x.is_floating_point():
+        return x / s
+    return x * torch.reciprocal(torch.tensor(s, dtype=x.dtype))
+
+
 _CMP = {"equal": torch.eq, "not_equal": torch.ne, "greater": torch.gt,
         "greater_equal": torch.ge, "lesser": torch.lt,
         "lesser_equal": torch.le}
@@ -47,7 +57,7 @@ _SCALAR = {
     "_minus_scalar": lambda x, s: x - s,
     "_rminus_scalar": lambda x, s: s - x,
     "_mul_scalar": lambda x, s: x * s,
-    "_div_scalar": lambda x, s: x / s,
+    "_div_scalar": lambda x, s: _div_scalar(x, s),
     "_rdiv_scalar": lambda x, s: torch.div(torch.full_like(x, s), x),
     "_mod_scalar": lambda x, s: torch.remainder(x, s),
     "_rmod_scalar": lambda x, s: torch.remainder(torch.full_like(x, s), x),

@@ -1,8 +1,10 @@
 """The subset of ``mxnet_tpu/ops/tensor.py`` the port reaches: shape
 ops (``Reshape`` with MXNet's special codes, ``transpose``, ``Cast``,
 ``slice_axis``), the reductions with ``axis`` / ``keepdims`` /
-``exclude``, ``norm``, ``dot`` and the indexing ops gluon's losses and
-metrics call (``pick``, ``where``, ``Embedding``)."""
+``exclude``, ``norm``, ``dot``, the indexing ops gluon's losses and
+metrics call (``pick``, ``where``, ``Embedding``), and the joins and
+flips of the data pipeline and the detectors (``stack``, ``Concat``,
+``flip``)."""
 from __future__ import annotations
 
 import torch
@@ -100,6 +102,22 @@ def slice_axis(data, axis=0, begin=0, end=None):
     sl = [slice(None)] * data.ndim
     sl[int(axis)] = slice(begin, end)
     return data[tuple(sl)]
+
+
+@register("flip", aliases=("reverse",))
+def flip(data, axis=0):
+    ax = axis if isinstance(axis, (tuple, list)) else (axis,)
+    return torch.flip(data, tuple(int(a) for a in ax))
+
+
+@register("Concat", aliases=("concat",))
+def concat(*args, dim=1, num_args=None):
+    return torch.cat(args, dim=int(dim))
+
+
+@register("stack")
+def stack(*args, axis=0, num_args=None):
+    return torch.stack(args, dim=int(axis))
 
 
 @register("reshape_like")

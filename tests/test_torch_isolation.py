@@ -15,10 +15,13 @@ distribution layer (``kvstore.*``, ``kvstore_server``, the ``_native``
 loader and the launcher, which imports no torch either), and the record
 input pipeline (``recordio``, ``image``, ``io.pipeline`` and the decode
 worker ``io/_pipeline_worker.py``, which imports neither torch nor
-either package). The transport ``_native/comm.cc`` builds under
-``build/``, never beside a source, and the dist entry points (a
-``dist_device_sync`` worker, the server) take the card unless asked for
-the CPU."""
+either package), and the rest of the input pipeline with the detection
+ops (``gluon.data``, ``gluon.data.vision``, ``contrib.io``,
+``image.detection``, ``ops.detection``); a DataLoader iterated outside a
+CPU scope on a host without CUDA raises, on every path. The transport
+``_native/comm.cc`` builds under ``build/``, never beside a source, and
+the dist entry points (a ``dist_device_sync`` worker, the server) take
+the card unless asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -82,6 +85,11 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image\n"
         "import mxnet_tpu_torch.io.pipeline\n"
         "import mxnet_tpu_torch.io._pipeline_worker\n"
+        "import mxnet_tpu_torch.gluon.data\n"
+        "import mxnet_tpu_torch.gluon.data.vision\n"
+        "import mxnet_tpu_torch.contrib.io\n"
+        "import mxnet_tpu_torch.image.detection\n"
+        "import mxnet_tpu_torch.ops.detection\n"
         "import runpy\n"
         f"runpy.run_path({LAUNCH!r})\n"
         "new = set(sys.modules) - before\n"
@@ -480,3 +488,20 @@ def test_record_pipeline_entry_points_default_to_cuda_and_raise_without_it(
         assert it.next().data[0].context == tmx.cpu()
         it.close()
         assert tmx.image.imdecode(buf.getvalue()).context == tmx.cpu()
+
+
+def test_dataloader_raises_outside_a_cpu_scope_without_cuda():
+    """Every loader path, the device feeder's included, raises when it
+    starts outside ``with mx.cpu():`` on a host without CUDA; inside the
+    scope its batches lie on the CPU, from pool threads too."""
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    _require_no_cuda()
+    ds = tmx.gluon.data.ArrayDataset(np.arange(8, dtype=np.float32))
+    for kw in ({}, {"num_workers": 2}, {"prefetch_to_device": True}):
+        loader = tmx.gluon.data.DataLoader(ds, batch_size=4, **kw)
+        with pytest.raises(MXNetError):
+            next(iter(loader))
+        with tmx.cpu():
+            assert all(b.context == tmx.cpu() for b in loader)
