@@ -281,9 +281,31 @@ Phases (any failure exits non-zero and prints no result line):
    inputs the CPU's bits; step ms, data wait, and the ms of
    ``box_nms``, ``MultiBoxDetection`` and ``MultiBoxTarget`` at the
    path's shapes. No kernel of the port launches here; 60 s at most;
-21. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
-   entries, phase 17's launches as ``planes_launches``), then the result
-   line ``{"ok": true, "device": {...}}``.
+21. the parallel layouts, every shard on the one card (a slice or mesh
+   that lists ``cuda:0`` twice, reported ``degraded``): a tp 2 paged pool
+   at phase 5's widths, each shard one K and one V tensor of half the
+   2.147 GB (``torch.cuda.memory_allocated`` before, after and on
+   close); ``Gateway.register_generator(tp=2)`` serving phase 5's burst
+   over the tp mesh slice (weights split by the layout table, K3 prefill
+   and K4 decode on each shard's 4 heads, row-parallel allreduces),
+   its tokens equal to the tp 1 lane's and to ``reference_generate``
+   (phase 17's, one of them recomputed), exactly 2 x 8 K3 launches a
+   prefill call and 2 x 8 K4 launches a decode call (warmups included);
+   tokens/s of both lanes; ``ulysses_attention`` at sp 2 over phase 12's
+   LM shape (8 x 2048 tokens, 12 heads, D 64, causal), fp32 and bf16,
+   bitwise equal to one K3 call over all the heads and within K3's
+   bounds of ``flash_attention_plain`` (fp32 1e-4; bf16 rtol 0.1 / atol
+   0.05 and no more than twice the plain bf16 version's relative L2
+   distance from an f64 run), one K3 launch a shard a call, and
+   ``ring_attention_sharded`` at the same shape (plain ops: no launch)
+   within the same bounds, each timed beside one K3 call over all the
+   heads; ``tp_mlp`` at 768
+   / 3072 over the same tokens within the JAX package's 5e-5 of the
+   scale of one device's MLP, timed; 120 s at most;
+22. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+   entries, phase 17's launches as ``planes_launches``, phase 21's as
+   ``parallel_launches``), then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
@@ -4566,6 +4588,8 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
     t0 = time.perf_counter()
     refs = [reference_generate(dec, p, int(n)) for p, n in zip(prompts, new)]
     ref_s = time.perf_counter() - t0
+    # phase 21 serves the same decoder and burst
+    RESULTS["burst_refs"] = refs
     rows, totals = [], {"flash_attention": 0, "paged_attention": 0,
                         "paged_attention_bf16": 0}
 
@@ -5575,6 +5599,287 @@ def phase_ssd(att, i8, fo, dev, here, rng):
     torch.cuda.empty_cache()
 
 
+# -- phase 21: the parallel layouts ------------------------------------------
+# the one card holds every shard: a mesh (or a gateway) that lists cuda:0
+# twice, the slice reported degraded
+PAR_TP, PAR_SP = 2, 2
+# tp_mlp at GPT-2 small's MLP widths over the LM's tokens (phase 12)
+PAR_MLP_D, PAR_MLP_H = 768, 3072
+# the JAX package's bound on a row-parallel sum's reassociation against
+# one device (serving/sharded.py DIVERGENCE_BOUND), of the output's scale
+PAR_DIVERGENCE = 5e-5
+
+
+def parallel_generator(att, i8, fo, dev, burst, tp):
+    """The burst served by ``Gateway.register_generator`` at phase 5's
+    widths, on one lane of ``tp`` shards (all on ``dev``): the tokens,
+    the row printed, the lane's step calls and the launches."""
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    plens, new, prompts = burst
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED)
+    name = f"lm_tp{tp}"
+    att.reset_launches()
+    gw = Gateway(devices=[dev] * tp)
+    try:
+        t0 = time.perf_counter()
+        gen = gw.register_generator(
+            name, dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
+            max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH,
+            tp=tp if tp > 1 else None)
+        warm_s = time.perf_counter() - t0
+        lane = gen.lanes[0]
+        st = gw.stats()[name]
+        shard_bytes = [k.nbytes + v.nbytes for k, v in lane.pool.shards()]
+        t0 = time.perf_counter()
+        reqs, stamps, threads, errors = planes_submit(gw, name, prompts, new)
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        planes_join(threads)
+        check(not errors, f"parallel {name}: stream errors {errors}")
+        torch.cuda.synchronize()
+        counts = kernel_counts(att, i8, fo)
+        calls = {"prefill": lane.steps.prefills, "decode": lane.steps.decodes}
+    finally:
+        gw.close()
+    del dec
+    tokens = int(sum(new))
+    row = {"tp": st["tp"], "degraded": st["degraded"],
+           "lane_device": st["lanes"][0]["device"],
+           "tokens_per_s": tokens / wall, "wall_s": wall,
+           "generated_tokens": tokens, "register_s": warm_s,
+           "pool_bytes": sum(shard_bytes), "shard_bytes": shard_bytes,
+           "step_calls": calls,
+           "launches": {"flash_attention": counts["flash_attention"],
+                        "paged_attention": counts["paged_attention"]}}
+    check(counts["flash_attention"] == calls["prefill"] * LAYERS * tp
+          and counts["paged_attention"] == calls["decode"] * LAYERS * tp
+          and calls["prefill"] > 0 and calls["decode"] > 0
+          and counts["flash_attention_bf16"] == 0
+          and counts["paged_attention_bf16"] == 0,
+          f"parallel {name}: launches {counts} against calls {calls} x "
+          f"{LAYERS} layers x {tp} shards")
+    return results, row
+
+
+def parallel_attention(att, par, dev, dtype, gen):
+    """Ulysses (K3 on each shard's heads) and ring attention at sp 2 over
+    phase 12's LM shape, against ``flash_attention_plain`` on the whole
+    heads; timed beside one K3 call over all the heads."""
+    import functools
+
+    mesh = par.create_mesh({"sp": PAR_SP}, devices=[dev] * PAR_SP)
+    bf16 = dtype == torch.bfloat16
+    key = "flash_attention_bf16" if bf16 else "flash_attention"
+    # [B, T, H, D] as Ulysses takes it, and its [B, H, T, D] views
+    q, k, v = (torch.randn((LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM),
+                           generator=gen).to(dev, dtype) for _ in range(3))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    spec = par.PartitionSpec(None, "sp", None, None)
+    ulysses = par.shard_map(
+        functools.partial(par.ulysses_attention, axis_name="sp",
+                          causal=True), mesh, in_specs=(spec,) * 3,
+        out_specs=spec)
+    row = {"dtype": str(dtype).replace("torch.", ""),
+           "shape": {"B": LM_BATCH, "H": LM_HEADS, "T": LM_SEQ,
+                     "D": LM_HEAD_DIM, "causal": True, "sp": PAR_SP}}
+    fl = att.flash_attention
+    want_counts = (0, PAR_SP) if bf16 else (PAR_SP, 0)
+    try:
+        att.reset_launches()
+        got_u = ulysses(q, k, v)
+        torch.cuda.synchronize()
+        check((fl.launches, fl.launches_bf16) == want_counts,
+              f"ulysses {row['dtype']}: K3 launches (f32, bf16) "
+              f"{(fl.launches, fl.launches_bf16)} in one call, want "
+              f"{want_counts} (one a shard)")
+        got_r = par.ring_attention_sharded(qh, kh, vh, mesh, axis="sp",
+                                           causal=True)
+        torch.cuda.synchronize()
+        check((fl.launches, fl.launches_bf16) == want_counts,
+              "ring attention launched K3 (it is plain ops, as in the JAX "
+              "package)")
+        launches = fl.launches_bf16 if bf16 else fl.launches
+        # each shard's K3 call computes its heads' (Q tile, head, batch)
+        # CTAs as the one-device call over every head does: bitwise equal
+        one = att.flash_attention(qh, kh, vh, True)
+        torch.cuda.synchronize()
+        check(torch.equal(got_u.transpose(1, 2), one),
+              f"ulysses {row['dtype']}: not bitwise equal to one K3 call "
+              "over all the heads")
+        want = att.flash_attention_plain(qh, kh, vh, causal=True)
+        exact = att.flash_attention_plain(qh.double(), kh.double(),
+                                          vh.double(), causal=True) \
+            if bf16 else None
+        for part, got in (("ulysses", got_u.transpose(1, 2)),
+                          ("ring", got_r)):
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"{part} {row['dtype']}: {got.dtype} {tuple(got.shape)}")
+            if bf16:
+                ok, e = within(got, want, BF16_RTOL, BF16_ATOL)
+                # and K3's f64 rule: no further (relative L2) from an f64
+                # run on the same inputs than twice the plain bf16 version
+                r_got, r_plain = rel_l2(got, exact), rel_l2(want, exact)
+                check(r_got <= BF16_F64_RATIO * r_plain,
+                      f"{part} bf16: {r_got:.3e} off f64, more than "
+                      f"{BF16_F64_RATIO}x the plain bf16 version's "
+                      f"{r_plain:.3e}")
+                row[f"{part}_f64_ratio"] = r_got / r_plain
+            else:
+                e = (got - want).abs().max().item()
+                ok = e <= FLASH_TOL
+            check(ok, f"{part} {row['dtype']}: max abs err {e:.3e} off the "
+                  "plain version, outside K3's bound")
+            row[f"{part}_max_abs_err"] = e
+        del got_u, got_r, want, exact, one
+        row["ulysses_launches"] = launches
+        row["ulysses_ms"], _ = measure(lambda: ulysses(q, k, v), iters=10,
+                                       warmup=2)
+        row["ring_ms"], _ = measure(lambda: par.ring_attention_sharded(
+            qh, kh, vh, mesh, axis="sp", causal=True), iters=5, warmup=1)
+        row["one_device_k3_ms"], _ = measure(
+            lambda: att.flash_attention(qh, kh, vh, True), iters=10)
+        row["plain_ms"], _ = measure(
+            lambda: att.flash_attention_plain(qh, kh, vh, True), iters=3,
+            warmup=1)
+    finally:
+        mesh.close()
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return row, key, launches
+
+
+def parallel_mlp(par, dev, gen):
+    """``tp_mlp`` at 768 / 3072 over the LM's 8 x 2048 tokens on a tp 2
+    mesh of the one card, against the one-device MLP."""
+    mesh = par.create_mesh({"tp": PAR_TP}, devices=[dev] * PAR_TP)
+    rows = LM_BATCH * LM_SEQ
+    x = torch.randn((rows, PAR_MLP_D), generator=gen).to(dev)
+    w1 = (torch.randn((PAR_MLP_D, PAR_MLP_H), generator=gen)
+          / PAR_MLP_D ** 0.5).to(dev)
+    b1 = (0.1 * torch.randn(PAR_MLP_H, generator=gen)).to(dev)
+    w2 = (torch.randn((PAR_MLP_H, PAR_MLP_D), generator=gen)
+          / PAR_MLP_H ** 0.5).to(dev)
+    b2 = (0.1 * torch.randn(PAR_MLP_D, generator=gen)).to(dev)
+    P = par.PartitionSpec
+    fn = par.shard_map(par.tp_mlp, mesh,
+                       in_specs=(P(),) + tuple(par.tp_mlp_param_specs()),
+                       out_specs=P())
+    try:
+        got = fn(x, w1, b1, w2, b2)
+        want = F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= PAR_DIVERGENCE * scale, f"tp_mlp: max abs err {err:.3e}"
+              f" against one device, over {PAR_DIVERGENCE} of the scale "
+              f"{scale:.3e}")
+        row = {"rows": rows, "d": PAR_MLP_D, "hidden": PAR_MLP_H,
+               "tp": PAR_TP, "max_abs_err": err, "scale": scale}
+        row["ms"], _ = measure(lambda: fn(x, w1, b1, w2, b2), iters=10,
+                               warmup=2)
+        row["one_device_ms"], _ = measure(
+            lambda: F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2,
+            iters=10)
+    finally:
+        mesh.close()
+    del x, w1, w2, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_parallel(att, i8, fo, dev, burst, rng):
+    """The module docstring's phase 21: the tp 2 generator against the
+    tp 1 lane and ``reference_generate``, a tp 2 pool's shards on the
+    card, Ulysses and ring attention at sp 2, and ``tp_mlp``; every
+    shard on ``dev``. Returns the phase's K3 / K4 launches, by kernel
+    and by part."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.serving.generate import (BlockPool,
+                                                  GenerativeDecoder,
+                                                  reference_generate)
+
+    t_phase = time.perf_counter()
+    plens, new, prompts = burst
+    # the pool over a slice: each shard one K and one V tensor, half the
+    # one-device pool's bytes, allocated on the card as it says
+    one_pool = 2 * LAYERS * MAX_BLOCKS * BLOCK_TOKENS * HEADS * HEAD_DIM * 4
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    pool = BlockPool(LAYERS, HEADS, HEAD_DIM, BLOCK_TOKENS, MAX_BLOCKS,
+                     device=(dev,) * PAR_TP)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    shard_bytes = [k.untyped_storage().nbytes() + v.untyped_storage().nbytes()
+                   for k, v in pool.shards()]
+    pool_bytes = pool.bytes_total
+    pool.close()
+    mem2 = torch.cuda.memory_allocated()
+    check(pool_bytes == one_pool
+          and shard_bytes == [one_pool // PAR_TP] * PAR_TP
+          and abs(mem1 - mem0 - one_pool) <= 2 ** 20
+          and abs(mem1 - mem2 - one_pool) <= 2 ** 20,
+          f"parallel: a tp {PAR_TP} pool took {mem1 - mem0} bytes (freed "
+          f"{mem1 - mem2}), shards {shard_bytes}; want {one_pool} in "
+          f"{PAR_TP} equal shards")
+
+    got2, row2 = parallel_generator(att, i8, fo, dev, burst, PAR_TP)
+    got1, row1 = parallel_generator(att, i8, fo, dev, burst, 1)
+    check(row2["tp"] == PAR_TP and row2["degraded"] is True
+          and row2["lane_device"] == [str(dev)] * PAR_TP
+          and row2["shard_bytes"] == [one_pool // PAR_TP] * PAR_TP,
+          f"parallel: tp lane {row2}")
+    bad = [i for i, (a, b) in enumerate(zip(got2, got1)) if a != b]
+    check(not bad, f"parallel: tp {PAR_TP} requests {bad} differ from the "
+          "tp 1 lane's")
+    refs = RESULTS.get("burst_refs")
+    pick = int(np.argsort(plens)[len(plens) // 2])
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED)
+    t0 = time.perf_counter()
+    if refs is None:
+        refs = [reference_generate(dec, p, int(n))
+                for p, n in zip(prompts, new)]
+    else:
+        check(reference_generate(dec, prompts[pick], int(new[pick]))
+              == refs[pick], "parallel: phase 17's references are not this "
+              "decoder's")
+    ref_s = time.perf_counter() - t0
+    del dec
+    bad = [i for i, (a, b) in enumerate(zip(got2, refs)) if a != b]
+    check(not bad, f"parallel: tp {PAR_TP} requests {bad} differ from "
+          "reference_generate")
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    attn = [parallel_attention(att, par, dev, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16)]
+    mlp = parallel_mlp(par, dev, gen)
+    phase_s = time.perf_counter() - t_phase
+    log("parallel " + json.dumps({
+        "card": card_line(), "phase_s": phase_s,
+        "reference_generate_s": ref_s,
+        "pool": {"bytes": one_pool, "shard_bytes": shard_bytes,
+                 "allocated": mem1 - mem0, "freed": mem1 - mem2},
+        "generator": {"tp2": row2, "tp1": row1,
+                      "tp2_over_tp1_tokens_per_s":
+                          row2["tokens_per_s"] / row1["tokens_per_s"]},
+        "attention": [row for row, _, _ in attn], "tp_mlp": mlp}))
+    launches = {"flash_attention": {
+                    "tp_prefill": row2["launches"]["flash_attention"],
+                    "ulysses": attn[0][2]},
+                "flash_attention_bf16": {"ulysses": attn[1][2]},
+                "paged_attention": {
+                    "tp_decode": row2["launches"]["paged_attention"]}}
+    check(phase_s <= 120.0, f"parallel took {phase_s:.1f} s, over 120")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -5640,12 +5945,15 @@ def main():
     timed(phase_records, att, i8, fo, dev, here, rng)
     timed(phase_gluon_data, att, i8, fo, dev, here, rng)
     timed(phase_ssd, att, i8, fo, dev, here, rng)
+    parallel = timed(phase_parallel, att, i8, fo, dev, burst, rng)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         # the serving planes' launches (phase 17), where the kernel is on
         # that path
         k["planes_launches"] = planes.get(k["name"])
+        # the parallel layouts' launches (phase 21), by part
+        k["parallel_launches"] = parallel.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path

@@ -235,6 +235,18 @@ def _count(wrapper, bf16):
             wrapper.launches += 1
 
 
+def _launch(fn, x, *args):
+    """Call the C entry point ``fn`` with ``args`` under a device guard
+    taken from ``x``'s device. The stream handle the wrappers pass is
+    ``x``'s device's, and the C side launches on its thread's current
+    device: a shard thread whose current device is another card (the
+    mesh's threads, ``parallel/mesh.py``) would otherwise launch on the
+    wrong context. The guard also restores the thread's device after
+    the call."""
+    with torch.cuda.device(x.device):
+        return fn(*args)
+
+
 def _check(err, what):
     if err != 0:
         raise MXNetError(f"{what}: CUDA launch failed with error {err}")
@@ -313,10 +325,11 @@ def _flash_fwd(q, k, v, causal, scale, with_lse):
     bf16 = q.dtype == torch.bfloat16
     fn = _fn("flash_attention", "mxt_flash_attention_bf16" if bf16
              else "mxt_flash_attention_f32", _FLASH_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if with_lse else None, b, h, t_q, t_k, d,
-             strides, float(scale), int(bool(causal)), q.device.index,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr() if with_lse else None, b,
+                  h, t_q, t_k, d, strides, float(scale), int(bool(causal)),
+                  q.device.index,
+                  torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
     _count(flash_attention, bf16)
     return out, lse
@@ -439,11 +452,12 @@ def _flash_bwd_cuda(q, k, v, out, d_out, lse, causal, scale):
                                        for s in x.stride()[:3]])
     fn = _fn("flash_attention_bwd", "mxt_flash_attention_bwd_bf16" if bf16
              else "mxt_flash_attention_bwd_f32", _FLASH_BWD_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             d_out.data_ptr(), lse.data_ptr(), d_vec.data_ptr(),
-             *[g.data_ptr() for g in grads], b, h, t_q, t_k, d, strides,
-             float(scale), int(bool(causal)), q.device.index,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+                  d_vec.data_ptr(), *[g.data_ptr() for g in grads], b, h,
+                  t_q, t_k, d, strides, float(scale), int(bool(causal)),
+                  q.device.index,
+                  torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, name)
     _count(flash_attention_bwd, bf16)
     return tuple(grads)
@@ -587,10 +601,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     if bf16:
         fn = _fn("paged_attention", "mxt_paged_attention_bf16",
                  _PAGED_BF16_ARGS)
-        err = fn(*head, counters.data_ptr(), *tail)
+        err = _launch(fn, q, *head, counters.data_ptr(), *tail)
     else:
         fn = _fn("paged_attention", "mxt_paged_attention_f32", _PAGED_ARGS)
-        err = fn(*head, *tail)
+        err = _launch(fn, q, *head, *tail)
     _check(err, name)
     _count(paged_attention, bf16)
     return out

@@ -24,8 +24,17 @@ generator: a generator lane scaled in evacuates its in-flight
 generations to the surviving lanes (``generate/scheduler.py``) and
 releases its KV pool.
 
-The autoscaler, tensor-parallel slices (``tp >= 2`` raises), the cluster
-ledger, telemetry and tracing wait for a later slice.
+A generator registered with ``tp >= 2`` (or ``MXTPU_SERVING_TP``) serves
+on tensor-parallel mesh slices: each lane holds ``tp`` devices, carved by
+:func:`~mxnet_tpu_torch.parallel.mesh.replica_slices` from devices no
+other slice holds, its pool sharded over the heads and its weights by the
+layout table (``generate/model.py`` ``DecodeSteps``). Replicated
+lanes keep off slice-held devices while others exist; any overlap, and a
+slice that holds one device twice (``Gateway(devices=["cuda:0",
+"cuda:0"])``: both shards on one card), is ``degraded``. One-shot models
+with ``tp >= 2`` raise (``serving/sharded.py``'s ``ShardedVariantSet``
+is not ported). The autoscaler, the cluster ledger, telemetry and
+tracing wait for a later slice.
 
 Quickstart::
 
@@ -53,7 +62,8 @@ import torch
 
 from ..base import get_env
 from ..context import Context, resolve_device
-from ..parallel.mesh import replica_devices, should_warn_degraded
+from ..parallel.mesh import (replica_devices, replica_slices,
+                             should_warn_degraded)
 from .batcher import (ModelQueue, RejectedError, Request, ServingError,
                       now_ns, pad_batch)
 from .variants import VariantSet, default_buckets, pick_bucket
@@ -314,20 +324,23 @@ class Model:
 
 def _resolve_tp(tp):
     """``tp`` (None reads ``MXTPU_SERVING_TP``, as the JAX package
-    does): None or 1 is a plain lane; tensor-parallel slices raise."""
+    does): None for a plain lane (unset, 0 or 1), else the slice
+    width."""
     if tp is None:
         tp = int(get_env("MXTPU_SERVING_TP", 0, int)) or None
     if tp is None:
-        return
+        return None
     tp = int(tp)
     if tp < 1:
         raise ServingError(f"serving: tp must be >= 1, got {tp}")
-    if tp >= 2:
-        raise ServingError(
-            f"serving: tp={tp} asks for tensor-parallel mesh slices "
-            "(serving/sharded.py, parallel/mesh.py replica_slices, the "
-            "mesh-sliced decode steps), which are not ported yet; serve "
-            "replicated single-device lanes (replicas=N)")
+    return tp if tp >= 2 else None
+
+
+def _slices_share(slices):
+    """True when a device appears twice across ``slices`` (within one or
+    between two)."""
+    flat = [str(d) for s in slices for d in s]
+    return len(set(flat)) < len(flat)
 
 
 def _resolve_replicas(replicas):
@@ -381,13 +394,40 @@ class Gateway:
             self._health_thread.start()
 
     # -- placement -----------------------------------------------------------
+    def _sliced_devices(self):
+        """Devices held by tensor-parallel lanes' slices."""
+        with self._gen_lock:
+            gens = [g for g in self._generators.values() if g is not None]
+        return [d for g in gens for ln in g.lanes
+                if isinstance(ln.device, tuple) for d in ln.device]
+
+    def _pick_slices(self, n, tp):
+        """Slices for ``n`` new tensor-parallel lanes of ``tp`` devices,
+        carved from devices no other slice holds: ``(slices,
+        degraded)``. Degraded (warned once per ask) when slices share a
+        device."""
+        try:
+            slices, degraded = replica_slices(
+                n, tp, devices=self._devices,
+                exclude=self._sliced_devices())
+        except ValueError as e:
+            raise ServingError(f"serving: tp={tp}: {e}") from e
+        flat = [d for sl in slices for d in sl]
+        if degraded and should_warn_degraded(n * tp, flat):
+            logger.warning(
+                "serving: %d slice(s) x tp=%d requested but the free "
+                "devices cannot hold them disjointly; degrading (slices "
+                "share devices)", n, tp)
+        return slices, degraded
+
     def _pick_devices(self, n, busy=()):
-        """Devices for ``n`` new lanes, away from ``busy`` (the devices
-        existing lanes hold) while others exist: ``(devices,
-        degraded)``. The degraded wrap is warned once per (ask,
-        devices)."""
-        picked, degraded = replica_devices(n, devices=self._devices,
-                                           exclude=busy)
+        """Devices for ``n`` new lanes, away from tensor-parallel slices
+        and from ``busy`` (the devices existing lanes hold) while others
+        exist: ``(devices, degraded)``. The degraded wrap is warned once
+        per (ask, devices)."""
+        picked, degraded = replica_devices(
+            n, devices=self._devices,
+            exclude=list(self._sliced_devices()) + list(busy))
         if degraded and should_warn_degraded(n, picked):
             logger.warning(
                 "serving: %d replicas requested but only %d device(s); "
@@ -418,11 +458,20 @@ class Gateway:
         ``MXTPU_SERVING_MAX_WAIT_MS`` / ``MXTPU_SERVING_MAX_QUEUE`` /
         ``MXTPU_SERVING_REPLICAS``. ``replicas`` lanes share the queue;
         replicas on one device share one set of executables and weights
-        (:meth:`VariantSet.replica`). ``tp >= 2`` raises.
+        (:meth:`VariantSet.replica`). ``tp >= 2`` (or
+        ``MXTPU_SERVING_TP``) raises: a one-shot model over a mesh slice
+        is ``serving/sharded.py``'s ``ShardedVariantSet``, not ported.
         """
         if self._closed:
             raise ServingError("serving: gateway is closed")
-        _resolve_tp(tp)
+        tp = _resolve_tp(tp)
+        if tp is not None:
+            raise ServingError(
+                f"serving: tp={tp} asks for a one-shot model over a "
+                "tensor-parallel mesh slice: serving/sharded.py's "
+                "ShardedVariantSet (the symbol forward over a slice) is "
+                "not ported; serve replicated single-device lanes "
+                "(replicas=N), or register a generator with tp")
         replicas = _resolve_replicas(replicas)
         if len(input_shapes) != 1:
             raise ServingError(
@@ -610,7 +659,8 @@ class Gateway:
     def register_generator(self, name, decoder, block_tokens=None,
                            max_blocks=None, max_new_tokens=None,
                            max_decode_batch=8, max_queue=None,
-                           replicas=None, warmup=True, tp=None):
+                           replicas=None, warmup=True, tp=None,
+                           layout=None):
         """Register a decoder LM for token-granular generation.
 
         ``decoder`` is a :class:`~.generate.GenerativeDecoder` on one of
@@ -630,14 +680,20 @@ class Gateway:
         lanes — or replay prompt + accepted tokens deterministically —
         and continue token for token, budgeted by
         ``MXTPU_GEN_MAX_RECOVERIES`` (exhaustion = a fast
-        ``RejectedError(reason="lane_lost")`` on the stream). ``tp >= 2``
-        raises.
+        ``RejectedError(reason="lane_lost")`` on the stream).
+
+        ``tp >= 2`` (``tp`` None reads ``MXTPU_SERVING_TP``) makes each
+        lane a mesh slice of ``tp`` devices (:meth:`_pick_slices`): the
+        pool shards its heads over the slice, ``decoder.num_heads % tp``
+        must be 0, and the weights are split by ``layout`` (a
+        :class:`~mxnet_tpu_torch.parallel.layout.SpecLayout`; default
+        ``SpecLayout.default()``), copied when each lane is built.
         """
         from .generate.scheduler import GenModel
 
         if self._closed:
             raise ServingError("serving: gateway is closed")
-        _resolve_tp(tp)
+        tp = _resolve_tp(tp)
         replicas = _resolve_replicas(replicas)
         if decoder.device not in self._devices:
             raise ServingError(
@@ -653,13 +709,17 @@ class Gateway:
             max_queue = get_env("MXTPU_SERVING_MAX_QUEUE", 256, int)
         self._claim(name)
         try:
-            devices, degraded = self._pick_devices(replicas)
+            if tp is not None:
+                devices, degraded = self._pick_slices(replicas, tp)
+            else:
+                devices, degraded = self._pick_devices(replicas)
             gen = GenModel(name, decoder, devices,
                            block_tokens=block_tokens,
                            max_blocks=max_blocks,
                            max_new_tokens=max_new_tokens,
                            max_decode_batch=max_decode_batch,
-                           max_queue=max_queue, warmup=warmup)
+                           max_queue=max_queue, warmup=warmup, tp=tp,
+                           layout=layout)
             gen.degraded = degraded
         except BaseException:
             with self._gen_lock:
@@ -671,7 +731,9 @@ class Gateway:
         logger.info(
             "serving: registered generator %r — %d lane(s) on %s, "
             "%d-token blocks x %d, warmup %.1fs", name, len(gen.lanes),
-            sorted({str(ln.device) for ln in gen.lanes}), block_tokens,
+            sorted({str(d) for ln in gen.lanes for d in (
+                ln.device if isinstance(ln.device, tuple) else [ln.device])}),
+            block_tokens,
             max_blocks, gen.warmup_seconds)
         return gen
 
@@ -834,16 +896,24 @@ class Gateway:
         with self._gen_lock:
             gen = self._generators.get(name)
         if gen is not None:
-            # existing lanes keep their devices; only the NEW lanes are
-            # placed
+            # existing lanes keep their devices (or slices); only the NEW
+            # lanes are placed
             with gen.cond:
                 active = [ln.device for ln in gen.lanes
                           if not ln.retiring]
             extra = max(n - len(active), 0)
-            new_devs, new_deg = self._pick_devices(extra, busy=active) \
-                if extra else ([], False)
-            report = gen.scale_to(n, list(active) + new_devs)
-            gen.degraded = new_deg or n > self.device_count()
+            if gen.tp is not None:
+                new_devs, new_deg = self._pick_slices(extra, gen.tp) \
+                    if extra else ([], False)
+                picked = list(active) + new_devs
+                degraded = new_deg or _slices_share(picked[:n])
+            else:
+                new_devs, new_deg = self._pick_devices(extra, busy=active) \
+                    if extra else ([], False)
+                picked = list(active) + new_devs
+                degraded = new_deg or n > self.device_count()
+            report = gen.scale_to(n, picked)
+            gen.degraded = degraded
             report["degraded"] = gen.degraded
             return report
         m = self._get_model(name)
@@ -919,6 +989,8 @@ class Gateway:
                 "max_wait_ms": m.queue.max_wait_s * 1e3,
                 "replicas": [r.stats() for r in m.replicas],
                 "degraded": m.degraded,
+                # one-shot models have no tp slices in the port
+                "tp": None,
                 "int8_lowering": (m.replicas[0].variant_set.int8_lowering
                                   if m.replicas else None),
                 "ewma_exec_s": exec_s,

@@ -25,6 +25,14 @@ Admission reserves a request's worst-case block budget
 incremental (prefill takes the prompt's blocks, decode one more each
 time a position crosses a block boundary).
 
+A tensor-parallel lane's pool lies over a slice: ``device`` is a tuple of
+``tp`` devices and the heads axis is sharded over it, the partitioning
+the layout table gives the attention weights. Each shard holds one K and
+one V tensor of ``(layers, max_blocks, block_tokens, heads / tp,
+head_dim)`` — ``bytes_total / tp`` bytes — and ``k`` / ``v`` are then
+the tuples of the shards' tensors. Block ids, the free list and the
+reservations are the pool's, shared by its shards.
+
 Decode failover moves a request's blocks between two lanes' pools:
 :meth:`BlockPool.gather` copies them out of the source pool,
 :meth:`BlockPool.scatter` writes them into blocks of the destination
@@ -41,6 +49,7 @@ import torch
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops.attention import paged_head_dim
+from ...parallel.mesh import create_mesh
 
 PAD_BLOCK = 0
 
@@ -49,7 +58,9 @@ class BlockPool:
     """One lane's paged KV storage + free list + reservation ledger.
     Thread-safe: the lane scheduler allocates/frees, client threads
     reserve/unreserve at admission. ``device`` defaults to ``cuda:0``
-    and raises without CUDA unless it is ``"cpu"``."""
+    and raises without CUDA unless it is ``"cpu"``; a tuple of ``tp``
+    devices shards the heads over them (``heads % tp`` must be 0), and
+    ``mesh`` is then the slice's ``{"tp": tp}`` mesh."""
 
     def __init__(self, num_layers, num_heads, head_dim, block_tokens,
                  max_blocks, device=None, dtype=torch.float32):
@@ -67,14 +78,30 @@ class BlockPool:
         self.pool_head_dim = paged_head_dim(self.head_dim)
         self.block_tokens = int(block_tokens)
         self.max_blocks = int(max_blocks)
-        self.device = resolve_device(device)
+        sliced = isinstance(device, (list, tuple))
+        self.devices = tuple(resolve_device(d) for d in
+                             (device if sliced else (device,)))
+        self.tp = len(self.devices)
+        if self.num_heads % self.tp:
+            raise MXNetError(
+                f"generate: {self.num_heads} heads do not shard over a "
+                f"tp={self.tp} slice (heads % tp must be 0)")
+        self.device = self.devices[0]
+        self.mesh = None
         self.dtype = dtype
         shape = (self.num_layers, self.max_blocks, self.block_tokens,
-                 self.num_heads, self.pool_head_dim)
-        # two separate allocations, K and V, as in the JAX pool
+                 self.num_heads // self.tp, self.pool_head_dim)
+        # two separate allocations a shard, K and V, as in the JAX pool
         self._itemsize = torch.empty((), dtype=dtype).element_size()
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        ks = tuple(torch.zeros(shape, dtype=dtype, device=d)
+                   for d in self.devices)
+        vs = tuple(torch.zeros(shape, dtype=dtype, device=d)
+                   for d in self.devices)
+        if self.tp > 1:
+            self.mesh = create_mesh({"tp": self.tp}, devices=self.devices)
+            self.k, self.v = ks, vs
+        else:
+            self.k, self.v = ks[0], vs[0]
         self._lock = threading.Lock()
         # LIFO free list: recently-freed blocks are re-issued first
         # (their pool pages are the warmest)
@@ -87,12 +114,20 @@ class BlockPool:
     def usable_blocks(self):
         return self.max_blocks - 1
 
+    def shards(self):
+        """``[(k, v), ...]``: each shard's tensors (one pair unless the
+        pool lies over a slice)."""
+        if self.tp == 1:
+            return [(self.k, self.v)]
+        return list(zip(self.k, self.v))
+
     @property
     def bytes_total(self):
-        """Device bytes of the pool (both tensors); 0 once closed."""
+        """Device bytes of the pool (every shard's tensors); 0 once
+        closed."""
         if self.closed:
             return 0
-        return self.k.nbytes + self.v.nbytes
+        return sum(k.nbytes + v.nbytes for k, v in self.shards())
 
     @property
     def bytes_per_block(self):
@@ -175,20 +210,33 @@ class BlockPool:
         """Copies of blocks ``block_ids`` of every layer: ``(k, v)``,
         each ``(layers, len(block_ids), BT, H, D)``, tensors that own
         their bytes (the pool can close right after), on the current
-        stream of the pool's device."""
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
-                              device=self.device)
-        return (self.k.index_select(1, idx), self.v.index_select(1, idx))
+        stream of the pool's (first) device; a sliced pool's shards are
+        joined along the heads axis."""
+        out = []
+        for k, v in self.shards():
+            idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                                  device=k.device)
+            out.append((k.index_select(1, idx).to(self.device),
+                        v.index_select(1, idx).to(self.device)))
+        if len(out) == 1:
+            return out[0]
+        return (torch.cat([k for k, _ in out], 3),
+                torch.cat([v for _, v in out], 3))
 
     def scatter(self, block_ids, k, v):
         """Write ``k`` / ``v`` (as :meth:`gather` returns them, on this
-        pool's device) into blocks ``block_ids``, in place, on the
+        pool's first device) into blocks ``block_ids``, in place, on the
         current stream: the migration landing, which in the JAX package
-        swaps in the arrays its scatter returned."""
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
-                              device=self.device)
-        self.k.index_copy_(1, idx, k)
-        self.v.index_copy_(1, idx, v)
+        swaps in the arrays its scatter returned. A sliced pool's shards
+        each take their heads."""
+        hs = self.num_heads // self.tp
+        for s, (ks, vs) in enumerate(self.shards()):
+            idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                                  device=ks.device)
+            ks.index_copy_(1, idx, k[:, :, :, s * hs:(s + 1) * hs]
+                           .to(ks.device))
+            vs.index_copy_(1, idx, v[:, :, :, s * hs:(s + 1) * hs]
+                           .to(vs.device))
 
     def close(self):
         """Release the pool's device tensors: the pool holds the only
@@ -203,6 +251,8 @@ class BlockPool:
             self.v = None
             self._free = []
             self._reserved = 0
+        if self.mesh is not None:
+            self.mesh.close()
 
 
 class BlockTable:

@@ -28,6 +28,10 @@ port's hand-written kernels; the products around them are
 PyTorch runs eagerly, so there is nothing to compile per bucket; the
 lane still warms every bucket once.
 
+A tensor-parallel lane runs the same steps as one
+:func:`~mxnet_tpu_torch.parallel.mesh.shard_map` over the lane's slice,
+each shard on its heads.
+
 :func:`reference_generate` is the correctness oracle: an *unpaged*
 single-request greedy decode that re-runs the full causal forward per
 emitted token through the *plain* attention, so it checks the kernels
@@ -49,6 +53,9 @@ from ...ops.attention import (flash_attention, flash_attention_plain,
 from ...ops.nn import activation, fully_connected, layer_norm
 from ...ops.registry import dtype_name, torch_dtype
 from ...ops.tensor import embedding
+from ...parallel.collectives import allgather, allreduce, axis_index
+from ...parallel.layout import SpecLayout
+from ...parallel.mesh import P, shard_map
 from ...random import generator
 
 
@@ -261,14 +268,23 @@ def _qkv(lp, x):
                            flatten=False).chunk(3, dim=-1)
 
 
-def _layer_tail(lp, x, attn_flat):
-    """Residual + projection + pre-norm MLP. Shapes (..., d)."""
-    y = x + fully_connected(attn_flat, lp["proj_w"], lp["proj_b"],
-                            flatten=False)
+def _layer_tail(lp, x, attn_flat, reduce=None):
+    """Residual + projection + pre-norm MLP. Shapes (..., d). On a
+    tensor-parallel shard ``reduce`` (its allreduce) sums the
+    row-parallel products of the projection and ``ff2`` before their
+    bias."""
+    y = x + _row_dense(attn_flat, lp["proj_w"], lp["proj_b"], reduce)
     h = layer_norm(y, lp["ln2_g"], lp["ln2_b"])
     z = activation(fully_connected(h, lp["ff1_w"], lp["ff1_b"],
                                    flatten=False), "relu")
-    return y + fully_connected(z, lp["ff2_w"], lp["ff2_b"], flatten=False)
+    return y + _row_dense(z, lp["ff2_w"], lp["ff2_b"], reduce)
+
+
+def _row_dense(x, w, b, reduce):
+    if reduce is None:
+        return fully_connected(x, w, b, flatten=False)
+    return reduce(fully_connected(x, w, None, no_bias=True,
+                                  flatten=False)) + b
 
 
 def _final_logits(params, x):
@@ -285,60 +301,145 @@ def _heads(y, num_heads):
 
 class DecodeSteps:
     """One lane's prefill/decode steps over a decoder and the lane's
-    :class:`~.kvcache.BlockPool`. ``prefills`` and ``decodes`` count the
-    calls (warmup included): each launches one attention kernel per
-    layer on a CUDA device.
+    :class:`~.kvcache.BlockPool` (the JAX ``CompiledDecodeSteps``).
+    ``prefills`` and ``decodes`` count the calls (warmup included): each
+    launches one attention kernel per layer and shard on a CUDA device.
 
     Lanes on the decoder's device share its parameters (read at every
     call, so training after registration is served). A lane on another
     device serves a copy of the weights taken when its steps were built,
-    as the JAX package places each lane's parameters on its device."""
+    as the JAX package places each lane's parameters on its device.
 
-    def __init__(self, decoder, pool):
+    A pool over a ``tp``-device slice (a device tuple) makes a
+    tensor-parallel lane (JAX ``model.py:216-233``): each step runs as
+    one :func:`~mxnet_tpu_torch.parallel.mesh.shard_map` over the pool's
+    ``{"tp": tp}`` mesh, one shard thread a device, and each shard's
+    weights follow the layout table (``layout``, by default
+    :meth:`SpecLayout.default`), copied from the decoder's
+    ``param_tree()`` when the steps are built:
+
+    - ``attention-qkv`` column-parallel: a shard takes *its heads'* rows
+      of q, k and v (and of the bias), so the prefill runs K3 and the
+      decode K4 on the shard's ``heads / tp`` heads, over its pool shard
+      (a contiguous block of ``qkv_w``'s rows would split heads across
+      shards: GSPMD reshards that, an explicit program cannot);
+    - ``attention-out`` and ``mlp-out`` row-parallel, one ``allreduce``
+      each, their bias added after it; ``mlp-in`` column-parallel;
+    - the embedding vocab-sharded (a masked lookup, then an
+      ``allreduce``) and the head column-parallel (logits gathered
+      before the argmax), or each replicated where the table's fit
+      drops the axis (vocab % tp != 0); norms replicated.
+
+    Greedy tokens equal the single-device lane's up to the row-parallel
+    sums' reassociation."""
+
+    def __init__(self, decoder, pool, layout=None):
         self.decoder = decoder
         self.pool = pool
         self._copy = None
-        if decoder.device != pool.device:
+        self._split = {"embed_w": False, "head_w": False}
+        self._prefill, self._decode = self._prefill_body, self._decode_body
+        if pool.tp > 1:
+            layout = layout if layout is not None else SpecLayout.default()
+            self._split = _slice_plan(decoder, layout, pool.mesh)
+            self._shards = [_shard_tree(decoder, self._split, s, pool.tp, d)
+                            for s, d in enumerate(pool.devices)]
+            self._prefill = shard_map(self._prefill_body, pool.mesh,
+                                      in_specs=(P(), P(), None),
+                                      out_specs=P())
+            self._decode = shard_map(self._decode_body, pool.mesh,
+                                     in_specs=(P(), None, None),
+                                     out_specs=P())
+        elif decoder.device != pool.device:
             self._copy = _tree_to(decoder.param_tree(), pool.device)
         self.prefills = 0
         self.decodes = 0
 
-    def _param_tree(self):
-        if self._copy is not None:
-            return self._copy
-        return self.decoder.param_tree()
+    def _local(self):
+        """``(params, k, v, heads, reduce)`` of the calling shard: the
+        whole lane at tp 1; on a shard thread, its weights, its pool
+        tensors, its ``heads / tp`` heads and the allreduce that sums
+        its row-parallel products."""
+        pool = self.pool
+        if pool.tp == 1:
+            params = self._copy if self._copy is not None \
+                else self.decoder.param_tree()
+            return params, pool.k, pool.v, self.decoder.num_heads, None
+        s = axis_index("tp")
+        return (self._shards[s], pool.k[s], pool.v[s],
+                self.decoder.num_heads // pool.tp, _allreduce_tp)
 
+    # -- the layer math (one shard's, or the whole lane's) -------------------
+    def _embed(self, p, tok):
+        w = p["embed_w"]
+        if not self._split["embed_w"]:
+            return embedding(tok, w)
+        # the reference clips ids into the vocabulary; then each shard
+        # looks up the ids its rows hold and the allreduce adds the one
+        # non-zero row a token has
+        local = tok.long().clamp(0, self.decoder.vocab_size - 1) - p["lo"]
+        hit = (local >= 0) & (local < w.shape[0])
+        return _allreduce_tp(embedding(local, w) * hit[..., None].to(w.dtype))
+
+    def _next_token(self, p, x):
+        logits = _final_logits(p, x)
+        if self._split["head_w"]:
+            logits = allgather(logits, "tp", axis=logits.ndim - 1)
+        return torch.argmax(logits, dim=-1)
+
+    def _prefill_body(self, tok, blk, n_valid):
+        p, ks, vs, heads, reduce = self._local()
+        pool, hd = self.pool, self.decoder.head_dim
+        t, bt = tok.shape[1], pool.block_tokens
+        nblk = t // bt
+        x = self._embed(p, tok)                              # (1, T, d)
+        for li, lp in enumerate(p["layers"]):
+            q, k, v = _qkv(lp, x)                    # (1, T, heads * hd) each
+            # in the pool's type (JAX's .at[].set casts; index_put_ does not)
+            # (columns past hd, a pool padded to the kernel's size, stay 0)
+            ks[li][blk, ..., :hd] = k.reshape(nblk, bt, heads,
+                                              hd).to(pool.dtype)
+            vs[li][blk, ..., :hd] = v.reshape(nblk, bt, heads,
+                                              hd).to(pool.dtype)
+            a = flash_attention(_heads(q, heads), _heads(k, heads),
+                                _heads(v, heads), causal=True)
+            x = _layer_tail(lp, x, a.transpose(1, 2).reshape(1, t, heads * hd),
+                            reduce)
+        # only the last prompt row's logits are read: the head runs on it
+        # alone
+        return self._next_token(p, x[0, n_valid - 1])
+
+    def _decode_body(self, packed, bsz, width):
+        p, ks, vs, heads, reduce = self._local()
+        pool, hd = self.pool, self.decoder.head_dim
+        tok, blk, slot, seq_lens = packed[:4 * bsz].view(4, bsz)
+        blk, slot = blk.long(), slot.long()
+        tab = packed[4 * bsz:].view(bsz, width)
+        x = self._embed(p, tok)                              # (B, d)
+        for li, lp in enumerate(p["layers"]):
+            q, k, v = _qkv(lp, x)                    # (B, heads * hd) each
+            # the token's own K/V lands in the cache BEFORE attention:
+            # position p attends over [0, p] including itself
+            ks[li][blk, slot, :, :hd] = k.view(bsz, heads, hd).to(pool.dtype)
+            vs[li][blk, slot, :, :hd] = v.view(bsz, heads, hd).to(pool.dtype)
+            a = paged_attention(q.view(bsz, heads, hd), ks[li], vs[li], tab,
+                                seq_lens)                    # (B, heads, hd)
+            x = _layer_tail(lp, x, a.reshape(bsz, heads * hd), reduce)
+        return self._next_token(p, x)
+
+    # -- the steps ----------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, tokens, n_valid, blocks):
         """tokens (Tpad,) int, n_valid int, blocks (Tpad // BT,) int (tail
         entries = pad sink). Returns the first greedy token (a device
         scalar; the caller's reply transfer reads it)."""
-        dec, pool = self.decoder, self.pool
-        dev, bt = pool.device, pool.block_tokens
-        t = len(tokens)
-        nblk = t // bt
-        hd, d = dec.head_dim, dec.d_model
+        dev = self.pool.device
         tok = torch.as_tensor(np.asarray(tokens, np.int64),
-                              device=dev).view(1, t)
+                              device=dev).view(1, len(tokens))
         blk = torch.as_tensor(np.asarray(blocks, np.int64), device=dev)
-        params = self._param_tree()
-        x = embedding(tok, params["embed_w"])                # (1, T, d)
-        for li, lp in enumerate(params["layers"]):
-            q, k, v = _qkv(lp, x)                            # (1, T, d) each
-            # in the pool's type (JAX's .at[].set casts; index_put_ does not)
-            # (columns past hd, a pool padded to the kernel's size, stay 0)
-            pool.k[li][blk, ..., :hd] = k.reshape(nblk, bt, dec.num_heads,
-                                                  hd).to(pool.dtype)
-            pool.v[li][blk, ..., :hd] = v.reshape(nblk, bt, dec.num_heads,
-                                                  hd).to(pool.dtype)
-            a = flash_attention(_heads(q, dec.num_heads),
-                                _heads(k, dec.num_heads),
-                                _heads(v, dec.num_heads), causal=True)
-            x = _layer_tail(lp, x, a.transpose(1, 2).reshape(1, t, d))
+        out = self._prefill(tok, blk, int(n_valid))
         self.prefills += 1
-        # only the last prompt row's logits are read: the head runs on it
-        # alone
-        return torch.argmax(_final_logits(params, x[0, int(n_valid) - 1]))
+        return out
 
     @torch.inference_mode()
     def decode(self, tokens, positions, tables):
@@ -346,8 +447,7 @@ class DecodeSteps:
         tables (B, W) int. Padding rows carry position 0 and an
         all-pad-sink table; their output is discarded by the caller.
         Returns next-token ids (device tensor (B,))."""
-        dec, pool = self.decoder, self.pool
-        bt = pool.block_tokens
+        bt = self.pool.block_tokens
         tokens = np.asarray(tokens, np.int32)
         positions = np.asarray(positions, np.int32)
         tables = np.asarray(tables, np.int32)
@@ -356,26 +456,82 @@ class DecodeSteps:
         # one host->device copy carries every per-step input
         packed = torch.from_numpy(np.concatenate(
             [tokens, blk, positions % bt, positions + 1, tables.ravel()]))
-        packed = packed.to(pool.device)
-        tok, blk, slot, seq_lens = packed[:4 * bsz].view(4, bsz)
-        blk, slot = blk.long(), slot.long()
-        tab = packed[4 * bsz:].view(bsz, width)
-        hd = dec.head_dim
-        params = self._param_tree()
-        x = embedding(tok, params["embed_w"])                # (B, d)
-        for li, lp in enumerate(params["layers"]):
-            q, k, v = _qkv(lp, x)                            # (B, d) each
-            # the token's own K/V lands in the cache BEFORE attention:
-            # position p attends over [0, p] including itself
-            pool.k[li][blk, slot, :, :hd] = k.view(bsz, dec.num_heads,
-                                                   hd).to(pool.dtype)
-            pool.v[li][blk, slot, :, :hd] = v.view(bsz, dec.num_heads,
-                                                   hd).to(pool.dtype)
-            a = paged_attention(q.view(bsz, dec.num_heads, hd), pool.k[li],
-                                pool.v[li], tab, seq_lens)   # (B, H, hd)
-            x = _layer_tail(lp, x, a.reshape(bsz, dec.d_model))
+        out = self._decode(packed.to(self.pool.device), bsz, width)
         self.decodes += 1
-        return torch.argmax(_final_logits(params, x), dim=-1)
+        return out
+
+
+def _allreduce_tp(x):
+    return allreduce(x, "tp")
+
+
+# the decoder's weights, by role, as a tp lane splits them: (param_tree
+# key, the fitted spec the split needs; None: sharded or replicated)
+_COLUMN, _ROW = ("tp",), (None, "tp")
+_SLICE_SPECS = {"qkv_w": _COLUMN, "ff1_w": _COLUMN, "proj_w": _ROW,
+                "ff2_w": _ROW, "embed_w": None, "head_w": None}
+
+
+def _slice_plan(decoder, layout, mesh):
+    """``{key: sharded}`` for the embedding and the head, checking that
+    the layout places the attention and MLP weights as the tp lane
+    splits them (column- or row-parallel over ``tp``)."""
+    tree = decoder.param_tree()
+    specs = layout.resolve_specs(tree, mesh)
+    plan = {}
+    for key, want in _SLICE_SPECS.items():
+        got = [specs[key]] if key in specs else \
+            [lp[key] for lp in specs["layers"]]
+        for spec in got:
+            if want is None:
+                if tuple(spec) not in ((), _COLUMN):
+                    raise MXNetError(
+                        f"generate: the tp lane splits {key} over the "
+                        f"vocabulary or replicates it; the layout gives "
+                        f"{spec}")
+                plan[key] = tuple(spec) == _COLUMN
+            elif tuple(spec) != want:
+                raise MXNetError(
+                    f"generate: the tp lane splits {key} as P{want}; the "
+                    f"layout gives {spec}")
+    return plan
+
+
+def _shard_tree(decoder, plan, s, tp, device):
+    """Shard ``s`` of ``tp``'s weights on ``device`` (copies that own
+    their bytes)."""
+    hs = decoder.num_heads // tp
+    cols = slice(s * hs * decoder.head_dim, (s + 1) * hs * decoder.head_dim)
+    d = decoder.d_model
+    qkv_rows = torch.cat([torch.arange(cols.start, cols.stop) + j * d
+                          for j in range(3)])
+
+    def own(t):
+        return t.detach().to(device, copy=True)
+
+    def rows(t, n):
+        c = t.shape[0] // n
+        return own(t[s * c:(s + 1) * c])
+
+    tree = decoder.param_tree()
+    out = {"layers": []}
+    for key in ("lnf_g", "lnf_b"):
+        out[key] = own(tree[key])
+    for key in ("embed_w", "head_w"):
+        out[key] = rows(tree[key], tp) if plan[key] else own(tree[key])
+    out["lo"] = s * (decoder.vocab_size // tp) if plan["embed_w"] else 0
+    for lp in tree["layers"]:
+        mine = {k: own(lp[k]) for k in ("ln1_g", "ln1_b", "ln2_g", "ln2_b",
+                                        "proj_b", "ff2_b")}
+        mine["qkv_w"] = own(lp["qkv_w"][qkv_rows])
+        mine["qkv_b"] = own(lp["qkv_b"][qkv_rows])
+        mine["proj_w"] = own(lp["proj_w"][:, cols])
+        mine["ff1_w"] = rows(lp["ff1_w"], tp)
+        mine["ff1_b"] = rows(lp["ff1_b"], tp)
+        c = lp["ff2_w"].shape[1] // tp
+        mine["ff2_w"] = own(lp["ff2_w"][:, s * c:(s + 1) * c])
+        out["layers"].append(mine)
+    return out
 
 
 def _tree_to(tree, device):

@@ -42,8 +42,11 @@ itself before it serves. A lane on a CUDA device owns a CUDA stream: its
 pool is allocated, its steps run and its warmup is waited for on that
 stream, so lanes sharing one card overlap their kernels and a lane
 scaled out while others serve waits for no one's work but its own.
-Metric gauges and tracing spans of the JAX scheduler, and its
-tensor-parallel lanes, are not ported.
+A tensor-parallel generator (``tp >= 2``) gives every lane a mesh slice
+of ``tp`` devices: its pool shards the heads over the slice and its
+:class:`~.model.DecodeSteps` run one shard thread a device; the lane's
+stream is its first device's. Metric gauges and tracing spans of
+the JAX scheduler are not ported.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ import numpy as np
 import torch
 
 from ...base import MXNetError, get_env
+from ...context import resolve_device
 from ...kvstore import fault as _fault
 from ..batcher import RejectedError, ServingError
 from ..variants import default_buckets, pick_bucket
@@ -175,7 +179,9 @@ class GenRequest:
 class GenLane:
     """One decode lane: decoder steps + block pool + the scheduler
     thread that re-forms its batch every step (on ``stream`` when the
-    lane is on a CUDA device). ``prefill_ns`` / ``decode_ns`` sum the
+    lane is on a CUDA device). ``device`` is the lane's device, or the
+    tuple of its slice's devices for a tensor-parallel lane.
+    ``prefill_ns`` / ``decode_ns`` sum the
     host wall time of the requests' ``prefills`` and ``decode_steps``,
     each ending in the token read (a sync of the lane's stream);
     ``replays`` and ``replay_decodes`` count the deterministic replays
@@ -559,7 +565,9 @@ class GenLane:
 
     def stats(self):
         return {"idx": self.idx,
-                "device": str(self.device),
+                "device": ([str(d) for d in self.device]
+                           if isinstance(self.device, tuple)
+                           else str(self.device)),
                 "retiring": self.retiring,
                 "pool": self.pool.occupancy(),
                 "prefills": self.prefills,
@@ -584,9 +592,14 @@ class GenModel:
 
     def __init__(self, name, decoder, devices, block_tokens, max_blocks,
                  max_new_tokens, max_decode_batch, max_queue,
-                 warmup=True):
+                 warmup=True, tp=None, layout=None):
         self.name = name
         self.decoder = decoder
+        # tp >= 2: every entry of ``devices`` is a slice (a tuple of tp
+        # devices); the lanes' pools shard their heads over it and their
+        # steps place the weights by ``layout``'s role table
+        self.tp = tp
+        self.layout = layout
         self.eos_id = decoder.eos_id
         self.block_tokens = int(block_tokens)
         self.max_blocks = int(max_blocks)
@@ -642,21 +655,33 @@ class GenModel:
         """One decode lane (pool + steps + scheduler thread), started
         and, when the model warms, warmed on its own thread —
         registration and scale-out share this. On a CUDA device the lane
-        gets its own stream, and its pool, warmup and steps run on it."""
+        gets its own stream, and its pool, warmup and steps run on it. A
+        slice (a tuple of devices) makes a tensor-parallel lane."""
         dec = self.decoder
-        stream = _lane_stream(device)
+        if isinstance(device, (list, tuple)) and len(device) == 1:
+            device = device[0]           # a 1-device slice is a plain lane
+        sliced = isinstance(device, (list, tuple))
+        stream = _lane_stream(resolve_device(device[0] if sliced
+                                             else device))
         with torch.cuda.stream(stream):
             pool = BlockPool(dec.num_layers, dec.num_heads, dec.head_dim,
                              self.block_tokens, self.max_blocks,
                              device=device, dtype=dec.dtype)
-        lane = GenLane(self, self._next_idx, pool.device,
-                       DecodeSteps(dec, pool), pool, stream)
+        try:
+            steps = DecodeSteps(dec, pool, self.layout)
+        except BaseException:
+            pool.close()
+            _return_stream(pool.device, stream)
+            raise
+        lane = GenLane(self, self._next_idx,
+                       pool.devices if sliced else pool.device, steps, pool,
+                       stream)
         self._next_idx += 1
         try:
             lane.start()
         except BaseException:
             pool.close()
-            _return_stream(lane.device, stream)
+            _return_stream(pool.device, stream)
             raise
         self.executables += lane.warmed
         return lane
@@ -898,7 +923,7 @@ class GenModel:
         with self.cond:
             if lane in self.lanes:
                 self.lanes.remove(lane)
-        _return_stream(lane.device, lane.stream)
+        _return_stream(lane.pool.device, lane.stream)
         return freed
 
     def close(self):
@@ -910,7 +935,7 @@ class GenModel:
             lane.join(timeout=30.0)
         for lane in lanes:
             lane.pool.close()
-            _return_stream(lane.device, lane.stream)
+            _return_stream(lane.pool.device, lane.stream)
 
     def stats(self):
         with self.cond:
@@ -929,6 +954,8 @@ class GenModel:
             "executables": self.executables,
             "warmup_seconds": round(self.warmup_seconds, 3),
             "degraded": self.degraded,
+            # >= 2: every lane is a tp mesh slice
+            "tp": self.tp,
             "recovery": dict(
                 self.migrator.stats(),
                 max_recoveries=self.max_recoveries,

@@ -27,10 +27,19 @@ CFG = dict(vocab_size=VOCAB, d_model=32, num_layers=2, num_heads=4,
            max_prompt_tokens=12)
 
 
+def _jax_decoder(cfg):
+    """The JAX decoder with its block hybridized: its references run one
+    jitted forward a token count (the same tokens as the eager block,
+    which compiles every op again for each new sequence length)."""
+    dec = JaxDecoder(**cfg)
+    dec.block.hybridize()
+    return dec
+
+
 @pytest.fixture(scope="module")
 def jax_decoder():
     mx.random.seed(0)
-    return JaxDecoder(**CFG)
+    return _jax_decoder(CFG)
 
 
 def _port_decoder(jax_dec, eos_id=None):
@@ -331,7 +340,7 @@ def test_padded_pool_gateway_equals_jax_reference():
     cfg = dict(vocab_size=VOCAB, d_model=24, num_layers=1, num_heads=2,
                max_prompt_tokens=12)
     mx.random.seed(1)
-    jdec = JaxDecoder(**cfg)
+    jdec = _jax_decoder(cfg)
     tree = jax.tree_util.tree_map(np.asarray, jdec.param_tree())
     dec = GenerativeDecoder(**cfg, device="cpu")
     dec.load_state_dict(params_from_jax(tree))
@@ -363,7 +372,7 @@ def test_wide_head_gateway_equals_jax_reference(d_model, head, pool_head):
     cfg = dict(vocab_size=VOCAB, d_model=d_model, num_layers=1, num_heads=2,
                max_prompt_tokens=8)
     mx.random.seed(2)
-    jdec = JaxDecoder(**cfg)
+    jdec = _jax_decoder(cfg)
     tree = jax.tree_util.tree_map(np.asarray, jdec.param_tree())
     dec = GenerativeDecoder(**cfg, device="cpu")
     dec.load_state_dict(params_from_jax(tree))

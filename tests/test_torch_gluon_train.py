@@ -38,6 +38,18 @@ F32 = np.float32
 CPU = tmx.cpu()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_health_off():
+    """The JAX package's health plane only observes its steps (a
+    sentry and norm program a step or an update, each compiled): off
+    here, it leaves every value these tests compare unchanged."""
+    from mxnet_tpu.profiling import health
+    before = health.policy()
+    health.set_enabled(False)
+    yield
+    health.set_enabled(before if before is not None else "0")
+
+
 def _rand(shape, seed, lo=None, hi=None):
     rng = np.random.default_rng(seed)
     if lo is not None:

@@ -7,7 +7,9 @@
 raise on a host without one unless the caller asks for the CPU, and its
 kernel build raises instead of falling back when ``nvcc`` is missing.
 The import check covers the serving planes' placement and migration
-(``parallel.mesh``, ``serving.generate.migrate``) and the training
+(``parallel.mesh``, ``serving.generate.migrate``), the parallel layouts
+(every module of ``parallel``: collectives, layout, tensor-parallel,
+Ulysses, ring attention, pipeline, MoE) and the training
 modules too (``optimizer``,
 ``metric``, ``lr_scheduler``, ``gluon.loss``, ``gluon.trainer``), the
 ops the decoder-LM training path adds (``ops.contrib``) and the
@@ -60,6 +62,13 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.serving.generate\n"
         "import mxnet_tpu_torch.serving.generate.migrate\n"
         "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.mesh\n"
+        "import mxnet_tpu_torch.parallel.collectives\n"
+        "import mxnet_tpu_torch.parallel.layout\n"
+        "import mxnet_tpu_torch.parallel.tensor_parallel\n"
+        "import mxnet_tpu_torch.parallel.ulysses\n"
+        "import mxnet_tpu_torch.parallel.ring_attention\n"
+        "import mxnet_tpu_torch.parallel.pipeline\n"
+        "import mxnet_tpu_torch.parallel.moe\n"
         "import mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops._build\n"
         "import mxnet_tpu_torch.ops.contrib\n"
         "import mxnet_tpu_torch.ops.int8, mxnet_tpu_torch.ops.quantized\n"

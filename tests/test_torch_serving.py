@@ -350,9 +350,10 @@ def test_register_rejects_zero_and_several_replicas_and_tp(gw):
 def test_replicas_knob_raises_instead_of_serving_one(gw, monkeypatch):
     """MXTPU_SERVING_REPLICAS=2 asks for two replicas per model and per
     generator, and the port serves two, as the JAX package does;
-    MXTPU_SERVING_TP=2 asks for tensor-parallel slices, which the port
-    does not have, so registration raises instead of serving one plain
-    lane silently."""
+    MXTPU_SERVING_TP=2 asks for tensor-parallel slices: a one-shot model
+    has none in the port, and a one-device gateway cannot carve a
+    2-device slice for a generator, so registration raises instead of
+    serving one plain lane silently."""
     symbol, args, aux, feature = tiny_mlp(tmx)
     from mxnet_tpu_torch.serving.generate import GenerativeDecoder
     dec = GenerativeDecoder(vocab_size=32, d_model=16, num_layers=1,
