@@ -302,10 +302,34 @@ Phases (any failure exits non-zero and prints no result line):
    heads; ``tp_mlp`` at 768
    / 3072 over the same tokens within the JAX package's 5e-5 of the
    scale of one device's MLP, timed; 120 s at most;
-22. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+22. data parallelism and ZeRO over the mesh, every position on the card
+   (a mesh that lists ``cuda:0`` twice): at phase 12's widths (vocab
+   50304, 12 x 768, (8, 2048) tokens, fp32) a functional decoder loss
+   after ``tools/layout_report.py``'s with its attention through the
+   flash kernel, one SGD-momentum step each of the dp 1 step, the
+   replicated dp 2 step and ZeRO stages 1, 2 and 3 from the same seeded
+   weights: the stages the replicated step's bits (else held to the
+   rule below), dp 2 within phase 12's fp32 rule of dp 1 (the loss to
+   1e-5, each gradient no further, relative L2, from a float64 step of
+   the same loss than twice dp 1's), exactly 2 x 12 flash forward and 2
+   x 12 flash backward launches a dp 2 step, each position's momentum
+   (and, at stage 3, parameter) bytes half the replicated step's, read
+   from the shards' storage, and step ms; the model-zoo ResNet-50 v1
+   symbol at batch 128 through ``simple_bind(mesh=)`` over a dp 2 mesh,
+   its batch from ``PrefetchingIter(sharding=)`` (the bits of the
+   unsharded batch, used in place), one training step against the
+   one-device executor (outputs, gradients and moving-statistic updates
+   no further, relative L2, from a float64 step than twice the
+   one-device step's distance), step ms of both; ResNet-50 v1 served
+   over a tp 2 slice (``register(tp=2)``, fp32 and bf16) against a
+   one-device lane on a 64-request burst each: fp32 within the JAX
+   package's 5e-5, bf16 no further from the fp32 lane than twice the
+   one-device bf16 lane, each position's parameter bytes the placement
+   report's, images/s of both; 60 s at most;
+23. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``, phase 21's as
-   ``parallel_launches``), then the result line ``{"ok": true,
-   "device": {...}}``.
+   ``parallel_launches``, phase 22's as ``data_parallel_launches``),
+   then the result line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
@@ -694,14 +718,18 @@ def phase_paged(att, dev, rng, cache=torch.float32, decode_lens=None):
     # kernels split and merge, the bf16 kernel merges in itself
     again = att.paged_attention(q, k[0], v[0], tab, sl)
     check(torch.equal(got, again), f"{name}: two calls differ in their bits")
-    # which kernels run (torch.profiler: it may lose records, so each
-    # kernel at most once a call), and the wrapper's launches, once a call
+    # the wrapper's launches, once a call, and which kernels run
+    # (torch.profiler: it may lose records, so each kernel at most once a
+    # call; a window that recorded nothing is taken again, so the calls
+    # it makes are not the ones counted here)
     bf16 = cache == torch.bfloat16
     count = "launches_bf16" if bf16 else "launches"
     counted = getattr(att.paged_attention, count)
+    for _ in range(PAGED_RUN):
+        att.paged_attention(q, k[0], v[0], tab, sl)
+    counted = getattr(att.paged_attention, count) - counted
     launched = kernels_launched(
         lambda: att.paged_attention(q, k[0], v[0], tab, sl), PAGED_RUN)
-    counted = getattr(att.paged_attention, count) - counted
     paged = {key[key.find("paged_attention"):].split("(")[0]: n
              for key, n in launched.items() if "paged_attention" in key}
     want = (("paged_attention_bf16_kernel",) if bf16
@@ -2078,17 +2106,17 @@ def table_diff(a, b):
                 for x, y in zip(p[1:], q[1:])), default=0.0)
 
 
-def serve_burst(gw, xs, variant):
+def serve_burst(gw, xs, variant, name="r50"):
     """``len(xs)`` requests submitted back to back (the lane coalesces
     them under max_wait); returns the replies, per-request latencies in
     ms (submit to reply on the host clock), the burst's wall seconds
     and the model's batch / row / padding counts over it."""
-    before = gw.stats()["r50"]
+    before = gw.stats()[name]
     t0 = time.perf_counter()
-    reqs = [gw.submit("r50", x, variant=variant) for x in xs]
+    reqs = [gw.submit(name, x, variant=variant) for x in xs]
     replies = [r.result(timeout=600)[0] for r in reqs]
     wall = time.perf_counter() - t0
-    after = gw.stats()["r50"]
+    after = gw.stats()[name]
     lat = sorted((r.exec_end_ns - r.submit_ns) / 1e6 for r in reqs)
     batches = after["batches"].get(variant, 0) \
         - before["batches"].get(variant, 0)
@@ -5880,6 +5908,485 @@ def phase_parallel(att, i8, fo, dev, burst, rng):
     return launches
 
 
+# -- phase 22: data parallelism and ZeRO over the mesh ------------------------
+# every position on the one card: a mesh that lists cuda:0 twice
+DP_WAYS = 2
+# the timed steps of each variant, after the compared one
+DP_TIMED = 3
+# ResNet-50 over a dp 2 mesh against one device: each group (outputs,
+# gradients, the moving statistics' updates) no further (relative L2)
+# from a float64 step than this times the one-device step (the f64 rule
+# of phases 3 and 12)
+DP_F64_RATIO = 2.0
+# the serving slice's bound against the one-device lane (the JAX
+# package's serving/sharded.py DIVERGENCE_BOUND, absolute)
+DP_DIVERGENCE = 5e-5
+
+
+def tree_leaves(tree, path=""):
+    """``(path, leaf)`` pairs of a dict / list pytree, in order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_leaves(v, f"{path}/{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def gpt_params(rng):
+    """Seeded numpy weights of phase 12's decoder widths (vocab 50304,
+    12 x 768, MLP 4x), laid out as tools/layout_report.py lays them
+    (q, k, v in one (3d, d) weight; the head apart from the embedding)."""
+    d, ff = LM_D_MODEL, LM_FF * LM_D_MODEL
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    def z(n, one=False):
+        return np.full(n, 1.0 if one else 0.0, np.float32)
+
+    layers = [{"ln1_g": z(d, True), "ln1_b": z(d), "qkv_w": w(3 * d, d),
+               "qkv_b": z(3 * d), "proj_w": w(d, d), "proj_b": z(d),
+               "ln2_g": z(d, True), "ln2_b": z(d), "ff1_w": w(ff, d),
+               "ff1_b": z(ff), "ff2_w": w(d, ff), "ff2_b": z(d)}
+              for _ in range(LM_LAYERS)]
+    return {"embed_w": w(LM_VOCAB, d), "layers": layers,
+            "lnf_g": z(d, True), "lnf_b": z(d), "head_w": w(LM_VOCAB, d)}
+
+
+def gpt_loss(attend, checkpoint=False):
+    """tools/layout_report.py's functional decoder loss over a params
+    dict (the mean over the batch's tokens of the cross entropy of each
+    token), its causal attention ``attend(q, k, v)`` on (B, H, T, D);
+    ``checkpoint`` recomputes each layer in the backward (the float64
+    reference's memory)."""
+    def layer(x, lp):
+        b, t, d = x.shape
+        hd = d // LM_HEADS
+        h = F.layer_norm(x, (d,), lp["ln1_g"], lp["ln1_b"], 1e-5)
+        qkv = h @ lp["qkv_w"].T + lp["qkv_b"]
+        q, k, v = (z.reshape(b, t, LM_HEADS, hd).transpose(1, 2)
+                   for z in qkv.split(d, -1))
+        a = attend(q, k, v)
+        x = x + a.transpose(1, 2).reshape(b, t, d) @ lp["proj_w"].T \
+            + lp["proj_b"]
+        h = F.layer_norm(x, (d,), lp["ln2_g"], lp["ln2_b"], 1e-5)
+        return x + torch.relu(h @ lp["ff1_w"].T + lp["ff1_b"]) \
+            @ lp["ff2_w"].T + lp["ff2_b"]
+
+    def loss_fn(params, tokens):
+        x = params["embed_w"][tokens]
+        for lp in params["layers"]:
+            x = torch.utils.checkpoint.checkpoint(
+                layer, x, lp, use_reentrant=False) if checkpoint \
+                else layer(x, lp)
+        d = x.shape[-1]
+        h = F.layer_norm(x, (d,), params["lnf_g"], params["lnf_b"], 1e-5)
+        logits = h @ params["head_w"].T
+        picked = logits.gather(-1, tokens[..., None])[..., 0]
+        return (torch.logsumexp(logits, -1) - picked).mean()
+    return loss_fn
+
+
+def gpt_f64_grads(att, params, tokens, dev):
+    """The float64 loss and gradients of the step's loss at the seeded
+    weights (plain attention, each layer recomputed in the backward),
+    as the mean of the two half batches' (what fits the card)."""
+    loss_fn = gpt_loss(lambda q, k, v: att.flash_attention_plain(
+        q, k, v, causal=True), checkpoint=True)
+    def on_card(tree):
+        if isinstance(tree, dict):
+            return {k: on_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [on_card(v) for v in tree]
+        return torch.from_numpy(tree).to(dev, torch.float64) \
+            .requires_grad_(True)
+
+    names = [path for path, _ in tree_leaves(params)]
+    loss, grads = 0.0, None
+    for half in tokens.chunk(2):
+        p = on_card(params)
+        value = loss_fn(p, half)
+        g = torch.autograd.grad(value, [x for _, x in tree_leaves(p)])
+        loss += value.item() / 2
+        grads = [x / 2 for x in g] if grads is None \
+            else [a + x / 2 for a, x in zip(grads, g)]
+        del p, value, g
+    return loss, dict(zip(names, grads))
+
+
+def position_bytes(tree):
+    """Each position's stored bytes of a tree of Sharded leaves."""
+    leaves = [x for _, x in tree_leaves(tree)]
+    return [sum(x.shards.flat[i].untyped_storage().nbytes() for x in leaves)
+            for i in range(leaves[0].shards.size)]
+
+
+def zero_variant(att, par, dev, name, params, tokens, loss_fn):
+    """One step of a variant from the seeded weights (what the phase
+    compares: the loss, the momentum after it, which is the step's
+    combined gradient, the parameters and each position's bytes), then
+    DP_TIMED timed steps."""
+    ways = 1 if name == "dp1" else DP_WAYS
+    mesh = par.create_mesh({"dp": ways}, devices=[dev] * ways)
+    P = par.PartitionSpec
+    kw = dict(lr=LM_LR, momentum=0.9)
+    try:
+        if name.startswith("zero"):
+            step, p, s = par.make_zero_train_step(
+                loss_fn, mesh, params, tokens, batch_specs=P("dp"),
+                stage=int(name[-1]), **kw)
+        else:
+            step, p, s = par.make_sharded_train_step(
+                loss_fn, mesh, params, tokens, batch_specs=P("dp"), **kw)
+        torch.cuda.synchronize()
+        att.reset_launches()
+        t0 = time.perf_counter()
+        p, s, loss = step(p, s, tokens)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = (att.flash_attention.launches,
+                    att.flash_attention_bwd.launches)
+        row = {"ways": ways, "first_step_ms": first_ms,
+               "collectives": step.last_collectives,
+               "flash_launches": list(launches),
+               "specs": {k: str(s[k].spec) for k in ("embed_w", "head_w")},
+               "param_spec_embed": str(p["embed_w"].spec),
+               "momentum_position_bytes": position_bytes(s),
+               "param_position_bytes": position_bytes(p)}
+        got = {"loss": loss.clone(),
+               "momentum": {k: x.full() for k, x in tree_leaves(s)},
+               "params": {k: x.full() for k, x in tree_leaves(p)}}
+        secs = []
+        for _ in range(DP_TIMED):
+            t0 = time.perf_counter()
+            p, s, _ = step(p, s, tokens)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) * 1e3)
+        row["step_ms_all"] = secs
+        row["step_ms"] = float(np.median(secs))
+        row["tokens_per_s"] = tokens.numel() / row["step_ms"] * 1e3
+    finally:
+        mesh.close()
+    del p, s
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def zero_compare(a, b):
+    """(bitwise, max abs difference) of two variants' losses, momenta
+    and parameters."""
+    same, err = bool(torch.equal(a["loss"], b["loss"])), \
+        abs(a["loss"].item() - b["loss"].item())
+    for part in ("momentum", "params"):
+        for k, x in a[part].items():
+            y = b[part][k]
+            same = same and bool(torch.equal(x, y))
+            err = max(err, (x - y).abs().max().item())
+    return same, err
+
+
+def f64_ratios(got, ref, exact):
+    """Phase 12's fp32 rule: each combined gradient's relative L2
+    distance from the float64 step, over the reference variant's; the
+    worst (ratio, leaf)."""
+    return max((rel_l2(got["momentum"][k], g)
+                / max(rel_l2(ref["momentum"][k], g), 1e-300), k)
+               for k, g in exact.items())
+
+
+def dp_zero(att, par, dev, rng):
+    """(a): the dp 1 step, the replicated dp 2 step and ZeRO stages 1-3
+    at GPT-2 small's widths over (8, 2048) tokens, from one set of seeded
+    weights, beside the float64 step."""
+    from mxnet_tpu_torch.parallel import zero_shard_leaf
+
+    params = gpt_params(rng)
+    tokens = torch.from_numpy(rng.integers(
+        0, LM_VOCAB, (LM_BATCH, LM_SEQ))).to(dev)
+    t0 = time.perf_counter()
+    f64_loss, exact = gpt_f64_grads(att, params, tokens, dev)
+    f64_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    loss_fn = gpt_loss(lambda q, k, v: att.flash_attention(q, k, v, True))
+    rows, got = {}, {}
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for name in ("dp1", "dp2", "zero1", "zero2", "zero3"):
+        rows[name], got[name] = zero_variant(att, par, dev, name, params,
+                                             tokens, loss_fn)
+        fwd, bwd = rows[name]["flash_launches"]
+        ways = rows[name]["ways"]
+        check(fwd == bwd == ways * LM_LAYERS,
+              f"data_parallel {name}: K3 forward / backward launches "
+              f"{fwd} / {bwd} in a step, want {ways} x {LM_LAYERS}")
+        launches["flash_attention"] += fwd
+        launches["flash_attention_bwd"] += bwd
+        if name == "dp1":
+            del got[name]["params"]
+        elif name != "dp2":
+            # the stages change the layout, not the arithmetic: the
+            # replicated step's bits expected, else phase 12's rule
+            same, err = zero_compare(got[name], got["dp2"])
+            ratio, leaf = f64_ratios(got[name], got["dp1"], exact)
+            rows[name].update({"bitwise_equal_to_dp2": same,
+                               "max_abs_diff_vs_dp2": err,
+                               "f64_ratio_vs_dp1": ratio})
+            check(same or ratio <= LM_F64_RATIO,
+                  f"data_parallel {name}: differs from the replicated dp 2 "
+                  f"step by {err:.3e}, and {leaf} is {ratio:.3f}x dp 1's "
+                  f"distance from the f64 step")
+            del got[name]
+    loss_rel = abs(got["dp2"]["loss"].item() - got["dp1"]["loss"].item()) \
+        / abs(got["dp1"]["loss"].item())
+    ratio, leaf = f64_ratios(got["dp2"], got["dp1"], exact)
+    check(loss_rel <= LM_LOSS_RTOL and ratio <= LM_F64_RATIO,
+          f"data_parallel: dp 2 against dp 1: loss {loss_rel:.3e} relative "
+          f"(bound {LM_LOSS_RTOL}); {leaf}'s gradient {ratio:.3f}x dp 1's "
+          f"relative L2 distance from the f64 step (bound {LM_F64_RATIO})")
+    dp1_rel = max(rel_l2(got["dp1"]["momentum"][k], g)
+                  for k, g in exact.items())
+    # each position's momentum: half the replicated bytes for the leaves
+    # zero_shard_leaf shards
+    sharded = {path for path, x in tree_leaves(params)
+               if zero_shard_leaf(x, DP_WAYS)}
+    full = sum(x.nbytes for path, x in tree_leaves(params)
+               if path in sharded)
+    rest = sum(x.nbytes for path, x in tree_leaves(params)
+               if path not in sharded)
+    check(rows["dp2"]["momentum_position_bytes"] == [full + rest] * DP_WAYS,
+          f"data_parallel dp2: momentum bytes "
+          f"{rows['dp2']['momentum_position_bytes']}")
+    for name in ("zero1", "zero2", "zero3"):
+        want = [full // DP_WAYS + rest] * DP_WAYS
+        check(rows[name]["momentum_position_bytes"] == want,
+              f"data_parallel {name}: momentum bytes a position "
+              f"{rows[name]['momentum_position_bytes']}, want {want}")
+    check(rows["zero3"]["param_position_bytes"]
+          == [full // DP_WAYS + rest] * DP_WAYS,
+          f"data_parallel zero3: parameter bytes a position "
+          f"{rows['zero3']['param_position_bytes']}")
+    out = {"config": {"vocab": LM_VOCAB, "d_model": LM_D_MODEL,
+                      "layers": LM_LAYERS, "heads": LM_HEADS,
+                      "batch": LM_BATCH, "seq": LM_SEQ, "dtype": "float32",
+                      "sgd": {"lr": LM_LR, "momentum": 0.9},
+                      "parameters": sum(x.size for _, x in
+                                        tree_leaves(params))},
+           "sharded_leaf_bytes": full, "replicated_leaf_bytes": rest,
+           "f64_loss": f64_loss, "f64_step_s": f64_s,
+           "dp2_vs_dp1_loss_rel": loss_rel,
+           "dp2_f64_ratio_vs_dp1_max": ratio,
+           "dp2_f64_ratio_vs_dp1_max_leaf": leaf,
+           "dp1_grad_rel_l2_vs_f64_max": dp1_rel, "variants": rows}
+    del got, params, tokens, exact
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def r50_group_rel(a, b):
+    return rel_l2(torch.cat([x.reshape(-1).double() for x in a]),
+                  torch.cat([x.reshape(-1).double() for x in b]))
+
+
+def r50_step(ex, data, label, aux0, timed):
+    """One training forward and backward of an executor; its outputs,
+    gradients and moving-statistic updates (as float64 on the card),
+    then ``timed`` more steps' ms."""
+    out = ex.forward(is_train=True, data=data, softmax_label=label)[0]
+    ex.backward()
+    res = {"out": [out._data.double()],
+           "grads": [g._data.double() for _, g in sorted(
+               ex.grad_dict.items()) if _ not in ("data", "softmax_label")],
+           "aux": [ex.aux_dict[n]._data.double() - aux0[n].double()
+                   for n in sorted(aux0)]}
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        ex.forward(is_train=True, data=data, softmax_label=label)
+        ex.backward()
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+    return res, secs
+
+
+def dp_executor(mx, par, dev, rng):
+    """(b): the model-zoo ResNet-50 v1 symbol at batch 128, one training
+    step over a dp 2 mesh (the batch through ``PrefetchingIter
+    (sharding=)``) against one device and a float64 step."""
+    base = mx.model_zoo.load_symbol("resnet50_v1")
+    net = mx.sym.SoftmaxOutput(base, name="softmax")
+    arg_np, aux_np = resnet_params(base, rng)
+    x = rng.standard_normal(R50_SHAPE, dtype=np.float32)
+    y = rng.integers(0, 1000, R50_SHAPE[0]).astype(np.float32)
+    shapes = {"data": R50_SHAPE, "softmax_label": (R50_SHAPE[0],)}
+    req = {n: "null" if n in shapes else "write"
+           for n in net.list_arguments()}
+    ctx = mx.Context(dev)
+    aux0 = {n: torch.from_numpy(v).to(dev) for n, v in aux_np.items()}
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    ex = net.simple_bind(ctx, grad_req=req, **shapes)
+    ex.copy_params_from(arg_np, aux_np)
+    one, one_ms = r50_step(ex, xd, yd, aux0, DP_TIMED)
+    del ex
+    torch.cuda.empty_cache()
+
+    mesh = par.create_mesh({"dp": DP_WAYS}, devices=[dev] * DP_WAYS)
+    P = par.PartitionSpec
+    try:
+        ex = net.simple_bind(grad_req=req, mesh=mesh, arg_specs={
+            "data": P("dp"), "softmax_label": P("dp")}, **shapes)
+        ex.copy_params_from(arg_np, aux_np)
+        with ctx:
+            it = mx.io.PrefetchingIter(
+                mx.io.NDArrayIter(x, y, batch_size=R50_SHAPE[0],
+                                  label_name="softmax_label"),
+                sharding=par.NamedSharding(mesh, P("dp")))
+            batch = it.next()
+        it.feeder.close()
+        data, label = batch.data[0], batch.label[0]
+        check(isinstance(data, par.Sharded)
+              and [tuple(b.shape) for b in data.shards.flat]
+              == [(R50_SHAPE[0] // DP_WAYS,) + R50_SHAPE[1:]] * DP_WAYS,
+              f"data_parallel: the prefetched batch is not laid out over "
+              f"the mesh: {type(data).__name__}")
+        bits = bool(torch.equal(data.full(), xd)
+                    and torch.equal(label.full(), yd))
+        check(bits, "data_parallel: the sharded batch is not the bits of "
+              "the unsharded batch")
+        dp2, dp2_ms = r50_step(ex, data, label, aux0, DP_TIMED)
+        check(ex._sharded["data"] is data,
+              "data_parallel: the executor did not take the Sharded batch "
+              "in place")
+        del ex
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+
+    f64 = {n: torch.from_numpy(v).to(dev, torch.float64)
+           for n, v in {**arg_np, **aux_np}.items()}
+    ex = net.bind(ctx, args={**{n: f64[n] for n in arg_np},
+                             "data": xd.double(),
+                             "softmax_label": yd.double()},
+                  aux_states={n: f64[n] for n in aux_np}, grad_req=req)
+    exact, _ = r50_step(ex, xd.double(), yd.double(), aux0, 0)
+    del ex, f64
+    torch.cuda.empty_cache()
+    groups = {}
+    for g in ("out", "grads", "aux"):
+        r_one = r50_group_rel(one[g], exact[g])
+        r_dp2 = r50_group_rel(dp2[g], exact[g])
+        groups[g] = {"dp2_vs_f64": r_dp2, "one_vs_f64": r_one,
+                     "dp2_vs_one": r50_group_rel(dp2[g], one[g]),
+                     "ratio": r_dp2 / max(r_one, 1e-300)}
+        check(r_dp2 <= DP_F64_RATIO * r_one,
+              f"data_parallel executor: {g} {r_dp2:.3e} off the f64 step "
+              f"(relative L2), more than {DP_F64_RATIO}x the one-device "
+              f"step's {r_one:.3e}")
+    return {"batch": R50_SHAPE[0], "ways": DP_WAYS,
+            "sharded_batch_bitwise": bits, "groups": groups,
+            "dp2_step_ms": float(np.median(dp2_ms)), "dp2_step_ms_all": dp2_ms,
+            "one_step_ms": float(np.median(one_ms)), "one_step_ms_all": one_ms}
+
+
+def dp_serving(mx, dev, rng):
+    """(c): ResNet-50 v1 one-shot serving over a tp 2 slice of the card
+    against a one-device lane, fp32 and bf16, a 64-request burst each."""
+    from mxnet_tpu_torch.serving import DIVERGENCE_BOUND, Gateway
+
+    base = mx.model_zoo.load_symbol("resnet50_v1")
+    arg_np, aux_np = resnet_params(base, rng)
+    rows = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1, SERVE_REQUESTS)
+    xs = [rng.standard_normal((int(r),) + R50_SHAPE[1:], dtype=np.float32)
+          for r in rows]
+    variants = ("fp32", "bf16")
+    out, replies = {}, {}
+    for tp, gw in ((1, Gateway(device=dev)),
+                   (DP_WAYS, Gateway(devices=[dev] * DP_WAYS))):
+        try:
+            t0 = time.perf_counter()
+            m = gw.register("r50tp", base, arg_np, aux_np,
+                            {"data": R50_SHAPE[1:]}, variants=variants,
+                            buckets=SERVE_BUCKETS,
+                            max_wait_ms=SERVE_MAX_WAIT_MS,
+                            tp=tp if tp > 1 else None)
+            row = {"register_s": time.perf_counter() - t0,
+                   "stats_tp": gw.stats()["r50tp"]["tp"],
+                   "degraded": gw.stats()["r50tp"]["degraded"]}
+            for v in variants:
+                replies[(tp, v)], row[v] = serve_burst(gw, xs, v, "r50tp")
+            if tp > 1:
+                vs = m.replicas[0].variant_set
+                rep = vs.placement_report()
+                row["position_bytes"] = vs.position_bytes()
+                row["report_per_device_bytes"] = rep["per_device_param_bytes"]
+                row["report_total_bytes"] = rep["total_bytes"]
+                row["sharded_params"] = [r["param"] for r in rep["params"]
+                                         if r["shard_ways"] > 1]
+                check(row["position_bytes"]
+                      == [rep["per_device_param_bytes"]] * tp,
+                      f"data_parallel serving: position bytes "
+                      f"{row['position_bytes']} against the report's "
+                      f"{rep['per_device_param_bytes']}")
+                check(row["stats_tp"] == tp and row["degraded"] is True,
+                      f"data_parallel serving: stats {row}")
+        finally:
+            gw.close()
+        out[f"tp{tp}"] = row
+
+    def dist(a, b):
+        return max(float(np.abs(x.astype(np.float64) - z).max())
+                   for x, z in zip(a, b))
+
+    fp32 = dist(replies[(DP_WAYS, "fp32")], replies[(1, "fp32")])
+    bf16 = dist(replies[(DP_WAYS, "bf16")], replies[(1, "fp32")])
+    bf16_one = dist(replies[(1, "bf16")], replies[(1, "fp32")])
+    check(DIVERGENCE_BOUND == DP_DIVERGENCE and fp32 <= DP_DIVERGENCE,
+          f"data_parallel serving: tp 2 fp32 {fp32:.3e} off the one-device "
+          f"lane, past {DP_DIVERGENCE}")
+    check(bf16 <= 2 * bf16_one,
+          f"data_parallel serving: tp 2 bf16 {bf16:.3e} off the fp32 lane, "
+          f"past twice the one-device bf16 lane's {bf16_one:.3e}")
+    out.update({"requests": SERVE_REQUESTS, "fp32_max_abs_vs_one": fp32,
+                "bf16_max_abs_vs_fp32": bf16,
+                "one_bf16_max_abs_vs_fp32": bf16_one,
+                "tp2_over_tp1_images_per_s": {
+                    v: out[f"tp{DP_WAYS}"][v]["images_per_s"]
+                    / out["tp1"][v]["images_per_s"] for v in variants}})
+    for row in (out["tp1"], out[f"tp{DP_WAYS}"]):
+        for v in variants:
+            row[v] = {k: row[v][k] for k in ("images", "images_per_s",
+                                             "p50_ms", "max_ms", "batches")}
+    return out
+
+
+def phase_data_parallel(att, i8, fo, dev, rng):
+    """The module docstring's phase 22: sharded train steps (ZeRO 1-3,
+    K3 on each position's shard) at GPT-2 small's widths, the executor
+    over a dp mesh at ResNet-50's, and one-shot serving over a tp slice;
+    every position on ``dev``. Returns the phase's K3 launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel as par
+
+    t_phase = time.perf_counter()
+    zero, launches = dp_zero(att, par, dev, rng)
+    counts1 = kernel_counts(att, i8, fo)
+    executor = dp_executor(mx, par, dev, rng)
+    serving = dp_serving(mx, dev, rng)
+    check(kernel_counts(att, i8, fo) == counts1,
+          "data_parallel: a kernel launched in the executor or serving part "
+          "(ResNet-50 reaches none)")
+    phase_s = time.perf_counter() - t_phase
+    log("data_parallel " + json.dumps({
+        "card": card_line(), "phase_s": phase_s, "zero": zero,
+        "executor": executor, "serving": serving}))
+    check(phase_s <= 60.0, f"data_parallel took {phase_s:.1f} s, over 60")
+    return {"flash_attention": {"zero_steps": launches["flash_attention"]},
+            "flash_attention_bwd": {
+                "zero_steps": launches["flash_attention_bwd"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -5946,6 +6453,7 @@ def main():
     timed(phase_gluon_data, att, i8, fo, dev, here, rng)
     timed(phase_ssd, att, i8, fo, dev, here, rng)
     parallel = timed(phase_parallel, att, i8, fo, dev, burst, rng)
+    data_parallel = timed(phase_data_parallel, att, i8, fo, dev, rng)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -5954,6 +6462,8 @@ def main():
         k["planes_launches"] = planes.get(k["name"])
         # the parallel layouts' launches (phase 21), by part
         k["parallel_launches"] = parallel.get(k["name"])
+        # the sharded train steps' launches (phase 22)
+        k["data_parallel_launches"] = data_parallel.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path

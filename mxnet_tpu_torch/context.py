@@ -80,6 +80,27 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def dp_mesh(ctx_list):
+    """A one-axis ``"dp"`` mesh (``parallel.mesh.Mesh``) over a context
+    list, or None when the list repeats a context (the JAX package's
+    ``dp_mesh``, which Module binding and gluon's ``split_and_load``
+    both read).
+
+    The rule: distinct ``(device_type, device_id)`` pairs are distinct
+    mesh positions, and each position runs on the torch device its
+    context resolves to. torch has one CPU device, so every ``cpu(i)``
+    lands on the CPU (the counterpart of the JAX package's virtual CPU
+    devices); ``gpu(i)`` is ``cuda:i`` and raises where that card is
+    absent (:func:`resolve_device`)."""
+    ctxs = [c if isinstance(c, Context) else Context(c) for c in ctx_list]
+    keys = [(c.device_type, c.device_id) for c in ctxs]
+    if len(set(keys)) != len(keys):
+        return None
+    from .parallel.mesh import create_mesh
+    return create_mesh({"dp": len(ctxs)},
+                       devices=[resolve_device(c) for c in ctxs])
+
+
 def current_context():
     """The innermost ``with`` context, else ``gpu(0)``."""
     stack = getattr(_state, "stack", None)

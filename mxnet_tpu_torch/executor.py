@@ -19,6 +19,30 @@ takes ``jax.vjp`` of the same function). The recorded graph is kept
 until the next ``forward``, so a second ``backward`` after one forward
 gives what the JAX executor gives by recomputing from its saved state:
 ``"add"`` accumulates again, ``"write"`` writes the same gradient.
+
+**Over a dp mesh** (``mesh=``, ``arg_specs=``: the JAX executor's
+GSPMD program, spelled out). Inputs whose spec splits them (``P("dp")``)
+are cut across the mesh positions, everything else is replicated, and
+each position walks the graph on its block, on its shard thread
+(``parallel.mesh.run_shards``). Arrays live whole on the mesh's first
+device; an input given as a ``Sharded`` laid out as its spec asks is
+used in place. What reaches across the batch is combined across the
+positions, so the step means what the one-device step means:
+
+- training BatchNorm normalises over the whole batch: each position's
+  mean and biased variance are all-gathered and merged (Chan's merge of
+  equal counts), through autograd, so the backward is the whole
+  batch's too; the moving statistics are updated once from the merged
+  ones;
+- SoftmaxOutput's ``normalization="batch"`` / ``"valid"`` divide by the
+  whole batch's count (``"valid"``'s is all-reduced).
+
+Outputs are concatenated to the global batch on the first device (every
+output must be batch-major). ``backward`` takes one
+``torch.autograd.grad`` over every position's recorded outputs (the
+positions' graphs meet in the BatchNorm merges, so no collective runs
+inside the backward), sums the replicated arguments' gradients in rank
+order on the first device and concatenates the split ones.
 """
 from __future__ import annotations
 
@@ -27,11 +51,16 @@ import contextlib
 
 import torch
 
+import numpy as np
+
 from .base import MXNetError, attr_bool
 from .context import resolve_device
 from .ndarray.ndarray import NDArray, as_tensor
 from .ops import registry as _reg
 from .ops.nn import batch_moments
+from .parallel.collectives import allgather, allreduce, axis_size
+from .parallel.mesh import (PartitionSpec as P, Sharded, _assemble, _local,
+                            entry_axes, run_shards)
 from .symbol.symbol import op_attrs
 
 
@@ -54,9 +83,59 @@ def _bn_train(node, ins, attrs, aux_updates):
     return res
 
 
-def _run(symbol, values, training):
+def _bn_train_dp(node, ins, attrs, aux_updates, axes):
+    """Training BatchNorm over the whole batch of a dp mesh: the
+    positions' batch moments all-gathered (in rank order, through
+    autograd) and merged; the moving statistics as :func:`_bn_train`
+    updates them, from the merged ones."""
+    data, gamma, beta = ins[:3]
+    axis = int(attrs.get("axis", 1)) % data.ndim
+    eps = float(attrs.get("eps", 1e-3))
+    g = torch.ones_like(gamma) if attr_bool(attrs.get("fix_gamma"), True) \
+        else gamma
+    parts = allgather(torch.stack(batch_moments(data, axis)), axes, axis=0,
+                      tiled=False)
+    # equal counts a position: the mean of the means, and the mean of
+    # the variances plus the means' spread
+    mean = parts[:, 0].mean(0)
+    var = parts[:, 1].mean(0) + ((parts[:, 0] - mean) ** 2).mean(0)
+    bshape = tuple(data.shape[axis] if i == axis else 1
+                   for i in range(data.ndim))
+    out = (data - mean.reshape(bshape)) \
+        * (torch.rsqrt(var + eps) * g).reshape(bshape) + beta.reshape(bshape)
+    momentum = float(attrs.get("momentum", 0.9))
+    with torch.no_grad():
+        for (child, _), moving, batch in zip(node.inputs[3:5], ins[3:5],
+                                             (mean, var)):
+            if child.op is None:
+                aux_updates[child.name] = (momentum * moving
+                                           + (1 - momentum) * batch)
+    if attr_bool(attrs.get("output_mean_var")):
+        return out, mean, var
+    return out
+
+
+def _softmax_dp_attrs(ins, attrs, axes):
+    """SoftmaxOutput's attributes at one position of a dp mesh: a
+    ``"batch"`` / ``"valid"`` normalization becomes the whole batch's
+    count folded into ``grad_scale``."""
+    norm = str(attrs.get("normalization", "null"))
+    scale = float(attrs.get("grad_scale", 1.0))
+    if norm == "batch":
+        scale = scale / (ins[0].shape[0] * axis_size(axes))
+    elif norm == "valid" and attr_bool(attrs.get("use_ignore")):
+        ignore = float(attrs.get("ignore_label", -1.0))
+        valid = allreduce((ins[1] != ignore).sum(), axes)
+        scale = float(np.float32(scale) / np.float32(max(int(valid), 1)))
+    else:
+        return attrs
+    return {**attrs, "normalization": "null", "grad_scale": scale}
+
+
+def _run(symbol, values, training, dp_axes=None):
     """(outputs, moving-statistic updates) of ``symbol`` with variable
-    values by name (tensors)."""
+    values by name (tensors); ``dp_axes`` names the mesh axes the batch
+    is split over when this is one position of a dp mesh."""
     order = symbol._topo()
     # an intermediate is dropped after its last consumer, so a forward
     # holds only the live activations (and, training, what autograd
@@ -83,8 +162,12 @@ def _run(symbol, values, training):
                 attrs["training"] = training
             if training and node.op == "BatchNorm" \
                     and not attr_bool(attrs.get("use_global_stats")):
-                out = _bn_train(node, ins, attrs, aux_updates)
+                out = _bn_train_dp(node, ins, attrs, aux_updates, dp_axes) \
+                    if dp_axes else _bn_train(node, ins, attrs, aux_updates)
             else:
+                if dp_axes and training and node.op in ("SoftmaxOutput",
+                                                        "Softmax"):
+                    attrs = _softmax_dp_attrs(ins, attrs, dp_axes)
                 out = opdef.fn(*ins, **attrs)
             del ins
             for c, k in node.inputs:
@@ -109,9 +192,16 @@ class Executor:
     """Bound computation (ref: python/mxnet/executor.py Executor)."""
 
     def __init__(self, symbol, ctx=None, args=None, args_grad=None,
-                 grad_req="write", aux_states=None):
+                 grad_req="write", aux_states=None, mesh=None,
+                 arg_specs=None):
         self._symbol = symbol
-        self._device = resolve_device(ctx)
+        # over a mesh, the arrays live on its first device
+        self._mesh = mesh
+        self._arg_specs = dict(arg_specs or {})
+        self._device = resolve_device(ctx if mesh is None
+                                      else mesh.devices.flat[0])
+        # inputs given as Sharded values, used in place (dp mesh only)
+        self._sharded = {}
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -167,8 +257,16 @@ class Executor:
         for n, v in kwargs.items():
             if n not in self.arg_dict:
                 raise MXNetError(f"unknown argument {n}")
+            if isinstance(v, Sharded):
+                if self._mesh is not None:
+                    self._sharded[n] = v
+                    continue
+                v = v.full()
+            self._sharded.pop(n, None)
             self.arg_dict[n]._data = as_tensor(v, self._device)
         self._recorded = None
+        if self._mesh is not None:
+            return self._forward_dp(is_train)
         values = {n: a._data for n, a in self.arg_dict.items()}
         values.update({n: a._data for n, a in self.aux_dict.items()})
         if not is_train:
@@ -191,6 +289,125 @@ class Executor:
                         for o in outs]
         return self.outputs
 
+    # -- over a dp mesh -------------------------------------------------
+    def _spec(self, name):
+        return self._arg_specs.get(name, P())
+
+    def _dp_axes(self):
+        """The mesh axes the arguments' specs split the batch over."""
+        return tuple(dict.fromkeys(a for spec in self._arg_specs.values()
+                                   for e in spec for a in entry_axes(e)))
+
+    def _dp_ranks(self):
+        """The positions of one dp group (every other axis at 0)."""
+        axes = self._dp_axes()
+        return [i for i, c in enumerate(self._mesh.positions())
+                if all(c[a] == 0 for a in c if a not in axes)]
+
+    def _forward_dp(self, is_train):
+        mesh = self._mesh
+        values = {n: self._sharded.get(n, a._data)
+                  for n, a in self.arg_dict.items()}
+        for n, v in values.items():
+            spec = self._spec(n)
+            if spec and entry_axes(spec[0]) and v.shape:
+                ways = np.prod([mesh.shape[a] for a in entry_axes(spec[0])])
+                if v.shape[0] % ways:
+                    raise MXNetError(
+                        f"batch axis of '{n}' has size {v.shape[0]}, not "
+                        f"divisible by the {ways} devices in the context "
+                        "list; pad the iterator (last_batch_handle='pad') "
+                        "or pick a divisible batch size")
+        trained = [n for n, req in self._grad_req.items()
+                   if req != "null" and is_train
+                   and values[n].dtype.is_floating_point]
+        axes = self._dp_axes()
+
+        def position(local):
+            leaves = {}
+            for n in trained:
+                t = local[n]
+                if t.is_inference():    # an inference forward's output
+                    t = t.clone()
+                leaves[n] = local[n] = t.detach().requires_grad_(True)
+            outs, aux_updates = _run(self._symbol, local, bool(is_train),
+                                     dp_axes=axes)
+            return outs, aux_updates, leaves
+
+        args = []
+        for c in mesh.positions():
+            local = {n: _local(v, self._spec(n), mesh, c)
+                     for n, v in values.items()}
+            local.update({n: _local(a._data, P(), mesh, c)
+                          for n, a in self.aux_dict.items()})
+            args.append((local,))
+        results = run_shards(mesh, position, args)
+        del args
+        for n, v in results[0][1].items():
+            self.aux_dict[n]._data = v
+        out_spec = P(axes or None)
+        outputs = []
+        for k in range(len(results[0][0])):
+            parts = [r[0][k] for r in results]
+            if not isinstance(parts[0], torch.Tensor):
+                outputs.append(NDArray(as_tensor(parts[0], self._device)))
+                continue
+            if parts[0].ndim == 0:
+                raise MXNetError(
+                    f"output {self.output_names[k]} is a scalar: over a dp "
+                    "mesh every output must be batch-major")
+            outputs.append(NDArray(_assemble(out_spec, mesh,
+                                             [p.detach() for p in parts])))
+        self.outputs = outputs
+        if is_train:
+            self._recorded = ([r[0] for r in results],
+                              [r[2] for r in results])
+        return self.outputs
+
+    def _backward_dp(self, out_grads):
+        mesh = self._mesh
+        outs_pp, leaves_pp = self._recorded
+        positions = mesh.positions()
+        out_spec = P(self._dp_axes() or None)
+        if out_grads is not None and isinstance(out_grads, (NDArray, Sharded)):
+            out_grads = [out_grads]
+        outs, heads = [], []
+        for i, c in enumerate(positions):
+            for k, o in enumerate(outs_pp[i]):
+                if not isinstance(o, torch.Tensor) or not o.requires_grad:
+                    continue
+                if out_grads is None:
+                    h = torch.ones_like(o)
+                else:
+                    g = out_grads[k]
+                    g = g if isinstance(g, Sharded) else as_tensor(g)
+                    h = _local(g, out_spec, mesh, c)
+                outs.append(o)
+                heads.append(h)
+        names = list(leaves_pp[0])
+        flat = [leaves_pp[i][n] for i in range(len(positions)) for n in names]
+        grads = [None] * len(flat)
+        if outs and flat:
+            grads = torch.autograd.grad(outs, flat, grad_outputs=heads,
+                                        allow_unused=True, retain_graph=True)
+        del outs, heads
+        ranks = self._dp_ranks()
+        out = {}
+        for j, n in enumerate(names):
+            parts = [grads[i * len(names) + j] for i in range(len(positions))]
+            parts = [torch.zeros_like(leaves_pp[i][n]) if g is None else g
+                     for i, g in enumerate(parts)]
+            spec = self._spec(n)
+            if any(entry_axes(e) for e in spec):
+                out[n] = _assemble(spec, mesh, parts)
+            else:
+                # the replicated argument's gradient summed in rank order
+                acc = parts[ranks[0]].to(self._device)
+                for i in ranks[1:]:
+                    acc = acc + parts[i].to(self._device)
+                out[n] = acc
+        return out
+
     def backward(self, out_grads=None):
         """Gradients of the recorded forward wrt every argument whose
         ``grad_req`` is not ``"null"``, into ``grad_dict``: ``"write"``
@@ -198,6 +415,9 @@ class Executor:
         gradients (ones when None; SoftmaxOutput ignores its own)."""
         if self._recorded is None:
             raise MXNetError("backward called before forward(is_train=True)")
+        if self._mesh is not None:
+            self._store_grads(self._backward_dp(out_grads))
+            return
         outs, leaves = self._recorded
         if out_grads is None:
             heads = [torch.ones_like(o) if isinstance(o, torch.Tensor)
@@ -216,8 +436,13 @@ class Executor:
                 grad_outputs=[h for _, h in pairs], allow_unused=True,
                 retain_graph=True)
         del outs, pairs
-        for n, g in zip(names, grads):
-            g = torch.zeros_like(leaves[n]) if g is None else g.contiguous()
+        self._store_grads({
+            n: torch.zeros_like(leaves[n]) if g is None else g
+            for n, g in zip(names, grads)})
+
+    def _store_grads(self, grads):
+        for n, g in grads.items():
+            g = g.contiguous()
             dst = self.grad_dict.get(n)
             if dst is None:
                 self.grad_dict[n] = NDArray(g)

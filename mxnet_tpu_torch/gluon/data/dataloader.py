@@ -99,16 +99,17 @@ class DataLoader:
     feeder thread copies batch k+1 to the device while step k runs
     (default: the ``MXTPU_IO_PREFETCH_DEVICE`` knob). ``pin_memory=True``
     routes to the same feeder, which copies from pinned host memory.
-    ``sharding=`` waits for the parallel layouts and raises."""
+    ``sharding=`` (a ``parallel.NamedSharding``) routes to the feeder
+    too, which lays each batch's arrays out over its mesh
+    (``io.pipeline.to_device``): the loader yields ``Sharded`` values."""
 
     def __init__(self, dataset, batch_size=None, shuffle=False, sampler=None,
                  last_batch=None, batch_sampler=None, batchify_fn=None,
                  num_workers=0, pin_memory=False, prefetch=None,
                  thread_pool=True, prefetch_to_device=None, sharding=None):
         from ...base import get_env
-        from ...io.pipeline import _no_sharding
-        _no_sharding(sharding)
         self._dataset = dataset
+        self._sharding = sharding
         custom_order = sampler is not None or batch_sampler is not None
         if batch_sampler is None:
             if batch_size is None:
@@ -306,7 +307,7 @@ class DataLoader:
             pool.shutdown(wait=True, cancel_futures=True)
 
     def __iter__(self):
-        if not self._prefetch_device:
+        if not self._prefetch_device and self._sharding is None:
             yield from self._iter_batches()
             return
         # the feeder thread builds batches on the host and copies batch
@@ -314,7 +315,8 @@ class DataLoader:
         # the consumer waits is its wait_seconds (io/pipeline.py)
         from ...io.pipeline import DeviceFeeder
         source = self._iter_batches()
-        feeder = DeviceFeeder(source)
+        feeder = DeviceFeeder(source, sharding=self._sharding,
+                              to_device=self._prefetch_device)
         try:
             while True:
                 try:

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import dp_mesh, resolve_device
 from ..ndarray.ndarray import NDArray, array
 
 
@@ -31,15 +31,41 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """One slice of the batch per context, each moved there (the
-    reference's data-parallel split; with one context, the whole batch
-    on it)."""
+    """Lay the batch out across the contexts (the JAX package's rule).
+
+    Where the contexts form a dp mesh (``context.dp_mesh``: no context
+    repeated) and the batch divides over it, a one-element list: the
+    whole batch, so the usual ``for x in split_and_load(...)`` loop runs
+    one forward and one backward over it, the one program the JAX
+    package runs over its mesh. The port's gluon Parameter lives on one
+    device, so the mesh's positions must resolve to one torch device
+    (``cpu(i)`` all do): positions on distinct devices (several cards)
+    raise. Otherwise (a repeated context, or a batch that does not
+    divide and ``even_split`` is False) one slice per context, each
+    moved there, as the reference slices; one context gets the whole
+    batch."""
     if not isinstance(data, NDArray):
         data = array(data, ctx=ctx_list[0])
     if len(ctx_list) == 1:
         return [data.as_in_context(ctx_list[0])]
-    slices = split_data(data, len(ctx_list), batch_axis, even_split)
-    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+    uneven = data.shape[batch_axis] % len(ctx_list) != 0
+    if even_split and uneven:
+        raise MXNetError(
+            f"cannot evenly split batch of {data.shape[batch_axis]} "
+            f"across {len(ctx_list)} devices")
+    mesh = None if uneven else dp_mesh(ctx_list)
+    if mesh is None:
+        slices = split_data(data, len(ctx_list), batch_axis, even_split)
+        return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+    devices = {str(d) for d in mesh.devices.flat}
+    if len(devices) > 1:
+        raise MXNetError(
+            f"split_and_load over a dp mesh of {sorted(devices)}: gluon "
+            "over several cards is not ported (ROADMAP queue 1 item 5); a "
+            "gluon Parameter lives on one device, so the positions of the "
+            "mesh must share one (train over several cards with Module or "
+            "parallel.make_sharded_train_step)")
+    return [data.as_in_context(mesh.devices.flat[0])]
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

@@ -379,8 +379,12 @@ class PrefetchingIter(DataIter):
     memory on a side stream, while the consumer computes; :meth:`next`
     makes the consumer's current stream wait for the copy and records
     the stream on the arrays, so the batch is safe to use and to free
-    there. ``feeder.wait_seconds`` is the time :meth:`next` spent
-    blocked.
+    there. ``sharding=`` (a ``parallel.NamedSharding``) lays each
+    batch's arrays out over its mesh in the producer, as
+    ``pipeline.to_device`` does, so a dp Module or a sharded step takes
+    them in place (the JAX package does so only with
+    ``prefetch_to_device``; the port whenever a sharding is given).
+    ``feeder.wait_seconds`` is the time :meth:`next` spent blocked.
 
     ``state_dict`` is (inner state at the epoch's start, batches
     delivered to the caller), as in the JAX package: the producer's
@@ -391,15 +395,13 @@ class PrefetchingIter(DataIter):
                  prefetch_depth=2, prefetch_to_device=False, sharding=None):
         if not isinstance(iters, (list, tuple)):
             iters = [iters]
-        if sharding is not None:
-            raise MXNetError("PrefetchingIter: sharding waits for the "
-                             "parallel layouts (not ported yet)")
         super().__init__(iters[0].batch_size)
         self.iters = iters
         self.rename_data = rename_data
         self.rename_label = rename_label
         self._depth = prefetch_depth
         self._to_device = prefetch_to_device
+        self._sharding = sharding
         self.feeder = None
         self._ctx = current_context()
         self._inner_state0 = self._capture_inner()
@@ -416,6 +418,7 @@ class PrefetchingIter(DataIter):
         with self._ctx:
             self.feeder = DeviceFeeder(_next_all(self.iters),
                                        depth=self._depth,
+                                       sharding=self._sharding,
                                        to_device=self._to_device)
 
     @property

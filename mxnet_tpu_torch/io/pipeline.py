@@ -53,6 +53,7 @@ import torch
 from ..base import MXNetError, get_env
 from ..context import cpu, current_context, resolve_device
 from ..ndarray import NDArray
+from ..parallel.mesh import Sharded
 from . import _pipeline_worker as _pw
 from .io import DataBatch, DataDesc, DataIter, _batch_arrays, _feed
 
@@ -506,27 +507,50 @@ class ShardedRecordPipeline(DataIter):
 
 # --------------------------------------------------------------- feeder
 
-def _no_sharding(sharding):
-    if sharding is not None:
-        raise MXNetError("sharding= waits for the parallel layouts "
-                         "(ROADMAP queue 1 item 5, not ported yet)")
-
-
 def _flat_arrays(item):
-    """The NDArrays of a batch, a list of batches or NDArrays, or an
-    NDArray."""
+    """The NDArrays and Sharded values of a batch, a list of batches or
+    of them, or one of them."""
     if isinstance(item, DataBatch):
         return _batch_arrays(item)
     if isinstance(item, (list, tuple)):
         return [a for x in item for a in _flat_arrays(x)]
-    return [item] if isinstance(item, NDArray) else []
+    return [item] if isinstance(item, (NDArray, Sharded)) else []
+
+
+def _map_batch(put, batch):
+    """``put`` over the leaves of a DataBatch (in place, as the JAX
+    package's ``to_device``) / list / tuple, or one leaf."""
+    if isinstance(batch, DataBatch):
+        batch.data = [put(d) for d in (batch.data or [])]
+        batch.label = [put(lb) for lb in (batch.label or [])]
+        return batch
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_map_batch(put, x) for x in batch)
+    return put(batch)
+
+
+def _shard_leaf(sharding):
+    """A leaf's ``sharding.shard``: NDArrays and numpy / torch arrays
+    become :class:`~..parallel.mesh.Sharded` values (each position's
+    block on its device); anything else is kept."""
+    def put(x):
+        if isinstance(x, NDArray):
+            return sharding.shard(x._data)
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            return sharding.shard(torch.as_tensor(x))
+        return x
+    return put
 
 
 def to_device(batch, sharding=None):
     """Move one batch to the current context's device now: host numpy
-    leaves become NDArrays there, NDArrays move there. Structure-
-    preserving over DataBatch / list / tuple."""
-    _no_sharding(sharding)
+    leaves become NDArrays there, NDArrays move there. With a
+    ``sharding`` (``parallel.NamedSharding``), each leaf is laid out
+    over its mesh instead, as ``shard_batch`` lays a batch out: a
+    ``Sharded`` that a sharded step or a dp executor takes in place.
+    Structure-preserving over DataBatch / list / tuple."""
+    if sharding is not None:
+        return _map_batch(_shard_leaf(sharding), batch)
     dev = resolve_device(None)
 
     def put(x):
@@ -537,13 +561,7 @@ def to_device(batch, sharding=None):
             return NDArray(torch.from_numpy(np.array(x)), ctx=dev)
         return x
 
-    if isinstance(batch, DataBatch):
-        batch.data = [put(d) for d in (batch.data or [])]
-        batch.label = [put(lb) for lb in (batch.label or [])]
-        return batch
-    if isinstance(batch, (list, tuple)):
-        return type(batch)(put(x) for x in batch)
-    return put(batch)
+    return _map_batch(put, batch)
 
 
 class DeviceFeeder:
@@ -553,11 +571,14 @@ class DeviceFeeder:
     DataBatches, or of lists of them or of NDArrays) while the consumer
     runs step k.
     With ``to_device`` (the default) the source builds on the host and
-    the feeder moves each item to the current context's device: on a
-    card from pinned host memory on a side stream, with an event;
-    :meth:`get` makes the consumer's current stream wait on the event
-    and records the arrays on it. Without ``to_device`` the source
-    builds in the current context and nothing is moved.
+    the feeder moves each item to the current context's device (with a
+    ``sharding``, the first device of its mesh): on a card from pinned
+    host memory on a side stream, with an event; :meth:`get` makes the
+    consumer's current stream wait on the event and records the arrays
+    on it. Without ``to_device`` the source builds in the current
+    context and nothing is moved. A ``sharding`` then lays each leaf
+    out over its mesh (:func:`to_device`'s rule), on the side stream:
+    the items hold ``Sharded`` values.
     ``depth`` items wait at most (2: one ready, one in flight).
 
     ``wait_seconds`` sums the time the consumer spent blocked in
@@ -568,13 +589,15 @@ class DeviceFeeder:
     _SENTINEL = object()
 
     def __init__(self, source, depth=2, sharding=None, to_device=True):
-        _no_sharding(sharding)
         self._source = source
         self._to_device = bool(to_device)
-        self._device = resolve_device(None) if self._to_device else None
+        self._sharding = sharding
+        self._device = resolve_device(
+            None if sharding is None else sharding.mesh.devices.flat[0]) \
+            if self._to_device or sharding is not None else None
         self._stream = (torch.cuda.Stream(self._device)
-                        if self._to_device and self._device.type == "cuda"
-                        else None)
+                        if self._device is not None
+                        and self._device.type == "cuda" else None)
         build = cpu() if self._to_device else current_context()
         self.wait_seconds = 0.0
         self.items = 0
@@ -591,6 +614,9 @@ class DeviceFeeder:
                     item = next(self._source)
                     event = (_feed_all(item, self._device, self._stream)
                              if self._to_device else None)
+                    if self._sharding is not None:
+                        item, event = _shard_all(item, self._sharding,
+                                                 self._stream)
                     out = (item, event)
                 except StopIteration:
                     out = self._SENTINEL
@@ -619,9 +645,9 @@ class DeviceFeeder:
         if event is not None:
             cur = torch.cuda.current_stream(self._device)
             cur.wait_event(event)
-            for a in _flat_arrays(item):
-                if a._data.is_cuda:
-                    a._data.record_stream(cur)
+            for t in _flat_tensors(item):
+                if t.is_cuda:
+                    t.record_stream(torch.cuda.current_stream(t.device))
         self.items += 1
         return item
 
@@ -649,3 +675,30 @@ def _feed_all(item, device, stream):
     of NDArrays (a DataLoader's [data, label]): one event marks the
     arrival of all of them on the side stream."""
     return _feed(_flat_arrays(item), device, stream)
+
+
+def _flat_tensors(item):
+    """The tensors of an item's NDArrays and of its Sharded values'
+    shards."""
+    return [t for a in _flat_arrays(item)
+            for t in (a.shards.flat if isinstance(a, Sharded) else [a._data])]
+
+
+def _shard_all(item, sharding, stream):
+    """The item's leaves laid out over ``sharding``'s mesh on the side
+    ``stream`` (the current one when None), and the event that marks
+    their arrival (None off CUDA). The side stream first waits for what
+    the thread's own stream queued (a source that built its arrays on
+    the card), and the arrays it reads are recorded on it, so their
+    memory is not reused before it has read them."""
+    if stream is None:
+        return _map_batch(_shard_leaf(sharding), item), None
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    for t in _flat_tensors(item):
+        if t.is_cuda:
+            t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        item = _map_batch(_shard_leaf(sharding), item)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return item, event

@@ -1,12 +1,16 @@
 """Module: symbol + executor + optimizer, the intermediate API (the port
 of ``mxnet_tpu/module/module.py``; ref: python/mxnet/module/module.py).
 
-``bind`` is ``Symbol.simple_bind`` on one device: ``context`` None (the
-current context), one context, or a list of contexts that name one
-device. A list that names several devices raises: data parallelism over
-several cards needs the KVStore gradient allreduce and the parallel
-layouts, which are not ported yet. ``update`` runs the optimizer class
-per parameter (``update_multi_precision``), as the JAX package does;
+``bind`` is ``Symbol.simple_bind``: on one device for ``context`` None
+(the current context) or one context; over a one-axis ``"dp"`` mesh for
+a list of contexts that ``context.dp_mesh`` makes one of (the JAX
+package's ``_dp_mesh``): the data and label inputs split over ``dp``,
+everything else replicated, the executor's dp path (``executor.py``)
+summing the gradients across the positions. A list that repeats a
+context binds its first device, with the JAX package's warning.
+``update`` runs the optimizer class once a parameter on the summed
+gradient (``update_multi_precision``), as the JAX package does, and the
+next forward takes the result to every position;
 optimizer-state files hold the same pickled numpy trees, so either
 package loads the other's. ``install_monitor`` waits for the port of
 ``monitor.py``.
@@ -20,29 +24,31 @@ import numpy as np
 
 from ..base import MXNetError
 from ..checkpoint import atomic_write, verify
-from ..context import cpu, resolve_device
+from ..context import cpu, dp_mesh, resolve_device
 from .. import ndarray as nd
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
 from ..io.io import DataDesc
 from ..model import load_checkpoint, save_checkpoint
+from ..parallel.mesh import PartitionSpec as P
 from ..random import generator as seeded_generator
 from .base_module import BaseModule
 
 
-def _bind_device(context):
-    """The one device a Module binds: ``context`` None, a Context,
-    device or string, or a list of them naming one device."""
+def _placement(context, logger):
+    """``(device, mesh)`` a Module binds: ``context`` None, a Context,
+    device or string, or a list of them; the mesh (None on one device)
+    is ``dp_mesh``'s over a list of several contexts."""
     if not isinstance(context, (list, tuple)):
-        return resolve_device(context)
-    devices = {resolve_device(c) for c in context} if context else \
-        {resolve_device(None)}
-    if len(devices) > 1:
-        raise MXNetError(
-            f"Module over several devices {sorted(map(str, devices))} is "
-            "not ported yet: it needs the KVStore gradient allreduce and "
-            "the parallel (dp mesh) layouts; bind one device")
-    return devices.pop()
+        return resolve_device(context), None
+    if len(context) <= 1:
+        return resolve_device(context[0] if context else None), None
+    mesh = dp_mesh(context)
+    if mesh is None:
+        logger.warning("context list %s does not map to distinct devices; "
+                       "binding single-device", context)
+        return resolve_device(context[0]), None
+    return mesh.devices.flat[0], mesh
 
 
 def _copy_to(src, device):
@@ -125,7 +131,7 @@ class Module(BaseModule):
         if self.binded and not force_rebind:
             self.logger.warning("Already bound, ignoring bind()")
             return
-        self._device = _bind_device(self._context)
+        self._device, mesh = _placement(self._context, self.logger)
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
@@ -157,8 +163,14 @@ class Module(BaseModule):
                     req_dict[n] = req
             req = req_dict
         self._grad_req = req
-        self._exec = self._symbol.simple_bind(ctx=self._device, grad_req=req,
-                                              **self._shape_hints)
+        arg_specs = None
+        if mesh is not None:
+            io_names = set(self._data_names) | set(self._label_names)
+            arg_specs = {n: P("dp") if n in io_names else P()
+                         for n in self._symbol.list_arguments()}
+        self._exec = self._symbol.simple_bind(
+            ctx=self._device, grad_req=req, mesh=mesh, arg_specs=arg_specs,
+            **self._shape_hints)
 
         if shared_module is not None and shared_module.params_initialized:
             arg_p, aux_p = shared_module.get_params()

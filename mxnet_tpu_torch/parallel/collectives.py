@@ -65,7 +65,7 @@ def allreduce(x, axis_name, op="sum"):
         if op == "mean":
             acc = acc / len(vals)
         return [_own(acc, d, r == 0) for r, d in enumerate(devs)]
-    return rendezvous(axis_name, x, combine)
+    return rendezvous(axis_name, x, combine, "allreduce")
 
 
 def allgather(x, axis_name, axis=0, tiled=True):
@@ -76,7 +76,7 @@ def allgather(x, axis_name, axis=0, tiled=True):
         parts = [v.to(dev0) for v in vals]
         full = torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
         return [_own(full, d, r == 0) for r, d in enumerate(devs)]
-    return rendezvous(axis_name, x, combine)
+    return rendezvous(axis_name, x, combine, "allgather")
 
 
 def _split(x, axis, n):
@@ -93,7 +93,7 @@ def reduce_scatter(x, axis_name, axis=0):
     def combine(vals, devs):
         parts = _split(_reduce(vals, torch.add), axis, len(vals))
         return [p.to(d, copy=True) for p, d in zip(parts, devs)]
-    return rendezvous(axis_name, x, combine)
+    return rendezvous(axis_name, x, combine, "reduce_scatter")
 
 
 def alltoall(x, axis_name, split_axis, concat_axis):
@@ -104,7 +104,7 @@ def alltoall(x, axis_name, split_axis, concat_axis):
         blocks = [_split(v, split_axis, len(vals)) for v in vals]
         return [torch.cat([b[r].to(d) for b in blocks], concat_axis)
                 for r, d in enumerate(devs)]
-    return rendezvous(axis_name, x, combine)
+    return rendezvous(axis_name, x, combine, "alltoall")
 
 
 def ppermute_next(x, axis_name, offset=1):
@@ -114,5 +114,5 @@ def ppermute_next(x, axis_name, offset=1):
         n = len(vals)
         return [vals[(r - offset) % n].to(d, copy=True)
                 for r, d in enumerate(devs)]
-    return rendezvous(axis_name, x, combine)
+    return rendezvous(axis_name, x, combine, "ppermute")
 

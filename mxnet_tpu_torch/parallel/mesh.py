@@ -36,11 +36,13 @@ when they share one.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 
 import numpy as np
@@ -115,6 +117,8 @@ class Mesh:
         self._lock = threading.Lock()
         self._run_lock = threading.Lock()
         self._workers = None
+        #: collectives of the last :func:`run_shards` call, by kind
+        self.last_collectives = {}
 
     def __repr__(self):
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
@@ -133,6 +137,10 @@ class Mesh:
             if self._workers is None:
                 self._workers = [_Worker(f"mxtorch-mesh{id(self):x}-{i}")
                                  for i in range(self.size)]
+                # a mesh dropped unclosed (a Module's) ends its threads
+                # when collected; at exit they stay parked (daemons)
+                weakref.finalize(self, _Worker.release,
+                                 self._workers).atexit = False
             return self._workers
 
     def close(self):
@@ -172,6 +180,12 @@ class _Worker:
     def stop(self):
         self._q.put(None)
         self._thread.join(timeout=30.0)
+
+    @staticmethod
+    def release(workers):
+        """Tell ``workers`` to end after their queued work (no join)."""
+        for w in workers:
+            w._q.put(None)
 
 
 def create_mesh(axes=None, devices=None):
@@ -257,8 +271,12 @@ def _chunk_index(axes, coords, mesh):
 
 def _local(x, spec, mesh, coords):
     """Position ``coords``' local block of the global ``x`` under
-    ``spec``, on that position's device."""
+    ``spec``, on that position's device. A :class:`Sharded` laid out
+    that way over ``mesh`` gives its own block, uncopied; any other
+    Sharded is assembled first."""
     if isinstance(x, Sharded):
+        if x.mesh is mesh and x.same_layout(spec):
+            return x.local(coords)
         x = x.full()
     if not isinstance(x, torch.Tensor):
         return x
@@ -322,34 +340,88 @@ class NamedSharding:
 
     def shard(self, x):
         """``x`` cut into one local tensor per position, each on its
-        position's device: a :class:`Sharded`."""
+        position's device: a :class:`Sharded`. A block the spec cuts
+        holds its own bytes (never a view into ``x``), so a position
+        holds what its spec says it holds."""
         x = torch.as_tensor(x)
-        shards = np.empty(self.mesh.devices.shape, dtype=object)
+        blocks = []
         for coords in self.mesh.positions():
-            shards[tuple(coords[a] for a in self.mesh.axis_names)] = \
-                _local(x, self.spec, self.mesh, coords)
-        return Sharded(self.mesh, self.spec, shards)
+            b = _local(x, self.spec, self.mesh, coords)
+            if b is not x and b.untyped_storage().nbytes() != b.nbytes:
+                b = b.clone()
+            blocks.append(b)
+        return Sharded.from_locals(self.mesh, self.spec, blocks)
 
 
 class Sharded:
     """A tensor laid out over a mesh (a sharded ``jax.Array``): one
     local tensor per position in ``shards`` (a numpy object array of the
-    mesh's shape); :meth:`full` assembles it (as :func:`shard_map` does
-    with a Sharded argument)."""
+    mesh's shape); :meth:`full` assembles it. :func:`shard_map` takes
+    each position's own block of an argument laid out as its in_spec
+    asks, and assembles any other. ``np.asarray`` gives the global
+    value on the host."""
 
     def __init__(self, mesh, spec, shards):
         self.mesh = mesh
-        self.spec = spec
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*(spec or ()))
         self.shards = shards
+
+    @classmethod
+    def from_locals(cls, mesh, spec, parts):
+        """A Sharded of per-position tensors given in
+        :meth:`Mesh.positions` order."""
+        shards = np.empty(mesh.size, dtype=object)
+        for i, part in enumerate(parts):   # one by one: never as arrays
+            shards[i] = part
+        return cls(mesh, spec, shards.reshape(mesh.devices.shape))
 
     @property
     def sharding(self):
         return NamedSharding(self.mesh, self.spec)
 
+    def _first(self):
+        if self.shards is None:
+            raise MXNetError("this Sharded value was donated to a step "
+                             "and its shards are gone")
+        return self.shards.flat[0]
+
+    @property
+    def dtype(self):
+        return self._first().dtype
+
+    @property
+    def shape(self):
+        """The global shape."""
+        first = self._first()
+        dims = _spec_axes(self.spec, self.mesh, first.ndim)
+        return tuple(s * math.prod(self.mesh.shape[a] for a in axes)
+                     for s, axes in zip(first.shape, dims))
+
+    def same_layout(self, spec):
+        """Whether ``spec`` lays a value out as this one is."""
+        ndim = self._first().ndim
+        return (_spec_axes(spec, self.mesh, ndim)
+                == _spec_axes(self.spec, self.mesh, ndim))
+
+    def local(self, coords):
+        """The block at mesh position ``coords`` (``{axis: index}``)."""
+        self._first()
+        return self.shards[tuple(coords[a] for a in self.mesh.axis_names)]
+
     def full(self):
         """The global tensor, on the mesh's first device."""
+        self._first()
         return _assemble(self.spec, self.mesh,
                          list(self.shards.reshape(-1)))
+
+    def delete(self):
+        """Drop the shards (what donating a value to a step does)."""
+        self.shards = None
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.full().detach().cpu().numpy()
+        return out if dtype is None else out.astype(dtype)
 
 
 def mesh_sharding(mesh, *spec):
@@ -414,6 +486,7 @@ class _Run:
         self.cond = threading.Condition()
         self.slots = {}
         self.error = None
+        self.collectives = collections.Counter()
 
     def fail(self, err):
         with self.cond:
@@ -468,13 +541,14 @@ def group_axes(axis_name):
     return sh, axes
 
 
-def rendezvous(axis_name, value, combine):
+def rendezvous(axis_name, value, combine, kind="collective"):
     """Meet the other shards of this shard's group over ``axis_name``
     (the shards whose other coordinates equal this one's) at their next
     collective over those axes. Every member deposits ``value`` at its
     rank; the last to arrive calls ``combine(values, devices)`` with the
     values and the members' devices in rank order, which returns one
-    result per rank; each member returns its own."""
+    result per rank; each member returns its own. The run counts one
+    collective of ``kind`` a group."""
     sh, axes = group_axes(axis_name)
     run, mesh = sh.run, sh.run.mesh
     rank, n = _chunk_index(axes, sh.coords, mesh)
@@ -496,6 +570,7 @@ def rendezvous(axis_name, value, combine):
             raise
         with run.cond:
             slot.outs = outs
+            run.collectives[kind] += 1
             run.cond.notify_all()
     else:
         deadline = time.monotonic() + run.timeout
@@ -560,41 +635,52 @@ def shard_map(f, mesh=None, in_specs=None, out_specs=None, check_vma=None):
         raise ValueError("shard_map needs a mesh")
 
     def run_sharded(*args):
-        outer = getattr(_local_state, "shard", None)
-        if outer is not None and outer.run.mesh is mesh:
-            raise MXNetError("shard_map over a mesh inside a shard of "
-                             "that same mesh")
         specs = tuple(in_specs) if isinstance(in_specs, list) else in_specs
         if isinstance(specs, tuple) and not isinstance(specs, PartitionSpec) \
                 and len(specs) != len(args):
             raise ValueError(f"{len(specs)} in_specs for {len(args)} "
                              "arguments")
-        grad = torch.is_grad_enabled()
-        inference = torch.is_inference_mode_enabled()
-        cuda_devs = sorted({d for d in mesh.devices.flat
-                            if d.type == "cuda"}, key=str)
-        streams = [torch.cuda.current_stream(d) for d in cuda_devs]
-        positions = mesh.positions()
         local_args = [
             _map_specs(lambda s, x, c=c: _local(x, s, mesh, c), specs, args)
-            for c in positions]
-        with mesh._run_lock:
-            run = _Run(mesh, COLLECTIVE_TIMEOUT_S)
-            futs = [w.submit(lambda c=c, a=a: _shard_main(
-                run, c, mesh.device_at(c), f, a, streams, grad, inference))
-                for w, c, a in zip(mesh._pool(), positions, local_args)]
-            results = []
-            for fut in futs:
-                try:
-                    results.append(fut.result())
-                except BaseException:  # noqa: BLE001 — the root cause below
-                    results.append(None)
-        if run.error is not None:
-            raise run.error
+            for c in mesh.positions()]
+        results = run_shards(mesh, f, local_args)
         return _map_specs(
             lambda s, *parts: _assemble(s, mesh, parts), out_specs,
             *results)
     return run_sharded
+
+
+def run_shards(mesh, f, local_args):
+    """``f(*local_args[i])`` at each position i of ``mesh`` (in
+    :meth:`Mesh.positions` order), each on its shard thread as
+    :func:`shard_map` runs it; returns the per-position results, in that
+    order, unassembled. The counts of the collectives the call ran, by
+    kind, are left in ``mesh.last_collectives``."""
+    outer = getattr(_local_state, "shard", None)
+    if outer is not None and outer.run.mesh is mesh:
+        raise MXNetError("shard_map over a mesh inside a shard of that "
+                         "same mesh")
+    grad = torch.is_grad_enabled()
+    inference = torch.is_inference_mode_enabled()
+    cuda_devs = sorted({d for d in mesh.devices.flat if d.type == "cuda"},
+                       key=str)
+    streams = [torch.cuda.current_stream(d) for d in cuda_devs]
+    positions = mesh.positions()
+    with mesh._run_lock:
+        run = _Run(mesh, COLLECTIVE_TIMEOUT_S)
+        futs = [w.submit(lambda c=c, a=a: _shard_main(
+            run, c, mesh.device_at(c), f, a, streams, grad, inference))
+            for w, c, a in zip(mesh._pool(), positions, local_args)]
+        results = []
+        for fut in futs:
+            try:
+                results.append(fut.result())
+            except BaseException:  # noqa: BLE001 — the root cause below
+                results.append(None)
+        mesh.last_collectives = dict(run.collectives)
+    if run.error is not None:
+        raise run.error
+    return results
 
 
 # ---------------------------------------------------------------------------

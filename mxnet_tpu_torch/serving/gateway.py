@@ -31,10 +31,12 @@ other slice holds, its pool sharded over the heads and its weights by the
 layout table (``generate/model.py`` ``DecodeSteps``). Replicated
 lanes keep off slice-held devices while others exist; any overlap, and a
 slice that holds one device twice (``Gateway(devices=["cuda:0",
-"cuda:0"])``: both shards on one card), is ``degraded``. One-shot models
-with ``tp >= 2`` raise (``serving/sharded.py``'s ``ShardedVariantSet``
-is not ported). The autoscaler, the cluster ledger, telemetry and
-tracing wait for a later slice.
+"cuda:0"])``: both shards on one card), is ``degraded``. A one-shot
+model registered with ``tp >= 2`` serves on slices the same way, each
+lane a :class:`~.sharded.ShardedVariantSet` (parameters sharded at rest
+by the layout table, gathered on use, outputs replicated). The
+autoscaler, the cluster ledger, telemetry and tracing wait for a later
+slice.
 
 Quickstart::
 
@@ -66,6 +68,7 @@ from ..parallel.mesh import (replica_devices, replica_slices,
                              should_warn_degraded)
 from .batcher import (ModelQueue, RejectedError, Request, ServingError,
                       now_ns, pad_batch)
+from .sharded import SHARDED_VARIANTS, ShardedVariantSet
 from .variants import VariantSet, default_buckets, pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -251,7 +254,9 @@ class Replica:
                     f"(last error: {err!r})"))
 
     def stats(self):
-        return {"idx": self.idx, "device": str(self.device),
+        device = [str(d) for d in self.device] \
+            if isinstance(self.device, tuple) else str(self.device)
+        return {"idx": self.idx, "device": device,
                 "healthy": self.healthy, "batches": self.batches,
                 "rows": self.rows, "failures": self.failures,
                 "last_error": (repr(self.last_error)
@@ -277,6 +282,7 @@ class Model:
         self.warmup_seconds = 0.0
         self.executables = 0
         self.degraded = False     # replicas wrap onto shared devices
+        self.tp = None            # the slice width of tp lanes
         # Gateway.scale's seams: the factory that builds one more replica
         # lane on a device, and a monotonic lane id (a retired idx is
         # never reissued)
@@ -395,11 +401,14 @@ class Gateway:
 
     # -- placement -----------------------------------------------------------
     def _sliced_devices(self):
-        """Devices held by tensor-parallel lanes' slices."""
+        """Devices held by tensor-parallel lanes' slices (generators' and
+        one-shot models')."""
         with self._gen_lock:
             gens = [g for g in self._generators.values() if g is not None]
-        return [d for g in gens for ln in g.lanes
-                if isinstance(ln.device, tuple) for d in ln.device]
+            models = [m for m in self._models.values() if m is not None]
+        held = [ln.device for g in gens for ln in g.lanes]
+        held += [r.device for m in models for r in m.replicas]
+        return [d for dev in held if isinstance(dev, tuple) for d in dev]
 
     def _pick_slices(self, n, tp):
         """Slices for ``n`` new tensor-parallel lanes of ``tp`` devices,
@@ -459,19 +468,19 @@ class Gateway:
         ``MXTPU_SERVING_REPLICAS``. ``replicas`` lanes share the queue;
         replicas on one device share one set of executables and weights
         (:meth:`VariantSet.replica`). ``tp >= 2`` (or
-        ``MXTPU_SERVING_TP``) raises: a one-shot model over a mesh slice
-        is ``serving/sharded.py``'s ``ShardedVariantSet``, not ported.
+        ``MXTPU_SERVING_TP``) makes each lane a slice of ``tp`` devices
+        (``_pick_slices``) served by a :class:`~.sharded.ShardedVariantSet`
+        (``fp32`` / ``bf16`` only).
         """
         if self._closed:
             raise ServingError("serving: gateway is closed")
         tp = _resolve_tp(tp)
         if tp is not None:
-            raise ServingError(
-                f"serving: tp={tp} asks for a one-shot model over a "
-                "tensor-parallel mesh slice: serving/sharded.py's "
-                "ShardedVariantSet (the symbol forward over a slice) is "
-                "not ported; serve replicated single-device lanes "
-                "(replicas=N), or register a generator with tp")
+            bad = [v for v in variants if v not in SHARDED_VARIANTS]
+            if bad:
+                raise ServingError(
+                    f"serving: tp={tp} lanes serve {SHARDED_VARIANTS}, not "
+                    f"{bad} (int8 has no sharded lowering)")
         replicas = _resolve_replicas(replicas)
         if len(input_shapes) != 1:
             raise ServingError(
@@ -496,6 +505,7 @@ class Gateway:
                       max_queue=max_queue,
                       slo_s=(slo_ms / 1e3) if slo_ms else None,
                       variants=tuple(variants))
+        model.tp = tp
         self._claim(name)
         try:
             t0 = now_ns()
@@ -507,6 +517,11 @@ class Gateway:
                 same = [r for r in m.replicas if r.device == device]
                 if same:
                     vs = same[0].variant_set.replica()
+                elif isinstance(device, tuple):
+                    vs = ShardedVariantSet(
+                        symbol, arg_params, aux_params, input_name,
+                        feature_shape, devices=device, variants=variants,
+                        input_dtype=input_dtype)
                 else:
                     vs = VariantSet(
                         symbol, arg_params, aux_params, input_name,
@@ -519,7 +534,10 @@ class Gateway:
                 return rep, rep.start(buckets if warmup else ())
 
             model._replica_factory = build_replica
-            picked, model.degraded = self._pick_devices(replicas)
+            if tp is not None:
+                picked, model.degraded = self._pick_slices(replicas, tp)
+            else:
+                picked, model.degraded = self._pick_devices(replicas)
             for device in picked:
                 rep, n_exec = build_replica(model, model._next_idx, device)
                 model._next_idx += 1
@@ -650,6 +668,8 @@ class Gateway:
         model.queue.close()
         for rep in model.replicas:
             rep.join(timeout=30.0)
+            if isinstance(rep.variant_set, ShardedVariantSet):
+                rep.variant_set.close()
         for req in model.queue.drain():
             req._set_error(ServingError(
                 f"serving: model {model.name!r} shut down before the "
@@ -924,8 +944,15 @@ class Gateway:
             return report
         if n > cur:
             existing = [r.device for r in m.replicas]
-            new_devs, new_deg = self._pick_devices(n - cur, busy=existing)
-            m.degraded = new_deg or n > self.device_count()
+            if m.tp is not None:
+                # only the new slices are carved, away from every held
+                # slice (the model's own too)
+                new_devs, new_deg = self._pick_slices(n - cur, m.tp)
+                m.degraded = new_deg or _slices_share(existing + new_devs)
+            else:
+                new_devs, new_deg = self._pick_devices(n - cur,
+                                                       busy=existing)
+                m.degraded = new_deg or n > self.device_count()
             for device in new_devs:
                 idx = m._next_idx
                 m._next_idx += 1
@@ -942,7 +969,8 @@ class Gateway:
             for rep in doomed:
                 self._retire_replica(m, rep)
                 report["retired"] += 1
-            m.degraded = n > self.device_count()
+            m.degraded = _slices_share([r.device for r in m.replicas]) \
+                if m.tp is not None else n > self.device_count()
         report["degraded"] = m.degraded
         return report
 
@@ -989,8 +1017,7 @@ class Gateway:
                 "max_wait_ms": m.queue.max_wait_s * 1e3,
                 "replicas": [r.stats() for r in m.replicas],
                 "degraded": m.degraded,
-                # one-shot models have no tp slices in the port
-                "tp": None,
+                "tp": m.tp,
                 "int8_lowering": (m.replicas[0].variant_set.int8_lowering
                                   if m.replicas else None),
                 "ewma_exec_s": exec_s,

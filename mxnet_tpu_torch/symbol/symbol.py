@@ -258,20 +258,31 @@ class Symbol:
         return results[0] if len(results) == 1 else results
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None, group2ctx=None, shared_exec=None):
+             aux_states=None, group2ctx=None, shared_exec=None, mesh=None,
+             arg_specs=None):
+        """Bind the given arrays; ``mesh`` / ``arg_specs`` as in
+        :meth:`simple_bind`."""
         from ..executor import Executor
         return Executor(self, ctx, args=args, args_grad=args_grad,
-                        grad_req=grad_req, aux_states=aux_states)
+                        grad_req=grad_req, aux_states=aux_states, mesh=mesh,
+                        arg_specs=arg_specs)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    shared_exec=None, group2ctx=None, **kwargs):
+                    shared_exec=None, group2ctx=None, mesh=None,
+                    arg_specs=None, **kwargs):
         """Allocate argument and auxiliary arrays from the inferred
         shapes and bind; ``grad_req`` is one of "null", "write", "add"
         or a dict of them by argument name ("null" for the rest), and
         the executor allocates a gradient array for every argument that
         is not "null". An inference bind (every grad_req "null") applies
         the subgraph backend ``MXNET_SUBGRAPH_BACKEND`` names, as the
-        reference does at bind."""
+        reference does at bind. With a ``mesh`` (``parallel.create_mesh``)
+        the executor runs data-parallel over it: ``arg_specs`` maps
+        argument names to ``PartitionSpec``s (``P("dp")`` splits the
+        batch, the rest are replicated), and the arrays live on the
+        mesh's first device (``executor.py``)."""
+        if mesh is not None:
+            ctx = mesh.devices.flat[0]
         from ..executor import Executor
         from ..ndarray import zeros
         req_all_null = (grad_req == "null" if isinstance(grad_req, str)
@@ -291,7 +302,7 @@ class Symbol:
                for name, shape, dt in zip(self.list_auxiliary_states(),
                                           aux_shapes, aux_types)}
         return Executor(self, ctx, args=args, grad_req=grad_req,
-                        aux_states=aux)
+                        aux_states=aux, mesh=mesh, arg_specs=arg_specs)
 
     def _maybe_partition(self, backend):
         """The always-fire partitioner: the JAX package prices clusters

@@ -17,6 +17,8 @@ CPU path against ``jax.grad`` of the Pallas forward (whose custom VJP is
 shifts the causal diagonal by T_k - T_q for T_q < T_k, as the kernels
 do; and the wrappers' zero-padding of head sizes no kernel is built for
 (K3 and K4's pool) is held to the unpadded plain versions."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ the port added, and an in-place weight update outside ``record``.
 
 Tolerance: rtol 1e-6 / atol 1e-7, float32 rounding of the same ops
 (torch and XLA may sum a reduction in another order)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import pytest
 import torch

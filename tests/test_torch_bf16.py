@@ -14,6 +14,8 @@ value, its gradient, the log-softmax), the two packages may round an
 intermediate to neighbouring values, and each bound names how many such
 steps it allows. f32 results whose sums run in another order: rtol 1e-5.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import pytest
 import torch

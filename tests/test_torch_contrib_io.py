@@ -5,6 +5,8 @@ end, ``reset`` re-iterating), the batches of two shuffled epochs bitwise
 the JAX bridge's under one ``np.random.seed``, and LeNet trained one
 epoch by ``Module.fit`` through the bridge the same bits as through an
 ``NDArrayIter`` over the same batches."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import torch
 

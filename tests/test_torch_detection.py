@@ -9,6 +9,8 @@ fp32 rounding), then ``examples/ssd``'s detector (the port's block in
 targets and losses at batch 2 (tier 1), and one training step
 (``slow``: the JAX step compiles for some 20 s here), at the JAX fp32
 bounds, rtol 1e-4 / atol 1e-5."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import importlib.util
 import os
 

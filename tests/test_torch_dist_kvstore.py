@@ -26,6 +26,8 @@ compression the single-process reference sums each half's gradient as
 the JAX package's quantizer decodes it (a quantizer, and residual, per
 worker), which is what the server sums.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import json
 import os
 import subprocess

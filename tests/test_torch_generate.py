@@ -5,6 +5,8 @@ token for token against the JAX unpaged ``reference_generate`` (alone,
 in a mid-flight join and in a mixed concurrent batch), streaming
 replay, EOS stop, ``kv_cache_full`` fast-reject and bad requests. The
 sizes follow tests/test_serving_generate.py."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import time
 
 import jax

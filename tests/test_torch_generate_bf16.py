@@ -9,6 +9,8 @@ bf16 cache, in both packages; the K/V written into the pool round to
 bf16 there. Greedy tokens are compared exactly: the gateway's against
 the JAX gateway's, and against ``reference_generate`` where the JAX
 package's equal it (that oracle's K/V are not rounded to bf16)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import jax
 import numpy as np
 import pytest

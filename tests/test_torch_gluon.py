@@ -9,6 +9,8 @@ Weights and inputs are made with numpy from fixed seeds and set in both
 packages; nets are built under explicit prefixes, so no test depends on
 the per-process name counters.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import json
 
 import numpy as np

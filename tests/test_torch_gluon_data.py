@@ -21,6 +21,8 @@ package's on the same files and seeds, on the CPU.
   ``with mx.cpu():``; more pool threads than cores on one record
   handle; the device feeder; ``sharding=`` raises.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import gzip
 import struct
 
@@ -510,5 +512,12 @@ def test_device_feeder_routes(rec_path):
         assert pinned._prefetch_device
         _same_batches(_batches(pinned), plain)
     _same_batches(fed, plain)
-    with pytest.raises(MXNetError, match="queue 1 item 5"):
-        DataLoader(ds, batch_size=4, sharding=object())
+    # sharding= lays each batch out over a dp mesh: the same values
+    mesh = tmx.parallel.create_mesh({"dp": 2}, devices=["cpu", "cpu"])
+    with CPU:
+        sharded = list(DataLoader(ds, batch_size=4, num_workers=2,
+                                  sharding=tmx.parallel.NamedSharding(
+                                      mesh, tmx.parallel.PartitionSpec("dp"))))
+    assert all(isinstance(a, tmx.parallel.Sharded) and a.shards.size == 2
+               for b in sharded for a in b)
+    _same_batches(_batches(sharded), plain)

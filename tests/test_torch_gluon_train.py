@@ -20,6 +20,8 @@ Tolerances, stated where used:
   (logits 1e-4 of their scale, weights and statistics 1e-4, momenta
   1e-3 of each tensor's scale).
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import pickle
 
 import numpy as np

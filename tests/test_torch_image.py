@@ -4,6 +4,8 @@ package's libjpeg decoder, PNG through PIL), imresize, the crops and
 color_normalize bitwise, the deterministic augmenters bitwise, the
 random ones with both sides seeded alike, and ImageIter over a .rec with
 its .idx, a sequential .rec, a .lst and an imglist."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import os
 import random
 

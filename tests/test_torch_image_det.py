@@ -6,6 +6,8 @@ each augmenter bitwise on the same image and labels under the same
 and whole epochs of ``ImageDetIter`` (rand_pad, rand_crop, rand_mirror,
 mean / std, shuffle, padded tails) bitwise the JAX iterator's batches
 over an imglist and over a .rec with vector labels."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import random
 
 import numpy as np

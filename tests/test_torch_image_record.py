@@ -8,6 +8,8 @@ streaming shards and on the PIL route, and equal to the port's
 in-process order. Each test states the decoder both sides ran. Every
 test runs under a 30 s alarm and every ring wait under the pipeline's
 own 10 s timeout (record_harness.py)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import signal
 
 import numpy as np

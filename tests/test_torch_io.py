@@ -5,6 +5,8 @@ files and seeds: ``get_mnist_ubyte`` writes the same bytes, and
 ``PrefetchingIter`` (to the host and, on the CPU, "to the device") and
 ``NDArrayIter``'s roll_over give the same batches, including after
 ``reset`` and across a ``state_dict`` resume."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import os
 
 import numpy as np

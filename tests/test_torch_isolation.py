@@ -24,6 +24,8 @@ CPU scope on a host without CUDA raises, on every path. The transport
 ``_native/comm.cc`` builds under ``build/``, never beside a source, and
 the dist entry points (a ``dist_device_sync`` worker, the server) take
 the card unless asked for the CPU."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import ast
 import os
 import subprocess

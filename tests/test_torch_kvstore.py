@@ -13,6 +13,8 @@ Tolerances: sums and 2-bit codes exact; optimizer updates 2 ulp of each
 tensor's largest value (the JAX updates are jitted XLA programs that
 contract products into FMAs, which the port reproduces).
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import dataclasses
 import random
 

@@ -11,6 +11,8 @@ Also the two ops the block reaches that came with it,
 Tolerances: the loss rtol 1e-5; gradients, updated weights and Adam
 states rtol 1e-4 / atol 1e-5 (the JAX package's fp32 attention bound).
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import jax
 import numpy as np
 import pytest

@@ -26,6 +26,8 @@ so it rounds at fewer places, and against that run the port's
 gradients sit about twice as far from f32 on whole layers in some
 steps: the bound compares runs that round where the port does.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import jax
 import numpy as np
 import pytest

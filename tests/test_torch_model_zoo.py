@@ -8,6 +8,8 @@ marked slow, resnet50_v1 at 224x224.
 Both packages build each net under one explicit prefix, so the
 parameter names agree whatever the per-process counters are.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import pytest
 

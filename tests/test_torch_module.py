@@ -7,6 +7,8 @@ optimizer-state files written by either package and loaded by the
 other, ``BucketingModule`` and ``SequentialModule`` on one small case
 each, ``FeedForward`` and the callbacks. Batches come from
 ``test_utils``' offline MNIST."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import logging
 
 import numpy as np
@@ -365,22 +367,28 @@ def test_callbacks_write_what_jax_reads_and_log(tmp_path, caplog):
     assert "Train-accuracy" in text and "[====" in text
 
 
-def test_module_binds_one_device_and_refuses_what_waits(monkeypatch):
-    """A context list naming one device binds it; a list naming several
-    (two cards, resolved here without a card) and ``install_monitor``
-    raise: their modules are not ported yet."""
+def test_module_binds_one_device_and_refuses_what_waits(caplog):
+    """A context list of distinct contexts binds a dp mesh (``cpu(0)``
+    and ``cpu(1)``: two positions on the CPU), one that repeats a
+    context binds its device with the JAX package's warning, absent
+    cards raise, and ``install_monitor`` raises (its module is not
+    ported yet)."""
     net = _mlp(tmx.sym)
     shapes = ([("data", (4, 784))], [("softmax_label", (4,))])
     mod = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
     mod.bind(*shapes)
     assert mod._device == torch.device("cpu")
+    assert mod._exec._mesh.shape == {"dp": 2}
+    assert str(mod._exec._arg_specs["data"]) == "PartitionSpec('dp')"
     with pytest.raises(MXNetError, match="monitor"):
         mod.install_monitor(lambda *a: None)
-    monkeypatch.setattr(tmx.module.module, "resolve_device",
-                        lambda c: tmx.context.Context(c).device)
-    with pytest.raises(MXNetError, match="several devices"):
+    with caplog.at_level(logging.WARNING):
+        one = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(0)])
+        one.bind(*shapes)
+    assert one._exec._mesh is None and one._device == torch.device("cpu")
+    assert "does not map to distinct devices" in caplog.text
+    with pytest.raises(MXNetError, match="CUDA is not available"):
         tmx.mod.Module(net, context=[tmx.gpu(0), tmx.gpu(1)]).bind(*shapes)
-    monkeypatch.undo()
     mod.init_params()
     mod.init_optimizer(kvstore="device")
     assert mod._kvstore_type == "device"

@@ -5,6 +5,8 @@ ops equal the JAX package's jitted ``mx.nd.sgd_mom_update`` /
 JAX package's own 2e-6 of its Pallas kernels run in interpret mode; the
 in-place call surface writes the states back and honours ``out=``; and
 a CPU tensor never launches the kernel."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 from fractions import Fraction
 
 import numpy as np

@@ -12,6 +12,8 @@ tests'); products that reassociate (``tp_mlp``, the pipeline, MoE)
 within ``DIVERGENCE_BOUND`` (5e-5) of the output's scale; and the
 rendezvous' own rules (bitwise repeatable runs, a failing shard aborts
 the others, a shard that skips a collective times the others out)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import ast
 import contextlib
 import functools

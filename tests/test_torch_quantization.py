@@ -9,6 +9,8 @@ Inputs are made with numpy from fixed seeds and handed to both packages;
 the JAX package runs its Pallas kernel in interpret mode, as its own
 tests do.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import collections
 import os
 

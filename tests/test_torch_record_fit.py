@@ -4,6 +4,8 @@ device feeder (PrefetchingIter(prefetch_to_device=True)) against the
 same Module fed the JAX package's pipeline batches as NDArrays. The
 test runs under a 30 s alarm, every ring wait under a 10 s timeout
 (record_harness.py)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 
 import mxnet_tpu_torch as tmx

@@ -6,6 +6,8 @@ segment left after close or del), the in-process fallback for records
 that do not divide, and the device feeder on the CPU. Every test runs
 under a 30 s alarm and every ring wait under the pipeline's own 10 s
 timeout (record_harness.py)."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import errno
 import gc
 import os
@@ -194,7 +196,8 @@ def test_records_that_do_not_divide_take_the_in_process_iterator(rec):
 
 def test_device_feeder_on_the_cpu(rec, jax_stream):
     """DeviceFeeder over the pipeline: the same batches, the consumer's
-    blocked time counted; sharding raises until the parallel layouts."""
+    blocked time counted; with a sharding, each array laid out over the
+    mesh (the same values), as ``to_device(sharding=)`` lays it."""
     want = jax_stream[0][:N_REC // BATCH]
     assert jax_stream[1] is not None
     with tmx.cpu():
@@ -207,10 +210,25 @@ def test_device_feeder_on_the_cpu(rec, jax_stream):
             feeder.close()
             p.close()
         assert feeder.items == len(want) and feeder.wait_seconds > 0
-        with pytest.raises(tmx.MXNetError, match="queue 1 item 5"):
-            tmx.io.DeviceFeeder(iter([]), sharding="dp")
+        par = tmx.parallel
+        sharding = par.NamedSharding(
+            par.create_mesh({"dp": 2}, devices=["cpu", "cpu"]),
+            par.PartitionSpec("dp"))
+        one = tmx.io.DataBatch(data=[tmx.nd.array(want[0][0])],
+                               label=[tmx.nd.array(want[0][1])])
+        fed = tmx.io.DeviceFeeder(iter([one]), sharding=sharding)
+        try:
+            b, = list(fed)
+        finally:
+            fed.close()
+        assert isinstance(b.data[0], par.Sharded)
+        assert b.data[0].shards[0].shape[0] == BATCH // 2
+        same([(np.asarray(b.data[0]), np.asarray(b.label[0]))], want[:1])
         moved = tpipe.to_device(tmx.io.DataBatch(
             data=[np.ones((2, 3), np.float32)], label=[]))
         assert moved.data[0].context == tmx.cpu()
         assert moved.data[0].asnumpy().sum() == 6.0
+        laid = tpipe.to_device([np.arange(6.0).reshape(2, 3)], sharding)
+        assert [s.tolist() for s in laid[0].shards] == [[[0, 1, 2]],
+                                                        [[3, 4, 5]]]
     same(got, want)

@@ -6,6 +6,8 @@ routes decode alike, and the port's native decoder (its own copy of
 imgdec.cc, built under build/native/) gives the JAX build's bits. The
 loader returns None only where the host has no jpeglib.h; a failed
 build raises."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import io as _io
 import os
 import subprocess

@@ -9,6 +9,8 @@ graph) and ``quantize_net`` on resnet18_v1.
 Inputs and weights are made with numpy from fixed seeds and handed to
 both packages.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import threading
 import time
 
@@ -319,15 +321,15 @@ def test_admission_slo_budget_reject(gw):
 
 
 def test_register_rejects_zero_and_several_replicas_and_tp(gw):
-    """Zero replicas and tensor-parallel slices (tp >= 2, not ported)
-    raise; several replicas register, each a lane of its own on the one
-    device (degraded)."""
+    """Zero replicas raise, and so does a tensor-parallel slice (tp >= 2)
+    that the gateway's one device cannot hold; several replicas
+    register, each a lane of its own on the one device (degraded)."""
     symbol, args, aux, feature = tiny_mlp(tmx)
     for kwargs in ({"replicas": 0}, {"tp": 2}):
         with pytest.raises(ServingError):
             gw.register("m", symbol, _tnd(args), _tnd(aux),
                         input_shapes={"data": feature}, **kwargs)
-    with pytest.raises(ServingError, match="tensor-parallel"):
+    with pytest.raises(ServingError, match="cannot carve a tp=2 slice"):
         gw.register("m", symbol, _tnd(args), _tnd(aux),
                     input_shapes={"data": feature}, tp=2)
     gw.register("two", symbol, _tnd(args), _tnd(aux),

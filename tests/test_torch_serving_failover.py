@@ -18,6 +18,8 @@ through the hybridized JAX block (one jitted shape, the same tokens as
 its eager run). Lanes on the CPU are ``devices=["cpu", "cpu"]``; every
 wait is bounded.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import threading
 import time
 

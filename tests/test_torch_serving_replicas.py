@@ -11,6 +11,8 @@ requests cleanly; zero replicas raise; ``scale`` grows and shrinks the
 lanes; and ``replica_devices`` places as the JAX helper does. Telemetry
 assertions of the JAX tests read ``stats()``. Every wait is bounded.
 """
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import logging
 import threading
 import time

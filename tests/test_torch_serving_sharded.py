@@ -10,14 +10,26 @@ JAX tp lane is held to, ``test_generator_tp2_greedy_matches_reference``);
 each pool shard holds ``bytes_total / tp`` bytes (the JAX sharded
 pool's per-device bytes), indivisible heads raise in both packages, a
 tp lane killed mid-stream hands its streams' blocks to the other slice
-token for token, and ``stats()["tp"]``, ``scale`` over slices, the
-``MXTPU_SERVING_TP`` default and ``register(tp=2)``'s refusal hold.
+token for token, and ``stats()["tp"]``, ``scale`` over slices and the
+``MXTPU_SERVING_TP`` default hold.
 
 The decoder is the JAX tp test's (vocab 50, d_model 32, 2 layers of 4
 heads; 2 heads a shard) with weights drawn from a numpy seed (std 0.4,
 so the greedy streams vary), carried to the port by ``params_from_jax``;
 the JAX references come once per module through the hybridized JAX
-block. Tokens exact; no subprocess; every wait bounded."""
+block. Tokens exact; no subprocess; every wait bounded.
+
+The one-shot half (the JAX file's first half): a ``ShardedVariantSet``
+over two ``cpu`` positions and ``register(tp=2)`` on the JAX test's MLP,
+held within ``DIVERGENCE_BOUND`` of the JAX package's slice (two of its
+virtual CPU devices) and its gateway, the bf16 variant no further from
+fp32 than twice the JAX bf16 slice, the placement report's rows and
+per-device bytes the JAX report's (and each position's stored bytes
+what the report states), the refusals, the environment default and
+``scale`` over slices."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
+import json
 import threading
 import time
 
@@ -27,11 +39,14 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
+import mxnet_tpu_torch as tmx
 from mxnet_tpu.serving.generate import BlockPool as JaxPool
+from mxnet_tpu.serving.sharded import ShardedVariantSet as JaxSliceSet
 from mxnet_tpu.serving.generate import GenerativeDecoder as JaxDecoder
 from mxnet_tpu.serving.generate import reference_generate as jax_reference
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.serving import Gateway, ServingError
+from mxnet_tpu_torch.serving import (DIVERGENCE_BOUND, Gateway, ServingError,
+                                     ShardedVariantSet)
 from mxnet_tpu_torch.serving.generate import (BlockPool, GenerativeDecoder,
                                               params_from_jax)
 
@@ -193,11 +208,17 @@ def test_tp_lane_kill_and_scale_over_slices_token_exact(decoder, refs,
 
 
 def test_one_shot_register_with_tp_names_sharded_variant_set():
+    """``register(tp=2)`` serves each lane through a
+    ``ShardedVariantSet`` over its slice; a tp=3 generator cannot be
+    carved from two devices."""
+    symbol, args, aux, feature = _mlp(tmx)
     gw = Gateway(devices=SHARDS)
     try:
-        with pytest.raises(ServingError, match="ShardedVariantSet"):
-            gw.register("m", None, {}, {}, input_shapes={"data": (4,)},
-                        tp=2)
+        m = gw.register("m", symbol, args, aux,
+                        input_shapes={"data": feature}, buckets=(1,),
+                        max_wait_ms=0.0, tp=2)
+        assert isinstance(m.replicas[0].variant_set, ShardedVariantSet)
+        assert gw.stats()["m"]["tp"] == 2
         with pytest.raises(ServingError, match="tp=3"):
             dec = GenerativeDecoder(vocab_size=16, d_model=16, num_layers=1,
                                     num_heads=2, device="cpu")
@@ -219,5 +240,157 @@ def test_tp_lane_refuses_a_layout_it_cannot_split(decoder):
                 gw.register_generator("lm", decoder, tp=2, layout=layout,
                                       max_new_tokens=4, **LANE)
         assert "lm" not in gw.stats()
+    finally:
+        gw.close()
+
+
+# -- one-shot models over a slice ---------------------------------------------
+def _mlp(pkg, seed=0, width=32, layers=3, out=10):
+    """The JAX test's MLP (``tests/test_serving_sharded.py`` ``mlp``) in
+    ``pkg``: the same numpy draws, so both packages hold one model."""
+    rng = np.random.default_rng(seed)
+    h = pkg.sym.var("data")
+    args = {}
+    for i in range(layers):
+        h = pkg.sym.Activation(pkg.sym.FullyConnected(
+            h, name=f"fc{i}", num_hidden=width), act_type="relu")
+        args[f"fc{i}_weight"] = rng.normal(0, 0.1, (width, width))
+        args[f"fc{i}_bias"] = rng.normal(0, 0.1, width)
+    o = pkg.sym.FullyConnected(h, name="fco", num_hidden=out)
+    args["fco_weight"] = rng.normal(0, 0.1, (out, width))
+    args["fco_bias"] = np.zeros(out)
+    ctx = {"ctx": pkg.cpu()} if pkg is tmx else {}
+    return o, {k: pkg.nd.array(v.astype(np.float32), **ctx)
+               for k, v in args.items()}, {}, (width,)
+
+
+def _dist(a, b):
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def test_sharded_variant_set_matches_the_jax_slice(monkeypatch, tmp_path):
+    symbol, args, aux, feature = _mlp(tmx)
+    jsym, jargs, jaux, _ = _mlp(mx)
+    # MXTPU_LAYOUT_REPORT: the lane writes its placement report there
+    monkeypatch.setenv("MXTPU_LAYOUT_REPORT", str(tmp_path / "slice.json"))
+    vs = ShardedVariantSet(symbol, args, aux, "data", feature,
+                           devices=SHARDS, variants=("fp32", "bf16"))
+    monkeypatch.delenv("MXTPU_LAYOUT_REPORT")
+    jvs = JaxSliceSet(jsym, jargs, jaux, "data", feature,
+                      devices=jax.local_devices()[:2],
+                      variants=("fp32", "bf16"))
+    try:
+        assert vs.tp == 2 and vs.int8_lowering is None and vs.degraded
+        x = np.random.default_rng(1).normal(
+            0, 1, (4,) + feature).astype(np.float32)
+        got = {v: vs.run(v, x)[0] for v in ("fp32", "bf16")}
+        want = {v: jvs.run(v, x)[0] for v in ("fp32", "bf16")}
+        assert got["fp32"].shape == (4, 10)
+        assert got["fp32"].dtype == got["bf16"].dtype == np.float32
+        assert _dist(got["fp32"], want["fp32"]) <= DIVERGENCE_BOUND
+        assert _dist(got["bf16"], got["fp32"]) <= \
+            2 * _dist(want["bf16"], want["fp32"])
+        # the three column-split weights and the row-split head's,
+        # gathered on use
+        assert vs.mesh.last_collectives == {"allgather": 4}
+        assert vs.warmup((1, 4)) == 4
+        rep, jrep = vs.placement_report(), jvs.placement_report()
+        keys = ("param", "shape", "dtype", "role", "spec", "fitted_spec",
+                "shard_ways", "bytes", "per_device_bytes")
+        assert [{k: r[k] for k in keys} for r in rep["params"]] == \
+            [{k: r[k] for k in keys} for r in jrep["params"]]
+        for k in ("kind", "tp", "mesh", "total_bytes",
+                  "per_device_param_bytes"):
+            assert rep[k] == jrep[k], k
+        assert vs.position_bytes() == [rep["per_device_param_bytes"]] * 2
+        assert json.loads((tmp_path / "slice.json").read_text()) == \
+            json.loads(json.dumps(rep))
+    finally:
+        vs.close()
+
+
+def test_sharded_variant_set_refusals():
+    """Both packages refuse a one-device slice and int8; the JAX package
+    refuses a repeated device, which the port takes (``degraded``)."""
+    symbol, args, aux, feature = _mlp(tmx)
+    for kw in ({"devices": ["cpu"]},
+               {"devices": SHARDS, "variants": ("int8",)}):
+        with pytest.raises(MXNetError):
+            ShardedVariantSet(symbol, args, aux, "data", feature, **kw)
+    jsym, jargs, jaux, _ = _mlp(mx)
+    d0 = jax.local_devices()[0]
+    with pytest.raises(mx.base.MXNetError, match="repeat"):
+        JaxSliceSet(jsym, jargs, jaux, "data", feature, devices=(d0, d0))
+
+
+def test_gateway_tp2_matches_the_jax_slice_within_bound():
+    symbol, args, aux, feature = _mlp(tmx)
+    jsym, jargs, jaux, _ = _mlp(mx)
+    jgw = mx.serving.Gateway()
+    gw = Gateway(devices=SHARDS)
+    try:
+        jgw.register("m", jsym, jargs, jaux, input_shapes={"data": feature},
+                     variants=("fp32",), buckets=(1, 4), max_wait_ms=0.0,
+                     tp=2)
+        gw.register("m", symbol, args, aux, input_shapes={"data": feature},
+                    variants=("fp32", "bf16"), buckets=(1, 4),
+                    max_wait_ms=0.0, tp=2)
+        st = gw.stats()["m"]
+        assert st["tp"] == 2 and st["degraded"] is True
+        assert st["replicas"][0]["device"] == ["cpu", "cpu"]
+        rng = np.random.default_rng(1)
+        for rows in (1, 3, 4):
+            x = rng.normal(0, 1, (rows,) + feature).astype(np.float32)
+            got = gw.infer("m", x)
+            want = jgw.infer("m", x)
+            assert [g.shape for g in got] == [w.shape for w in want]
+            assert max(_dist(g, w) for g, w in zip(got, want)) <= \
+                DIVERGENCE_BOUND
+            assert gw.infer("m", x, variant="bf16")[0].dtype == np.float32
+    finally:
+        gw.close()
+        jgw.close()
+
+
+def test_gateway_tp_refuses_int8_and_bad_tp_and_reads_the_env(monkeypatch):
+    symbol, args, aux, feature = _mlp(tmx)
+    gw = Gateway(devices=SHARDS)
+    try:
+        with pytest.raises(ServingError, match="int8"):
+            gw.register("m8", symbol, args, aux,
+                        input_shapes={"data": feature},
+                        variants=("fp32", "int8"), tp=2,
+                        calib_data=np.zeros((4,) + feature, np.float32))
+        with pytest.raises(ServingError):
+            gw.register("mneg", symbol, args, aux,
+                        input_shapes={"data": feature}, tp=-2)
+        gw.register("m1", symbol, args, aux, input_shapes={"data": feature},
+                    buckets=(1,), max_wait_ms=0.0, tp=1)
+        assert gw.stats()["m1"]["tp"] is None
+        monkeypatch.setenv("MXTPU_SERVING_TP", "2")
+        gw.register("envm", symbol, args, aux,
+                    input_shapes={"data": feature}, buckets=(1,),
+                    max_wait_ms=0.0)
+        assert gw.stats()["envm"]["tp"] == 2
+    finally:
+        gw.close()
+
+
+def test_gateway_tp_scale_out_and_in_over_slices():
+    symbol, args, aux, feature = _mlp(tmx)
+    gw = Gateway(devices=SHARDS)
+    try:
+        gw.register("sc", symbol, args, aux, input_shapes={"data": feature},
+                    buckets=(1,), max_wait_ms=0.0, tp=2)
+        rep = gw.scale("sc", 2)
+        assert rep["added"] == 1 and rep["degraded"] is True
+        m = gw._get_model("sc")
+        assert [len(r.device) for r in m.replicas] == [2, 2]
+        x = np.zeros((1,) + feature, np.float32)
+        assert gw.infer("sc", x)[0].shape == (1, 10)
+        rep = gw.scale("sc", 1)
+        assert rep["retired"] == 1
+        assert gw.infer("sc", x)[0].shape == (1, 10)
     finally:
         gw.close()

@@ -4,6 +4,8 @@ format) and symbol JSON cross between the packages in both directions
 unchanged; the shipped resnet50_v1 graph is the JAX model zoo's;
 inference of shapes, the fp32 executor (plain and XLA-partitioned),
 checkpoints and the calibration iterator agree with the JAX package."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import json
 import os
 import re

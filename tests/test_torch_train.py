@@ -11,6 +11,8 @@ Tolerances: float32 sums (convolutions, batch statistics, the softmax)
 are taken in another order than XLA's, so results agree to rounding:
 rtol 1e-4 / atol 1e-5 on one graph evaluation, looser where three
 training steps compound it, each stated where it is used."""
+import torch_test_env  # noqa: F401  (first: one torch thread a process)
+
 import numpy as np
 import pytest
 
