@@ -326,16 +326,42 @@ Phases (any failure exits non-zero and prints no result line):
    package's 5e-5, bf16 no further from the fp32 lane than twice the
    one-device bf16 lane, each position's parameter bytes the placement
    report's, images/s of both; 60 s at most;
-23. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+23. the observability planes (telemetry, tracing, the profiler and the
+   Monitor) on the card: phase 5's decoder (2.147 GB pool) serving the
+   burst's first 8 requests through ``Gateway.generate``, all admitted
+   at once (the lane takes none until every one is queued, so every run
+   decodes the same batches), with the planes on (telemetry, every trace
+   sampled) and off (``MXTPU_TELEMETRY=0``'s and ``MXTPU_TRACE_SAMPLE=0``'s
+   settings): each request one ``serving.generate`` root with one
+   ``generate.prefill`` and one ``generate.token`` a new token under it,
+   each with the JAX package's attributes; the ``mx_serving_generate_*``
+   counters the requests and tokens served; the same K3 / K4 launches
+   and tokens with the planes off; then phase 12's
+   decoder-LM step (Adam, fp32) under ``profiler.set_state("run")``, 3
+   steps after a warm one: 3 ``trainer_step`` spans with consecutive
+   ``step`` attrs, 3 step breakdowns, 12 K3 forward and 12 K3 backward
+   launches a step and 12 profiled ``_contrib_flash_attention``
+   dispatches a step in the chrome JSON ``profiler.dump()`` writes; the
+   synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode("warn")``)
+   of one serving call and of one training step equal with the planes on
+   and off; ``Monitor(interval=1)`` on LeNet's ``Module.fit`` for 2
+   batches of 64 on the card and on the CPU from the same parameters: the
+   same names in the same order, each statistic within phase 8's tensor
+   bound; tokens/s of phase 5's whole burst (32 requests) and LM step
+   ms (2 steps a turn) with the planes off and on in 3 turns each
+   (``observability_cost``); 60 s at most;
+24. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``, phase 21's as
-   ``parallel_launches``, phase 22's as ``data_parallel_launches``),
-   then the result line ``{"ok": true, "device": {...}}``.
+   ``parallel_launches``, phase 22's as ``data_parallel_launches``,
+   phase 23's as ``observability_launches``), then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
 """
 from __future__ import annotations
 
+import gc
 import io
 import json
 import logging
@@ -4346,6 +4372,10 @@ def planes_kill_scenario(att, i8, fo, gw, dec, name, burst, refs,
         lanes = list(gen.lanes)
         pool = lanes[0].pool
         pool_bytes, block_bytes = pool.bytes_total, pool.bytes_per_block
+        # no cyclic collection inside the window: one would free an
+        # earlier scenario's garbage (a deleted decoder's parameters) on
+        # the card and count it as the dead lane's pool
+        gc.disable()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -4359,10 +4389,12 @@ def planes_kill_scenario(att, i8, fo, gw, dec, name, burst, refs,
         planes_wait_finalized(lanes[0])
         torch.cuda.synchronize()
         mem1 = torch.cuda.memory_allocated()
+        gc.enable()
         counts = kernel_counts(att, i8, fo)
         mig = gen.stats()["recovery"]
         calls = planes_calls(gen, lanes, dec.num_layers, counts, bf16)
     finally:
+        gc.enable()
         os.environ.pop("MXNET_KVSTORE_FAULT_PLAN", None)
         gw.unregister(name)
     if refs is not None:
@@ -6387,6 +6419,352 @@ def phase_data_parallel(att, i8, fo, dev, rng):
                 "zero_steps": launches["flash_attention_bwd"]}}
 
 
+OBS_REQUESTS = 8
+OBS_LM_STEPS = 3
+OBS_TIMED = 2           # LM steps timed a turn
+OBS_COST_PAIRS = 3      # off / on turns of the cost measurements
+OBS_MONITOR_BATCHES = 2
+# the JAX package's span attributes of a generation
+OBS_GENERATE_ATTRS = {
+    "serving.generate": {"model", "lane", "prompt_tokens", "new_tokens",
+                         "recoveries", "queue_cause", "finish"},
+    "generate.prefill": {"prompt_tokens", "pad_tokens", "queue_ns",
+                         "kv_wait_ns", "exec_ns"},
+    "generate.token": {"index", "interleave_ns", "rows", "bucket"}}
+
+
+def obs_planes(mx, on):
+    """Both planes on (telemetry, every trace sampled) or off (what
+    MXTPU_TELEMETRY=0 and MXTPU_TRACE_SAMPLE=0 set), recorded state
+    cleared."""
+    mx.telemetry.set_enabled(on)
+    mx.tracing.set_sample(1.0 if on else 0.0)
+    mx.telemetry.registry().reset()
+    mx.tracing.reset()
+
+
+def sync_count(fn):
+    """(fn(), the synchronizing CUDA calls it made): the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, from every thread."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def obs_burst(gw, lane, prompts, new):
+    """The requests through ``Gateway.generate``, all admitted at once:
+    the lane takes none until every one is queued, so every run decodes
+    the same batches. Returns (tokens, wall s from the release)."""
+    go = threading.Event()
+    pop = lane._pop_admissions
+    lane._pop_admissions = lambda: pop() if go.is_set() else []
+    try:
+        reqs = [gw.generate("lm", p, max_new_tokens=int(n), stream=True)
+                for p, n in zip(prompts, new)]
+        t0 = time.perf_counter()
+        go.set()
+        out = [r.result(timeout=300) for r in reqs]
+        return out, time.perf_counter() - t0
+    finally:
+        del lane._pop_admissions
+
+
+def obs_generate_trees(spans, plens, new):
+    """Each request's span tree: one ``serving.generate`` root, one
+    ``generate.prefill`` and one ``generate.token`` a new token under it,
+    with the JAX package's attributes."""
+    roots = [s for s in spans if s["name"] == "serving.generate"]
+    check(all(s["parent"] is None for s in roots),
+          "observability: a serving.generate span has a parent")
+    check(sorted((s["attrs"]["prompt_tokens"], s["attrs"]["new_tokens"])
+                 for s in roots) == sorted(zip(map(int, plens),
+                                               map(int, new))),
+          "observability: serving.generate roots do not match the burst")
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent"], []).append(s)
+    for s in spans:
+        want = OBS_GENERATE_ATTRS.get(s["name"])
+        check(want is None or set(s["attrs"]) == want,
+              f"observability: {s['name']} attrs {sorted(s['attrs'])}")
+    for r in roots:
+        names = [k["name"] for k in kids.get(r["span"], [])]
+        check(names.count("generate.prefill") == 1
+              and names.count("generate.token")
+              == r["attrs"]["new_tokens"]
+              and len(names) == 1 + r["attrs"]["new_tokens"],
+              f"observability: request spans {sorted(set(names))}")
+    return len(roots)
+
+
+def obs_run(mx, att, gw, lane, on, prompts, new):
+    """One burst with the planes on or off: its tokens and a record of
+    its wall time, tokens/s and K3 / K4 launches."""
+    obs_planes(mx, on)
+    att.reset_launches()
+    got, wall = obs_burst(gw, lane, prompts, new)
+    return got, {"planes": on, "requests": len(prompts), "wall_s": wall,
+                 "tokens_per_s": int(sum(new)) / wall,
+                 "flash_launches": att.flash_attention.launches,
+                 "paged_launches": att.paged_attention.launches}
+
+
+def obs_serving(mx, att, dev, burst):
+    """Phase 5's decoder serving the burst's first OBS_REQUESTS through
+    the planes (spans, counters, launches) and again with them off
+    (launches, tokens); a serving call's sync counts on and off; then
+    the whole burst off and on in OBS_COST_PAIRS turns (tokens/s)."""
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    all_plens, all_new, all_prompts = burst
+    plens, new = all_plens[:OBS_REQUESTS], all_new[:OBS_REQUESTS]
+    prompts = all_prompts[:OBS_REQUESTS]
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED)
+    gw = Gateway(device=dev)
+    out = {"requests": OBS_REQUESTS, "new_tokens": int(sum(new))}
+    try:
+        gen = gw.register_generator(
+            "lm", dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
+            max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH)
+        lane = gen.lanes[0]
+        tokens, checked = obs_run(mx, att, gw, lane, True, prompts, new)
+        spans = mx.tracing.spans_snapshot()
+        out["spans"] = obs_generate_trees(spans, plens, new)
+        out["span_count"] = len(spans)
+        reg = mx.telemetry.registry()
+        counted = {
+            "requests": reg.value("mx_serving_generate_requests_total",
+                                  model="lm"),
+            "prefill_tokens": reg.value("mx_serving_generate_tokens_total",
+                                        model="lm", phase="prefill"),
+            "decode_tokens": reg.value("mx_serving_generate_tokens_total",
+                                       model="lm", phase="decode")}
+        want = {"requests": OBS_REQUESTS, "prefill_tokens": int(sum(plens)),
+                "decode_tokens": int(sum(new)) - OBS_REQUESTS}
+        check(counted == want, f"observability: mx_serving_* counters "
+              f"{counted}, want {want}")
+        out["counters"] = counted
+        got, off = obs_run(mx, att, gw, lane, False, prompts, new)
+        out["runs"] = [checked, off]
+        check(got == tokens, "observability: the burst's tokens differ "
+              "with the planes off")
+        flash_n, paged_n = checked["flash_launches"], checked["paged_launches"]
+        check((off["flash_launches"], off["paged_launches"])
+              == (flash_n, paged_n), f"observability: K3 / K4 launches "
+              f"differ with the planes on and off: {out['runs']}")
+        check(flash_n == OBS_REQUESTS * LAYERS and paged_n > 0,
+              f"observability: burst launches K3 {flash_n}, K4 {paged_n}")
+        syncs = {}
+        for on in (True, False):
+            obs_planes(mx, on)
+            _, syncs[on] = sync_count(lambda: gw.generate(
+                "lm", prompts[0], max_new_tokens=int(new[0])))
+        check(syncs[True] == syncs[False], f"observability: a serving call "
+              f"synchronizes {syncs[True]} times with the planes on, "
+              f"{syncs[False]} off")
+        out["serving_call_syncs"] = syncs[True]
+        out["launches"] = {"flash_attention": flash_n,
+                           "paged_attention": paged_n}
+        cost, full = [], None
+        for on in (False, True) * OBS_COST_PAIRS:
+            got, run = obs_run(mx, att, gw, lane, on, all_prompts, all_new)
+            check(full is None or got == full, "observability: the whole "
+                  "burst's tokens differ between turns")
+            full = got
+            cost.append(run)
+        check(len({(r["flash_launches"], r["paged_launches"])
+                   for r in cost}) == 1, "observability: the whole burst's "
+              f"launches differ between turns: {cost}")
+        out["cost_runs"] = cost
+    finally:
+        gw.close()
+    return out
+
+
+def obs_training(mx, att, i8, fo, dev, rng, here):
+    """Phase 12's decoder-LM step under the planes and the profiler:
+    OBS_LM_STEPS counted steps after a warm one; step ms and sync counts
+    with the planes on and off."""
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    ctx = mx.Context(dev)
+    dec = GenerativeDecoder(vocab_size=LM_VOCAB, d_model=LM_D_MODEL,
+                            num_layers=LM_LAYERS, num_heads=LM_HEADS,
+                            ff_mult=LM_FF, max_prompt_tokens=LM_SEQ,
+                            device=dev, seed=SEED)
+    block = dec.block
+    tokens = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1))
+    x = mx.nd.array(tokens[:, :-1].astype(np.int32), ctx=ctx)
+    y = mx.nd.array(tokens[:, 1:].astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+
+    def step():
+        return lm_step(mx, block, loss_fn, x, y, trainer)
+
+    obs_planes(mx, True)
+    step()                       # warm: opens the first step interval
+    torch.cuda.synchronize()
+    mx.tracing.reset()
+    profile_path = os.path.join(here, "build", "observability_profile.json")
+    os.makedirs(os.path.dirname(profile_path), exist_ok=True)
+    mx.profiler.set_config(filename=profile_path)
+    before = kernel_counts(att, i8, fo)
+    breakdowns = []
+    mx.profiler.set_state("run")
+    try:
+        for _ in range(OBS_LM_STEPS):
+            step()
+            breakdowns.append(mx.telemetry.step.last_breakdown())
+        torch.cuda.synchronize()
+    finally:
+        mx.profiler.set_state("stop")
+    after = kernel_counts(att, i8, fo)
+    mx.profiler.dump()
+    with open(profile_path) as f:
+        events = json.load(f)["traceEvents"]
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    check(fwd == bwd == OBS_LM_STEPS * LM_LAYERS,
+          f"observability: {fwd} K3 forward / {bwd} backward launches in "
+          f"{OBS_LM_STEPS} steps, want {LM_LAYERS} each a step")
+    steps = [s for s in mx.tracing.spans_snapshot()
+             if s["name"] == "trainer_step"]
+    idx = [s["attrs"].get("step") for s in steps]
+    check(len(steps) == OBS_LM_STEPS and idx == list(range(
+        idx[0], idx[0] + OBS_LM_STEPS)),
+        f"observability: trainer_step spans with steps {idx}")
+    check(len(breakdowns) == OBS_LM_STEPS and all(
+        b.get("source") == "trainer" and b["step_time"] > 0
+        for b in breakdowns), f"observability: breakdowns {breakdowns}")
+    ops = sum(e["name"] == "_contrib_flash_attention" for e in events)
+    check(ops == OBS_LM_STEPS * LM_LAYERS,
+          f"observability: {ops} profiled flash attention dispatches")
+    out = {"k3_fwd_launches_a_step": fwd // OBS_LM_STEPS,
+           "k3_bwd_launches_a_step": bwd // OBS_LM_STEPS,
+           "trainer_step_spans": len(steps),
+           "breakdowns": breakdowns, "profile_events": len(events),
+           "launches": {"flash_attention": fwd,
+                        "flash_attention_bwd": bwd}}
+    syncs, step_ms = {}, {}
+    for on in (False, True) * OBS_COST_PAIRS:
+        obs_planes(mx, on)
+        if on not in syncs:
+            _, syncs[on] = sync_count(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_TIMED):
+            step()
+        torch.cuda.synchronize()
+        step_ms.setdefault(on, []).append(
+            (time.perf_counter() - t0) / OBS_TIMED * 1e3)
+    check(syncs[True] == syncs[False], f"observability: a training step "
+          f"synchronizes {syncs[True]} times with the planes on, "
+          f"{syncs[False]} off")
+    out.update(step_syncs=syncs[True], step_ms_on=step_ms[True],
+               step_ms_off=step_ms[False])
+    return out
+
+
+def obs_monitor(mx, dev):
+    """``Monitor(interval=1)`` on LeNet's ``Module.fit`` for
+    OBS_MONITOR_BATCHES batches on the card and on the CPU from the same
+    parameters and batches: the same names in the same order, the values
+    within phase 8's tensor bound."""
+    rs = np.random.RandomState(SEED)
+    n = OBS_MONITOR_BATCHES * MODULE_BATCH
+    x = rs.rand(n, 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, (n,)).astype(np.float32)
+    shapes = {"conv1_weight": (20, 1, 5, 5), "conv1_bias": (20,),
+              "conv2_weight": (50, 20, 5, 5), "conv2_bias": (50,),
+              "fc1_weight": (500, 800), "fc1_bias": (500,),
+              "fc2_weight": (10, 500), "fc2_bias": (10,)}
+    params = {k: (rs.normal(0, 0.05, s) if k.endswith("weight")
+                  else np.zeros(s)).astype(np.float32)
+              for k, s in shapes.items()}
+    net = lenet(mx.sym)       # one graph: its generated names are shared
+    seen = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        class Recording(mx.Monitor):
+            def toc_print(self):
+                self.stats.extend(self.toc())
+        mon = Recording(interval=1)
+        mon.stats = []
+        with ctx:
+            it = mx.io.NDArrayIter(x, y, batch_size=MODULE_BATCH,
+                                   label_name="softmax_label")
+            mod = mx.mod.Module(net, context=ctx)
+            mod.fit(it, num_epoch=1, monitor=mon,
+                    arg_params={k: mx.nd.array(v) for k, v in
+                                params.items()},
+                    optimizer_params={"learning_rate": MODULE_LR})
+        seen[where] = mon.stats
+    card, cpu = seen["card"], seen["cpu"]
+    check([(s, n) for s, n, _ in card] == [(s, n) for s, n, _ in cpu],
+          "observability: Monitor names differ between the card and CPU")
+    worst = 0.0
+    for (_, name, a), (_, _, b) in zip(card, cpu):
+        a = np.array(a.strip("[]").split(), np.float64)
+        b = np.array(b.strip("[]").split(), np.float64)
+        err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        worst = max(worst, err)
+        check(err <= PARITY_TENSOR_TOL, f"observability: Monitor {name} "
+              f"card {a} vs CPU {b}")
+    return {"stats": len(card), "batches": OBS_MONITOR_BATCHES,
+            "worst_rel": worst}
+
+
+def phase_observability(att, i8, fo, dev, burst, rng, here):
+    """The module docstring's phase 23: the observability planes on the
+    serving and training paths, their sync counts and cost, and the
+    Monitor. Returns the phase's K3 / K4 launches by part."""
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    try:
+        serving = obs_serving(mx, att, dev, burst)
+        training = obs_training(mx, att, i8, fo, dev, rng, here)
+        monitor = obs_monitor(mx, dev)
+    finally:
+        mx.telemetry.set_enabled(True)
+        mx.tracing.set_sample(1.0)
+    phase_s = time.perf_counter() - t_phase
+    on = [r for r in serving["cost_runs"] if r["planes"]]
+    off = [r for r in serving["cost_runs"] if not r["planes"]]
+    log("observability_cost " + json.dumps({
+        "card": card_line(),
+        "serving_tokens_per_s_on": [r["tokens_per_s"] for r in on],
+        "serving_tokens_per_s_off": [r["tokens_per_s"] for r in off],
+        "lm_step_ms_on": training["step_ms_on"],
+        "lm_step_ms_off": training["step_ms_off"]}))
+    log("observability " + json.dumps({
+        "card": card_line(), "phase_s": phase_s,
+        "serving": {k: v for k, v in serving.items() if k != "launches"},
+        "training": {k: v for k, v in training.items() if k != "launches"},
+        "monitor": monitor}))
+    check(phase_s <= 60.0, f"observability took {phase_s:.1f} s, over 60")
+    return {"flash_attention": {
+                "serving": serving["launches"]["flash_attention"],
+                "training": training["launches"]["flash_attention"]},
+            "flash_attention_bwd": {
+                "training": training["launches"]["flash_attention_bwd"]},
+            "paged_attention": {
+                "serving": serving["launches"]["paged_attention"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -6454,6 +6832,8 @@ def main():
     timed(phase_ssd, att, i8, fo, dev, here, rng)
     parallel = timed(phase_parallel, att, i8, fo, dev, burst, rng)
     data_parallel = timed(phase_data_parallel, att, i8, fo, dev, rng)
+    observability = timed(phase_observability, att, i8, fo, dev, burst,
+                          rng, here)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -6464,6 +6844,8 @@ def main():
         k["parallel_launches"] = parallel.get(k["name"])
         # the sharded train steps' launches (phase 22)
         k["data_parallel_launches"] = data_parallel.get(k["name"])
+        # the observability planes' launches (phase 23), by part
+        k["observability_launches"] = observability.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path

@@ -53,7 +53,11 @@ float32 product here is a float32 product. Ported so far:
   pool, the libjpeg batch decoder or the sharded decode workers),
   ``contrib.io.DataLoaderIter`` for ``Module.fit``, and the detection
   input (``image.ImageDetIter``, the detection augmenters) with the
-  MultiBox ops and ``box_nms`` that train and run the SSD detector.
+  MultiBox ops and ``box_nms`` that train and run the SSD detector;
+- the observability planes: ``telemetry`` (the metrics registry, the
+  per-step breakdown, exports), ``tracing`` (spans, the flight
+  recorder), ``profiler`` and ``Monitor``, hooked into serving,
+  training, the executor, the data iterators and the kvstore.
 
 Kernels live in ``csrc/`` and are built on first use (``ops/_build.py``).
 """
@@ -62,6 +66,7 @@ from __future__ import annotations
 import torch
 
 from .base import MXNetError, get_env
+from . import telemetry, tracing  # noqa: F401
 from .context import Context, cpu, current_context, gpu, resolve_device
 from . import ops  # noqa: F401  registers every op
 from . import ndarray as nd
@@ -75,6 +80,8 @@ from . import module as mod  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import image, recordio  # noqa: F401
+from . import monitor, profiler  # noqa: F401
+from .monitor import Monitor  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -83,10 +90,11 @@ torch.backends.cudnn.allow_tf32 = False
 # loop and never returns (the reference's import-time contract)
 from . import kvstore_server  # noqa: F401,E402
 
-__all__ = ["Context", "MXNetError", "autograd", "callback", "checkpoint",
-           "contrib", "cpu", "current_context", "executor",
+__all__ = ["Context", "MXNetError", "Monitor", "autograd", "callback",
+           "checkpoint", "contrib", "cpu", "current_context", "executor",
            "executor_manager", "get_env", "gluon", "gpu", "image",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
-           "mod", "model", "model_zoo", "module", "nd", "optimizer",
-           "predictor", "random", "recordio", "resolve_device",
-           "subgraph", "sym", "test_utils"]
+           "mod", "model", "model_zoo", "module", "monitor", "nd",
+           "optimizer", "predictor", "profiler", "random", "recordio",
+           "resolve_device", "subgraph", "sym", "telemetry", "test_utils",
+           "tracing"]

@@ -120,6 +120,12 @@ def load_comm():
     lib.mxtpu_client_command.restype = c_int
     lib.mxtpu_client_close.argtypes = [c_vp]
     lib.mxtpu_client_set_timeout.argtypes = [c_vp, c_int]
+    # tracing: a request's span context on the wire, and the server's
+    # sink of traced requests
+    lib.mxtpu_client_set_trace.argtypes = [c_vp, c_u64, c_u64]
+    lib.mxtpu_server_set_trace_sink.argtypes = [c_vp]
+    lib.mxtpu_server_current_trace.argtypes = [
+        ctypes.POINTER(c_u64), ctypes.POINTER(c_u64)]
     _comm_lib = lib
     return lib
 
@@ -147,6 +153,26 @@ def set_server_updater(py_fn):
     cb = UPDATER_CFUNC(trampoline)
     _updater_keepalive.append(cb)
     lib.mxtpu_server_set_updater(ctypes.cast(cb, ctypes.c_void_p))
+
+
+# the server's callback for each traced request (comm.cc TraceSinkFn):
+# op, key, req_id, rank, trace_id, span_id, recv_ns, done_ns
+TRACE_SINK_CFUNC = ctypes.CFUNCTYPE(
+    None, ctypes.c_uint8, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int,
+    ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64)
+_trace_sink_keepalive = []
+
+
+def set_server_trace_sink(py_fn, lib=None):
+    """Install ``py_fn`` as the transport's sink of traced requests,
+    called once a request from the server's connection threads. The
+    callback object lives as long as the process: a collected one would
+    crash the server at its next traced request."""
+    if lib is None:
+        lib = load_comm()
+    cb = TRACE_SINK_CFUNC(py_fn)
+    _trace_sink_keepalive.append(cb)
+    lib.mxtpu_server_set_trace_sink(ctypes.cast(cb, ctypes.c_void_p))
 
 
 # -- imgdec.cc: the libjpeg batch decoder --------------------------------

@@ -53,6 +53,8 @@ import torch
 
 import numpy as np
 
+from . import telemetry as _telemetry
+from . import tracing as _tracing
 from .base import MXNetError, attr_bool
 from .context import resolve_device
 from .ndarray.ndarray import NDArray, as_tensor
@@ -132,10 +134,19 @@ def _softmax_dp_attrs(ins, attrs, axes):
     return {**attrs, "normalization": "null", "grad_scale": scale}
 
 
-def _run(symbol, values, training, dp_axes=None):
+def _tap_names(node):
+    """The monitor's names of a node's outputs (the JAX executor's
+    internals naming)."""
+    return [node.name + ("_output" if k == 0 else f"_output{k}")
+            for k in range(node.num_outputs())]
+
+
+def _run(symbol, values, training, dp_axes=None, tap=None):
     """(outputs, moving-statistic updates) of ``symbol`` with variable
     values by name (tensors); ``dp_axes`` names the mesh axes the batch
-    is split over when this is one position of a dp mesh."""
+    is split over when this is one position of a dp mesh. ``tap(name,
+    value)`` sees every node's outputs as the walk produces them, in the
+    order of ``symbol.get_internals()`` (variables included)."""
     order = symbol._topo()
     # an intermediate is dropped after its last consumer, so a forward
     # holds only the live activations (and, training, what autograd
@@ -154,6 +165,8 @@ def _run(symbol, values, training, dp_axes=None):
                 except KeyError:
                     raise MXNetError(f"no value bound for variable "
                                      f"{node.name}") from None
+                if tap is not None:
+                    tap(_tap_names(node)[0], values[node.name])
                 continue
             ins = [env[(id(c), k)] for c, k in node.inputs]
             attrs = op_attrs(node)
@@ -178,7 +191,27 @@ def _run(symbol, values, training, dp_axes=None):
             for k, o in enumerate(outs):
                 if uses[(id(node), k)]:
                     env[(id(node), k)] = o
+            if tap is not None:
+                for name, o in zip(_tap_names(node), outs):
+                    tap(name, o)
     return [env[(id(n), k)] for n, k in symbol._outputs], aux_updates
+
+
+class _Profiled:
+    """A profiler region whose end waits for ``device``'s work."""
+
+    def __init__(self, region, device):
+        self._region = region
+        self._device = device
+
+    def __enter__(self):
+        self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return self._region.__exit__(*exc)
 
 
 def run_graph(symbol, values):
@@ -233,6 +266,8 @@ class Executor:
         # (outputs with graph, leaves) of the last training forward,
         # until the next forward
         self._recorded = None
+        self._monitor = None
+        self._monitor_all = False
 
     def _canon(self, arrays, names, what, allow_missing=False):
         arrays = arrays or {}
@@ -265,14 +300,32 @@ class Executor:
             self._sharded.pop(n, None)
             self.arg_dict[n]._data = as_tensor(v, self._device)
         self._recorded = None
-        if self._mesh is not None:
-            return self._forward_dp(is_train)
+        tap = self._tap()
+        # monitor_all also taps the graph's inputs, as they were before
+        # this forward updated the moving statistics
+        inputs = [] if tap is None or not self._monitor_all else [
+            (n + "_input", self._sharded[n].full() if n in self._sharded
+             else a._data) for n, a in self.arg_dict.items()] + [
+            (n + "_input", a._data) for n, a in self.aux_dict.items()]
+        with self._maybe_profile("executor_forward"), \
+                _tracing.span("executor_forward", cat="compute"), \
+                _telemetry.compile_scope("executor_forward"):
+            if self._mesh is not None:
+                self._forward_dp(is_train, tap)
+            else:
+                self._forward(is_train, tap)
+        for name, value in inputs:
+            tap(name, value)
+        return self.outputs
+
+    def _forward(self, is_train, tap):
         values = {n: a._data for n, a in self.arg_dict.items()}
         values.update({n: a._data for n, a in self.aux_dict.items()})
         if not is_train:
             self.outputs = [NDArray(as_tensor(o, self._device))
-                            for o in run_graph(self._symbol, values)]
-            return self.outputs
+                            for o in _run(self._symbol, values, False,
+                                          tap=tap)[0]]
+            return
         leaves = {}
         for n, req in self._grad_req.items():
             t = values[n]
@@ -281,13 +334,49 @@ class Executor:
             if t.is_inference():    # an inference forward's output
                 t = t.clone()
             leaves[n] = values[n] = t.detach().requires_grad_(True)
-        outs, aux_updates = _run(self._symbol, values, training=True)
+        outs, aux_updates = _run(self._symbol, values, training=True,
+                                 tap=tap)
         for n, v in aux_updates.items():
             self.aux_dict[n]._data = v
         self._recorded = (outs, leaves)
         self.outputs = [NDArray(as_tensor(o, self._device).detach())
                         for o in outs]
-        return self.outputs
+
+    # -- observability --------------------------------------------------
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """``callback(name, NDArray)`` sees every node's outputs of each
+        forward (``<node>_output``, ``<node>_output<k>``; with
+        ``monitor_all`` the arguments and auxiliary states too, as
+        ``<name>_input``), as the JAX executor's internals pass names
+        them. ``None`` removes it."""
+        self._monitor = callback
+        self._monitor_all = monitor_all
+
+    def _tap(self):
+        """The monitor tap of this forward, or None: a ``Monitor`` that is
+        not collecting this batch (``activated`` false) is skipped; a
+        plain callback always collects."""
+        if self._monitor is None:
+            return None
+        owner = getattr(self._monitor, "__self__", None)
+        if owner is not None and not getattr(owner, "activated", True):
+            return None
+        cb = self._monitor
+        device = self._device
+
+        def tap(name, value):
+            cb(name, NDArray(as_tensor(value, device).detach()))
+        return tap
+
+    def _maybe_profile(self, name):
+        """A profiler region that waits for the card at its end while the
+        profiler runs (the region then times the work, not its launch),
+        else a no-op."""
+        from . import profiler
+        if not profiler.is_running():
+            return contextlib.nullcontext()
+        return _Profiled(profiler.timed_region(name, "executor"),
+                         self._device)
 
     # -- over a dp mesh -------------------------------------------------
     def _spec(self, name):
@@ -304,7 +393,7 @@ class Executor:
         return [i for i, c in enumerate(self._mesh.positions())
                 if all(c[a] == 0 for a in c if a not in axes)]
 
-    def _forward_dp(self, is_train):
+    def _forward_dp(self, is_train, tap=None):
         mesh = self._mesh
         values = {n: self._sharded.get(n, a._data)
                   for n, a in self.arg_dict.items()}
@@ -330,9 +419,12 @@ class Executor:
                 if t.is_inference():    # an inference forward's output
                     t = t.clone()
                 leaves[n] = local[n] = t.detach().requires_grad_(True)
-            outs, aux_updates = _run(self._symbol, local, bool(is_train),
-                                     dp_axes=axes)
-            return outs, aux_updates, leaves
+            taps = [] if tap is not None else None
+            outs, aux_updates = _run(
+                self._symbol, local, bool(is_train), dp_axes=axes,
+                tap=None if taps is None else
+                (lambda name, v: taps.append((name, v))))
+            return outs, aux_updates, leaves, taps
 
         args = []
         for c in mesh.positions():
@@ -362,7 +454,35 @@ class Executor:
         if is_train:
             self._recorded = ([r[0] for r in results],
                               [r[2] for r in results])
-        return self.outputs
+        if tap is not None:
+            # the whole batch's value of each internal, as the JAX
+            # executor's global arrays: what depends on a split input is
+            # joined along the batch, the rest is every position's alike
+            split = self._split_nodes()
+            for j, (name, first) in enumerate(results[0][3]):
+                parts = [r[3][j][1] for r in results]
+                if split[name] and isinstance(first, torch.Tensor) \
+                        and first.ndim:
+                    value = _assemble(out_spec, mesh,
+                                      [p.detach() for p in parts])
+                else:
+                    value = first
+                tap(name, value)
+
+    def _split_nodes(self):
+        """{tap name: whether the value depends on an input the specs
+        split over the batch}."""
+        split, out = {}, {}
+        for node in self._symbol._topo():
+            if node.op is None:
+                spec = self._spec(node.name)
+                hit = bool(spec) and bool(entry_axes(spec[0]))
+            else:
+                hit = any(split[id(c)] for c, _ in node.inputs)
+            split[id(node)] = hit
+            for name in _tap_names(node):
+                out[name] = hit
+        return out
 
     def _backward_dp(self, out_grads):
         mesh = self._mesh
@@ -415,9 +535,15 @@ class Executor:
         gradients (ones when None; SoftmaxOutput ignores its own)."""
         if self._recorded is None:
             raise MXNetError("backward called before forward(is_train=True)")
-        if self._mesh is not None:
-            self._store_grads(self._backward_dp(out_grads))
-            return
+        with self._maybe_profile("executor_backward"), \
+                _tracing.span("executor_backward", cat="compute"), \
+                _telemetry.compile_scope("executor_backward"):
+            if self._mesh is not None:
+                self._store_grads(self._backward_dp(out_grads))
+            else:
+                self._backward(out_grads)
+
+    def _backward(self, out_grads):
         outs, leaves = self._recorded
         if out_grads is None:
             heads = [torch.ones_like(o) if isinstance(o, torch.Tensor)

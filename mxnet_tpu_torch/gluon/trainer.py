@@ -9,14 +9,18 @@ a kvstore at the first step (:mod:`..kvstore`): with
 gradient and pulls the updated weight (the parameter server, or the
 collective plane's replicated update); without it, each step allreduces
 the gradients through the kvstore (push, then pull into the gradient)
-and updates locally. Rank 0's values seed every worker at init. The JAX
-step's health probe, tracing span, telemetry boundary and out-of-memory
-postmortem wait for the runtime planes.
+and updates locally. Rank 0's values seed every worker at init. Each
+step runs under a ``trainer_step`` span (``step`` the step's index from
+0) and ends in a telemetry step boundary. The JAX step's health probe
+and out-of-memory postmortem wait for the port of ``profiling/``
+(ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
 from .. import optimizer as opt_mod
+from .. import tracing as _tracing
 from ..base import MXNetError
+from ..telemetry import step as _tm_step
 from .parameter import Parameter, ParameterDict
 
 
@@ -47,6 +51,7 @@ class Trainer:
         self._compression_params = compression_params
         self._kv_initialized = False
         self._shipped_rescale = None
+        self._step_count = -1
 
     @property
     def learning_rate(self):
@@ -95,11 +100,18 @@ class Trainer:
         # before the kvstore's init: update_on_kvstore pickles the
         # optimizer to the server, which must see the batch scaling
         self._optimizer.rescale_grad = self._scale / batch_size
-        if not self._kv_initialized:
-            self._init_kvstore()
-        self._sync_server_rescale()
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        # the root span of the step: the comm and compute spans under it
+        # are what tools/trace_merge.py's straggler report groups by step
+        n = self._step_count = self._step_count + 1
+        with _tracing.span("trainer_step", cat="step", step=n):
+            if not self._kv_initialized:
+                self._init_kvstore()
+            self._sync_server_rescale()
+            self._allreduce_grads()
+            self._update(ignore_stale_grad)
+        # one boundary a step: charges the data / comm / compile time
+        # accrued since the previous boundary to this step (host time)
+        _tm_step.step_boundary("trainer")
 
     def _sync_server_rescale(self):
         """Re-ship the optimizer when the batch scale changes after the

@@ -7,24 +7,36 @@ for the same inputs and seed, and checkpoint their position
 (``state_dict``) with its semantics. ``ImageRecordIter(num_workers=N)``
 routes to the sharded decode pipeline of ``pipeline.py``.
 
-Not ported yet: the JAX package's data-wait telemetry, tracing span and
-memory-census tag around ``__next__``, and the host dependency engine's
-scheduling of the in-process ``ImageRecordIter`` (it runs the producer
-thread that ``MXTPU_IO_HOST_ENGINE=0`` selects in the JAX package).
+Every ``__next__`` runs under a ``data_next`` span and feeds the
+``mx_io_data_wait_seconds`` histogram and the step breakdown's
+data_time. Not ported yet: the JAX package's memory-census tag of the
+batch (``profiling/``, ROADMAP queue 1 item 6), and the host dependency
+engine's scheduling of the in-process ``ImageRecordIter`` (it runs the
+producer thread that ``MXTPU_IO_HOST_ENGINE=0`` selects in the JAX
+package).
 """
 from __future__ import annotations
 
 import queue
 import struct
 import threading
+import time
 import warnings
 
 import numpy as np
 import torch
 
+from .. import tracing as _tracing
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray import NDArray, array
+from ..telemetry import metrics as _tm
+from ..telemetry import step as _tm_step
+
+_data_wait_hist = _tm.lazy_metrics(lambda reg: reg.histogram(
+    "mx_io_data_wait_seconds",
+    "host time per batch spent in DataIter.next (assembly or "
+    "prefetch-queue wait)").labels())   # cached series
 
 
 class DataDesc:
@@ -87,7 +99,20 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        # the data-wait seam: every `for batch in it` loop passes here,
+        # so one timer feeds both the io histogram and the step
+        # breakdown's data_time, whatever iterator is underneath; the
+        # span is the causal record of the same wait
+        with _tracing.span("data_next", cat="io",
+                           iter=type(self).__name__):
+            if not _tm.enabled():
+                return self.next()
+            t0 = time.perf_counter()
+            batch = self.next()   # StopIteration propagates untimed
+            dt = time.perf_counter() - t0
+            _data_wait_hist().observe(dt)
+            _tm_step.add_data_wait(dt)
+            return batch
 
     def iter_next(self):
         raise NotImplementedError

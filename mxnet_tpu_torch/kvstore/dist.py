@@ -32,9 +32,18 @@ launcher restarts (``--restart-policy=server``) rejoins with its state.
 Deterministic fault injection: ``MXNET_KVSTORE_FAULT_PLAN``
 (:mod:`.fault`).
 
-Not ported yet, and refused rather than dropped: row-granular pulls
-(they need sparse NDArray), the server profiler directives and the
-tracing wire context (the port has no profiler or tracing plane).
+Observability: every request runs inside a ``kv.<op>`` span whose
+``(trace_id, span_id)`` rides the request header; a traced server
+records the matching ``server_recv:<op>`` child span
+(``tracing/wire.py``) and a ``server_update`` span under the push that
+completed a round. Each recovery incident goes to
+``profiler.note_recovery``. ``send_profiler_command`` runs a profiler
+directive in the server process (``set_config`` / ``set_state`` /
+``pause`` / ``resume`` / ``dump``, ``metrics_snapshot`` and
+``trace_dump``; :func:`_apply_profiler_directive`), the channel of
+``telemetry.export.pull_server_metrics`` and
+``tracing.export.pull_server_trace``. Not ported yet, and refused
+rather than dropped: row-granular pulls (they need sparse NDArray).
 """
 from __future__ import annotations
 
@@ -54,10 +63,27 @@ from numpy.ctypeslib import as_array
 
 from .. import _native
 from .. import checkpoint as ckpt
+# at module scope too: the server's updater records into them on a
+# transport thread while the main thread may still be importing
+from .. import profiler
+from .. import tracing as _tracing
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import NDArray
+from ..telemetry import metrics as _tm_metrics
 from . import fault as fault_mod
+
+# server-process families (a worker pulls them into its own dump with
+# the metrics_snapshot directive)
+_server_met = _tm_metrics.lazy_metrics(lambda reg: {
+    "updates": reg.counter(
+        "mx_server_updates_total",
+        "merge-round optimizer updates applied",
+        labelnames=("key",)),
+    "update_s": reg.histogram(
+        "mx_server_update_seconds",
+        "server-side optimizer update latency").labels(),
+})
 
 CMD_SYNC_MODE = 1
 CMD_STOP = 2
@@ -203,6 +229,24 @@ class WorkerConnection:
 
     # -- recovery core -----------------------------------------------------
     def _call(self, op, invoke):
+        """:meth:`_call_impl` inside a ``kv.<op>`` span whose (trace_id,
+        span_id) is stamped into the request header, so the server
+        records the matching ``server_recv:<op>`` child span."""
+        if not _tracing.enabled():
+            return self._call_impl(op, invoke)
+        set_trace = self._lib.mxtpu_client_set_trace
+        with _tracing.span("kv.%s" % op, cat="comm", rank=self.rank) as sp:
+            def stamped(h, _invoke=invoke, _sp=sp):
+                # stamped again each attempt: a resend on a fresh
+                # connection carries the same span context
+                set_trace(h, _sp.trace_id, _sp.span_id)
+                return _invoke(h)
+            rc = self._call_impl(op, stamped)
+            if rc < 0:   # pull-style calls return positive sizes
+                sp.set_attr("rc", int(rc))
+            return rc
+
+    def _call_impl(self, op, invoke):
         """Run ``invoke(handle) -> rc``; on a transport failure (rc -1)
         with a recovery budget armed, reconnect with the reclaimed rank,
         pin the failed request id and resend until the budget is spent.
@@ -250,13 +294,15 @@ class WorkerConnection:
                                                    request_timeout_ms())
                 tel.recovered += 1
                 tel.backoff_wait_ms += sched.total_wait_ms
-                tel.events.append((op, failed_id, "recovered"))
+                self._note(op, failed_id, "recovered", sched,
+                           tel.reconnects - reconnects_before)
                 return rc
             last_err = "resent request timed out or connection lost again"
         tel.exhausted += 1
         tel.backoff_wait_ms += sched.total_wait_ms
         tel.last_error = last_err
-        tel.events.append((op, failed_id, "exhausted"))
+        self._note(op, failed_id, "exhausted", sched,
+                   tel.reconnects - reconnects_before, last_err)
         raise MXNetError(
             f"kvstore recovery budget exhausted for {op} (request id "
             f"{failed_id}) against {self._host}:{self._port}: "
@@ -266,6 +312,19 @@ class WorkerConnection:
             f"budget; last error: {last_err}. Raise "
             "MXNET_KVSTORE_RECOVERY_BUDGET_MS or restart the server "
             "(tools/launch.py --restart-policy=server)")
+
+    def _note(self, op, req_id, outcome, sched, reconnects, error=""):
+        """One recovery incident: this connection's record and the
+        profiler's (values of this recovery, not cumulative)."""
+        self.telemetry.events.append((op, req_id, outcome))
+        profiler.note_recovery({
+            "op": op, "req_id": req_id, "outcome": outcome,
+            "rank": self.rank, "attempts": sched.attempts,
+            "reconnects": reconnects,
+            "backoff_wait_ms": round(sched.total_wait_ms, 3),
+            "elapsed_ms": round(sched.elapsed_ms(), 1),
+            "budget_ms": self._budget_ms, "error": error,
+        })
 
     # -- data plane --------------------------------------------------------
     def init(self, key, value):
@@ -326,9 +385,27 @@ class WorkerConnection:
         self.command(CMD_SET_OPTIMIZER, pickle.dumps(optimizer))
 
     def send_profiler_command(self, directive):
-        raise MXNetError(
-            "kvstore server profiler commands are not ported yet: this "
-            "package has no profiler plane (ROADMAP queue 1)")
+        """Remote-control the server process's profiler (ref:
+        include/mxnet/kvstore.h:43-49 kSetConfig / kState / kPause /
+        kDump; kvstore_dist_server.h:199). ``directive`` is a dict such as
+        ``{"cmd": "set_state", "state": "run"}``, run by the server's
+        poll loop (:func:`_apply_profiler_directive`)."""
+        self.command(CMD_SERVER_PROFILER,
+                     PROF_MAGIC + pickle.dumps(directive))
+
+    def trace_clock_sync(self, rounds=5):
+        """Send ``rounds`` traced no-op directives: each a ``kv.clock_sync``
+        span whose server-side ``server_recv:command`` child carries the
+        server clock's receive time, the (send, recv, ack) triples
+        ``tools/trace_merge.py`` estimates clock offsets from. A no-op
+        when tracing is off."""
+        if not _tracing.enabled():
+            return
+        body = PROF_MAGIC + pickle.dumps({"cmd": "noop"})
+        for _ in range(max(int(rounds), 1)):
+            self._call("clock_sync",
+                       lambda h: self._lib.mxtpu_client_command(
+                           h, CMD_SERVER_PROFILER, body, len(body)))
 
     def stop_server(self):
         self.command(CMD_STOP)
@@ -448,7 +525,13 @@ class ShardedConnection:
         self.command(CMD_SET_OPTIMIZER, pickle.dumps(optimizer))
 
     def send_profiler_command(self, directive):
-        self._conns[0].send_profiler_command(directive)
+        # every shard server gets the directive, as set_optimizer
+        self.command(CMD_SERVER_PROFILER,
+                     PROF_MAGIC + pickle.dumps(directive))
+
+    def trace_clock_sync(self, rounds=5):
+        for c in self._conns:
+            c.trace_clock_sync(rounds)
 
     def stop_server(self):
         self.command(CMD_STOP)
@@ -465,6 +548,45 @@ def connect_workers():
     if num_servers_env() > 1:
         return ShardedConnection()
     return WorkerConnection()
+
+
+def _apply_profiler_directive(body):
+    """Run a worker-sent profiler directive in this (server) process (ref:
+    src/kvstore/kvstore_dist_server.h:199: the server's controller runs
+    kSetConfig / kState / kPause / kDump on its own profiler).
+    ``metrics_snapshot`` writes this process's metric snapshot to the
+    requested path and ``trace_dump`` its trace file; the worker polls
+    them into its own files (``telemetry.export.pull_server_metrics``,
+    ``tracing.export.pull_server_trace``). A malformed directive is
+    reported on stderr and never stops the poll loop: the worker already
+    has its acknowledgement."""
+    cmd = "?"
+    try:
+        d = pickle.loads(body)
+        cmd = d.get("cmd")
+        if cmd == "set_config":
+            profiler.set_config(**d.get("kwargs", {}))
+        elif cmd == "set_state":
+            profiler.set_state(d.get("state", "stop"))
+        elif cmd == "pause":
+            profiler.pause()
+        elif cmd == "resume":
+            profiler.resume()
+        elif cmd == "dump":
+            profiler.dump()
+        elif cmd == "metrics_snapshot":
+            from ..telemetry import export as _tm_export
+            _tm_export.dump(d["path"])
+        elif cmd == "trace_dump":
+            _tracing.export.write_trace(d["path"])
+        elif cmd == "noop":
+            pass   # clock-sync probe: the traced request is the payload
+    except Exception as e:  # noqa: BLE001 — see the docstring
+        print("kvstore server: profiler command %r failed: %r"
+              % (cmd, e), file=sys.stderr, flush=True)
+        return
+    profiler.record_event("server_profiler_cmd:%s" % cmd, "kvstore",
+                          profiler._now_us(), 0)
 
 
 def snapshot_path():
@@ -511,6 +633,8 @@ def _read_snapshot(path):
     except MXNetError as e:
         print(f"kvstore server: snapshot {path} failed CRC verification, "
               f"starting empty ({e})", file=sys.stderr, flush=True)
+        profiler.note_checkpoint_rejected({"path": path,
+                                           "reason": "snapshot_crc"})
     except (OSError, ValueError, pickle.UnpicklingError, EOFError):
         pass
     return None
@@ -533,6 +657,12 @@ def run_server(port=None, num_workers=None, poll_ms=200):
         port += int(os.environ.get("DMLC_SERVER_ID", "0"))
     if num_workers is None:
         num_workers = num_workers_env()
+
+    if _tracing.enabled():
+        # traced worker requests become server_recv:* child spans in
+        # this process's rings (the trace_dump directive writes them)
+        from ..tracing import wire as _tw
+        _tw.install_server_sink(lib)
 
     rules = fault_mod.plan_from_env()
     if rules:
@@ -564,20 +694,44 @@ def run_server(port=None, num_workers=None, poll_ms=200):
         optimizer = pickle.loads(blob)
         current["optimizer_blob"] = blob
 
+        update_series = {}   # per-key counter series, resolved once
+
         def updater(key, recved, stored, n, _opt=optimizer, _states=states):
             # runs on a connection thread of the transport: everything it
             # needs is imported at module scope
             t0 = time.perf_counter()
-            host = as_array(stored, shape=(n,))
-            w = NDArray(torch.from_numpy(host).to(device, copy=True))
-            g = NDArray(torch.from_numpy(as_array(recved, shape=(n,)))
-                        .to(device, copy=True))
-            if key not in _states:
-                _states[key] = _opt.create_state_multi_precision(key, w)
-            _opt.update_multi_precision(key, w, g, _states[key])
-            host[:] = w._data.cpu().numpy()
+            tr = _tracing.NOOP
+            if _tracing.enabled():
+                # parented to the worker push that completed the round
+                # (the connection thread's request context, comm.cc);
+                # an untraced push (0, 0) records nothing
+                from ..tracing import wire as _tw
+                ctx = _tw.server_parent_ctx(lib)
+                if ctx[0]:
+                    tr = _tracing.span_at(ctx, "server_update",
+                                          cat="comm", key=key,
+                                          role="server")
+            with tr, profiler.timed_region("server_update:key%d" % key,
+                                           "kvstore"):
+                host = as_array(stored, shape=(n,))
+                w = NDArray(torch.from_numpy(host).to(device, copy=True))
+                g = NDArray(torch.from_numpy(as_array(recved, shape=(n,)))
+                            .to(device, copy=True))
+                if key not in _states:
+                    _states[key] = _opt.create_state_multi_precision(key, w)
+                _opt.update_multi_precision(key, w, g, _states[key])
+                host[:] = w._data.cpu().numpy()
+            dt = time.perf_counter() - t0
             stats["updates"] += 1
-            stats["update_ms"] += (time.perf_counter() - t0) * 1e3
+            stats["update_ms"] += dt * 1e3
+            if _tm_metrics.enabled():
+                m = _server_met()
+                series = update_series.get(key)
+                if series is None:
+                    series = update_series[key] = m["updates"].labels(
+                        key=str(key))
+                series.inc()
+                m["update_s"].observe(dt)
 
         _native.set_server_updater(updater)
 
@@ -630,11 +784,7 @@ def run_server(port=None, num_workers=None, poll_ms=200):
         if got > 0:
             blob = buf.raw[:got]
             if blob.startswith(PROF_MAGIC):
-                # a worker of another build asked for the server profiler,
-                # which this package does not have: said, not dropped
-                print("kvstore server: profiler directive refused: the "
-                      "profiler plane is not ported", file=sys.stderr,
-                      flush=True)
+                _apply_profiler_directive(blob[len(PROF_MAGIC):])
                 continue
             install_updater(blob)
     print("kvstore server: " + json.dumps(

@@ -16,17 +16,63 @@ public API (init / push / pull / set_optimizer / rank / num_workers) is
 the seam the Trainer depends on. Values stay torch tensors on their
 device; a pull writes into its targets in place, so a parameter keeps
 its tensor. ``row_sparse_pull`` raises until sparse NDArray is ported.
+
+Each push and pull runs under a ``kvstore_push`` / ``kvstore_pull`` span
+and, with telemetry on, records its host seconds (also the step
+breakdown's comm_time) and its payload bytes by key and rank, on success
+only. A store connected to parameter servers registers itself with
+``profiler.set_kvstore_handle``, so ``profile_process="server"`` calls
+reach the servers.
 """
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
+from .. import tracing as _tracing
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import NDArray
 from ..optimizer import Updater
+from ..telemetry import metrics as _tm
+from ..telemetry import step as _tm_step
+
+_met = _tm.lazy_metrics(lambda reg: {
+    "push_bytes": reg.counter(
+        "mx_kvstore_push_bytes_total",
+        "payload bytes pushed, by key and worker rank",
+        labelnames=("key", "rank")),
+    "pull_bytes": reg.counter(
+        "mx_kvstore_pull_bytes_total",
+        "payload bytes pulled, by key and worker rank",
+        labelnames=("key", "rank")),
+    "push_s": reg.histogram(
+        "mx_kvstore_push_seconds",
+        "host wall-clock per push call (aggregate + transport)"
+        ).labels(),   # cached series
+    "pull_s": reg.histogram(
+        "mx_kvstore_pull_seconds",
+        "host wall-clock per pull call").labels(),
+})
+
+
+def _nbytes(v):
+    """Payload bytes of a push / pull value from its metadata (no sync)."""
+    if v is None:
+        return 0
+    if isinstance(v, (list, tuple)):
+        return sum(_nbytes(x) for x in v)
+    if isinstance(v, NDArray):
+        v = v._data
+    if isinstance(v, torch.Tensor):
+        return v.numel() * v.element_size()
+    n = getattr(v, "nbytes", None)
+    try:
+        return int(n)
+    except (TypeError, ValueError):
+        return 0
 
 
 def _tensor(v):
@@ -73,6 +119,9 @@ class KVStore:
             if self._conn.rank == 0:
                 self._conn.set_sync_mode("async" not in kv_type)
             self._conn.barrier()   # the sync mode holds for every push
+            # profiler calls with profile_process="server" go through it
+            from .. import profiler
+            profiler.set_kvstore_handle(self)
 
     # -- topology ----------------------------------------------------------
     @property
@@ -114,8 +163,34 @@ class KVStore:
             # no pull may race a key the server has not initialized
             self._conn.barrier()
 
+    def _byte_series(self, which, k):
+        """The (direction, key) byte-counter series, cached on the store
+        (skips the labels() resolution a push / pull)."""
+        cache = self.__dict__.setdefault("_tm_byte_series", {})
+        s = cache.get((which, k))
+        if s is None:
+            s = cache[(which, k)] = _met()[which].labels(
+                key=str(k), rank=str(self.rank))
+        return s
+
     def push(self, key, value, priority=0):
         keys, values = self._normalize(key, value)
+        # the span's attrs are static; the dist transport opens kv.push
+        # children that ride the wire
+        with _tracing.span("kvstore_push", cat="comm", nkeys=len(keys)):
+            if not _tm.enabled():
+                return self._push_impl(keys, values)
+            t0 = time.perf_counter()
+            # recorded on success only: a raising push moved no bytes
+            ret = self._push_impl(keys, values)
+            dt = time.perf_counter() - t0
+            _met()["push_s"].observe(dt)
+            _tm_step.add_comm(dt)
+            for k, v in zip(keys, values):
+                self._byte_series("push_bytes", k).inc(_nbytes(v))
+            return ret
+
+    def _push_impl(self, keys, values):
         for k, v in zip(keys, values):
             if isinstance(v, (list, tuple)):
                 # a push of several devices' values: their sum
@@ -153,6 +228,19 @@ class KVStore:
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         keys, outs = self._normalize(key, out)
+        with _tracing.span("kvstore_pull", cat="comm", nkeys=len(keys)):
+            if not _tm.enabled():
+                return self._pull_impl(keys, outs)
+            t0 = time.perf_counter()
+            ret = self._pull_impl(keys, outs)
+            dt = time.perf_counter() - t0
+            _met()["pull_s"].observe(dt)
+            _tm_step.add_comm(dt)
+            for k, o in zip(keys, outs):
+                self._byte_series("pull_bytes", k).inc(_nbytes(o))
+            return ret
+
+    def _pull_impl(self, keys, outs):
         for k, o in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized in kvstore")

@@ -5,9 +5,10 @@ base_module.py).
 ``fit`` is the reference's epoch loop: bind -> init_params ->
 init_optimizer -> per batch forward_backward / update / update_metric,
 with callbacks and checkpointing. The per-batch work runs eagerly on the
-bound executor's device. Not ported yet: the JAX ``fit``'s per-step
-telemetry and health boundaries and its NaN-postmortem iterator context
-(they come with the port of the telemetry and profiling planes).
+bound executor's device, and each step ends in a telemetry step boundary
+(``telemetry.step``, source ``module_fit``). Not ported yet: the JAX
+``fit``'s health boundaries and its NaN-postmortem iterator context
+(they come with the port of ``profiling/``, ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..base import MXNetError
 from .. import metric as metric_mod
+from ..telemetry import step as _tm_step
 from ..model import BatchEndParam
 from ..ndarray import NDArray
 
@@ -216,12 +218,18 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
+            # close any stale step interval: validation, checkpoints or
+            # the time between fit calls are no step's
+            _tm_step.reset()
             train_data.reset()
             for data_batch in train_data:
                 if monitor is not None:
                     monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
+                # charges the data / comm / compile time accrued since the
+                # previous boundary to the step that just finished
+                _tm_step.step_boundary("module_fit")
                 self.update_metric(eval_metric, data_batch.label)
                 if monitor is not None:
                     monitor.toc_print()

@@ -357,8 +357,12 @@ class Module(BaseModule):
                             for i, s in states.items()}
 
     def install_monitor(self, mon):
-        raise MXNetError("Module.install_monitor: monitor.py is not ported "
-                         "yet")
+        """Tap the bound executor's node outputs with a ``Monitor`` (or a
+        plain ``callback(name, NDArray)``)."""
+        if hasattr(mon, "install"):
+            mon.install(self._exec)
+        else:
+            self._exec.set_monitor_callback(mon)
 
     def reshape(self, data_shapes, label_shapes=None):
         assert self.binded

@@ -21,6 +21,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import Context, resolve_device
 from ..ops import registry as _reg
@@ -421,7 +422,13 @@ def invoke(op_name, inputs, attrs, out=None):
         tensors = [t.clone() if t.is_inference() else t for t in tensors]
     device = tensors[0].device if tensors else resolve_device(None)
     with torch.set_grad_enabled(recording):
-        raw = op(*tensors, **attrs)
+        if _profiler.is_running():
+            # the engine-style stamp of an op (ref: threaded_engine.cc:481):
+            # it times the launch, the kernels run asynchronously
+            with _profiler.timed_operator(op.name):
+                raw = op(*tensors, **attrs)
+        else:
+            raw = op(*tensors, **attrs)
     multi = isinstance(raw, (tuple, list))
     outs = [NDArray(as_tensor(r, device)) for r in (raw if multi else [raw])]
     if recording:

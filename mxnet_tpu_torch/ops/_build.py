@@ -68,7 +68,10 @@ def _start(name, nvcc):
 
 def build_all(names=KERNELS):
     """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together. Returns the wall seconds taken."""
+    source, all started together. Returns the wall seconds taken. Each
+    library compiled counts as one build in the telemetry, charged to the
+    op in scope (``telemetry.compile_scope``)."""
+    from .. import telemetry
     t0 = time.perf_counter()
     with _lock:
         nvcc = _nvcc()
@@ -83,7 +86,11 @@ def build_all(names=KERNELS):
             os.replace(tmp, target)   # atomic: readers never see a partial .so
         if failures:
             raise MXNetError("kernel build failed:\n" + "\n".join(failures))
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    for _ in jobs:
+        # the jobs ran together: their wall time is split evenly
+        telemetry.note_compile(seconds / len(jobs))
+    return seconds
 
 
 def load(name):

@@ -19,8 +19,17 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import telemetry as _telemetry
+from ..telemetry import _current_op as _tm_op
 
 _OPS = {}
+
+# the cached series, not the family: series survive registry resets, and
+# skipping labels() keeps the cost of a dispatch to one lock and add
+_dispatch_counter = _telemetry.metrics.lazy_metrics(
+    lambda reg: reg.counter(
+        "mx_op_dispatches_total",
+        "eager op dispatches through the jit-wrapping path").labels())
 
 # positional params with a None default that are arrays, not attrs
 _ARRAYISH = {"bias", "gamma", "weight"}
@@ -62,6 +71,18 @@ class OpDef:
         return f"<Op {self.name}>"
 
     def __call__(self, *arrays, **attrs):
+        """Eager execute. With telemetry on, the dispatch is counted and
+        a kernel build it triggers is charged to this op (the previous
+        scope is restored, not cleared: an enclosing op or
+        ``compile_scope`` gets its attribution back)."""
+        if _telemetry.enabled():
+            prev = getattr(_tm_op, "name", None)
+            _tm_op.name = self.name
+            try:
+                return self.fn(*arrays, **attrs)
+            finally:
+                _tm_op.name = prev
+                _dispatch_counter().inc()
         return self.fn(*arrays, **attrs)
 
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import math
 import queue
 import threading
@@ -668,9 +669,13 @@ def run_shards(mesh, f, local_args):
     positions = mesh.positions()
     with mesh._run_lock:
         run = _Run(mesh, COLLECTIVE_TIMEOUT_S)
-        futs = [w.submit(lambda c=c, a=a: _shard_main(
-            run, c, mesh.device_at(c), f, a, streams, grad, inference))
-            for w, c, a in zip(mesh._pool(), positions, local_args)]
+        # each position runs in its own copy of the caller's context
+        # variables, so a tracing span opened in a shard is a child of
+        # the caller's span (a new thread would start with none)
+        futs = [w.submit(lambda c=c, a=a, cx=contextvars.copy_context():
+                         cx.run(_shard_main, run, c, mesh.device_at(c), f,
+                                a, streams, grad, inference))
+                for w, c, a in zip(mesh._pool(), positions, local_args)]
         results = []
         for fut in futs:
             try:

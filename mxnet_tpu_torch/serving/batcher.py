@@ -47,25 +47,37 @@ class Request:
 
     ``data`` is a numpy array of shape ``(rows,) + feature_shape``; the
     batcher stacks requests along axis 0 and splits the outputs back.
-    ``submit_ns`` orders the queue and starts the max_wait hold;
-    ``exec_end_ns`` is when its batch's outputs reached the host (the
-    trace spans and tail attribution of the JAX package wait for a
-    later slice).
+    Timestamps (monotonic ns, ``tracing.clock``'s clock) accumulate as the
+    request moves through the pipeline: ``submit_ns`` orders the queue
+    and starts the max_wait hold, ``dequeue_ns`` / ``exec_start_ns`` /
+    ``exec_end_ns`` bound its batch's assembly and execution (the end
+    when the outputs reached the host). At reply the gateway records the
+    request -> queue -> batch -> execute -> reply span chain under
+    ``trace_ctx`` from them; ``hold_ns`` (the batch's coalescing hold)
+    and ``requeue_ns`` (time lost on failed replicas) are attributes of
+    the queue span.
     """
 
-    __slots__ = ("model", "variant", "data", "rows", "submit_ns",
-                 "exec_end_ns", "attempts", "_event", "_result", "_error")
+    __slots__ = ("model", "variant", "data", "rows", "trace_ctx",
+                 "submit_ns", "dequeue_ns", "exec_start_ns",
+                 "exec_end_ns", "attempts", "hold_ns", "requeue_ns",
+                 "_event", "_result", "_error")
 
-    def __init__(self, model, variant, data):
+    def __init__(self, model, variant, data, trace_ctx=(0, 0)):
         self.model = model
         self.variant = variant
         self.data = data
         self.rows = int(data.shape[0])
+        self.trace_ctx = trace_ctx
         self.submit_ns = now_ns()
+        self.dequeue_ns = 0
+        self.exec_start_ns = 0
         # executions tried: a request that failed on every replica is
         # the poison pill, failed instead of redistributed again
         self.attempts = 0
         self.exec_end_ns = 0
+        self.hold_ns = 0
+        self.requeue_ns = 0
         self._event = threading.Event()
         self._result = None
         self._error = None
@@ -129,8 +141,14 @@ class ModelQueue:
 
     def requeue(self, reqs):
         """Back at the front, original order preserved."""
+        now = now_ns()
         with self._cond:
             for req in reversed(reqs):
+                # the failed attempt's dequeue -> now is lost time; the
+                # retry stamps dequeue_ns again when its batch runs
+                if req.dequeue_ns:
+                    req.requeue_ns += max(now - req.dequeue_ns, 0)
+                    req.dequeue_ns = 0
                 self._by_variant.setdefault(
                     req.variant, deque()).appendleft(req)
                 self._rows += req.rows
@@ -189,12 +207,18 @@ class ModelQueue:
             batch = [first]
             rows = self._scoop(dq, batch, first.rows)
             deadline_ns = first.submit_ns + int(self.max_wait_s * 1e9)
+            hold_ns = 0
             while rows < self.max_rows and not self.closed:
-                remaining = (deadline_ns - now_ns()) / 1e9
+                now = now_ns()
+                remaining = (deadline_ns - now) / 1e9
                 if remaining <= 0:
                     break
                 self._cond.wait(remaining)
+                hold_ns += now_ns() - now
                 rows = self._scoop(dq, batch, rows)
+            # the coalescing hold, stamped on every member of the batch
+            for r in batch:
+                r.hold_ns = hold_ns
             return variant, batch
 
 

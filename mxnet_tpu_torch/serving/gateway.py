@@ -34,9 +34,19 @@ slice that holds one device twice (``Gateway(devices=["cuda:0",
 "cuda:0"])``: both shards on one card), is ``degraded``. A one-shot
 model registered with ``tp >= 2`` serves on slices the same way, each
 lane a :class:`~.sharded.ShardedVariantSet` (parameters sharded at rest
-by the layout table, gathered on use, outputs replicated). The
-autoscaler, the cluster ledger, telemetry and tracing wait for a later
-slice.
+by the layout table, gathered on use, outputs replicated).
+
+Every request carries a trace context (the caller's enclosing span, else
+a fresh one under ``MXTPU_TRACE_SAMPLE``): at reply the gateway records
+the ``serving.request`` -> ``serving.queue`` / ``serving.batch`` /
+``serving.execute`` / ``serving.reply`` spans, and a generation's lane
+records ``serving.generate`` with its ``generate.prefill``,
+``generate.recover`` and ``generate.token`` spans
+(``generate/scheduler.py``). The ``mx_serving_*`` telemetry families
+count requests, rejections, batches, padding, replica health and
+per-stage latency. The autoscaler, the cluster ledger, the elastic
+plane's spans and the tail attribution wait for a later slice (ROADMAP
+queue 1 item 6).
 
 Quickstart::
 
@@ -62,8 +72,10 @@ import threading
 import numpy as np
 import torch
 
+from .. import tracing
 from ..base import get_env
 from ..context import Context, resolve_device
+from ..telemetry import metrics as _tm
 from ..parallel.mesh import (replica_devices, replica_slices,
                              should_warn_degraded)
 from .batcher import (ModelQueue, RejectedError, Request, ServingError,
@@ -76,6 +88,41 @@ logger = logging.getLogger(__name__)
 # EWMA weight of the service-rate estimates (recent batches dominate, so
 # admission follows the current load within ~10 batches)
 _EWMA = 0.2
+
+_met = _tm.lazy_metrics(lambda reg: {
+    "requests": reg.counter(
+        "mx_serving_requests_total",
+        "admitted inference requests", labelnames=("model", "variant")),
+    "rejected": reg.counter(
+        "mx_serving_rejected_total",
+        "fast-rejected requests at admission",
+        labelnames=("model", "reason")),
+    "batches": reg.counter(
+        "mx_serving_batches_total",
+        "executed batches", labelnames=("model", "variant")),
+    "pad_rows": reg.counter(
+        "mx_serving_padding_rows_total",
+        "zero rows added to fill shape buckets", labelnames=("model",)),
+    "depth": reg.gauge(
+        "mx_serving_queue_depth",
+        "requests pending in the model queue", labelnames=("model",)),
+    "healthy": reg.gauge(
+        "mx_serving_replica_healthy",
+        "1 = replica serving, 0 = drained",
+        labelnames=("model", "replica")),
+    "failures": reg.counter(
+        "mx_serving_replica_failures_total",
+        "replica executions that failed and drained the replica",
+        labelnames=("model",)),
+    "batch_rows": reg.histogram(
+        "mx_serving_batch_rows",
+        "coalesced rows per executed batch", labelnames=("model",),
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)),
+    "latency": reg.histogram(
+        "mx_serving_latency_seconds",
+        "per-stage + end-to-end request latency",
+        labelnames=("model", "stage")),
+})
 
 
 class Replica:
@@ -168,6 +215,7 @@ class Replica:
                     self._run_batch(variant, batch)
                 except Exception as e:  # noqa: BLE001 — one bad execution
                     self._fail(batch, e)  # drains THIS replica
+        _met()["depth"].labels(model=m.name).set(m.queue.depth())
 
     def _hand_back(self, batch):
         """Drained by a probe (or superseded by a revived generation)
@@ -192,9 +240,12 @@ class Replica:
 
     def _run_batch(self, variant, batch):
         m = self._model
+        met = _met()
+        t_deq = now_ns()
         rows = sum(r.rows for r in batch)
         bucket = pick_bucket(m.buckets, rows)
         for r in batch:
+            r.dequeue_ns = t_deq
             r.attempts += 1
         padded, _ = pad_batch(batch, bucket, self.variant_set.feature_shape,
                               self.variant_set.input_dtype)
@@ -202,13 +253,19 @@ class Replica:
         outs = self.variant_set.run(variant, padded)
         t1 = now_ns()
         m._count_batch(variant, rows, bucket)
+        met["depth"].labels(model=m.name).set(m.queue.depth())
+        met["batches"].labels(model=m.name, variant=variant).inc()
+        met["batch_rows"].labels(model=m.name).observe(rows)
+        met["pad_rows"].labels(model=m.name).inc(bucket - rows)
         self.batches += 1
         self.rows += rows
         off = 0
         for r in batch:
-            r.exec_end_ns = t1
+            r.exec_start_ns, r.exec_end_ns = t0, t1
             r._set_result([o[off:off + r.rows] for o in outs])
             off += r.rows
+            m._reply(r, bucket=bucket, batch_size=len(batch),
+                     replica=self.idx, rows=rows)
         m._observe_rate(rows, (t1 - t0) / 1e9)
 
     def _fail(self, batch, err):
@@ -220,6 +277,9 @@ class Replica:
         self.failures += 1
         with m._rate_lock:
             m.counts["failures"] += 1
+        met = _met()
+        met["failures"].labels(model=m.name).inc()
+        met["healthy"].labels(model=m.name, replica=str(self.idx)).set(0)
         logger.error("serving: replica %d of %r drained after: %r — "
                      "redistributing %d request(s)", self.idx, m.name, err,
                      len(batch))
@@ -312,6 +372,48 @@ class Model:
             self._rows_per_s = rate if self._rows_per_s is None else \
                 (1 - _EWMA) * self._rows_per_s + _EWMA * rate
 
+    def _reply(self, req, bucket, batch_size, replica, rows=None):
+        """Per-stage latencies of a replied request, and its span chain
+        under its trace context."""
+        t_reply = now_ns()
+        lat = _met()["latency"]
+        name = self.name
+        lat.labels(model=name, stage="queue").observe(
+            (req.dequeue_ns - req.submit_ns) / 1e9)
+        lat.labels(model=name, stage="batch").observe(
+            (req.exec_start_ns - req.dequeue_ns) / 1e9)
+        lat.labels(model=name, stage="execute").observe(
+            (req.exec_end_ns - req.exec_start_ns) / 1e9)
+        lat.labels(model=name, stage="e2e").observe(
+            (t_reply - req.submit_ns) / 1e9)
+        trace_id, parent = req.trace_ctx
+        if not trace_id:
+            return
+        root = tracing.record_span(
+            "serving.request", trace_id, parent, req.submit_ns, t_reply,
+            cat="serving",
+            attrs={"model": name, "variant": req.variant,
+                   "rows": req.rows, "attempts": req.attempts})
+        tracing.record_span("serving.queue", trace_id, root,
+                            req.submit_ns, req.dequeue_ns,
+                            cat="serving",
+                            attrs={"hold_ns": req.hold_ns,
+                                   "requeue_ns": req.requeue_ns})
+        tracing.record_span("serving.batch", trace_id, root,
+                            req.dequeue_ns, req.exec_start_ns,
+                            cat="serving",
+                            attrs={"bucket": bucket,
+                                   "requests": batch_size})
+        tracing.record_span("serving.execute", trace_id, root,
+                            req.exec_start_ns, req.exec_end_ns,
+                            cat="serving",
+                            attrs={"bucket": bucket, "replica": replica,
+                                   "variant": req.variant,
+                                   "rows": (rows if rows is not None
+                                            else req.rows)})
+        tracing.record_span("serving.reply", trace_id, root,
+                            req.exec_end_ns, t_reply, cat="serving")
+
     def estimate_latency_s(self, rows):
         """Predicted end-to-end latency of a new request: the queued rows
         drained at the observed rate (scaled by the healthy replicas),
@@ -340,6 +442,14 @@ def _resolve_tp(tp):
     if tp < 1:
         raise ServingError(f"serving: tp must be >= 1, got {tp}")
     return tp if tp >= 2 else None
+
+
+def _trace_ctx():
+    """The trace context a request carries: the caller's enclosing span,
+    else a fresh root (sampled by ``MXTPU_TRACE_SAMPLE``; ``(0, 0)``
+    untraced)."""
+    ctx = tracing.context()
+    return ctx if ctx[0] else tracing.new_context()
 
 
 def _slices_share(slices):
@@ -553,6 +663,11 @@ class Gateway:
             raise
         with self._gen_lock:
             self._models[name] = model
+        # gauges only once registration is committed: a build failing on
+        # replica k must leave no healthy series for a model that never
+        # existed
+        for r in model.replicas:
+            _met()["healthy"].labels(model=name, replica=str(r.idx)).set(1)
         logger.info(
             "serving: registered %r on %s — %d replica(s) x %d variant(s) "
             "x %d bucket(s), warmup %.1fs", name,
@@ -615,23 +730,30 @@ class Gateway:
                 f"serving: request rows {arr.shape[0]} outside "
                 f"[1, {m.buckets[-1]}] (split large batches client-side)")
         arr = arr.astype(vs.input_dtype, copy=False)
+        met = _met()
         reason = self._admit(m, arr.shape[0])
         if reason is not None:
             m._count("rejected", reason)
+            met["rejected"].labels(model=model, reason=reason).inc()
             raise RejectedError(reason, self._reject_msg(m, reason))
-        req = Request(model, variant, arr)
+        req = Request(model, variant, arr, _trace_ctx())
         try:
             m.queue.put(req)
         except RejectedError:
             m._count("rejected", "closed")
+            met["rejected"].labels(model=model, reason="closed").inc()
             raise
+        # counted once enqueued: a request that raced a close is not
+        # both admitted and rejected
         m._count("requests", variant)
+        met["requests"].labels(model=model, variant=variant).inc()
         if not any(r.healthy for r in m.replicas):
             # the last lane died between admission and enqueue: its
             # drain has run, so nothing would ever serve this request
             for r in m.queue.drain():
                 r._set_error(ServingError(
                     f"serving: no healthy replica left for {model!r}"))
+        met["depth"].labels(model=model).set(m.queue.depth())
         return req
 
     def _admit(self, m, rows):
@@ -782,9 +904,10 @@ class Gateway:
         :class:`~.generate.GenRequest` future. Fast-rejects with
         :class:`RejectedError` (reason ``kv_cache_full`` when no lane's
         block pool can cover the request's token budget)."""
-        from .generate.scheduler import GenRequest
+        from .generate.scheduler import GenRequest, _met as _gen_met
 
         gen = self._get_generator(model)
+        met = _gen_met()
         if max_new_tokens is None:
             max_new_tokens = gen.max_new_tokens
         prompt = np.asarray(prompt, np.int32).ravel()
@@ -796,11 +919,13 @@ class Gateway:
             raise ServingError(
                 f"serving: max_new_tokens {max_new_tokens} outside "
                 f"[1, {gen.max_new_tokens}] for {model!r}")
-        req = GenRequest(model, prompt, max_new_tokens)
+        req = GenRequest(model, prompt, max_new_tokens, _trace_ctx())
         reason = "closed" if self._closed else gen.try_admit(req)
         if reason is not None:
+            met["rejected"].labels(model=model, reason=reason).inc()
             raise RejectedError(reason, self._gen_reject_msg(
                 gen, reason, len(prompt), max_new_tokens))
+        met["requests"].labels(model=model).inc()
         return req
 
     def _gen_reject_msg(self, gen, reason, plen, max_new):
@@ -859,6 +984,9 @@ class Gateway:
                     logger.warning(
                         "serving: replica %d of %r failed its health "
                         "probe — drained", rep.idx, m.name)
+                _met()["healthy"].labels(
+                    model=m.name, replica=str(rep.idx)).set(
+                        1 if rep.healthy else 0)
                 states.append(rep.healthy)
             if not m.queue.closed and not any(states):
                 # the probe drained the LAST lane: lanes that exit
@@ -959,6 +1087,8 @@ class Gateway:
                 rep, n_exec = m._replica_factory(m, idx, device)
                 m.executables += n_exec
                 m.replicas.append(rep)
+                _met()["healthy"].labels(model=name,
+                                         replica=str(idx)).set(1)
                 report["added"] += 1
         else:
             # retire drained/unhealthy lanes FIRST (retiring the only
@@ -987,6 +1117,7 @@ class Gateway:
         rep._gen += 1   # a lane that took a batch hands it back
         if rep in m.replicas:
             m.replicas.remove(rep)
+        _met()["healthy"].labels(model=m.name, replica=str(rep.idx)).set(0)
         # a lane parked in take_batch leaves at this wakeup; one that is
         # executing a batch completes it first — retirement does not
         # block on it

@@ -45,8 +45,17 @@ scaled out while others serve waits for no one's work but its own.
 A tensor-parallel generator (``tp >= 2``) gives every lane a mesh slice
 of ``tp`` devices: its pool shards the heads over the slice and its
 :class:`~.model.DecodeSteps` run one shard thread a device; the lane's
-stream is its first device's. Metric gauges and tracing spans of
-the JAX scheduler are not ported.
+stream is its first device's.
+
+The ``mx_serving_generate_*`` telemetry families count requests,
+rejections, prefill / decode tokens and steps, recoveries, the running
+batch, the queue depth and the block pools, and time to first token and
+between tokens. When a request retires its lane records its spans under
+the request's trace context: a ``serving.generate`` root, one
+``generate.prefill`` (submit to first token), one ``generate.recover``
+per rescue and one ``generate.token`` per generated token (its step's
+launch to the token on the host). Everything recorded is host
+bookkeeping: the one device read a step is the token reply.
 """
 from __future__ import annotations
 
@@ -59,8 +68,11 @@ import numpy as np
 import torch
 
 from ...base import MXNetError, get_env
+from ... import tracing
 from ...context import resolve_device
 from ...kvstore import fault as _fault
+from ...telemetry import metrics as _tm
+from ...tracing import clock
 from ..batcher import RejectedError, ServingError
 from ..variants import default_buckets, pick_bucket
 from .kvcache import BlockPool, BlockTable
@@ -68,6 +80,62 @@ from .migrate import KVMigrator
 from .model import DecodeSteps
 
 logger = logging.getLogger(__name__)
+
+_met = _tm.lazy_metrics(lambda reg: {
+    "requests": reg.counter(
+        "mx_serving_generate_requests_total",
+        "admitted generation requests", labelnames=("model",)),
+    "rejected": reg.counter(
+        "mx_serving_generate_rejected_total",
+        "fast-rejected generation requests",
+        labelnames=("model", "reason")),
+    "tokens": reg.counter(
+        "mx_serving_generate_tokens_total",
+        "tokens through the decode plane (prefill = prompt tokens "
+        "consumed, decode = tokens generated)",
+        labelnames=("model", "phase")),
+    "steps": reg.counter(
+        "mx_serving_generate_steps_total",
+        "compiled step executions", labelnames=("model", "phase")),
+    "inflight": reg.gauge(
+        "mx_serving_generate_inflight",
+        "requests in the running decode batch",
+        labelnames=("model", "lane")),
+    # the family the one-shot gateway writes too: a generator's queue
+    # depth reads the same way as a one-shot model's
+    "depth": reg.gauge(
+        "mx_serving_queue_depth",
+        "requests pending in the model queue", labelnames=("model",)),
+    "batch_rows": reg.histogram(
+        "mx_serving_generate_batch_rows",
+        "running requests per decode step", labelnames=("model",),
+        buckets=(1, 2, 4, 8, 16, 32, 64)),
+    # phase = steady | recover: a failover stall reads as what it is,
+    # not as steady-state degradation
+    "ttft": reg.histogram(
+        "mx_serving_generate_ttft_seconds",
+        "submit -> first token (prefill + queue)",
+        labelnames=("model", "phase")),
+    "inter_token": reg.histogram(
+        "mx_serving_generate_inter_token_seconds",
+        "gap between consecutive streamed tokens of one request",
+        labelnames=("model", "phase")),
+    "recoveries": reg.counter(
+        "mx_serving_gen_recoveries_total",
+        "in-flight generations recovered onto a surviving lane "
+        "(migrate = KV blocks salvaged, replay = deterministic "
+        "re-decode of prompt + accepted tokens)",
+        labelnames=("model", "mode")),
+    "cache_blocks": reg.gauge(
+        "mx_serving_generate_cache_blocks",
+        "block-pool state per lane",
+        labelnames=("model", "lane", "state")),
+    "occupancy": reg.histogram(
+        "mx_serving_generate_cache_occupancy",
+        "used fraction of the block pool, sampled at every decode "
+        "step", labelnames=("model",),
+        buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0)),
+})
 
 # CUDA streams of finalized lanes, by device, handed to the next lane
 # built there: cuBLAS keeps a workspace per stream, so a scale-in /
@@ -100,29 +168,48 @@ class GenRequest:
     raises the serving-side error if the request failed. ``recoveries``
     counts the lanes it survived; ``recover_spans`` holds one
     ``(start_ns, end_ns, attrs)`` per rescue (``attrs["mode"]`` is
-    ``migrate`` or ``replay``)."""
+    ``migrate`` or ``replay``). ``trace_ctx`` is the ``(trace_id,
+    parent_span_id)`` its spans are recorded under (0: untraced);
+    ``token_spans`` / ``step_meta`` hold each token's step interval and
+    its (interleave ns, rows, bucket); ``admit_ns``, ``kv_wait_ns``,
+    ``queue_cause``, ``prefill_exec_ns`` and ``prompt_pad`` are the
+    prefill span's attributes."""
 
-    __slots__ = ("model", "prompt", "max_new_tokens", "submit_ns",
-                 "first_token_ns", "last_token_ns", "tokens", "table",
+    __slots__ = ("model", "prompt", "max_new_tokens", "trace_ctx",
+                 "submit_ns", "first_token_ns", "last_token_ns",
+                 "tokens", "token_spans", "step_meta", "table",
                  "next_pos", "reserved_blocks", "finish_reason",
-                 "recoveries", "recover_spans", "_recover_cause",
-                 "_salvage", "_recover_t0", "_recovered", "_cv", "_done",
-                 "_error")
+                 "recoveries", "recover_spans", "admit_ns",
+                 "kv_wait_ns", "queue_cause", "prefill_exec_ns",
+                 "prompt_pad", "_kv_wait_t0", "_recover_cause",
+                 "_salvage", "_recover_t0", "_recovered", "_cv",
+                 "_done", "_error")
 
-    def __init__(self, model, prompt, max_new_tokens):
+    def __init__(self, model, prompt, max_new_tokens, trace_ctx=(0, 0)):
         self.model = model
         self.prompt = np.asarray(prompt, np.int32).ravel()
         self.max_new_tokens = int(max_new_tokens)
-        self.submit_ns = time.monotonic_ns()
+        self.trace_ctx = trace_ctx
+        self.submit_ns = clock.now_ns()
         self.first_token_ns = 0
         self.last_token_ns = 0
         self.tokens = []
+        self.token_spans = []
+        self.step_meta = []       # (interleave_ns, rows, bucket) a token
         self.table = None
         self.next_pos = 0
         self.reserved_blocks = 0
         self.finish_reason = None
         self.recoveries = 0       # times this request survived a lane
         self.recover_spans = []   # (start_ns, end_ns, attrs) per rescue
+        # when the request was first admitted, how long its admission
+        # waited on KV budget, and what held its queue wait
+        self.admit_ns = 0
+        self.kv_wait_ns = 0
+        self.queue_cause = None
+        self.prefill_exec_ns = 0
+        self.prompt_pad = 0
+        self._kv_wait_t0 = 0
         self._recover_cause = None
         self._salvage = None      # KV blocks gathered off a dead lane
         self._recover_t0 = 0
@@ -298,11 +385,18 @@ class GenLane:
                 # ago, and a pool nobody closes would stay on the device
                 self._evacuate(doomed)
                 return
+            if admit:
+                m._observe_depth()     # the waiting set just shrank
             try:
+                t_adm = clock.now_ns()
                 for req in admit:
                     self._start(req)
+                # admission work (prefill, replay, landing) runs before
+                # the next decode step: every running request's next
+                # token waits behind it, stamped on its token span
+                interleave_ns = clock.now_ns() - t_adm if admit else 0
                 if self.running:
-                    self._step()
+                    self._step(interleave_ns)
             except Exception as e:  # noqa: BLE001 — a failed step
                 # evacuates ITS requests onto the surviving lanes
                 # (possibly this one); the lane survives for new work
@@ -321,6 +415,7 @@ class GenLane:
         budget."""
         m = self._model
         admit = []
+        now = clock.now_ns()
         while self.waiting and \
                 len(self.running) + len(admit) < m.max_decode_batch:
             req = self.waiting[0]
@@ -328,10 +423,28 @@ class GenLane:
                 need = self.pool.blocks_for(
                     len(req.prompt) + req.max_new_tokens)
                 if not self.pool.reserve(need):
+                    # the head waits on cache budget: from here on its
+                    # queue wait is KV pressure, not backlog
+                    if not req._kv_wait_t0:
+                        req._kv_wait_t0 = now
+                    req.queue_cause = "kv_wait"
                     break
                 req.reserved_blocks = need
+            if req._kv_wait_t0:
+                req.kv_wait_ns += max(now - req._kv_wait_t0, 0)
+                req._kv_wait_t0 = 0
+            if not req.admit_ns:      # the first admission counts: a
+                req.admit_ns = now    # recovery's is the recovery's
+            if req.queue_cause is None:
+                req.queue_cause = "backlog" if (self.running or admit) \
+                    else "none"
             self.waiting.popleft()
             admit.append(req)
+        if self.waiting and \
+                len(self.running) + len(admit) >= m.max_decode_batch:
+            head = self.waiting[0]
+            if head.queue_cause is None:
+                head.queue_cause = "batch_full"
         return admit
 
     def _evacuate(self, doomed):
@@ -339,6 +452,8 @@ class GenLane:
         surviving lanes (migrate preferred, replay as the fallback),
         then finalize."""
         m = self._model
+        _met()["inflight"].labels(model=m.name, lane=str(self.idx)).set(0)
+        m._observe_depth()
         m._recover_requests(
             self, doomed, self.cause or f"lane {self.idx} retired")
         m._finalize_retired_lane(self)
@@ -357,6 +472,8 @@ class GenLane:
             if id(req) not in seen:
                 seen.add(id(req))
                 uniq.append(req)
+        _met()["inflight"].labels(model=m.name, lane=str(self.idx)).set(0)
+        m._observe_depth()
         m._recover_requests(self, uniq, repr(err))
 
     def _fail_inflight(self, extra, err):
@@ -366,6 +483,10 @@ class GenLane:
                 [r for r in extra if not r.done()]
             self.running = []
             self.waiting.clear()
+        # the gauges were last set with a live batch: a failed or closed
+        # lane reads 0, not its last batch size
+        _met()["inflight"].labels(model=m.name, lane=str(self.idx)).set(0)
+        m._observe_depth()
         seen = set()
         for req in doomed:
             # an admitted request can sit in both `running` and `extra`
@@ -391,6 +512,7 @@ class GenLane:
         False when the landing fails (wedged/closed): the caller falls
         back to deterministic replay, which only needs the tokens."""
         m = self._model
+        met = _met()
         salvage, req._salvage = req._salvage, None
         try:
             table, handoff = m.migrator.land(salvage, self.pool,
@@ -402,7 +524,7 @@ class GenLane:
         # next decode step feeds tokens[-1] at next_pos — the invariant
         # the migrated table keeps byte for byte
         req.next_pos = len(req.prompt) + len(req.tokens) - 1
-        now = time.monotonic_ns()
+        now = clock.now_ns()
         req.recover_spans.append((
             req._recover_t0 or now, now,
             {"mode": "migrate", "lane": self.idx,
@@ -412,8 +534,12 @@ class GenLane:
              "est_s": handoff["est_s"],
              "wall_ns": handoff["wall_ns"]}))
         req._recovered = True
+        met["recoveries"].labels(model=m.name, mode="migrate").inc()
         self.migrations += 1
         self.running.append(req)
+        met["inflight"].labels(model=m.name, lane=str(self.idx)).set(
+            len(self.running))
+        self._observe_pool()
         return True
 
     def _replay(self, req):
@@ -423,7 +549,8 @@ class GenLane:
         running batch. Greedy decode makes the continuation token for
         token the never-killed run's; a divergence raises."""
         m = self._model
-        t0 = time.monotonic_ns()
+        met = _met()
+        t0 = clock.now_ns()
         accepted = list(req.tokens)
         plen = len(req.prompt)
         tpad = pick_bucket(m.prompt_buckets, plen)
@@ -461,7 +588,11 @@ class GenLane:
                     f"generate: replay diverged at token {j} "
                     f"({nxt} != accepted {accepted[j]}) — greedy "
                     "decode must be deterministic")
-        now = time.monotonic_ns()
+        met["tokens"].labels(model=m.name, phase="replay").inc(
+            plen + max(len(accepted) - 1, 0))
+        met["steps"].labels(model=m.name, phase="replay").inc(
+            len(accepted))
+        now = clock.now_ns()
         req.recover_spans.append((
             req._recover_t0 or now, now,
             {"mode": "replay", "lane": self.idx,
@@ -470,35 +601,49 @@ class GenLane:
              "replayed_tokens": len(accepted),
              "wall_ns": now - t0}))
         req._recovered = True
+        met["recoveries"].labels(model=m.name, mode="replay").inc()
         self.replays += 1
         self.running.append(req)
+        met["inflight"].labels(model=m.name, lane=str(self.idx)).set(
+            len(self.running))
+        self._observe_pool()
 
     def _prefill(self, req):
         """One request's padded prompt through the causal stack; emits
         the first greedy token and joins the running set."""
         m = self._model
+        met = _met()
         plen = len(req.prompt)
         tpad = pick_bucket(m.prompt_buckets, plen)
         req.table = BlockTable(self.pool, m.table_width)
         req.table.extend(self.pool.blocks_for(plen))
         tokens = np.zeros(tpad, np.int32)
         tokens[:plen] = req.prompt
-        t0 = time.monotonic_ns()
+        t0 = clock.now_ns()
         tok = int(self._host_tokens(self.steps.prefill(
             tokens, plen, req.table.row[:tpad // self.pool.block_tokens])))
-        now = time.monotonic_ns()
+        now = clock.now_ns()
         self.prefills += 1
         self.prefill_ns += now - t0
+        req.prefill_exec_ns = now - t0
+        req.prompt_pad = tpad
         req.next_pos = plen
-        self._emit(req, tok, now)
+        met["tokens"].labels(model=m.name, phase="prefill").inc(plen)
+        met["steps"].labels(model=m.name, phase="prefill").inc()
+        self._emit(req, tok, t0, now, rows=plen, bucket=tpad)
         if req.finish_reason is None:
             self.running.append(req)
+            met["inflight"].labels(model=m.name, lane=str(self.idx)).set(
+                len(self.running))
         else:
             self._retire(req)
 
-    def _step(self):
-        """One iteration-level decode step over the running batch."""
+    def _step(self, interleave_ns=0):
+        """One iteration-level decode step over the running batch.
+        ``interleave_ns`` is the admission work that held this step,
+        stamped on every token it emits."""
         m = self._model
+        met = _met()
         live = self.running
         bucket = pick_bucket(m.decode_buckets, len(live))
         tokens = np.zeros(bucket, np.int32)
@@ -509,22 +654,30 @@ class GenLane:
             tokens[i] = req.tokens[-1]
             positions[i] = req.next_pos
             tables[i] = req.table.row
-        t0 = time.monotonic_ns()
+        t0 = clock.now_ns()
         toks = self._host_tokens(
             self.steps.decode(tokens, positions, tables))
-        now = time.monotonic_ns()
+        now = clock.now_ns()
         self.decode_steps += 1
         self.decode_ns += now - t0
         self.decode_rows += len(live)
+        met["steps"].labels(model=m.name, phase="decode").inc()
+        met["tokens"].labels(model=m.name, phase="decode").inc(len(live))
+        met["batch_rows"].labels(model=m.name).observe(len(live))
+        self._observe_pool()
         finished = []
         for i, req in enumerate(live):
             req.next_pos += 1
-            self._emit(req, int(toks[i]), now)
+            self._emit(req, int(toks[i]), t0, now,
+                       interleave_ns=interleave_ns, rows=len(live),
+                       bucket=bucket)
             if req.finish_reason is not None:
                 finished.append(req)
         for req in finished:
             live.remove(req)
             self._retire(req)
+        met["inflight"].labels(model=m.name, lane=str(self.idx)).set(
+            len(live))
 
     def _host_tokens(self, tok_dev):
         """The token reply transfer: generated ids must reach the host
@@ -533,14 +686,26 @@ class GenLane:
         per step."""
         return tok_dev.cpu().numpy()
 
-    def _emit(self, req, tok, now_ns):
-        """Record + stream one generated token; marks the request
-        finished when it hits EOS or its budget."""
+    def _emit(self, req, tok, step_start_ns, now_ns, interleave_ns=0,
+              rows=1, bucket=1):
+        """Record and stream one generated token; marks the request
+        finished when it hits EOS or its budget. The step's interval and
+        metadata (interleave stall, real rows, padded bucket) become the
+        token's span at retirement."""
         m = self._model
+        met = _met()
+        phase = "recover" if req._recovered else "steady"
         req._recovered = False
         if not req.tokens:
             req.first_token_ns = now_ns
+            met["ttft"].labels(model=m.name, phase=phase).observe(
+                (now_ns - req.submit_ns) / 1e9)
+        else:
+            met["inter_token"].labels(model=m.name, phase=phase).observe(
+                (now_ns - req.last_token_ns) / 1e9)
         req.last_token_ns = now_ns
+        req.token_spans.append((step_start_ns, now_ns))
+        req.step_meta.append((interleave_ns, rows, bucket))
         req._push_token(tok)
         if m.eos_id is not None and tok == m.eos_id:
             req.finish_reason = "eos"
@@ -561,7 +726,63 @@ class GenLane:
         # on another lane is waiting to re-reserve
         with m.cond:
             m.cond.notify_all()
+        self._observe_pool()
+        self._record_spans(req, error)
         req._finish(error)
+
+    def _observe_pool(self):
+        m = self._model
+        met = _met()
+        occ = self.pool.occupancy()
+        lane = str(self.idx)
+        for state in ("used", "free", "reserved"):
+            met["cache_blocks"].labels(
+                model=m.name, lane=lane, state=state).set(
+                occ["%s_blocks" % state])
+        met["occupancy"].labels(model=m.name).observe(occ["used_frac"])
+
+    def _record_spans(self, req, error):
+        """The request's span tree under its trace context: the
+        ``serving.generate`` root, ``generate.prefill`` (submit to first
+        token), each ``generate.recover`` and one ``generate.token`` a
+        token."""
+        m = self._model
+        trace_id, parent = req.trace_ctx
+        if not trace_id:
+            return
+        end = req.last_token_ns or clock.now_ns()
+        admit_wait = max(req.admit_ns - req.submit_ns, 0) \
+            if req.admit_ns else 0
+        root = tracing.record_span(
+            "serving.generate", trace_id, parent, req.submit_ns, end,
+            cat="serving",
+            attrs={"model": m.name, "lane": self.idx,
+                   "prompt_tokens": len(req.prompt),
+                   "new_tokens": len(req.tokens),
+                   "recoveries": req.recoveries,
+                   "queue_cause": req.queue_cause or "none",
+                   "finish": ("error" if error is not None
+                              else req.finish_reason)})
+        if req.first_token_ns:
+            tracing.record_span(
+                "generate.prefill", trace_id, root, req.submit_ns,
+                req.first_token_ns, cat="serving",
+                attrs={"prompt_tokens": len(req.prompt),
+                       "pad_tokens": req.prompt_pad,
+                       "queue_ns": admit_wait,
+                       "kv_wait_ns": req.kv_wait_ns,
+                       "exec_ns": req.prefill_exec_ns})
+        for s, e, attrs in req.recover_spans:
+            tracing.record_span("generate.recover", trace_id, root,
+                                s, e, cat="serving", attrs=attrs)
+        for j, (s, e) in enumerate(req.token_spans):
+            attrs = {"index": j}
+            if j < len(req.step_meta):
+                inter, rows, bucket = req.step_meta[j]
+                attrs.update(interleave_ns=inter, rows=rows,
+                             bucket=bucket)
+            tracing.record_span("generate.token", trace_id, root, s, e,
+                                cat="serving", attrs=attrs)
 
     def stats(self):
         return {"idx": self.idx,
@@ -736,8 +957,16 @@ class GenModel:
                         continue
                     lane.waiting.append(req)
                     self.cond.notify_all()
+                self._observe_depth()
                 return None
         return "kv_cache_full"
+
+    def _observe_depth(self):
+        """Publish the waiting count on the shared queue-depth gauge
+        (host ints under the cond lock)."""
+        with self.cond:
+            depth = sum(len(ln.waiting) for ln in self.lanes)
+        _met()["depth"].labels(model=self.name).set(depth)
 
     # -- decode failover -----------------------------------------------------
     def _recover_requests(self, src_lane, reqs, cause):
@@ -761,6 +990,7 @@ class GenModel:
             self._recovery_round += 1
             rround = self._recovery_round
         storm = _fault.replay_storm_active(rround, plan=self.fault_plan)
+        met = _met()
         for req in reqs:
             req._recover_cause = cause
             if self.closed:
@@ -773,6 +1003,8 @@ class GenModel:
                 if req.recoveries > self.max_recoveries:
                     with self.cond:
                         self.lane_lost_rejections += 1
+                    met["rejected"].labels(model=self.name,
+                                           reason="lane_lost").inc()
                     src_lane._retire(req, error=RejectedError(
                         "lane_lost",
                         f"generate: request on {self.name!r} lost its "
@@ -790,7 +1022,7 @@ class GenModel:
                         self.recovery_backoff_ms
                         * 2.0 ** (req.recoveries - 2),
                         self.recovery_backoff_ms * 40.0) / 1e3)
-                req._recover_t0 = time.monotonic_ns()
+                req._recover_t0 = clock.now_ns()
                 if req._salvage is None and not storm \
                         and req.table is not None and req.table.blocks:
                     try:
@@ -816,6 +1048,8 @@ class GenModel:
                 if not live:
                     with self.cond:
                         self.lane_lost_rejections += 1
+                    met["rejected"].labels(model=self.name,
+                                           reason="lane_lost").inc()
                     src_lane._retire(req, error=RejectedError(
                         "lane_lost",
                         f"generate: model {self.name!r} has no "
@@ -846,6 +1080,7 @@ class GenModel:
                 if req.reserved_blocks:
                     target.pool.unreserve(req.reserved_blocks)
                     req.reserved_blocks = 0
+        self._observe_depth()
 
     # -- lifecycle -----------------------------------------------------------
     def scale_to(self, n, devices, drain_timeout=30.0):
@@ -924,6 +1159,12 @@ class GenModel:
             if lane in self.lanes:
                 self.lanes.remove(lane)
         _return_stream(lane.pool.device, lane.stream)
+        met = _met()
+        ln = str(lane.idx)
+        for state in ("used", "free", "reserved"):
+            met["cache_blocks"].labels(
+                model=self.name, lane=ln, state=state).set(0)
+        met["inflight"].labels(model=self.name, lane=ln).set(0)
         return freed
 
     def close(self):

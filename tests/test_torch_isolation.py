@@ -101,6 +101,9 @@ def test_import_pulls_in_no_jax_and_no_mxnet_tpu():
         "import mxnet_tpu_torch.contrib.io\n"
         "import mxnet_tpu_torch.image.detection\n"
         "import mxnet_tpu_torch.ops.detection\n"
+        "import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.tracing\n"
+        "import mxnet_tpu_torch.tracing.wire, mxnet_tpu_torch.profiler\n"
+        "import mxnet_tpu_torch.monitor\n"
         "import runpy\n"
         f"runpy.run_path({LAUNCH!r})\n"
         "new = set(sys.modules) - before\n"

@@ -371,8 +371,9 @@ def test_module_binds_one_device_and_refuses_what_waits(caplog):
     """A context list of distinct contexts binds a dp mesh (``cpu(0)``
     and ``cpu(1)``: two positions on the CPU), one that repeats a
     context binds its device with the JAX package's warning, absent
-    cards raise, and ``install_monitor`` raises (its module is not
-    ported yet)."""
+    cards raise, and ``install_monitor`` installs a plain callback on the
+    dp executor (``test_torch_profiler.py`` holds the Monitor's stats to
+    the JAX package's)."""
     net = _mlp(tmx.sym)
     shapes = ([("data", (4, 784))], [("softmax_label", (4,))])
     mod = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
@@ -380,8 +381,10 @@ def test_module_binds_one_device_and_refuses_what_waits(caplog):
     assert mod._device == torch.device("cpu")
     assert mod._exec._mesh.shape == {"dp": 2}
     assert str(mod._exec._arg_specs["data"]) == "PartitionSpec('dp')"
-    with pytest.raises(MXNetError, match="monitor"):
-        mod.install_monitor(lambda *a: None)
+    def tap(*a):
+        return None
+    mod.install_monitor(tap)
+    assert mod._exec._monitor is tap
     with caplog.at_level(logging.WARNING):
         one = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(0)])
         one.bind(*shapes)
