@@ -205,11 +205,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``_bench_allreduce`` reports it at one rank (2 x bytes / s, CUDA
    events; no bus bandwidth). No kernel of the port launches here;
 17. the serving planes on the one card, at phase 5's decoder widths
-   (2.147 GB f32 pool a lane) and burst, the burst's
-   ``reference_generate`` tokens computed once: ``Gateway(devices=
+   (2.147 GB f32 pool a lane) and burst: ``Gateway(devices=
    [cuda:0])`` with ``register_generator(replicas=2)`` (degraded, its
    warning logged once), lane 0 killed mid-stream with ``GenLane.kill``:
-   every stream equal to ``reference_generate``, at least one KV-block
+   every stream equal to ``reference_generate`` (the burst's references
+   computed once, from the first scenario's streams: one causal forward
+   over prompt + stream checks each emitted token's argmax, and a
+   position whose top-two logits are within ``REF_MARGIN`` is
+   recomputed over its prefix alone), at least one KV-block
    migration with ``bytes_moved`` = blocks x ``bytes_per_block``, K4
    still launching on the survivor and ``memory_allocated`` down by one
    pool; the same kill under ``MXNET_KVSTORE_FAULT_PLAN=replay_storm``
@@ -350,10 +353,35 @@ Phases (any failure exits non-zero and prints no result line):
    bound; tokens/s of phase 5's whole burst (32 requests) and LM step
    ms (2 steps a turn) with the planes off and on in 3 turns each
    (``observability_cost``); 60 s at most;
-24. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+24. the model-health and memory planes and tail attribution on the
+   card (``health_and_tails``): phase 12's decoder-LM (fp32) through
+   ``Trainer("adam")`` with the planes on, 6 steps then 3 counted ones
+   (12 K3 forward and 12 backward launches a step): the probe's
+   nonfinite counts exactly, and its norms within 1e-5 relative, of an
+   f64 host run over the same tensors; every counted ``trainer_step``
+   span with ``health_nonfinite``, ``loss_ewma`` and ``grad_norm``; the
+   census's ``mx_memory_live_bytes`` on the card equal to the
+   parameters' and Adam states' bytes, ``activation`` at least 0; 0
+   synchronizing calls a step with the planes on and off; the probe's
+   launches a step (torch.profiler) and device ms; LeNet bound with
+   ``simple_bind`` on the card and on the CPU, one weight poisoned at
+   step 2 under ``MXTPU_HEALTH=raise``: ``NonfiniteError`` at the
+   boundary after the fold lag (later on the card while the count's
+   copy is in flight), both postmortems naming step 2 and the same first
+   node; a tensor larger than the card requested inside a ``Trainer``
+   step: the OOM postmortem (census, ``memory_stats``, flight dump)
+   written, the step after it fine; phase 5's decoder serving the
+   burst's first 8 requests (admitted at once) with the tail plane on
+   and with ``MXTPU_TAIL_ENABLE=0``: the same tokens and K3 / K4
+   launches, every request's bins conserving (residual within 0.10),
+   the ``tail/v1`` document through ``tools/tail_report.py``; LM step
+   ms and serving tokens/s with the planes off and on
+   (``health_cost``); 40 s at most;
+25. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``, phase 21's as
    ``parallel_launches``, phase 22's as ``data_parallel_launches``,
-   phase 23's as ``observability_launches``), then the result line
+   phase 23's as ``observability_launches``, phase 24's as
+   ``health_launches``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
@@ -4222,6 +4250,11 @@ def phase_dist(here, dev):
 # tokens and has at least PLANES_KILL_BEFORE still to come, so the kill
 # lands mid-stream
 PLANES_KILL_AFTER, PLANES_KILL_BEFORE = 4, 8
+# a position of a stream whose top-two logits are closer than this share
+# of the top one's magnitude (at least 1) is recomputed the unpaged way
+# (one forward over exactly that prefix): only there could a forward
+# over the longer sequence round to another argmax
+REF_MARGIN = 1e-3
 PLANES_REPLICA_ROWS, PLANES_ONESHOT_REQUESTS = 4, 6
 # the gateway's degraded-placement warning, counted over the phase
 PLANES_WARNINGS = []
@@ -4348,6 +4381,64 @@ def planes_recoveries(reqs, stamps, t_kill):
                          "max": vals[-1]} if vals and key.endswith("ms")
                         else sum(vals) if vals else 0)
     return summary, modes
+
+
+def reference_next(dec, params, toks):
+    """``reference_generate``'s next token after ``toks``: one causal
+    forward over exactly that prefix (plain attention, no cache)."""
+    from mxnet_tpu_torch.serving.generate import model as gen_model
+    x = gen_model._hidden_plain(params, torch.tensor(
+        [toks], device=dec.device), dec.num_heads)
+    return int(torch.argmax(gen_model._final_logits(params, x[0, -1])))
+
+
+def verified_refs(dec, prompts, new, streams):
+    """``reference_generate``'s tokens for each request, in fewer
+    forwards: a position's logits depend on its prefix alone, so one
+    causal forward over prompt + stream checks every emitted token's
+    argmax at once. Where the top-two margin is under REF_MARGIN, that
+    prefix is recomputed the old way (``reference_next``); from the
+    first position that disagrees, or where the stream stopped short,
+    the rest is generated the old way. Returns (references, counts)."""
+    from mxnet_tpu_torch.serving.generate import model as gen_model
+    stats = {"stream_forwards": 0, "recomputed": 0, "diverged": 0,
+             "continued": 0}
+    refs = []
+    eos = dec.eos_id
+    with torch.inference_mode():
+        params = dec.param_tree()
+        for p, n, got in zip(prompts, new, streams):
+            toks = [int(t) for t in np.asarray(p).ravel()]
+            got = [int(t) for t in got][:int(n)]
+            ref, stopped = [], False
+            if got:
+                x = gen_model._hidden_plain(params, torch.tensor(
+                    [toks + got[:-1]], device=dec.device), dec.num_heads)
+                top = torch.topk(gen_model._final_logits(
+                    params, x[0, len(toks) - 1:]), 2, dim=-1)
+                stats["stream_forwards"] += 1
+                args = top.indices[:, 0].tolist()
+                vals = top.values.tolist()
+                for j, want in enumerate(got):
+                    t = args[j]
+                    if vals[j][0] - vals[j][1] < REF_MARGIN * max(
+                            abs(vals[j][0]), 1.0):
+                        t = reference_next(dec, params, toks + ref)
+                        stats["recomputed"] += 1
+                    ref.append(t)
+                    stopped = eos is not None and t == eos
+                    if t != want:
+                        stats["diverged"] += 1
+                        break
+                    if stopped:
+                        break
+            while len(ref) < int(n) and not stopped:
+                t = reference_next(dec, params, toks + ref)
+                stats["continued"] += 1
+                ref.append(t)
+                stopped = eos is not None and t == eos
+            refs.append(ref)
+    return refs, stats
 
 
 def planes_kill_scenario(att, i8, fo, gw, dec, name, burst, refs,
@@ -4632,8 +4723,7 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
     the module docstring's phase 17. Returns the phase's K3 / K4
     launches."""
     from mxnet_tpu_torch.serving import Gateway
-    from mxnet_tpu_torch.serving.generate import (GenerativeDecoder,
-                                                  reference_generate)
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
     from mxnet_tpu_torch.serving.generate import model as gen_model
 
     t_phase = time.perf_counter()
@@ -4645,11 +4735,6 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
                             num_layers=LAYERS, num_heads=HEADS,
                             max_prompt_tokens=MAX_PROMPT, device=dev,
                             seed=SEED)
-    t0 = time.perf_counter()
-    refs = [reference_generate(dec, p, int(n)) for p, n in zip(prompts, new)]
-    ref_s = time.perf_counter() - t0
-    # phase 21 serves the same decoder and burst
-    RESULTS["burst_refs"] = refs
     rows, totals = [], {"flash_attention": 0, "paged_attention": 0,
                         "paged_attention_bf16": 0}
 
@@ -4659,8 +4744,17 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
 
     gw = Gateway(devices=[dev])
     try:
-        row, modes, mig, counts, _ = planes_kill_scenario(
-            att, i8, fo, gw, dec, "lm_kill", burst, refs)
+        row, modes, mig, counts, got = planes_kill_scenario(
+            att, i8, fo, gw, dec, "lm_kill", burst, None)
+        # the references, checked against this scenario's streams
+        t0 = time.perf_counter()
+        refs, ref_stats = verified_refs(dec, prompts, new, got)
+        ref_s = time.perf_counter() - t0
+        # phase 21 serves the same decoder and burst
+        RESULTS["burst_refs"] = refs
+        bad = [i for i, (r, w) in enumerate(zip(got, refs)) if r != w]
+        check(not bad, f"serving_planes lm_kill: requests {bad} differ "
+              "from reference_generate")
         check("migrate" in modes and mig["migrations"] >= 1,
               f"serving_planes kill: no migration ({modes}, {mig})")
         rows.append(row)
@@ -4722,7 +4816,8 @@ def phase_serving_planes(att, i8, fo, dev, burst, here, rng):
     phase_s = time.perf_counter() - t_phase
     log("serving_planes " + json.dumps({
         "card": card_line(), "phase_s": phase_s,
-        "reference_generate_s": ref_s, "scenarios": rows,
+        "reference_generate_s": ref_s, "reference_forwards": ref_stats,
+        "scenarios": rows,
         "launches": totals}))
     check(phase_s <= 60.0, f"serving_planes took {phase_s:.1f} s, over 60")
     return totals
@@ -6765,6 +6860,494 @@ def phase_observability(att, i8, fo, dev, burst, rng, here):
                 "serving": serving["launches"]["paged_attention"]}}
 
 
+
+# -- phase 24: the model-health and memory planes, and tail attribution ------
+HT_WARM_STEPS = 5       # LM steps before the counted ones: the fold lag's
+HT_LM_STEPS = 3         # boundaries and one; counted LM steps
+HT_TIMED = 2            # LM steps timed a turn
+HT_COST_PAIRS = 2       # off / on turns of the LM step's cost
+HT_SERVE_PAIRS = 1      # on / off turns of the burst
+HT_NORM_RTOL = 1e-5     # the probe's norms against the f64 host run
+HT_NAN_STEP = 2         # the LeNet step whose weight is poisoned
+HT_NAN_STEPS = 10
+HT_REQUESTS = 8
+HT_TAIL_TOLERANCE = 0.10
+HT_SECONDS = 40.0
+
+
+def ht_planes(mx, on):
+    """The model-health plane (warn) and the census on, or both off (what
+    MXTPU_HEALTH=0 and MXTPU_MEMORY_CENSUS=0 set); health state cleared."""
+    mx.profiling.health.set_enabled(on)
+    mx.profiling.memory.set_census_enabled(on)
+    mx.profiling.health.reset()
+
+
+def ht_plain_probe(olds, news, grads, group_idx):
+    """The probe's values from host copies, in f64: the gradient and
+    weight nonfinite counts, then the global gradient norm and each
+    group's (weight norm, gradient norm, update ratio)."""
+    def bad(ts):
+        return sum(int((~torch.isfinite(t)).sum()) for t in ts)
+
+    def sq(t):
+        return float(t.double().square().sum())
+    w2 = [sq(t) for t in news]
+    g2 = [sq(t) for t in grads]
+    u2 = [sq(o.double() - n.double()) for o, n in zip(olds, news)]
+    out = [float(np.sqrt(sum(g2)))]
+    for gi in range(max(group_idx) + 1):
+        idx = [i for i, g in enumerate(group_idx) if g == gi]
+        wn = np.sqrt(sum(w2[i] for i in idx))
+        gn = np.sqrt(sum(g2[i] for i in idx))
+        un = np.sqrt(sum(u2[i] for i in idx))
+        out += [float(wn), float(gn), float(un / max(wn, 1e-12))]
+    return [bad(grads), bad(news)], out
+
+
+def ht_lm(mx, att, i8, fo, dev, rng):
+    """Phase 12's decoder-LM trained through ``Trainer("adam")`` with the
+    planes on: the probe's counts and norms of the last counted step
+    against the host f64 run of the same tensors, the step spans' health
+    attrs, the census against the parameters' and Adam states' bytes,
+    sync counts and step ms on and off, the probe's launches."""
+    from mxnet_tpu_torch.profiling import health, memory
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    ctx = mx.Context(dev)
+    dec = GenerativeDecoder(vocab_size=LM_VOCAB, d_model=LM_D_MODEL,
+                            num_layers=LM_LAYERS, num_heads=LM_HEADS,
+                            ff_mult=LM_FF, max_prompt_tokens=LM_SEQ,
+                            device=dev, seed=SEED)
+    block = dec.block
+    tokens = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1))
+    x = mx.nd.array(tokens[:, :-1].astype(np.int32), ctx=ctx)
+    y = mx.nd.array(tokens[:, 1:].astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+    params = [p for p in block.collect_params().values()
+              if p.grad_req != "null"]
+
+    def step():
+        # the loss observed before the update, as a training loop does:
+        # it folds with the step it belongs to
+        loss = lm_step(mx, block, loss_fn, x, y)
+        health.observe_loss(loss.mean())
+        trainer.step(x.shape[0])
+        return loss
+
+    ht_planes(mx, True)
+    mx.tracing.set_sample(1.0)
+    mx.tracing.reset()
+    for _ in range(HT_WARM_STEPS):
+        step()
+    torch.cuda.synchronize()
+    # the last counted step's probe outputs, captured beside its inputs
+    captured = {}
+    real = health.probe_values
+
+    def capture(ws, gs, olds, group_idx, want):
+        counts, norms = real(ws, gs, olds, group_idx, want)
+        captured.update(counts=counts, norms=norms, group_idx=group_idx)
+        return counts, norms
+
+    before = kernel_counts(att, i8, fo)
+    olds = None
+    for i in range(HT_LM_STEPS):
+        if i == HT_LM_STEPS - 1:
+            olds = [p.data()._data.detach().to("cpu", copy=True)
+                    for p in params]
+            health.probe_values = capture
+        try:
+            step()
+        finally:
+            health.probe_values = real
+    torch.cuda.synchronize()
+    after = kernel_counts(att, i8, fo)
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    check(fwd == bwd == HT_LM_STEPS * LM_LAYERS,
+          f"health_and_tails: {fwd} K3 forward / {bwd} backward launches in "
+          f"{HT_LM_STEPS} steps, want {LM_LAYERS} each a step")
+    news = [p.data()._data.detach().cpu() for p in params]
+    grads = [p.grad()._data.detach().cpu() for p in params]
+    counts = captured["counts"].cpu().tolist()
+    norms = captured["norms"].cpu().tolist()
+    plain_counts, plain_norms = ht_plain_probe(olds, news, grads,
+                                               captured["group_idx"])
+    check(counts == plain_counts, f"health_and_tails: probe counts "
+          f"{counts}, plain {plain_counts}")
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(norms,
+                                                           plain_norms)]
+    check(len(norms) == len(plain_norms) and max(rel) <= HT_NORM_RTOL,
+          f"health_and_tails: probe norms off the plain f64 run by "
+          f"{max(rel)} relative")
+    del olds, news, grads
+    spans = [s for s in mx.tracing.spans_snapshot()
+             if s["name"] == "trainer_step"]
+    counted = spans[-HT_LM_STEPS:]
+    check(len(spans) == HT_WARM_STEPS + HT_LM_STEPS
+          and all(s["attrs"].get("health_nonfinite") == 0 for s in spans)
+          and all({"loss_ewma", "grad_norm"} <= set(s["attrs"])
+                  for s in counted),
+          f"health_and_tails: trainer_step attrs "
+          f"{[sorted(s['attrs']) for s in spans]}")
+    doc = health.flush()
+    check(doc["sentry"]["verdict"] == "clean" and doc["loss"]["observed"]
+          == HT_WARM_STEPS + HT_LM_STEPS, f"health_and_tails: {doc}")
+    # the census: the parameters' and Adam states' bytes on the card
+    gc.collect()
+    snap = mx.telemetry.snapshot()["metrics"]
+    live = {(s["labels"]["device"], s["labels"]["role"]): s["value"]
+            for s in snap["mx_memory_live_bytes"]["series"]}
+    dkey = f"gpu:{dev.index or 0}" if dev.type == "cuda" else "cpu:0"
+    param_bytes = sum(p.data()._data.untyped_storage().nbytes()
+                      for p in block.collect_params().values())
+    state_bytes = sum(s._data.untyped_storage().nbytes()
+                      for st in trainer._updaters.states.values()
+                      for s in st)
+    census = {"device": dkey,
+              "parameter": live.get((dkey, "parameter")),
+              "optimizer_state": live.get((dkey, "optimizer_state")),
+              "gradient": live.get((dkey, "gradient")),
+              "activation": live.get((dkey, "activation")),
+              "want_parameter": param_bytes,
+              "want_optimizer_state": state_bytes}
+    check(census["parameter"] == param_bytes
+          and census["optimizer_state"] == state_bytes
+          and census["activation"] is not None
+          and census["activation"] >= 0,
+          f"health_and_tails: census {census}")
+    # the probe's launches a step (and the pre-update copy's)
+    ws = [p.data()._data for p in params]
+    gs = [p.grad()._data for p in params]
+    group_idx = captured["group_idx"]
+
+    def probe_call():
+        return real(ws, gs, health.pre_update_copy(ws), group_idx, True)
+    launched = kernels_launched(probe_call, 1)
+    probe_ms, probe_launch_ms = measure(probe_call, iters=5, warmup=1)
+    del ws, gs
+    # synchronizing calls and step ms, planes off and on
+    syncs, step_ms = {}, {}
+    for on in (False, True) * HT_COST_PAIRS:
+        ht_planes(mx, on)
+        if on not in syncs:
+            _, syncs[on] = sync_count(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HT_TIMED):
+            step()
+        torch.cuda.synchronize()
+        step_ms.setdefault(on, []).append(
+            (time.perf_counter() - t0) / HT_TIMED * 1e3)
+    ht_planes(mx, True)
+    check(syncs[True] == syncs[False] == 0, f"health_and_tails: a training "
+          f"step synchronizes {syncs[True]} times with the planes on, "
+          f"{syncs[False]} off")
+    copies = {k: n for k, n in launched.items()
+              if k.startswith(("Memcpy", "Memset"))}
+    return {"k3_fwd_launches_a_step": fwd // HT_LM_STEPS,
+            "k3_bwd_launches_a_step": bwd // HT_LM_STEPS,
+            "parameters": len(params), "groups": max(group_idx) + 1,
+            "probe_counts": counts, "probe_norm_rel_max": max(rel),
+            "grad_norm": norms[0], "census": census,
+            "probe_launches_a_step": sum(launched.values())
+            - sum(copies.values()),
+            "probe_copies_a_step": sum(copies.values()),
+            "probe_kernels": launched, "probe_device_ms": probe_ms,
+            "probe_launch_ms": probe_launch_ms, "step_syncs": syncs[True],
+            "step_ms_on": step_ms[True], "step_ms_off": step_ms[False],
+            "launches": {"flash_attention": fwd,
+                         "flash_attention_bwd": bwd}}
+
+
+def ht_nan_run(mx, ctx, params, x, y, here, where):
+    """LeNet bound with ``simple_bind`` on ``ctx``, SGD through the
+    Updater, one weight poisoned at step HT_NAN_STEP under the raise
+    policy: (boundary that raised, its postmortem)."""
+    from mxnet_tpu_torch.profiling import health
+
+    ht_planes(mx, True)
+    health.set_enabled("raise")
+    os.environ["MXTPU_HEALTH_DUMP_PATH"] = os.path.join(
+        here, "build", "chip_smoke", f"nan_postmortem_{where}.json")
+    net = lenet(mx.sym)
+    with ctx:
+        ex = net.simple_bind(ctx, grad_req={k: "write" for k in params},
+                             data=x.shape, softmax_label=y.shape)
+        ex.copy_params_from({k: mx.nd.array(v) for k, v in params.items()})
+        xd, yd = mx.nd.array(x), mx.nd.array(y)
+    updater = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", learning_rate=MODULE_LR))
+    raised = None
+    try:
+        for step in range(HT_NAN_STEPS):
+            if step == HT_NAN_STEP:
+                with torch.no_grad():
+                    ex.arg_dict["conv2_weight"]._data.view(-1)[0] = \
+                        float("nan")
+            ex.forward(is_train=True, data=xd, softmax_label=yd)
+            ex.backward()
+            for i, n in enumerate(ex.arg_names):
+                if n in params:
+                    updater(i, ex.grad_dict[n], ex.arg_dict[n])
+            try:
+                health.step_boundary("chip_smoke_lenet")
+            except health.NonfiniteError as e:
+                raised = (step, e.postmortem)
+                break
+    finally:
+        os.environ.pop("MXTPU_HEALTH_DUMP_PATH", None)
+        ht_planes(mx, True)
+    check(raised is not None, f"health_and_tails: no NonfiniteError on "
+          f"the {where} in {HT_NAN_STEPS} steps")
+    return raised
+
+
+def ht_nan(mx, dev, here):
+    """The NaN trip on the card and on the CPU from the same seeded
+    LeNet weights and batch: both name the poisoned step and the same
+    first op."""
+    from mxnet_tpu_torch.profiling import health
+
+    rs = np.random.RandomState(SEED)
+    x = rs.rand(MODULE_BATCH, 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, (MODULE_BATCH,)).astype(np.float32)
+    shapes = {"conv1_weight": (20, 1, 5, 5), "conv1_bias": (20,),
+              "conv2_weight": (50, 20, 5, 5), "conv2_bias": (50,),
+              "fc1_weight": (500, 800), "fc1_bias": (500,),
+              "fc2_weight": (10, 500), "fc2_bias": (10,)}
+    params = {k: (rs.normal(0, 0.05, s) if k.endswith("weight")
+                  else np.zeros(s)).astype(np.float32)
+              for k, s in shapes.items()}
+    got = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        got[where] = ht_nan_run(mx, ctx, params, x, y, here, where)
+    (card_at, card_pm), (cpu_at, cpu_pm) = got["card"], got["cpu"]
+
+    def first(pm):
+        f = pm.get("first_op") or {}
+        return (pm.get("source"), pm.get("step"), f.get("node"),
+                f.get("op"), f.get("index"))
+    check(first(card_pm) == first(cpu_pm) and card_pm.get("step")
+          == HT_NAN_STEP and cpu_at == HT_NAN_STEP + health._FOLD_LAG
+          and card_at >= HT_NAN_STEP + health._FOLD_LAG
+          and card_pm.get("path") and os.path.exists(card_pm["path"]),
+          f"health_and_tails: NaN trip card {card_at} {first(card_pm)}, "
+          f"cpu {cpu_at} {first(cpu_pm)}")
+    return {"poisoned_step": HT_NAN_STEP, "raised_at_card": card_at,
+            "raised_at_cpu": cpu_at, "first_op": first(card_pm),
+            "probes": (card_pm.get("first_op") or {}).get("probes"),
+            "internals": (card_pm.get("first_op") or {}).get("internals")}
+
+
+def ht_oom(mx, dev, here):
+    """A tensor larger than the card requested inside a Trainer step on a
+    small net: the OOM postmortem (census, allocator statistics, flight
+    dump) written, the error propagated, the next step fine."""
+    from mxnet_tpu_torch.profiling import memory
+
+    path = os.path.join(here, "build", "chip_smoke", "oom_postmortem.json")
+    if os.path.exists(path):
+        os.remove(path)
+    os.environ["MXTPU_OOM_DUMP_PATH"] = path
+    memory._LAST_POSTMORTEM[0] = -10.0
+    rs = np.random.RandomState(SEED)
+    ctx = mx.gpu(0)
+    with ctx:
+        net = mx.gluon.nn.Dense(10, in_units=64, prefix="oom_")
+        net.initialize(mx.initializer.Xavier(), ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1})
+        xd = mx.nd.array(rs.rand(32, 64).astype(np.float32))
+        yd = mx.nd.array(rs.randint(0, 10, (32,)).astype(np.float32))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(xd), yd)
+        loss.backward()
+        trainer.step(32)
+        return loss
+
+    step()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    real, asked = trainer._updaters, []
+
+    def huge(i, g, w):
+        if not asked:
+            asked.append(total + (1 << 30))
+            torch.empty(asked[0], dtype=torch.uint8, device=dev)
+        return real(i, g, w)
+
+    trainer._updaters = huge
+    caught = None
+    try:
+        step()
+    except torch.cuda.OutOfMemoryError as e:
+        caught = e
+    finally:
+        trainer._updaters = real
+        os.environ.pop("MXTPU_OOM_DUMP_PATH", None)
+    check(caught is not None, "health_and_tails: no OutOfMemoryError")
+    check(os.path.exists(path), "health_and_tails: no OOM postmortem")
+    with open(path) as f:
+        doc = json.load(f)
+    stats = doc.get("device_stats", {}).get("gpu:0", {})
+    check(doc.get("source") == "trainer_step"
+          and doc["census"]["by_role"].get("parameter", {}).get("bytes")
+          and stats.get("memory_stats") and stats.get("bytes_limit")
+          and "flight" in doc,
+          f"health_and_tails: OOM postmortem keys {sorted(doc)}")
+    loss = step()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss._data).all()),
+          "health_and_tails: the step after the OOM failed")
+    return {"asked_bytes": asked[0], "card_bytes": total,
+            "postmortem_keys": sorted(doc),
+            "num_ooms": (stats.get("memory_stats") or {}).get("num_ooms"),
+            "census_roles": sorted(doc["census"]["by_role"])}
+
+
+def ht_tails(mx, att, dev, burst, here):
+    """Phase 5's decoder serving the burst's first HT_REQUESTS (admitted
+    at once) with the tail plane on: every request's bins conserve, the
+    aggregated document renders through ``tools/tail_report.py``; the
+    same burst with MXTPU_TAIL_ENABLE=0 launches the same K3 / K4 and
+    emits the same tokens."""
+    from mxnet_tpu_torch.profiling import tailpath
+    from mxnet_tpu_torch.serving import Gateway
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    all_plens, all_new, all_prompts = burst
+    prompts, new = all_prompts[:HT_REQUESTS], all_new[:HT_REQUESTS]
+    dec = GenerativeDecoder(vocab_size=VOCAB, d_model=D_MODEL,
+                            num_layers=LAYERS, num_heads=HEADS,
+                            max_prompt_tokens=MAX_PROMPT, device=dev,
+                            seed=SEED)
+    gw = Gateway(device=dev)
+    runs, doc, records = [], None, []
+    try:
+        gen = gw.register_generator(
+            "lm", dec, block_tokens=BLOCK_TOKENS, max_blocks=MAX_BLOCKS,
+            max_new_tokens=MAX_NEW, max_decode_batch=MAX_BATCH)
+        lane = gen.lanes[0]
+        mx.tracing.set_sample(1.0)
+        for enable in ("1", "0") * HT_SERVE_PAIRS:
+            os.environ["MXTPU_TAIL_ENABLE"] = enable
+            mx.tracing.reset()
+            att.reset_launches()
+            got, wall = obs_burst(gw, lane, prompts, new)
+            run = {"tail": tailpath.enabled(), "wall_s": wall,
+                   "tokens_per_s": int(sum(new)) / wall,
+                   "flash_launches": att.flash_attention.launches,
+                   "paged_launches": att.paged_attention.launches,
+                   "tokens": got}
+            if tailpath.enabled():
+                spans = mx.tracing.spans_snapshot()
+                records, skipped = tailpath.join_spans(spans)
+                agg = tailpath.TailAggregator(window=64, slow_frac=0.25)
+                run["ingested"] = agg.ingest_spans(spans, stage="burst")
+                run["skipped"] = skipped
+                doc = agg.collect(tolerance=HT_TAIL_TOLERANCE)
+            runs.append(run)
+    finally:
+        os.environ.pop("MXTPU_TAIL_ENABLE", None)
+        gw.close()
+    on = [r for r in runs if r["tail"]]
+    off = [r for r in runs if not r["tail"]]
+    check(all(r["tokens"] == runs[0]["tokens"] for r in runs)
+          and len({(r["flash_launches"], r["paged_launches"])
+                   for r in runs}) == 1
+          and runs[0]["flash_launches"] == HT_REQUESTS * LAYERS,
+          "health_and_tails: tokens or K3 / K4 launches differ with the "
+          "tail plane on and off: " + json.dumps(
+              [{k: v for k, v in r.items() if k != "tokens"}
+               for r in runs]))
+    worst = 0.0
+    for r in records:
+        attributed = sum(v for b, v in r["bins"].items()
+                         if b != "_unattributed")
+        check(attributed + r["bins"]["_unattributed"] == r["e2e_ns"]
+              and attributed <= r["e2e_ns"], f"health_and_tails: {r}")
+        worst = max(worst, r["bins"]["_unattributed"] / r["e2e_ns"])
+    check(len(records) == HT_REQUESTS and on[-1]["skipped"] == 0
+          and worst <= HT_TAIL_TOLERANCE
+          and doc["conservation"]["conserved"],
+          f"health_and_tails: tails {len(records)} records, worst "
+          f"unattributed {worst}, {doc['conservation']}")
+    path = os.path.join(here, "build", "chip_smoke", "tail.json")
+    tailpath.dump(path, doc)
+    out = subprocess.run([sys.executable, os.path.join(
+        here, "tools", "tail_report.py"), path], capture_output=True,
+        text=True, timeout=60)
+    check(out.returncode == 0 and "decode_compute" in out.stdout,
+          f"health_and_tails: tail_report: {out.stdout} {out.stderr}")
+    return {"requests": HT_REQUESTS, "records": len(records),
+            "worst_unattributed": worst,
+            "conservation": doc["conservation"],
+            "drivers": doc["slow"]["drivers"][:5],
+            "tokens_per_s_on": [r["tokens_per_s"] for r in on],
+            "tokens_per_s_off": [r["tokens_per_s"] for r in off],
+            "launches": {"flash_attention": runs[0]["flash_launches"],
+                         "paged_attention": runs[0]["paged_launches"]}}
+
+
+def phase_health_and_tails(att, i8, fo, dev, burst, rng, here):
+    """The module docstring's phase 24: the model-health and memory
+    planes on the LM training path, a NaN trip and an OOM postmortem,
+    the census, and tail attribution on the serving path. Returns the
+    phase's K3 / K4 launches by part."""
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(here, "build", "chip_smoke"), exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts_s = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts_s[name] = time.perf_counter() - t0
+        return out
+    try:
+        lm = part("lm", ht_lm, mx, att, i8, fo, dev, rng)
+        gc.collect()
+        torch.cuda.empty_cache()
+        nan = part("nan", ht_nan, mx, dev, here)
+        oom = part("oom", ht_oom, mx, dev, here)
+        tails = part("tails", ht_tails, mx, att, dev, burst, here)
+    finally:
+        ht_planes(mx, True)
+        mx.telemetry.set_enabled(True)
+        mx.tracing.set_sample(1.0)
+    phase_s = time.perf_counter() - t_phase
+    log("health_cost " + json.dumps({
+        "card": card_line(),
+        "lm_step_ms_on": lm["step_ms_on"], "lm_step_ms_off": lm["step_ms_off"],
+        "serving_tokens_per_s_on": tails["tokens_per_s_on"],
+        "serving_tokens_per_s_off": tails["tokens_per_s_off"],
+        "probe_launches_a_step": lm["probe_launches_a_step"],
+        "probe_device_ms": lm["probe_device_ms"]}))
+    log("health_and_tails " + json.dumps({
+        "card": card_line(), "phase_s": phase_s, "parts_s": parts_s,
+        "lm": {k: v for k, v in lm.items() if k != "launches"},
+        "nan": nan, "oom": oom,
+        "tails": {k: v for k, v in tails.items() if k != "launches"}}))
+    check(phase_s <= HT_SECONDS, f"health_and_tails took {phase_s:.1f} s, "
+          f"over {HT_SECONDS:.0f}")
+    return {"flash_attention": {"training": lm["launches"]["flash_attention"],
+                                "serving": tails["launches"][
+                                    "flash_attention"]},
+            "flash_attention_bwd": {
+                "training": lm["launches"]["flash_attention_bwd"]},
+            "paged_attention": {"serving": tails["launches"][
+                "paged_attention"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -6834,6 +7417,8 @@ def main():
     data_parallel = timed(phase_data_parallel, att, i8, fo, dev, rng)
     observability = timed(phase_observability, att, i8, fo, dev, burst,
                           rng, here)
+    health = timed(phase_health_and_tails, att, i8, fo, dev, burst, rng,
+                   here)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -6846,6 +7431,8 @@ def main():
         k["data_parallel_launches"] = data_parallel.get(k["name"])
         # the observability planes' launches (phase 23), by part
         k["observability_launches"] = observability.get(k["name"])
+        # the health and tail planes' launches (phase 24), by part
+        k["health_launches"] = health.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path

@@ -67,6 +67,7 @@ import torch
 
 from .base import MXNetError, get_env
 from . import telemetry, tracing  # noqa: F401
+from . import profiling  # noqa: F401
 from .context import Context, cpu, current_context, gpu, resolve_device
 from . import ops  # noqa: F401  registers every op
 from . import ndarray as nd

@@ -43,6 +43,14 @@ output must be batch-major). ``backward`` takes one
 positions' graphs meet in the BatchNorm merges, so no collective runs
 inside the backward), sums the replicated arguments' gradients in rank
 order on the first device and concatenates the split ones.
+
+**Health and memory.** Each forward and backward hands its outputs (its
+gradients) to the model-health sentry (``profiling.health.check``: a
+nonfinite count on the device, folded at a later step boundary); a trip
+replays the forward through the per-node tap to name the first op whose
+output is nonfinite. The gradient buffers carry the ``gradient`` census
+role, and an allocation failure inside a forward or backward leaves the
+OOM postmortem (``profiling.memory``) before it propagates.
 """
 from __future__ import annotations
 
@@ -63,6 +71,8 @@ from .ops.nn import batch_moments
 from .parallel.collectives import allgather, allreduce, axis_size
 from .parallel.mesh import (PartitionSpec as P, Sharded, _assemble, _local,
                             entry_axes, run_shards)
+from .profiling import health as _health
+from .profiling import memory as _mem
 from .symbol.symbol import op_attrs
 
 
@@ -260,12 +270,16 @@ class Executor:
                                          "args_grad", allow_missing=True)
         else:
             self.grad_dict = {
-                n: NDArray(torch.zeros_like(self.arg_dict[n]._data))
+                n: _mem.tag_role(
+                    NDArray(torch.zeros_like(self.arg_dict[n]._data)),
+                    "gradient")
                 for n in self.arg_names if self._grad_req[n] != "null"}
         self.outputs = []
         # (outputs with graph, leaves) of the last training forward,
         # until the next forward
         self._recorded = None
+        # the last training forward's inputs, for a backward trip's replay
+        self._replay = None
         self._monitor = None
         self._monitor_all = False
 
@@ -310,13 +324,49 @@ class Executor:
         with self._maybe_profile("executor_forward"), \
                 _tracing.span("executor_forward", cat="compute"), \
                 _telemetry.compile_scope("executor_forward"):
-            if self._mesh is not None:
-                self._forward_dp(is_train, tap)
-            else:
-                self._forward(is_train, tap)
+            try:
+                if self._mesh is not None:
+                    arg_vals, aux_vals = self._forward_dp(is_train, tap)
+                else:
+                    arg_vals, aux_vals = self._forward(is_train, tap)
+            except Exception as e:
+                # an allocation failure leaves the memory postmortem
+                # first; anything else propagates untouched
+                _mem.maybe_oom_postmortem(e, source="executor_forward")
+                raise
         for name, value in inputs:
             tap(name, value)
+        self._replay = (arg_vals, aux_vals) if is_train else None
+        if _health.enabled():
+            # one nonfinite count over the outputs, folded at a later
+            # step boundary; only a trip runs the replay, over these
+            # inputs, that names the first nonfinite op
+            _health.check(
+                "executor_forward", self.outputs,
+                localize=lambda: _health.localize_first_nonfinite(
+                    self, arg_vals, aux_vals, training=bool(is_train)))
         return self.outputs
+
+    def _split_values(self, values):
+        """(argument values, auxiliary values) of a forward's inputs."""
+        return ({n: values[n] for n in self.arg_names if n in values},
+                {n: values[n] for n in self.aux_names if n in values})
+
+    def _internals(self, arg_vals, aux_vals, training):
+        """(names, values) of every node output of a replayed forward
+        over the given inputs, in ``get_internals()`` order (the
+        monitor's tap; a dp mesh's inputs assembled whole): what the
+        health localizer searches."""
+        values = {n: v.full() if isinstance(v, Sharded) else v
+                  for n, v in {**arg_vals, **aux_vals}.items()}
+        names, vals = [], []
+
+        def tap(name, value):
+            names.append(name)
+            vals.append(value)
+        with torch.no_grad():
+            _run(self._symbol, values, bool(training), tap=tap)
+        return names, vals
 
     def _forward(self, is_train, tap):
         values = {n: a._data for n, a in self.arg_dict.items()}
@@ -325,7 +375,7 @@ class Executor:
             self.outputs = [NDArray(as_tensor(o, self._device))
                             for o in _run(self._symbol, values, False,
                                           tap=tap)[0]]
-            return
+            return self._split_values(values)
         leaves = {}
         for n, req in self._grad_req.items():
             t = values[n]
@@ -341,6 +391,7 @@ class Executor:
         self._recorded = (outs, leaves)
         self.outputs = [NDArray(as_tensor(o, self._device).detach())
                         for o in outs]
+        return self._split_values(values)
 
     # -- observability --------------------------------------------------
     def set_monitor_callback(self, callback, monitor_all=False):
@@ -397,6 +448,7 @@ class Executor:
         mesh = self._mesh
         values = {n: self._sharded.get(n, a._data)
                   for n, a in self.arg_dict.items()}
+        aux0 = {n: a._data for n, a in self.aux_dict.items()}
         for n, v in values.items():
             spec = self._spec(n)
             if spec and entry_axes(spec[0]) and v.shape:
@@ -468,6 +520,7 @@ class Executor:
                 else:
                     value = first
                 tap(name, value)
+        return self._split_values({**values, **aux0})
 
     def _split_nodes(self):
         """{tap name: whether the value depends on an input the specs
@@ -538,10 +591,22 @@ class Executor:
         with self._maybe_profile("executor_backward"), \
                 _tracing.span("executor_backward", cat="compute"), \
                 _telemetry.compile_scope("executor_backward"):
-            if self._mesh is not None:
-                self._store_grads(self._backward_dp(out_grads))
-            else:
-                self._backward(out_grads)
+            try:
+                grads = self._backward_dp(out_grads) \
+                    if self._mesh is not None else self._backward(out_grads)
+            except Exception as e:
+                _mem.maybe_oom_postmortem(e, source="executor_backward")
+                raise
+            self._store_grads(grads)
+        if _health.enabled():
+            # backward sentry: a NaN born in the backward (finite in
+            # every forward internal) trips here; the replay then finds
+            # no first op and the postmortem names the seam
+            arg_vals, aux_vals = self._replay
+            _health.check(
+                "executor_backward", grads,
+                localize=lambda: _health.localize_first_nonfinite(
+                    self, arg_vals, aux_vals, training=True))
 
     def _backward(self, out_grads):
         outs, leaves = self._recorded
@@ -562,20 +627,21 @@ class Executor:
                 grad_outputs=[h for _, h in pairs], allow_unused=True,
                 retain_graph=True)
         del outs, pairs
-        self._store_grads({
-            n: torch.zeros_like(leaves[n]) if g is None else g
-            for n, g in zip(names, grads)})
+        return {n: torch.zeros_like(leaves[n]) if g is None else g
+                for n, g in zip(names, grads)}
 
     def _store_grads(self, grads):
         for n, g in grads.items():
             g = g.contiguous()
             dst = self.grad_dict.get(n)
             if dst is None:
-                self.grad_dict[n] = NDArray(g)
+                dst = self.grad_dict[n] = NDArray(g)
             elif self._grad_req[n] == "add":
                 dst._data = dst._data + g
             else:
                 dst._data = g
+            # a fresh tensor each backward: re-stamp the census role
+            _mem.tag_role(dst, "gradient")
 
     @property
     def grad_arrays(self):

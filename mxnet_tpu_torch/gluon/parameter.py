@@ -27,6 +27,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray, as_tensor
 from ..ops.registry import dtype_name, torch_dtype
+from ..profiling import memory as _mem
 from ..random import generator as seeded_generator
 
 
@@ -86,6 +87,7 @@ class Parameter:
             self._data.grad = None
             self._data._grad_req = "null"
             self._data._data = self._data._data.detach()
+            _mem.tag_role(self._data, "parameter")
         elif self._data.grad is None:
             self._data.attach_grad(req)
         else:
@@ -98,6 +100,7 @@ class Parameter:
         t = t.detach()
         self._data._data = autograd._leaf(t) if self._data.grad is not None \
             else t
+        _mem.tag_role(self._data, "parameter")
 
     def _shape_incomplete(self):
         return self.shape is None or any(d == 0 for d in self.shape)
@@ -133,6 +136,8 @@ class Parameter:
             self._data = NDArray(value.to(self._device))
             if self._grad_req != "null":
                 self._data.attach_grad(self._grad_req)
+        # the census role (a weak side-table write; profiling/memory.py)
+        _mem.tag_role(self._data, "parameter")
         self._deferred_init = None
 
     def _finish_deferred_init(self):
@@ -214,6 +219,7 @@ class Parameter:
                 self._data.attach_grad(self._grad_req)
         else:
             self._rebind(t)
+        _mem.tag_role(self._data, "parameter")
         self._device = self._data._data.device
         self._deferred_init = None
 

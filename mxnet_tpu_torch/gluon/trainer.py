@@ -11,14 +11,20 @@ collective plane's replicated update); without it, each step allreduces
 the gradients through the kvstore (push, then pull into the gradient)
 and updates locally. Rank 0's values seed every worker at init. Each
 step runs under a ``trainer_step`` span (``step`` the step's index from
-0) and ends in a telemetry step boundary. The JAX step's health probe
-and out-of-memory postmortem wait for the port of ``profiling/``
-(ROADMAP queue 1 item 6).
+0) and ends in a telemetry step boundary. Inside the span, the
+model-health probe (``profiling.health.StepProbe``) counts the step's
+nonfinite gradients and weights and computes its norms, and the health
+boundary stamps the lagged health attrs on the span (a
+``MXTPU_HEALTH=raise`` trip raises there); an allocation failure inside
+the step leaves the OOM postmortem (``profiling.memory``) before it
+propagates.
 """
 from __future__ import annotations
 
 from .. import optimizer as opt_mod
 from .. import tracing as _tracing
+from ..profiling import health as _health
+from ..profiling import memory as _mem
 from ..base import MXNetError
 from ..telemetry import step as _tm_step
 from .parameter import Parameter, ParameterDict
@@ -103,12 +109,21 @@ class Trainer:
         # the root span of the step: the comm and compute spans under it
         # are what tools/trace_merge.py's straggler report groups by step
         n = self._step_count = self._step_count + 1
-        with _tracing.span("trainer_step", cat="step", step=n):
-            if not self._kv_initialized:
-                self._init_kvstore()
-            self._sync_server_rescale()
-            self._allreduce_grads()
-            self._update(ignore_stale_grad)
+        with _tracing.span("trainer_step", cat="step", step=n) as sp:
+            try:
+                if not self._kv_initialized:
+                    self._init_kvstore()
+                self._sync_server_rescale()
+                self._allreduce_grads()
+                self._update(ignore_stale_grad)
+            except Exception as e:
+                # an allocation failure leaves the memory postmortem
+                # (census, allocator statistics, flight dump) first
+                _mem.maybe_oom_postmortem(e, source="trainer_step")
+                raise
+            # inside the step span: the lagged health attrs land on it,
+            # and a MXTPU_HEALTH=raise trip surfaces here
+            _health.step_boundary("trainer", span=sp)
         # one boundary a step: charges the data / comm / compile time
         # accrued since the previous boundary to this step (host time)
         _tm_step.step_boundary("trainer")
@@ -144,6 +159,7 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        active = []
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
@@ -152,11 +168,27 @@ class Trainer:
                     raise MXNetError(f"parameter {p.name} not initialized "
                                      "before step()")
                 continue
-            if self._kvstore is not None and self._update_on_kvstore:
-                self._kvstore.push(i, p.grad())
-                self._kvstore.pull(i, p.data())
-            else:
-                self._updaters(i, p.grad(), p.data())
+            active.append((i, p))
+        # one probe a step over the gradients, the updated weights and
+        # (for the update-to-weight ratios) the pre-update weights: the
+        # optimizers update in place, so those are copied first, all at
+        # once into a reused scratch, and only when the norms are on;
+        # the per-call Updater check is suppressed underneath it
+        probe = _health.step_probe()
+        olds = [None] * len(active)
+        if probe is not None and probe.wants_norms and active:
+            olds = _health.pre_update_copy([p.data() for _, p in active])
+        with _health.updater_covered():
+            for (i, p), old in zip(active, olds):
+                if self._kvstore is not None and self._update_on_kvstore:
+                    self._kvstore.push(i, p.grad())
+                    self._kvstore.pull(i, p.data())
+                else:
+                    self._updaters(i, p.grad(), p.data())
+                if probe is not None:
+                    probe.add(p.name, p.data(), p.grad(), weight_before=old)
+        if probe is not None:
+            probe.commit()
 
     def save_states(self, fname):
         """The optimizer states (ref: trainer.py save_states), written

@@ -9,8 +9,8 @@ routes to the sharded decode pipeline of ``pipeline.py``.
 
 Every ``__next__`` runs under a ``data_next`` span and feeds the
 ``mx_io_data_wait_seconds`` histogram and the step breakdown's
-data_time. Not ported yet: the JAX package's memory-census tag of the
-batch (``profiling/``, ROADMAP queue 1 item 6), and the host dependency
+data_time, and tags the batch's arrays with the ``io_buffer`` census
+role (``profiling.memory``). Not ported yet: the host dependency
 engine's scheduling of the in-process ``ImageRecordIter`` (it runs the
 producer thread that ``MXTPU_IO_HOST_ENGINE=0`` selects in the JAX
 package).
@@ -106,13 +106,25 @@ class DataIter:
         with _tracing.span("data_next", cat="io",
                            iter=type(self).__name__):
             if not _tm.enabled():
-                return self.next()
+                return self._tag_batch(self.next())
             t0 = time.perf_counter()
             batch = self.next()   # StopIteration propagates untimed
             dt = time.perf_counter() - t0
             _data_wait_hist().observe(dt)
             _tm_step.add_data_wait(dt)
-            return batch
+            return self._tag_batch(batch)
+
+    @staticmethod
+    def _tag_batch(batch):
+        """Tag the batch's arrays with the ``io_buffer`` census role (a
+        weak side-table write an array)."""
+        from ..profiling import memory as _mem
+        if _mem.census_enabled():
+            for arrs in (getattr(batch, "data", None) or (),
+                         getattr(batch, "label", None) or ()):
+                for a in arrs:
+                    _mem.tag_role(a, "io_buffer")
+        return batch
 
     def iter_next(self):
         raise NotImplementedError

@@ -6,9 +6,10 @@ base_module.py).
 init_optimizer -> per batch forward_backward / update / update_metric,
 with callbacks and checkpointing. The per-batch work runs eagerly on the
 bound executor's device, and each step ends in a telemetry step boundary
-(``telemetry.step``, source ``module_fit``). Not ported yet: the JAX
-``fit``'s health boundaries and its NaN-postmortem iterator context
-(they come with the port of ``profiling/``, ROADMAP queue 1 item 6).
+(``telemetry.step``, source ``module_fit``) and a model-health boundary
+(``profiling.health``, which folds the executor and updater sentry
+counts of earlier steps). While ``fit`` runs, a NaN postmortem carries
+the training iterator's ``state_dict`` (``iter_state``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from ..base import MXNetError
 from .. import metric as metric_mod
+from ..profiling import health as _health
 from ..telemetry import step as _tm_step
 from ..model import BatchEndParam
 from ..ndarray import NDArray
@@ -214,51 +216,72 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            # close any stale step interval: validation, checkpoints or
-            # the time between fit calls are no step's
-            _tm_step.reset()
-            train_data.reset()
-            for data_batch in train_data:
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                # charges the data / comm / compile time accrued since the
-                # previous boundary to the step that just finished
-                _tm_step.step_boundary("module_fit")
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    for cb in _as_list(batch_end_callback):
-                        cb(params)
-                nbatch += 1
+        # a NaN postmortem raised inside this fit carries the batch
+        # position (the iterator's state_dict) while the loop runs; a
+        # provider installed by the caller is put back on the way out.
+        # The epoch loop stays inline: BatchEndParam(locals=locals())
+        # exposes fit's scope to callbacks (the reference contract)
+        registered_iter_ctx = hasattr(train_data, "state_dict")
+        prev_iter_ctx = None
+        if registered_iter_ctx:
+            prev_iter_ctx = _health._context_providers.get("iter_state")
+            _health.register_postmortem_context(
+                "iter_state", train_data.state_dict)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                nbatch = 0
+                # close any stale step interval: validation,
+                # checkpoints or the time between fit calls are no step's
+                _tm_step.reset()
+                train_data.reset()
+                for data_batch in train_data:
+                    if monitor is not None:
+                        monitor.tic()
+                    self.forward_backward(data_batch)
+                    self.update()
+                    # charges the data / comm / compile time accrued
+                    # since the previous boundary to the step that just
+                    # finished
+                    _tm_step.step_boundary("module_fit")
+                    # health boundary: folds the executor / updater
+                    # sentry counts of earlier steps
+                    _health.step_boundary("module_fit")
+                    self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    if batch_end_callback is not None:
+                        params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                               eval_metric=eval_metric,
+                                               locals=locals())
+                        for cb in _as_list(batch_end_callback):
+                            cb(params)
+                    nbatch += 1
 
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - tic)
 
-            arg_p, aux_p = self.get_params()
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_p, aux_p)
+                arg_p, aux_p = self.get_params()
+                if epoch_end_callback is not None:
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, arg_p, aux_p)
 
-            if eval_data is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f",
-                                     epoch, name, val)
+                if eval_data is not None:
+                    res = self.score(eval_data, validation_metric,
+                                     score_end_callback=eval_end_callback,
+                                     batch_end_callback=eval_batch_end_callback,
+                                     epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+        finally:
+            if registered_iter_ctx:
+                _health.register_postmortem_context(
+                    "iter_state", prev_iter_ctx)
 
     def install_monitor(self, mon):
         raise NotImplementedError

@@ -170,8 +170,12 @@ class NDArray:
         if stype not in (None, "default"):
             raise MXNetError(f"attach_grad: stype {stype!r} waits for "
                              "sparse NDArray")
+        from ..profiling import memory as _mem
         with torch.no_grad():
             self.grad = NDArray(torch.zeros_like(self._data))
+        # census role for the memory attribution layer (a weak
+        # side-table write, no device work; profiling/memory.py)
+        _mem.tag_role(self.grad, "gradient")
         self._grad_req = grad_req
         autograd._mark(self)
 

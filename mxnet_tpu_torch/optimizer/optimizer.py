@@ -38,6 +38,8 @@ import torch
 
 from ..base import MXNetError, Registry
 from ..ndarray.ndarray import NDArray
+from ..profiling import health as _health
+from ..profiling import memory as _mem
 from ..ops.fused_opt import f32, fma32, sqrt32
 
 _reg = Registry("optimizer")
@@ -647,6 +649,19 @@ class Updater:
             state = _state_on(state, weight._data.device)
         self.states[index] = state
         self.optimizer.update_multi_precision(index, weight, grad, state)
+        if _health.enabled() and not _health.updater_is_covered():
+            # the optimizer's in / out sentry: the incoming gradient and
+            # the updated weight in one count a call, so kvstore servers
+            # and Module.update are covered as a Trainer is (whose probe
+            # covers its whole loop and suppresses this check)
+            name = self.optimizer.idx2name.get(index, str(index))
+            _health.check("optimizer/%s" % name, [grad, weight])
+        if _mem.census_enabled():
+            # census roles, re-stamped each update: a backward may have
+            # rebound the gradient (weak side-table writes only)
+            _mem.tag_tree(state, "optimizer_state")
+            _mem.tag_role(weight, "parameter")
+            _mem.tag_role(grad, "gradient")
 
     def get_states(self, dump_optimizer=False):
         payload = {"states": {k: _state_to_np(v)

@@ -39,6 +39,12 @@ kind: the replicated step all-reduces, stage 1 also all-gathers the
 updated slices, stage 2 reduce-scatters the gradients instead of
 all-reducing them, stage 3 all-gathers the parameters on use,
 reduce-scatters the gradients and gathers nothing after the update.
+
+Each step hands its loss to the model-health sentry and loss EWMA
+(``profiling.health``: a device count, folded at the step's health
+boundary a few steps later), tags the parameters and optimizer state it
+returns with their census roles (``profiling.memory``: per mesh
+position), and leaves the OOM postmortem when an allocation fails.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ import math
 
 import torch
 
+from ..profiling import health as _health
+from ..profiling import memory as _mem
 from .collectives import allgather, allreduce, reduce_scatter
 from .layout import SpecLayout, zero_shard_leaf  # noqa: F401 (re-export)
 from .mesh import (NamedSharding, PartitionSpec as P, Sharded, _local,
@@ -207,7 +215,13 @@ def make_sharded_train_step(loss_fn, mesh, param_example, batch_example,
                      torch.as_tensor(x) if not isinstance(x, Sharded)
                      else x, s, mesh, c), batch_specs, batch))
                 for c in mesh.positions()]
-        results = run_shards(mesh, body, args)
+        try:
+            results = run_shards(mesh, body, args)
+        except Exception as e:
+            # the seam where a sharded step's OOM lands: the memory
+            # postmortem (per-position census) before it propagates
+            _mem.maybe_oom_postmortem(e, source="sharded_train_step")
+            raise
         step.last_collectives = dict(mesh.last_collectives)
         del args
         if donate:
@@ -219,9 +233,22 @@ def make_sharded_train_step(loss_fn, mesh, param_example, batch_example,
         new_s = None if o_specs is None else _map_specs(
             lambda s, *parts: Sharded.from_locals(mesh, s, parts), o_specs,
             *[r[1] for r in results])
-        return new_p, new_s, results[0][2]
+        loss = results[0][2]
+        if _mem.census_enabled():
+            # fresh values every step: re-stamp their census roles
+            _mem.tag_tree(new_p, "parameter")
+            _mem.tag_tree(new_s, "optimizer_state")
+        if _health.enabled():
+            # the loss is already combined over the batch's axes: one
+            # count covers every position; folded at the boundary
+            _health.check_scalar("sharded_train_step", loss)
+            _health.observe_loss(loss)
+            _health.step_boundary("sharded_train_step")
+        return new_p, new_s, loss
 
     step.last_collectives = {}
+    _mem.tag_tree(params0, "parameter")
+    _mem.tag_tree(opt0, "optimizer_state")
     return step, params0, opt0
 
 

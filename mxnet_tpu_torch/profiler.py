@@ -13,9 +13,9 @@ their launch, not their run on the card, except where the executor
 waits for its outputs while the profiler runs.
 
 The device capture of the JAX package (``set_config(xla_trace_dir=)``,
-``last_xplane_dir``, ``op_attribution``) waits for the port of
-``profiling/`` (through ``torch.profiler``; ROADMAP queue 1 item 6):
-those raise instead of pretending to capture.
+``last_xplane_dir``, ``op_attribution``) waits for the port of the cost
+ledger and its capture (through ``torch.profiler``; ROADMAP queue 1
+item 6b-ii): those raise instead of pretending to capture.
 
 Env: ``MXNET_PROFILER_AUTOSTART=1`` starts profiling at import
 (ref: docs/faq/env_var.md).
@@ -31,8 +31,8 @@ from .telemetry import metrics as _tm
 from .tracing import clock as _clock
 
 _NO_CAPTURE = ("the device trace capture (xla_trace_dir, last_xplane_dir, "
-               "op_attribution) waits for the port of profiling/ "
-               "(ROADMAP queue 1 item 6)")
+               "op_attribution) waits for the port of the cost ledger "
+               "and its capture (ROADMAP queue 1 item 6b-ii)")
 
 _lock = threading.Lock()
 _events = []          # chrome trace event dicts

@@ -44,9 +44,9 @@ records ``serving.generate`` with its ``generate.prefill``,
 ``generate.recover`` and ``generate.token`` spans
 (``generate/scheduler.py``). The ``mx_serving_*`` telemetry families
 count requests, rejections, batches, padding, replica health and
-per-stage latency. The autoscaler, the cluster ledger, the elastic
-plane's spans and the tail attribution wait for a later slice (ROADMAP
-queue 1 item 6).
+per-stage latency; ``profiling.tailpath`` joins the span trees into
+per-request blame bins. The autoscaler, the cluster ledger and the
+elastic plane's spans wait for a later slice (ROADMAP queue 1 item 6c).
 
 Quickstart::
 

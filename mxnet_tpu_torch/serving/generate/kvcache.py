@@ -50,6 +50,7 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops.attention import paged_head_dim
 from ...parallel.mesh import create_mesh
+from ...profiling import memory as _mem
 
 PAD_BLOCK = 0
 
@@ -102,6 +103,9 @@ class BlockPool:
             self.k, self.v = ks, vs
         else:
             self.k, self.v = ks[0], vs[0]
+        # the census names the cache that dominates a generator's device
+        # memory by its bytes (profiling/memory.py)
+        _mem.tag_tree((ks, vs), "kv_cache")
         self._lock = threading.Lock()
         # LIFO free list: recently-freed blocks are re-issued first
         # (their pool pages are the warmest)

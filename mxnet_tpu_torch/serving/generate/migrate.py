@@ -35,6 +35,7 @@ import torch
 
 from ...base import MXNetError
 from ...kvstore.fault import migrate_wedge_active
+from ...profiling import memory as _mem
 from .kvcache import BlockTable
 
 # what ``est_s`` prices a migration's bytes at: the HBM3 peak of the
@@ -84,6 +85,8 @@ class KVMigrator:
                 "unsalvageable, falling back to replay")
         try:
             k, v = src_pool.gather(ids)
+            # tensors that own their bytes: census role kv_cache
+            _mem.tag_tree((k, v), "kv_cache")
             event = None
             if k.is_cuda:
                 event = torch.cuda.Event()

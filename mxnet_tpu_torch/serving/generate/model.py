@@ -56,6 +56,7 @@ from ...ops.tensor import embedding
 from ...parallel.collectives import allgather, allreduce, axis_index
 from ...parallel.layout import SpecLayout
 from ...parallel.mesh import P, shard_map
+from ...profiling import memory as _mem
 from ...random import generator
 
 
@@ -352,6 +353,12 @@ class DecodeSteps:
                                      out_specs=P())
         elif decoder.device != pool.device:
             self._copy = _tree_to(decoder.param_tree(), pool.device)
+        # the lane's own weights (a copy or the tp shards) are parameters
+        # in the census; the pool's tensors carry kv_cache
+        # (kvcache.BlockPool tags them where it allocates them)
+        _mem.tag_tree((self._copy, getattr(self, "_shards", None)),
+                      "parameter")
+        _mem.tag_tree((pool.k, pool.v), "kv_cache")
         self.prefills = 0
         self.decodes = 0
 

@@ -34,9 +34,12 @@ into the step breakdown's compile_time. Nothing in the port traces, so
 **Device memory.** At each snapshot, ``torch.cuda.memory_stats`` of every
 visible card, once CUDA is initialized, feeds ``mx_device_mem_peak_bytes``
 and ``mx_device_mem_bytes_in_use``, labelled ``gpu:<i>`` as the JAX
-collector labels a GPU. On the CPU they report nothing. The live-array
-census and its backfill of the devices without allocator stats wait
-for the port of ``profiling/memory.py`` (ROADMAP queue 1 item 6).
+collector labels a GPU. The live-tensor census
+(``profiling.memory.live_census``) feeds ``mx_memory_live_bytes``
+(by device and role) and ``mx_memory_live_arrays`` (by role) at each
+snapshot, and backfills ``mx_device_mem_*`` for the devices with no
+allocator statistics (the CPU and its mesh positions) from the census
+bytes, as the JAX collector does.
 """
 from __future__ import annotations
 
@@ -121,6 +124,12 @@ def note_compile(seconds):
 
 
 # -- device memory ----------------------------------------------------------
+# devices whose allocator reported stats in the last collection; the
+# census collector backfills the others. One list slot rebound at once:
+# a flusher's snapshot may run beside a user's
+_devices_with_stats = [frozenset()]
+
+
 def _device_memory_collector(reg):
     """Snapshot-time pull of each visible card's allocator stats (host
     counters of the caching allocator: no sync). Never initializes CUDA:
@@ -129,6 +138,7 @@ def _device_memory_collector(reg):
         return
     import torch
     if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        _devices_with_stats[0] = frozenset()
         return
     peak = reg.gauge("mx_device_mem_peak_bytes",
                      "allocator high-water mark per device",
@@ -136,15 +146,66 @@ def _device_memory_collector(reg):
     used = reg.gauge("mx_device_mem_bytes_in_use",
                      "allocator bytes currently live per device",
                      labelnames=("device",))
+    found = set()
     for i in range(torch.cuda.device_count()):
         stats = torch.cuda.memory_stats(i)
         if not stats:
             continue
         dev = "gpu:%d" % i
+        found.add(dev)
         peak.labels(device=dev).set_max(
             stats.get("allocated_bytes.all.peak", 0))
         used.labels(device=dev).set(
             stats.get("allocated_bytes.all.current", 0))
+    _devices_with_stats[0] = frozenset(found)
+
+
+# -- live-tensor census -----------------------------------------------------
+def _memory_census_collector(reg):
+    """Snapshot-time census: live bytes by device and role from
+    ``profiling.memory.live_census`` (sizes and allocator counters only:
+    no sync). Devices with no allocator stats (the CPU, its mesh
+    positions) get their ``mx_device_mem_*`` gauges backfilled from the
+    census."""
+    from ..profiling import memory as _mem
+    stats_devs = _devices_with_stats[0]
+    # zero the census-fed series first, before the gate: a role or
+    # device that emptied since the last snapshot (or a gate turned off)
+    # reads 0, not its stale value; find() so a disabled process never
+    # creates the families
+    for name in ("mx_memory_live_bytes", "mx_memory_live_arrays"):
+        fam = reg.find(name)
+        if fam is not None:
+            for s in fam.series():
+                s.set(0)
+    fam = reg.find("mx_device_mem_bytes_in_use")
+    if fam is not None:
+        for s in fam.series():
+            if s.labels.get("device") not in stats_devs:
+                s.set(0)
+    if not _mem.census_enabled():
+        return
+    doc = _mem.live_census()
+    live = reg.gauge("mx_memory_live_bytes",
+                     "live device-array bytes per device and census "
+                     "role", labelnames=("device", "role"))
+    cnt = reg.gauge("mx_memory_live_arrays",
+                    "live device arrays per census role",
+                    labelnames=("role",))
+    for role, r in doc["by_role"].items():
+        cnt.labels(role=role).set(r["arrays"])
+    peak = reg.gauge("mx_device_mem_peak_bytes",
+                     "allocator high-water mark per device",
+                     labelnames=("device",))
+    used = reg.gauge("mx_device_mem_bytes_in_use",
+                     "allocator bytes currently live per device",
+                     labelnames=("device",))
+    for dev, d in doc["by_device"].items():
+        for role, nb in d["by_role"].items():
+            live.labels(device=dev, role=role).set(nb)
+        if dev not in stats_devs:
+            used.labels(device=dev).set(d["total_bytes"])
+            peak.labels(device=dev).set_max(d["total_bytes"])
 
 
 # -- periodic flush ---------------------------------------------------------
@@ -218,6 +279,7 @@ def stop_flusher():
 # pull-only and always registered, so a late set_enabled(True) still
 # reports memory
 registry().register_collector(_device_memory_collector)
+registry().register_collector(_memory_census_collector)
 if enabled():
     if get_env("MXTPU_TELEMETRY_FLUSH_SEC", 0.0, float) > 0:
         start_flusher()

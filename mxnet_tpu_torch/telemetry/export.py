@@ -130,15 +130,16 @@ def merge_chrome_trace(snap=None, events=None, spans=None,
     frame as historical samples on the same counter tracks. Every layer
     shares ``tracing.clock``'s epoch, so all land on one Perfetto time
     axis. ``spans`` defaults to the process's recorded spans; pass [] to
-    omit them. The cost-attribution strip (``attribution``), the memory
-    census (``memory``) and the model-health tracks (``health``) read
-    ``profiling/``, which is not ported: they raise."""
-    for name, arg in (("attribution", attribution), ("memory", memory),
-                      ("health", health)):
-        if arg is not None:
-            raise MXNetError(
-                "merge_chrome_trace(%s=) reads profiling/, which waits for "
-                "its port (ROADMAP queue 1 item 6)" % name)
+    omit them. ``memory`` (a ``live_census`` document, or ``True`` for
+    the process's census now) adds the census counter track, ``health``
+    (a ``health.snapshot_doc`` document, or ``True``) the model-health
+    tracks. The cost-attribution strip (``attribution``) reads the cost
+    ledger, which waits for ROADMAP queue 1 item 6b-ii: it raises."""
+    if attribution is not None:
+        raise MXNetError(
+            "merge_chrome_trace(attribution=) reads the cost ledger, which "
+            "waits for its port on torch.profiler (ROADMAP queue 1 item "
+            "6b-ii)")
     snap = snap if snap is not None else snapshot()
     from .. import profiler
     from .. import tracing as _tracing
@@ -163,6 +164,26 @@ def merge_chrome_trace(snap=None, events=None, spans=None,
             merged.append({"name": ev_name, "ph": "C", "ts": ts,
                            "pid": 0, "args": {name: v}})
     metadata = {"telemetry": snap}
+    if memory is not None:
+        if memory is True:
+            from ..profiling import memory as _mem
+            memory = _mem.live_census(top=10)
+        merged.extend(_tracing.export.memory_counter_events(
+            memory, ts=ts))
+        metadata["memory"] = {
+            k: memory.get(k)
+            for k in ("kind", "total_bytes", "arrays", "by_role",
+                      "by_device") if k in memory}
+    if health is not None:
+        if health is True:
+            from ..profiling import health as _health
+            health = _health.snapshot_doc()
+        merged.extend(_tracing.export.health_counter_events(
+            health, ts=ts))
+        metadata["health"] = {
+            k: health.get(k)
+            for k in ("kind", "sentry", "loss", "norms")
+            if k in health}
     if timeline is not None:
         if timeline is True:
             from . import timeline as _tl

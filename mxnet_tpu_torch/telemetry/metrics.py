@@ -89,7 +89,10 @@ def _lazy_entry(v):
 
 
 def _ready(x):
-    return x.ready() if isinstance(x, _Pending) else True
+    """Whether a buffered entry's value has reached the host (entries
+    that ride a pending copy answer through their ``ready()``)."""
+    ready = getattr(x, "ready", None)
+    return ready() if ready is not None else True
 
 
 class _Series:

@@ -121,6 +121,69 @@ def pull_server_trace(kv, path, timeout=10.0, poll=0.05):
         % (nonce_path, timeout))
 
 
+def memory_counter_events(census_doc, pid=91, ts=0.0):
+    """A live-tensor census (``profiling.memory.live_census`` document)
+    rendered as Perfetto counter tracks: one stacked 'C' counter of live
+    bytes by role, plus one counter a device with its total. ``ts``
+    places the sample on the shared clock (callers pass the profiler's
+    now)."""
+    events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+               "args": {"name": "HBM live bytes (census)"}}]
+    by_role = census_doc.get("by_role", {})
+    if by_role:
+        events.append({
+            "name": "mx_memory_live_bytes", "ph": "C", "ts": ts,
+            "pid": pid,
+            "args": {role: r.get("bytes", 0)
+                     for role, r in sorted(by_role.items())}})
+    for dev, d in sorted(census_doc.get("by_device", {}).items()):
+        events.append({
+            "name": "mx_memory_live_bytes[%s]" % dev, "ph": "C",
+            "ts": ts, "pid": pid,
+            "args": {"bytes": d.get("total_bytes", 0)}})
+    return events
+
+
+def health_counter_events(health_doc, pid=92, ts=0.0):
+    """A model-health summary (``profiling.health.snapshot_doc``
+    document) rendered as Perfetto counter tracks beside the memory
+    track: loss and loss EWMA, the global gradient norm and the
+    cumulative nonfinite count (stacked by seam) on the shared clock."""
+    def _finite(v):
+        # a NaN / Inf loss is what an unhealthy run carries, and bare
+        # NaN literals make Perfetto reject the whole trace: drop the
+        # sample, keep the nonfinite-count track as the signal (tracing/
+        # imports without telemetry, so this guard is its own)
+        return isinstance(v, (int, float)) and not isinstance(v, bool) \
+            and v == v and v not in (float("inf"), float("-inf"))
+
+    events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+               "args": {"name": "model health (sentry/loss/norms)"}}]
+    loss = health_doc.get("loss", {})
+    args = {}
+    if _finite(loss.get("last")):
+        args["loss"] = loss["last"]
+    if _finite(loss.get("ewma")):
+        args["ewma"] = loss["ewma"]
+    if args:
+        events.append({"name": "mx_health_loss", "ph": "C", "ts": ts,
+                       "pid": pid, "args": args})
+    norms = health_doc.get("norms", {})
+    if _finite(norms.get("grad_norm")):
+        events.append({"name": "mx_health_grad_norm", "ph": "C",
+                       "ts": ts, "pid": pid,
+                       "args": {"l2": norms["grad_norm"]}})
+    sentry = health_doc.get("sentry", {})
+    by_source = sentry.get("by_source") or {}
+    events.append({
+        "name": "mx_health_nonfinite_total", "ph": "C", "ts": ts,
+        "pid": pid,
+        "args": ({src: n for src, n in sorted(by_source.items())}
+                 if by_source
+                 else {"total": sentry.get("nonfinite_total", 0)})})
+    return events
+
+
 def chrome_events(spans, pid=0, offset_ns=0, base_ns=None):
     """Span dicts -> chrome-trace 'X' events. ``offset_ns`` is added to
     every timestamp (clock alignment); ``base_ns`` is the zero point

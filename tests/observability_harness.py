@@ -5,12 +5,12 @@ package and the port, and the normalizations their results are compared
 under.
 
 Each flow resets both planes of the package it runs (registry, step
-state, spans), runs on the CPU (the port inside ``with mx.cpu():``) and
-returns the package's metric snapshot and spans. The JAX package's
-model-health probes (``profiling/health.py``, on by default there) are
-switched off for the comparison: their port waits for ``profiling/``
-(ROADMAP queue 1 item 6), and they add span attributes and metric
-families the port does not record yet.
+state, spans, the model-health state), runs on the CPU (the port inside
+``with mx.cpu():``) and returns the package's metric snapshot and spans.
+The model-health plane and the live-tensor census are on in both
+packages (their default), so the ``mx_health_*`` and
+``mx_memory_live_*`` families and the step spans' health attrs are
+compared too.
 """
 import contextlib
 
@@ -27,13 +27,6 @@ EXCLUDED_FAMILIES = {
     "mx_jit_compile_seconds_total": "kernel builds vs XLA compiles",
     "mx_jit_traces_total": "the port traces nothing",
     "mx_jit_trace_seconds_total": "the port traces nothing",
-    # allocator stats: the port reports a card only (nothing on the CPU),
-    # the JAX package backfills CPU devices from its census
-    "mx_device_mem_peak_bytes": "allocator stats of a card only",
-    "mx_device_mem_bytes_in_use": "allocator stats of a card only",
-    # the live-array census waits for the port of profiling/memory.py
-    "mx_memory_live_bytes": "census not ported",
-    "mx_memory_live_arrays": "census not ported",
     # the host dependency engine (engine.py) waits for its port
     "mx_engine_eager_ops_total": "engine.py not ported",
     "mx_engine_queue_depth": "engine.py not ported",
@@ -51,12 +44,13 @@ def scope(mx):
 
 
 def reset(mx):
-    """Both planes of ``mx`` on and empty."""
+    """Both planes of ``mx`` on and empty, its health state cleared."""
     mx.telemetry.metrics.set_enabled(True)
     mx.telemetry.metrics.registry().reset()
     mx.telemetry.step.reset()
     mx.tracing.set_sample(1.0)
     mx.tracing.reset()
+    mx.profiling.health.reset()
 
 
 def reset_both():
@@ -67,7 +61,9 @@ def reset_both():
 @contextlib.contextmanager
 def jax_health_off():
     """The JAX package's health probes off, and their policy put back
-    after (a test process runs other files after these)."""
+    after (a test process runs other files after these): for a test that
+    drives the JAX package's plane against something the port's health
+    plane has no part in."""
     from mxnet_tpu.profiling import health
     saved = health._policy[0]
     health._policy[0] = None

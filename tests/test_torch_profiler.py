@@ -96,11 +96,6 @@ from mxnet_tpu_torch.base import MXNetError  # noqa: E402
 import observability_harness as oh  # noqa: E402
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _jax_health_off():
-    with oh.jax_health_off():
-        yield
-
 
 @pytest.fixture(scope="module")
 def job():

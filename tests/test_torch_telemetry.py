@@ -38,11 +38,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TELEMETRY_DUMP = os.path.join(REPO, "tools", "telemetry_dump.py")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _jax_health_off():
-    with oh.jax_health_off():
-        yield
-
 
 @pytest.fixture(autouse=True)
 def _clean_state():
@@ -251,9 +246,13 @@ def test_chrome_trace_merge_carries_both_halves():
     trace = export.merge_chrome_trace(events=[], timeline=tl.to_doc())
     assert trace["metadata"]["timeline"]["frames"] == 1
     json.dumps(trace)
-    for arg in ("attribution", "memory", "health"):
-        with pytest.raises(MXNetError, match="queue 1 item 6"):
-            export.merge_chrome_trace(**{arg: {}})
+    # the census and health tracks ride along; the cost-attribution
+    # strip waits for the cost ledger and says which item
+    trace = export.merge_chrome_trace(events=[], memory=True, health=True)
+    assert {"memory", "health"} <= set(trace["metadata"])
+    json.dumps(trace, allow_nan=False)
+    with pytest.raises(MXNetError, match="queue 1 item 6b-ii"):
+        export.merge_chrome_trace(attribution={})
 
 
 def test_timeline_and_slo_burn():
@@ -387,10 +386,20 @@ def test_kernel_builds_are_charged_to_the_op_in_scope():
 
 
 def test_device_memory_collector_reports_nothing_on_the_cpu():
-    snap = export.snapshot()["metrics"]
+    """No allocator statistics on the CPU: no card's series; the CPU's
+    ``mx_device_mem_*`` series are the census's backfill, as in the JAX
+    package (a tagged tensor's bytes under ``cpu:0``)."""
+    from mxnet_tpu_torch.profiling import memory
     assert not torch.cuda.is_available()
-    assert "mx_device_mem_peak_bytes" not in snap
-    assert "mx_device_mem_bytes_in_use" not in snap
+    t = memory.tag_role(torch.ones(16, 16), "parameter")
+    snap = export.snapshot()["metrics"]
+    for name in ("mx_device_mem_peak_bytes", "mx_device_mem_bytes_in_use"):
+        devices = {s["labels"]["device"] for s in snap[name]["series"]}
+        assert devices and all(d.startswith("cpu:") for d in devices)
+    assert telemetry._devices_with_stats[0] == frozenset()
+    used = {s["labels"]["device"]: s["value"]
+            for s in snap["mx_device_mem_bytes_in_use"]["series"]}
+    assert used["cpu:0"] >= t.numel() * 4
 
 
 # -- the flows against the JAX package ----------------------------------------
@@ -451,16 +460,32 @@ def test_failed_kvstore_call_records_no_bytes():
 
 
 def test_disabled_planes_record_nothing():
+    """With telemetry and tracing off, and the census off too
+    (``MXTPU_MEMORY_CENSUS=0``: the census is a pull collector with its
+    own gate, as in the JAX package), nothing is recorded; with the
+    census on, its families are the only ones that report."""
+    from mxnet_tpu_torch.profiling import memory
     metrics.set_enabled(False)
     tmx.tracing.set_sample(0.0)
-    oh.trainer_flow(tmx)
-    oh.module_fit(tmx, epochs=1)
-    snap = export.snapshot()["metrics"]
+    memory.set_census_enabled(False)
+    try:
+        oh.trainer_flow(tmx)
+        oh.module_fit(tmx, epochs=1)
+        snap = export.snapshot()["metrics"]
+    finally:
+        memory.set_census_enabled(True)
     for name, fam in snap.items():
         assert sum(s.get("value", s.get("count", 0))
                    for s in fam["series"]) == 0, name
     assert tmx.tracing.spans_snapshot() == []
     assert step.step_boundary() is None
+    oh.trainer_flow(tmx)
+    census = ("mx_memory_live_bytes", "mx_memory_live_arrays",
+              "mx_device_mem_bytes_in_use", "mx_device_mem_peak_bytes")
+    for name, fam in export.snapshot()["metrics"].items():
+        if name not in census:
+            assert sum(s.get("value", s.get("count", 0))
+                       for s in fam["series"]) == 0, name
 
 
 def test_planes_add_no_host_reads():

@@ -42,11 +42,6 @@ TELEMETRY_DUMP = os.path.join(REPO, "tools", "telemetry_dump.py")
 DEADLINE_S = 30
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _jax_health_off():
-    with oh.jax_health_off():
-        yield
-
 
 @pytest.fixture(autouse=True)
 def _trace_isolation():
