@@ -14,6 +14,7 @@ it into a directory and run::
 
 and ``--time-flash DIR`` times K3 forward and backward, f32 and bf16, at
 the decoder-LM shape the way phases 3 and 13 time this checkout's.
+``--cost-ledger`` builds the kernels and runs phase 25 alone.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -377,12 +378,32 @@ Phases (any failure exits non-zero and prints no result line):
    the ``tail/v1`` document through ``tools/tail_report.py``; LM step
    ms and serving tokens/s with the planes off and on
    (``health_cost``); 40 s at most;
-25. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
+25. the cost ledger and its device capture (``cost_ledger``; alone:
+   ``python3 chip_smoke.py --cost-ledger``): phase 12's decoder-LM
+   step (fp32, Adam) through ``profiling.ledger.from_fn``: exactly 12
+   K3-forward and 12 K3-backward rows at the function's FLOPs (51.56
+   and 128.91 GFLOP a call), the step's FLOPs beside the hand count
+   (6 x the product parameters x tokens + the 12 K3 calls); then
+   ``profiling.attribution_run`` over 3 steps under torch.profiler: the
+   reconciliation (the table's device time no more than 1.05 x the
+   CUDA-event step time, a hard limit; a ratio under 0.9 is printed),
+   ``mfu`` at 67 TFLOP/s, the top 10 ops, what the profiler lost
+   (kernel events against launches) and the measured K3 rows against 12
+   x their CUDA-event time a call; ``memory.from_fn`` over the step,
+   its peak live bytes beside ``max_memory_allocated`` less the
+   baseline; the K3 / K4 launches and synchronizing calls of a step and
+   a decode call with no recorder or capture, the same before and after;
+   phase 6's INT8 ResNet-50 v1 forward at batch 128: 53 K1 rows and 53
+   ``_sg_xla_quant_conv`` scopes, every fused row under the
+   ``XLA/quantize_conv_requantize`` rule, K1 at 5 B and 2 flops an
+   element; phase 8's symbolic training step at batch 128: 161 K2 rows
+   at 20 B an element; 40 s at most;
+26. one ``{"kernels": [...]}`` line (the D 256 rows in their kernels'
    entries, phase 17's launches as ``planes_launches``, phase 21's as
    ``parallel_launches``, phase 22's as ``data_parallel_launches``,
    phase 23's as ``observability_launches``, phase 24's as
-   ``health_launches``), then the result line
-   ``{"ok": true, "device": {...}}``.
+   ``health_launches``, phase 25's as ``cost_ledger_launches``), then
+   the result line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout (no ``mxnet_tpu_torch`` beside this
 file), it exits with a non-zero code.
@@ -1626,6 +1647,8 @@ def phase_resnet(i8, dev, rng, here):
                              "mean_rel_abs_err": rel},
             "int8_profile": prof}
     log("resnet50_int8 " + json.dumps(main))
+    # phase 25 prices this graph's forward
+    RESULTS["int8_graph"] = (fused, qarg, qaux)
     return {"int8_epilogue": launches}
 
 
@@ -7348,6 +7371,322 @@ def phase_health_and_tails(att, i8, fo, dev, burst, rng, here):
                 "paged_attention"]}}
 
 
+# -- phase 25: the cost ledger and its device capture -------------------------
+CL_STEPS = 3            # captured LM steps
+CL_RATIO_MAX = 1.05     # the table's device time over the CUDA-event step
+CL_SECONDS = 40.0
+CL_PAGED_LENS = [284, 184, 257, 119]
+CL_FLASH_FWD_GFLOP, CL_FLASH_BWD_GFLOP = 51.564773376, 128.91193344
+# the LM step's FLOPs counted by hand: 6 x the product parameters (qkv,
+# out, two FF matrices a layer and the head) x tokens, plus the 12 K3
+# forwards and backwards
+CL_PRODUCT_PARAMS = LM_LAYERS * (3 * LM_D_MODEL ** 2 + LM_D_MODEL ** 2
+                                 + 2 * LM_FF * LM_D_MODEL ** 2) \
+    + LM_D_MODEL * LM_VOCAB
+CL_HAND_FLOPS = 6 * CL_PRODUCT_PARAMS * LM_BATCH * LM_SEQ + LM_LAYERS * (
+    CL_FLASH_FWD_GFLOP + CL_FLASH_BWD_GFLOP) * 1e9
+
+
+def cl_rows(doc, kernel):
+    return [r for r in doc["rows"] if r["hlo_op"] == kernel]
+
+
+def cl_idle(mx, att, step, dev, rng):
+    """K3 launches and synchronizing calls of one LM step, and K4's of one
+    decode call, with no recorder or capture active."""
+    q, k, v, tables, lens = paged_inputs(CL_PAGED_LENS, 1, 64, dev, rng)
+    before = (att.flash_attention.launches, att.flash_attention_bwd.launches,
+              att.paged_attention.launches)
+    _, step_syncs = sync_count(step)
+    _, paged_syncs = sync_count(lambda: att.paged_attention(
+        q, k[0], v[0], tables, lens))
+    after = (att.flash_attention.launches, att.flash_attention_bwd.launches,
+             att.paged_attention.launches)
+    return {"k3_fwd": after[0] - before[0], "k3_bwd": after[1] - before[1],
+            "k4": after[2] - before[2], "step_syncs": step_syncs,
+            "paged_syncs": paged_syncs}
+
+
+def cl_lm(mx, att, dev, rng, here):
+    """Phase 12's decoder-LM step (fp32, Adam): its ledger, its attribution
+    over CL_STEPS captured steps, its liveness, and the idle machinery."""
+    from mxnet_tpu_torch.profiling import capture, ledger, memory
+    from mxnet_tpu_torch.serving.generate import GenerativeDecoder
+
+    ctx = mx.Context(dev)
+    dec = GenerativeDecoder(vocab_size=LM_VOCAB, d_model=LM_D_MODEL,
+                            num_layers=LM_LAYERS, num_heads=LM_HEADS,
+                            ff_mult=LM_FF, max_prompt_tokens=LM_SEQ,
+                            device=dev, seed=SEED)
+    block = dec.block
+    tokens = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1))
+    x = mx.nd.array(tokens[:, :-1].astype(np.int32), ctx=ctx)
+    y = mx.nd.array(tokens[:, 1:].astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+
+    def step():
+        return lm_step(mx, block, loss_fn, x, y, trainer)
+
+    step()
+    torch.cuda.synchronize()
+    idle_before = cl_idle(mx, att, step, dev, rng)
+
+    f0, b0 = att.flash_attention.launches, att.flash_attention_bwd.launches
+    led = ledger.from_fn(step, peak_tflops=FP32_FLOPS_PER_S / 1e12)
+    torch.cuda.synchronize()
+    traced = (att.flash_attention.launches - f0,
+              att.flash_attention_bwd.launches - b0)
+    fwd_rows = cl_rows(led, "flash_attention")
+    bwd_rows = cl_rows(led, "flash_attention_bwd")
+    meta = torch.empty((LM_BATCH, LM_HEADS, LM_SEQ, LM_HEAD_DIM),
+                       device="meta")
+    fwd_flops = att.flash_count(meta, meta, meta, causal=True)[0]
+    check(traced == (LM_LAYERS, LM_LAYERS), f"cost_ledger: the traced step "
+          f"launched {traced} K3 forward / backward, want {LM_LAYERS} each")
+    check(len(fwd_rows) == LM_LAYERS and len(bwd_rows) == LM_LAYERS,
+          f"cost_ledger: {len(fwd_rows)} K3 forward and {len(bwd_rows)} "
+          f"backward rows, want {LM_LAYERS} each")
+    check(all(r["flops"] == fwd_flops == round(CL_FLASH_FWD_GFLOP * 1e9)
+              for r in fwd_rows), "cost_ledger: K3 forward rows' FLOPs "
+          f"{sorted({r['flops'] for r in fwd_rows})}")
+    check(all(r["flops"] == round(CL_FLASH_BWD_GFLOP * 1e9)
+              for r in bwd_rows), "cost_ledger: K3 backward rows' FLOPs "
+          f"{sorted({r['flops'] for r in bwd_rows})}")
+    check(all(r["op"] == "_contrib_flash_attention"
+              for r in fwd_rows + bwd_rows), "cost_ledger: K3 rows keyed "
+          f"to {sorted({r['op'] for r in fwd_rows + bwd_rows})}")
+    # every product of the step runs in a framework op's scope, forward
+    # or backward (autograd's thread included)
+    unscoped = [r["instr"] for r in led["rows"] if r["op"] is None
+                and r["hlo_op"] in ("mm", "addmm", "bmm", "baddbmm")]
+    check(not unscoped, f"cost_ledger: products outside any scope: "
+          f"{unscoped}")
+
+    # the K3 calls' CUDA-event time at this shape, for the measured rows
+    # (comparison launches: left out of the phase's count)
+    m0 = (att.flash_attention.launches, att.flash_attention_bwd.launches)
+    q, k, v = lm_qkv(LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, dev,
+                     torch.Generator().manual_seed(SEED))
+    out, lse = att._flash_fwd(q, k, v, True, LM_HEAD_DIM ** -0.5, True)
+    d_out = torch.randn_like(out)
+    fwd_ms, _ = measure(lambda: att._flash_fwd(
+        q, k, v, True, LM_HEAD_DIM ** -0.5, True), iters=10, warmup=2)
+    bwd_ms, _ = measure(lambda: att.flash_attention_bwd(
+        q, k, v, out, d_out, lse, causal=True), iters=10, warmup=2)
+    del q, k, v, out, lse, d_out
+    compare = (att.flash_attention.launches - m0[0],
+               att.flash_attention_bwd.launches - m0[1])
+
+    # the capture prices at the fp32 peak through the ledger's override
+    prior = os.environ.get("MXTPU_PEAK_TFLOPS")
+    os.environ["MXTPU_PEAK_TFLOPS"] = str(FP32_FLOPS_PER_S / 1e12)
+    try:
+        attrib = capture.attribution_run(
+            step, steps=CL_STEPS,
+            profile_dir=os.path.join(here, "build", "chip_smoke",
+                                     "cost_ledger"),
+            items_per_step=LM_BATCH * LM_SEQ)
+    finally:
+        if prior is None:
+            del os.environ["MXTPU_PEAK_TFLOPS"]
+        else:
+            os.environ["MXTPU_PEAK_TFLOPS"] = prior
+    check(attrib["peak_tflops"] == FP32_FLOPS_PER_S / 1e12,
+          f"cost_ledger: the capture priced at {attrib['peak_tflops']} "
+          "TFLOP/s")
+    rec = attrib["reconciliation"]
+    check(rec["device_ratio"] <= CL_RATIO_MAX,
+          f"cost_ledger: the table claims {rec['attributed_s']} s of device "
+          f"time a step against a {rec['device_step_s']} s CUDA-event step")
+    meas_fwd = sum(r.get("measured_s", 0.0)
+                   for r in cl_rows(attrib, "flash_attention"))
+    meas_bwd = sum(r.get("measured_s", 0.0)
+                   for r in cl_rows(attrib, "flash_attention_bwd"))
+    if rec["ratio"] < 0.9:
+        log(f"cost_ledger: reconciliation ratio {rec['ratio']} under 0.9")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem = memory.from_fn(step)
+    torch.cuda.synchronize()
+    peak_alloc = torch.cuda.max_memory_allocated(dev) - base
+    idle_after = cl_idle(mx, att, step, dev, rng)
+    for idle in (idle_before, idle_after):
+        check(idle["k3_fwd"] == idle["k3_bwd"] == LM_LAYERS
+              and idle["k4"] == 1, f"cost_ledger: idle launches {idle}")
+    check(idle_before["step_syncs"] == idle_after["step_syncs"] and
+          idle_before["paged_syncs"] == idle_after["paged_syncs"],
+          f"cost_ledger: sync counts idle before {idle_before}, after "
+          f"{idle_after}")
+    return {
+        "ledger": {"flops": led["totals"]["flops"],
+                   "hand_flops": CL_HAND_FLOPS,
+                   "flops_over_hand": led["totals"]["flops"] / CL_HAND_FLOPS,
+                   "bytes": led["totals"]["bytes"], "rows": len(led["rows"]),
+                   "ops": led["totals"]["ops"],
+                   "k3_fwd_rows": len(fwd_rows), "k3_bwd_rows": len(bwd_rows),
+                   "k3_fwd_gflop": fwd_rows[0]["flops"] / 1e9,
+                   "k3_bwd_gflop": bwd_rows[0]["flops"] / 1e9,
+                   "k3_fwd_bytes": fwd_rows[0]["bytes"],
+                   "k3_bwd_bytes": bwd_rows[0]["bytes"],
+                   "mfu_at_roofline": ledger.mfu_estimate(led)[
+                       "mfu_at_roofline"]},
+        "attribution": {
+            "reconciliation": rec, "reconciled": attrib["reconciled"],
+            "mfu": attrib["mfu"], "items_per_s": attrib.get("items_per_s"),
+            "measured": attrib["measured"], "lost": attrib["lost"],
+            "top": [{k: g.get(k) for k in ("op", "measured_s", "est_s",
+                                           "flops", "bytes", "mfu")}
+                    for g in attrib["by_op"][:10]],
+            "k3_fwd_measured_ms": meas_fwd * 1e3,
+            "k3_fwd_events_ms": LM_LAYERS * fwd_ms,
+            "k3_bwd_measured_ms": meas_bwd * 1e3,
+            "k3_bwd_events_ms": LM_LAYERS * bwd_ms},
+        "memory": {"peak_live_bytes": mem["peak_live_bytes"],
+                   "arg_bytes": mem["totals"]["arg_bytes"],
+                   "peak_instr": mem["peak_instr"],
+                   "max_allocated_less_baseline": peak_alloc,
+                   "baseline_allocated": base,
+                   "top": mem["by_op"][:5]},
+        "idle_before": idle_before, "idle_after": idle_after,
+        "compare_launches": {"flash_attention": compare[0],
+                             "flash_attention_bwd": compare[1]}}
+
+
+def cl_int8_graph(mx, rng, here):
+    """Phase 6's fused INT8 graph and its parameters (phase 6 leaves them
+    in RESULTS; alone, built the way phase 6 builds them)."""
+    if "int8_graph" in RESULTS:
+        return RESULTS["int8_graph"]
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    sym = mx.model_zoo.load_symbol("resnet50_v1")
+    prefix = os.path.join(here, "build", "chip_smoke", "resnet50_v1")
+    if not os.path.exists(prefix + "-0000.params"):
+        arg, aux = resnet_params(sym, rng)
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        with mx.cpu():
+            mx.model.save_checkpoint(
+                prefix, 0, sym, {k: mx.nd.array(v) for k, v in arg.items()},
+                {k: mx.nd.array(v) for k, v in aux.items()})
+    sym, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0)
+    calib = rng.standard_normal((CALIB_IMAGES,) + R50_SHAPE[1:],
+                                dtype=np.float32)
+    qsym, qarg, qaux = quantize_model(
+        sym, arg_p, aux_p, calib_mode="naive",
+        calib_data=mx.io.NDArrayIter(calib, batch_size=CALIB_IMAGES),
+        num_calib_examples=CALIB_IMAGES)
+    return qsym.get_backend_symbol("XLA"), qarg, qaux
+
+
+def cl_int8(mx, i8, dev, rng, here):
+    """The INT8 ResNet-50 v1 forward at batch 128: one K1 row per fused
+    convolution, every fused node's rows under its rule."""
+    from mxnet_tpu_torch.profiling import ledger
+    fused, qarg, qaux = cl_int8_graph(mx, rng, here)
+    ex8 = fused.simple_bind(grad_req="null", data=R50_SHAPE,
+                            **{k: v.shape for k, v in qarg.items()})
+    ex8.copy_params_from(qarg, qaux, allow_extra_params=True)
+    data = mx.nd.array(rng.standard_normal(R50_SHAPE, dtype=np.float32))
+    ex8.forward(data=data)
+    n0 = i8.int8_conv_epilogue.launches
+    led = ledger.from_fn(lambda: ex8.forward(data=data)[0])
+    torch.cuda.synchronize()
+    launched = i8.int8_conv_epilogue.launches - n0
+    k1 = cl_rows(led, "int8_conv_epilogue")
+    fused_rows = [r for r in led["rows"] if r["op"] == "_sg_xla_quant_conv"]
+    scopes = {r["instr"].split("/")[0] for r in fused_rows}
+    check(launched == R50_QUANT_CONVS and len(k1) == R50_QUANT_CONVS,
+          f"cost_ledger: {len(k1)} K1 rows, {launched} launches, want "
+          f"{R50_QUANT_CONVS}")
+    check(len(scopes) == R50_QUANT_CONVS and all(
+        r.get("rule") == "XLA/quantize_conv_requantize" for r in fused_rows),
+        f"cost_ledger: {len(scopes)} fused conv scopes, rules "
+        f"{sorted({str(r.get('rule')) for r in fused_rows})}")
+    elems = sum(r["bytes"] for r in k1) // 5
+    check(all(r["bytes"] == 5 * r["flops"] // 2 for r in k1),
+          "cost_ledger: K1 rows not 5 B and 2 flops an element")
+    del ex8
+    torch.cuda.empty_cache()
+    return {"k1_rows": len(k1), "fused_scopes": len(scopes),
+            "k1_elements": elems, "rows": len(led["rows"]),
+            "gflops": led["totals"]["flops"] / 1e9,
+            "top": [{k: g.get(k) for k in ("op", "flops", "bytes", "rule")}
+                    for g in led["by_op"][:5]]}
+
+
+def cl_train(mx, fo, dev, rng, here):
+    """Phase 8's symbolic training step at batch 128: one K2 row per
+    trainable tensor, 20 B an element."""
+    from mxnet_tpu_torch.profiling import ledger
+    cl_int8_graph(mx, rng, here)       # the checkpoint, when alone
+    net, params, arg_p, aux_p = train_net(mx, here)
+    ex = train_executor(mx, net, TRAIN_BATCH, arg_p, aux_p, mx.gpu(0))
+    states = {n: [mx.nd.zeros(ex.arg_dict[n].shape, ctx=mx.gpu(0))]
+              for n in params}
+    x = mx.nd.array(rng.standard_normal((TRAIN_BATCH,) + R50_SHAPE[1:],
+                                        dtype=np.float32))
+    y = mx.nd.array(rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32))
+    hp = dict(SGD_HYPER, rescale_grad=1.0 / TRAIN_BATCH)
+    train_step(mx, ex, params, states, x, y, hp)
+    n0 = fo.fused_sgd_mom.launches
+    led = ledger.from_fn(lambda: train_step(mx, ex, params, states, x, y,
+                                            hp))
+    torch.cuda.synchronize()
+    launched = fo.fused_sgd_mom.launches - n0
+    k2 = cl_rows(led, "fused_sgd_mom")
+    sizes = sorted(ex.arg_dict[n].size for n in params)
+    check(launched == R50_TRAINABLE and len(k2) == R50_TRAINABLE,
+          f"cost_ledger: {len(k2)} K2 rows, {launched} launches, want "
+          f"{R50_TRAINABLE}")
+    check(sorted(r["bytes"] for r in k2) == [SGD_BYTES * n for n in sizes],
+          "cost_ledger: K2 rows' bytes are not 20 B an element")
+    del ex, states, x
+    torch.cuda.empty_cache()
+    return {"k2_rows": len(k2), "k2_bytes": sum(r["bytes"] for r in k2),
+            "rows": len(led["rows"]), "gflops": led["totals"]["flops"] / 1e9,
+            "top": [{k: g.get(k) for k in ("op", "flops", "bytes")}
+                    for g in led["by_op"][:5]]}
+
+
+def phase_cost_ledger(att, i8, fo, dev, rng, here):
+    """The module docstring's phase 25: the cost ledger, its capture and
+    the liveness ledger on the LM, INT8 and symbolic training paths.
+    Returns the phase's launches by kernel and part."""
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts_s, launches = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        c0 = kernel_counts(att, i8, fo)
+        out = fn(*args)
+        c1 = kernel_counts(att, i8, fo)
+        for k, v in c1.items():
+            n = v - c0[k] - out.get("compare_launches", {}).get(k, 0)
+            if n:
+                launches.setdefault(k, {})[name] = n
+        parts_s[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    lm = part("lm_training", cl_lm, mx, att, dev, rng, here)
+    int8 = part("int8_inference", cl_int8, mx, i8, dev, rng, here)
+    train = part("symbolic_training", cl_train, mx, fo, dev, rng, here)
+    phase_s = time.perf_counter() - t_phase
+    log("cost_ledger " + json.dumps({
+        "card": card_line(), "phase_s": phase_s, "parts_s": parts_s,
+        "lm": lm, "int8": int8, "train": train}))
+    check(phase_s <= CL_SECONDS, f"cost_ledger took {phase_s:.1f} s, over "
+          f"{CL_SECONDS:.0f}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -7419,6 +7758,7 @@ def main():
                           rng, here)
     health = timed(phase_health_and_tails, att, i8, fo, dev, burst, rng,
                    here)
+    cost = timed(phase_cost_ledger, att, i8, fo, dev, rng, here)
     log("phase_seconds " + json.dumps(PHASE_S))
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -7433,6 +7773,8 @@ def main():
         k["observability_launches"] = observability.get(k["name"])
         # the health and tail planes' launches (phase 24), by part
         k["health_launches"] = health.get(k["name"])
+        # the cost ledger's and its capture's launches (phase 25), by part
+        k["cost_ledger_launches"] = cost.get(k["name"])
         if "d256" in k:
             # the D 256 decoder's serving launches (phase 14), where the
             # kernel is on that path
@@ -7448,7 +7790,40 @@ def main():
     return 0
 
 
+def cost_ledger_alone():
+    """Phase 25 by itself (``--cost-ledger``): the kernels built, then the
+    phase, then the result line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "mxnet_tpu_torch")):
+        fail(f"no mxnet_tpu_torch package beside {__file__}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, here)
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import fused_opt as fo
+    from mxnet_tpu_torch.ops import int8 as i8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(card_line())
+    log(f"build: {_build.build_all():.1f}s")
+    t0 = time.perf_counter()
+    launches = phase_cost_ledger(att, i8, fo, dev,
+                                 np.random.default_rng(SEED), here)
+    log(f"phase_cost_ledger: {time.perf_counter() - t0:.1f} s")
+    log("cost_ledger_launches " + json.dumps(launches))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == "--cost-ledger":
+        sys.exit(cost_ledger_alone())
     if len(sys.argv) == 3 and sys.argv[1] == "--time-paged":
         sys.exit(time_paged_tree(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-flash":
@@ -7456,4 +7831,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(dist_worker(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) > 1:
+        fail(f"unknown arguments {sys.argv[1:]}: none (every phase), "
+             "--cost-ledger, --time-paged DIR or --time-flash DIR")
     sys.exit(main())

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 
 import torch
 
@@ -73,7 +74,10 @@ from .parallel.mesh import (PartitionSpec as P, Sharded, _assemble, _local,
                             entry_axes, run_shards)
 from .profiling import health as _health
 from .profiling import memory as _mem
+from .profiling import optrace as _optrace
 from .symbol.symbol import op_attrs
+
+_ot_active = _optrace.ACTIVE
 
 
 def _bn_train(node, ins, attrs, aux_updates):
@@ -144,6 +148,11 @@ def _softmax_dp_attrs(ins, attrs, axes):
     return {**attrs, "normalization": "null", "grad_scale": scale}
 
 
+def _softmax_dp(fn, axes, *ins, **attrs):
+    """``fn`` (SoftmaxOutput / Softmax) at one position of a dp mesh."""
+    return fn(*ins, **_softmax_dp_attrs(ins, attrs, axes))
+
+
 def _tap_names(node):
     """The monitor's names of a node's outputs (the JAX executor's
     internals naming)."""
@@ -185,13 +194,19 @@ def _run(symbol, values, training, dp_axes=None, tap=None):
                 attrs["training"] = training
             if training and node.op == "BatchNorm" \
                     and not attr_bool(attrs.get("use_global_stats")):
-                out = _bn_train_dp(node, ins, attrs, aux_updates, dp_axes) \
-                    if dp_axes else _bn_train(node, ins, attrs, aux_updates)
+                bn = _bn_train_dp if dp_axes else _bn_train
+                args = (node, ins, attrs, aux_updates) + (
+                    (dp_axes,) if dp_axes else ())
+                out = _optrace.scoped("BatchNorm", bn, args, {}) \
+                    if _ot_active[0] else bn(*args)
             else:
+                fn = opdef.fn
                 if dp_axes and training and node.op in ("SoftmaxOutput",
                                                         "Softmax"):
-                    attrs = _softmax_dp_attrs(ins, attrs, dp_axes)
-                out = opdef.fn(*ins, **attrs)
+                    fn = functools.partial(_softmax_dp, fn, dp_axes)
+                # an op trace or capture: the node's op scope
+                out = _optrace.scoped(node.op, fn, ins, attrs) \
+                    if _ot_active[0] else fn(*ins, **attrs)
             del ins
             for c, k in node.inputs:
                 uses[(id(c), k)] -= 1

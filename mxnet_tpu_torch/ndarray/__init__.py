@@ -20,6 +20,7 @@ import torch
 from ..base import MXNetError
 from ..ops import fused_opt as _fused_opt
 from ..ops import registry as _reg
+from ..profiling import optrace as _optrace
 from .ndarray import NDArray, _canon_attr, array, as_tensor, invoke
 from .utils import load, load_frombuffer, save, save_reference
 
@@ -81,7 +82,11 @@ def _make_inplace_update(op, state_start, fused):
                            for s, t in zip(inputs[state_start:],
                                            tensors[state_start:])]
         with torch.no_grad():
-            fused(*tensors, out=dsts, **attrs)
+            if _optrace.ACTIVE[0]:     # an op trace or capture: its scope
+                _optrace.scoped(op.name, fused, tensors,
+                                dict(attrs, out=dsts))
+            else:
+                fused(*tensors, out=dsts, **attrs)
         return out if out is not None else NDArray(weight)
 
     update.__name__ = op.name

@@ -9,17 +9,20 @@ either package loads the other's files:
   :func:`load` recognises by its magic number and :func:`save_reference`
   writes.
 
-Files are written to a temporary name and renamed into place, so a
-reader never sees a partial file. The JAX package's manifest CRC check
-(``checkpoint.verify``) is not ported yet.
+Files are written through ``checkpoint.atomic_write`` (a temporary
+name, fsync, rename), which records each file's size and CRC32 in its
+directory's ``MANIFEST.json`` as the JAX package does; :func:`load`
+checks a listed file against that entry (``checkpoint.verify``) before
+it decodes a byte, so a torn or flipped file is refused, and a file
+either package writes stays loadable by the other.
 """
 from __future__ import annotations
 
 import io
-import os
 
 import numpy as np
 
+from .. import checkpoint as _ckpt
 from ..base import MXNetError
 from .ndarray import NDArray, array
 from .ref_serde import (is_reference_format, load_reference_buffer,
@@ -50,10 +53,8 @@ def _payload(data):
 
 
 def _write(fname, raw):
-    tmp = f"{fname}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
+    with _ckpt.atomic_write(fname) as f:
         f.write(raw)
-    os.replace(tmp, fname)
 
 
 def save(fname, data):
@@ -99,6 +100,9 @@ def load_frombuffer(buf, ctx=None):
 
 
 def load(fname, ctx=None):
+    # the CRC gate first: a manifest-listed file with any flipped or
+    # missing byte is refused before a decoder can misread it
+    _ckpt.verify(fname)
     with open(fname, "rb") as f:
         buf = f.read()
     if not (buf[:2] == b"PK" or is_reference_format(buf)):

@@ -36,7 +36,12 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..profiling import optrace as _optrace
 from . import _build
+
+# a recorder or capture active (profiling/optrace.py): the wrappers price
+# their call as one row
+_ot_active = _optrace.ACTIVE
 
 NEG_INF = -1e30
 
@@ -363,6 +368,60 @@ def _flash_cuda(q, k, v, causal, scale):
     return _flash_fwd(q, k, v, causal, scale, with_lse=False)[0]
 
 
+# ---------------------------------------------------------------------------
+# each kernel's own count, for the op trace (profiling/optrace.py): the
+# bytes and flops of each source's header and PERF.md's bound column
+# ---------------------------------------------------------------------------
+
+def _flash_shape(q, k, causal):
+    bh = q.numel() // (q.shape[-2] * q.shape[-1])
+    t_q, d = q.shape[-2], q.shape[-1]
+    t_k = k.shape[-2]
+    pairs = (t_q * (t_k - t_q) + t_q * (t_q + 1) // 2) if causal \
+        else t_q * t_k
+    return bh, t_q, t_k, d, pairs
+
+
+def flash_count(q, k, v, causal=False, scale=None):
+    """(flops, bytes) of one flash forward: the two products, 4 D flops
+    a visible query-key pair; q, k, v read and out written once, and the
+    rows' f32 log-sum-exp when a gradient is recorded."""
+    bh, t_q, t_k, d, pairs = _flash_shape(q, k, causal)
+    nbytes = q.element_size() * bh * d * (2 * t_q + 2 * t_k)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        nbytes += 4 * bh * t_q
+    return 4 * d * bh * pairs, nbytes
+
+
+def flash_bwd_count(q, k, v, causal=False, scale=None):
+    """(flops, bytes) of one flash backward: five products (S, dP, dV,
+    dK, dQ) of 2 D flops a visible pair; q, k, v, out and dO read, dq,
+    dk, dv written, the f32 log-sum-exp read once."""
+    bh, t_q, t_k, d, pairs = _flash_shape(q, k, causal)
+    nbytes = q.element_size() * bh * d * (4 * t_q + 4 * t_k) + 4 * bh * t_q
+    return 10 * d * bh * pairs, nbytes
+
+
+def _flash_bwd_direct_count(q, k, v, out, d_out, lse, causal=False,
+                            scale=None):
+    return flash_bwd_count(q, k, v, causal)
+
+
+def paged_count(q, k_cache, v_cache, block_tables, seq_lens, scale=None):
+    """(flops, bytes) of one paged decode step over this call's live
+    tokens (``seq_lens`` summed; a meta tensor counts every table
+    slot): 4 D flops a live token a head; q read and out written, the
+    live K and V read, the tables and lengths read."""
+    b, h, d = q.shape
+    if seq_lens.device.type == "meta":
+        live = b * block_tables.shape[1] * k_cache.shape[1]
+    else:
+        live = int(sum(int(n) for n in seq_lens.tolist()))
+    nbytes = (2 * b * h * d * 4 + 2 * live * h * d * k_cache.element_size()
+              + block_tables.numel() * 4 + seq_lens.numel() * 4)
+    return 4 * h * d * live, nbytes
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention. q, k, v: (B, H, T, D) or (BH, T, D). CPU
     tensors take :func:`flash_attention_plain` (differentiated by torch
@@ -379,6 +438,11 @@ def flash_attention(q, k, v, causal=False, scale=None):
     :func:`flash_attention_bwd`. The output has q's shape and type; on
     CUDA at a built D it is laid out (B, T, H, D) so the caller's head
     merge is a view."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "flash_attention", flash_count, flash_attention,
+            (q, k, v, causal, scale),
+            backward=("flash_attention_bwd", flash_bwd_count))
     name = "flash_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -406,6 +470,10 @@ def flash_attention_bwd(q, k, v, out, d_out, lse, causal=False,
     each of them that is not 16-byte aligned (base address and strides,
     as the forward requires) is first copied to a contiguous tensor. The
     gradients come out in q's type, summed in f32 and rounded once."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "flash_attention_bwd", _flash_bwd_direct_count,
+            flash_attention_bwd, (q, k, v, out, d_out, lse, causal, scale))
     name = "flash_attention_bwd"
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -541,6 +609,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
     zero columns past q's D; q is then zero-padded to the pool's D on
     every device and the output sliced back (exact). ``scale`` defaults
     to q's D ** -0.5."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "paged_attention", paged_count, paged_attention,
+            (q, k_cache, v_cache, block_tables, seq_lens, scale))
     name = "paged_attention"
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -46,7 +46,12 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..profiling import optrace as _optrace
 from . import _build
+
+# a recorder or capture active (profiling/optrace.py): the wrappers price
+# their call as one row
+_ot_active = _optrace.ACTIVE
 
 _SGD_MOM_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64]
                  + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_int,
@@ -178,6 +183,19 @@ def _kernel(symbol, argtypes):
     return fn
 
 
+def sgd_mom_count(weight, *args, **kwargs):
+    """(flops, bytes) of one ``sgd_mom`` call, for the op trace: 7 flops
+    an element (the rescale, three products, three sums) and 20 bytes
+    (w, g, mom read; w', mom' written: ``csrc/fused_opt.cu``)."""
+    return 7 * weight.numel(), 20 * weight.numel()
+
+
+def adam_count(weight, *args, **kwargs):
+    """(flops, bytes) of one ``adam`` call: 15 flops an element and 28
+    bytes (w, g, m, v read; w', m', v' written)."""
+    return 15 * weight.numel(), 28 * weight.numel()
+
+
 def fused_sgd_mom(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
                   rescale_grad=1.0, clip_gradient=-1.0, out=None):
     """``sgd_mom_update`` as one pass over weight, grad and momentum;
@@ -185,6 +203,11 @@ def fused_sgd_mom(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     given (they may be ``weight`` and ``mom`` themselves). CPU (and meta)
     tensors take :func:`sgd_mom_plain`; CUDA tensors launch the
     ``sgd_mom`` kernel of ``csrc/fused_opt.cu``."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "fused_sgd_mom", sgd_mom_count, fused_sgd_mom,
+            (weight, grad, mom, lr, momentum, wd, rescale_grad,
+             clip_gradient, out))
     name = "fused_sgd_mom"
     dev = weight.device
     if dev.type in ("cpu", "meta"):
@@ -216,6 +239,11 @@ def fused_adam(weight, grad, mean, var, lr=0.01, beta1=0.9, beta2=0.999,
     returns ``(w', m', v')``, written into ``out`` when given (it may
     alias the inputs). CPU (and meta) tensors take :func:`adam_plain`;
     CUDA tensors launch the ``adam`` kernel of ``csrc/fused_opt.cu``."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "fused_adam", adam_count, fused_adam,
+            (weight, grad, mean, var, lr, beta1, beta2, epsilon, wd,
+             rescale_grad, clip_gradient, out))
     name = "fused_adam"
     dev = weight.device
     if dev.type in ("cpu", "meta"):

@@ -25,9 +25,14 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..profiling import optrace as _optrace
 from . import _build
 from .quantized import (INT8_RANGE, INT32_RANGE, as_f32, div_const,
                         fmax, range_absmax, rdiv_const)
+
+# a recorder or capture active (profiling/optrace.py): the wrappers price
+# their call as one row
+_ot_active = _optrace.ACTIVE
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -70,6 +75,13 @@ def _scale_on(s, dev, name):
     return _device_scalar(float(as_f32(s)), dev)
 
 
+def epilogue_count(acc, in_scale=None, out_scale=None, relu=False):
+    """(flops, bytes) of one epilogue call, for the op trace: the two
+    f32 products an element; 4 bytes read and 1 written an element
+    (``csrc/int8_epilogue.cu``'s header)."""
+    return 2 * acc.numel(), 5 * acc.numel()
+
+
 def int8_conv_epilogue(acc, in_scale, out_scale, relu=False):
     """Elementwise requantize(+relu) of int32 accumulators to int8.
 
@@ -80,6 +92,10 @@ def int8_conv_epilogue(acc, in_scale, out_scale, relu=False):
     ``csrc/int8_epilogue.cu``, which takes a contiguous accumulator
     (or one contiguous in channels-last order) and writes the output
     in the same memory order."""
+    if _ot_active[0] and _optrace.pricing():
+        return _optrace.priced_call(
+            "int8_conv_epilogue", epilogue_count, int8_conv_epilogue,
+            (acc, in_scale, out_scale, relu))
     name = "int8_conv_epilogue"
     dev = acc.device
     if dev.type in ("cpu", "meta"):

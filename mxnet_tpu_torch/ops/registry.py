@@ -21,6 +21,9 @@ import torch
 from ..base import MXNetError
 from .. import telemetry as _telemetry
 from ..telemetry import _current_op as _tm_op
+from ..profiling import optrace as _optrace
+
+_ot_active = _optrace.ACTIVE
 
 _OPS = {}
 
@@ -74,16 +77,27 @@ class OpDef:
         """Eager execute. With telemetry on, the dispatch is counted and
         a kernel build it triggers is charged to this op (the previous
         scope is restored, not cleared: an enclosing op or
-        ``compile_scope`` gets its attribution back)."""
+        ``compile_scope`` gets its attribution back). While an op trace
+        or a capture is active the call runs in this op's scope
+        (``profiling/optrace.py``)."""
+        if _ot_active[0]:
+            return _optrace.scoped(self.name, self._observed, arrays, attrs)
         if _telemetry.enabled():
-            prev = getattr(_tm_op, "name", None)
-            _tm_op.name = self.name
-            try:
-                return self.fn(*arrays, **attrs)
-            finally:
-                _tm_op.name = prev
-                _dispatch_counter().inc()
+            return self._observed(*arrays, **attrs)
         return self.fn(*arrays, **attrs)
+
+    def _observed(self, *arrays, **attrs):
+        """``fn`` under telemetry's op scope and dispatch count, when
+        telemetry is on."""
+        if not _telemetry.enabled():
+            return self.fn(*arrays, **attrs)
+        prev = getattr(_tm_op, "name", None)
+        _tm_op.name = self.name
+        try:
+            return self.fn(*arrays, **attrs)
+        finally:
+            _tm_op.name = prev
+            _dispatch_counter().inc()
 
 
 def register_op(name, fn, aliases=(), num_outputs=1):

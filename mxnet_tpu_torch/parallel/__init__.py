@@ -2,14 +2,14 @@
 an in-process device mesh whose :func:`shard_map` runs one thread per
 position, named collectives over its axes, the layout table, and the
 tensor-, sequence-, pipeline- and expert-parallel functions written
-against them, and the sharded training steps (ZeRO 1-3) of
-``train_step.py``. ``collectives_summary`` is not ported."""
+against them, the sharded training steps (ZeRO 1-3) of
+``train_step.py``, and ``collectives_summary`` of what a program issued."""
 from __future__ import annotations
 
 from .collectives import (allgather, allreduce, alltoall, axis_index,
                           axis_size, ppermute_next, reduce_scatter)
-from .layout import (SpecLayout, collective_shardings, dryrun_report,
-                     zero_shard_leaf)
+from .layout import (SpecLayout, collective_shardings, collectives_summary,
+                     dryrun_report, zero_shard_leaf)
 from .mesh import (Mesh, NamedSharding, PartitionSpec, Sharded,
                    auto_mesh_shape, create_mesh, free_pool, mesh_sharding,
                    replica_devices, replica_slices, run_shards, shard_batch,
@@ -29,7 +29,8 @@ __all__ = [
     "shard_map", "replica_devices", "replica_slices", "free_pool",
     "should_warn_degraded", "run_shards", "Mesh", "NamedSharding", "PartitionSpec",
     "Sharded",
-    "SpecLayout", "collective_shardings", "dryrun_report",
+    "SpecLayout", "collective_shardings", "collectives_summary",
+    "dryrun_report",
     "zero_shard_leaf",
     "allreduce", "allgather", "alltoall", "axis_index", "axis_size",
     "ppermute_next", "reduce_scatter",

@@ -22,10 +22,10 @@ vocab-sharded.
   the stacked-input / replicated-output pair of a process-mesh reducer.
 
 The JSON of a table (:meth:`SpecLayout.to_json`) is the JAX package's:
-a layout file written by either package loads in the other. Not ported:
-``collectives_summary``, which reads the collectives XLA inserted from
-HLO text (the JAX ``dryrun_report`` names them from a lowering; the
-port has no compiler to ask).
+a layout file written by either package loads in the other.
+:func:`collectives_summary` counts the collectives a program issues, by
+kind, with the bytes they move, in the JAX document: from the port's own
+run (a mesh's or a sharded train step's last call) or from HLO text.
 """
 from __future__ import annotations
 
@@ -426,6 +426,65 @@ def collective_shardings(mesh, axis=None):
     mesh's first axis."""
     axis = tuple(mesh.shape)[0] if axis is None else axis
     return (NamedSharding(mesh, P(axis)), NamedSharding(mesh, P()))
+
+
+#: the collective opcodes the report names (``profiling/hlo.py``
+#: prices the same set), and the port's collectives under those names
+_COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
+                   "all-to-all", "collective-permute",
+                   "collective-broadcast")
+_PORT_KINDS = {"allreduce": "all-reduce", "allgather": "all-gather",
+               "reduce_scatter": "reduce-scatter", "alltoall": "all-to-all",
+               "ppermute": "collective-permute"}
+_HLO_TYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+              "float64": "f64", "int64": "s64", "int32": "s32",
+              "int8": "s8", "uint8": "u8", "bool": "pred"}
+
+
+def collectives_summary(source):
+    """Per-kind count and bytes moved of a program's collectives:
+    ``{"total", "by_op": {kind: {"count", "bytes", "shapes"}}}`` under
+    the HLO opcode names. ``source`` is HLO text (its collectives priced
+    by output footprint, as the JAX package reads what GSPMD inserted),
+    or a mesh or sharded train step whose last call ran the port's
+    collectives (one per group; bytes of one rank's output, as an SPMD
+    program's instruction is one device's)."""
+    ops = {}
+    if isinstance(source, str):
+        from ..profiling import hlo as _hlo
+        mod = _hlo.parse_module(source)
+        for comp in mod.computations.values():
+            for instr in comp:
+                base = instr.opcode
+                for c in _COLLECTIVE_OPS:
+                    if base == c or base.startswith(c + "-"):
+                        base = c
+                        break
+                else:
+                    continue
+                row = ops.setdefault(base, {"count": 0, "bytes": 0,
+                                            "shapes": []})
+                row["count"] += 1
+                row["bytes"] += _hlo.shape_bytes(instr.shape)
+                if len(row["shapes"]) < 8:
+                    row["shapes"].append(instr.shape)
+    else:
+        log = getattr(source, "last_collective_log", None)
+        if log is None:
+            raise TypeError("collectives_summary reads HLO text, a mesh or "
+                            "a sharded train step, not a "
+                            + type(source).__name__)
+        for kind, r in log.items():
+            ops[_PORT_KINDS.get(kind, kind)] = {
+                "count": r["count"], "bytes": r["bytes"],
+                "shapes": ["%s[%s]" % (_HLO_TYPES.get(
+                    r.get("dtype", "float32"), "f32"),
+                    ",".join(str(d) for d in shp))
+                    for shp in r["shapes"]]}
+    return {
+        "total": int(sum(r["count"] for r in ops.values())),
+        "by_op": {k: ops[k] for k in sorted(ops)},
+    }
 
 
 def dryrun_report(layout, tree, mesh, extra=None):

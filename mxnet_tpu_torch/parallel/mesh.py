@@ -36,7 +36,6 @@ when they share one.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import contextvars
 import math
@@ -118,8 +117,10 @@ class Mesh:
         self._lock = threading.Lock()
         self._run_lock = threading.Lock()
         self._workers = None
-        #: collectives of the last :func:`run_shards` call, by kind
+        #: collectives of the last :func:`run_shards` call, by kind, and
+        #: their counts, bytes (one rank's output) and first shapes
         self.last_collectives = {}
+        self.last_collective_log = {}
 
     def __repr__(self):
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
@@ -487,7 +488,9 @@ class _Run:
         self.cond = threading.Condition()
         self.slots = {}
         self.error = None
-        self.collectives = collections.Counter()
+        # kind -> {"count", "bytes" (one rank's output), "dtype",
+        # "shapes" (the first 8)}
+        self.collective_log = {}
 
     def fail(self, err):
         with self.cond:
@@ -571,7 +574,7 @@ def rendezvous(axis_name, value, combine, kind="collective"):
             raise
         with run.cond:
             slot.outs = outs
-            run.collectives[kind] += 1
+            _log_collective(run.collective_log, kind, outs[0])
             run.cond.notify_all()
     else:
         deadline = time.monotonic() + run.timeout
@@ -594,6 +597,16 @@ def rendezvous(axis_name, value, combine, kind="collective"):
         if slot.taken == n:
             del run.slots[key]
     return out
+
+
+def _log_collective(log, kind, out):
+    row = log.setdefault(kind, {"count": 0, "bytes": 0, "shapes": []})
+    row["count"] += 1
+    if isinstance(out, torch.Tensor):
+        row["bytes"] += out.numel() * out.element_size()
+        row.setdefault("dtype", str(out.dtype).rsplit(".", 1)[-1])
+        if len(row["shapes"]) < 8:
+            row["shapes"].append(tuple(out.shape))
 
 
 def _shard_main(run, coords, device, f, args, streams, grad, inference):
@@ -682,7 +695,9 @@ def run_shards(mesh, f, local_args):
                 results.append(fut.result())
             except BaseException:  # noqa: BLE001 — the root cause below
                 results.append(None)
-        mesh.last_collectives = dict(run.collectives)
+        mesh.last_collectives = {k: r["count"]
+                                  for k, r in run.collective_log.items()}
+        mesh.last_collective_log = run.collective_log
     if run.error is not None:
         raise run.error
     return results

@@ -223,6 +223,7 @@ def make_sharded_train_step(loss_fn, mesh, param_example, batch_example,
             _mem.maybe_oom_postmortem(e, source="sharded_train_step")
             raise
         step.last_collectives = dict(mesh.last_collectives)
+        step.last_collective_log = mesh.last_collective_log
         del args
         if donate:
             for tree in (params, opt_state):
@@ -247,6 +248,7 @@ def make_sharded_train_step(loss_fn, mesh, param_example, batch_example,
         return new_p, new_s, loss
 
     step.last_collectives = {}
+    step.last_collective_log = {}
     _mem.tag_tree(params0, "parameter")
     _mem.tag_tree(opt0, "optimizer_state")
     return step, params0, opt0

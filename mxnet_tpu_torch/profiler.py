@@ -12,10 +12,13 @@ times the host: kernels are queued asynchronously, so an event spans
 their launch, not their run on the card, except where the executor
 waits for its outputs while the profiler runs.
 
-The device capture of the JAX package (``set_config(xla_trace_dir=)``,
-``last_xplane_dir``, ``op_attribution``) waits for the port of the cost
-ledger and its capture (through ``torch.profiler``; ROADMAP queue 1
-item 6b-ii): those raise instead of pretending to capture.
+The device capture keeps the JAX package's names: with
+``set_config(xla_trace_dir=d)``, ``set_state("run")`` starts a
+``torch.profiler`` capture (the CPU, and the card when there is one) with
+the op scopes of ``profiling/optrace.py`` on, and ``set_state("stop")``
+writes its Kineto trace into ``d`` (``last_xplane_dir()``);
+:func:`op_attribution` joins that capture onto a cost ledger, as
+``profiling.analyze_dir`` does.
 
 Env: ``MXNET_PROFILER_AUTOSTART=1`` starts profiling at import
 (ref: docs/faq/env_var.md).
@@ -25,14 +28,11 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 
 from .base import MXNetError
 from .telemetry import metrics as _tm
 from .tracing import clock as _clock
-
-_NO_CAPTURE = ("the device trace capture (xla_trace_dir, last_xplane_dir, "
-               "op_attribution) waits for the port of the cost ledger "
-               "and its capture (ROADMAP queue 1 item 6b-ii)")
 
 _lock = threading.Lock()
 _events = []          # chrome trace event dicts
@@ -86,8 +86,6 @@ def set_config(profile_process="worker", **kwargs):
     unknown = set(kwargs) - set(_config)
     if unknown:
         raise MXNetError(f"unknown profiler config keys {sorted(unknown)}")
-    if kwargs.get("xla_trace_dir") is not None:
-        raise MXNetError("set_config(xla_trace_dir=): " + _NO_CAPTURE)
     _config.update(kwargs)
 
 
@@ -100,18 +98,72 @@ def set_state(state="stop", profile_process="worker"):
         return
     if state not in ("run", "stop"):
         raise MXNetError("profiler state must be 'run' or 'stop'")
+    if state == "run" and _state != "run" and _config["xla_trace_dir"]:
+        _start_capture()
+    if state == "stop" and _state == "run" and _capture[0] is not None:
+        _stop_capture()
     _state = state
 
 
+_capture = [None]       # (torch.profiler.profile, optrace.capturing)
+_last_xplane_dir = [None]
+
+
+def _start_capture():
+    import torch
+    from .profiling import optrace
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    scopes = optrace.capturing()
+    scopes.__enter__()
+    prof = torch.profiler.profile(activities=acts)
+    try:
+        prof.__enter__()
+    except BaseException:
+        scopes.__exit__(None, None, None)
+        raise
+    _capture[0] = (prof, scopes)
+
+
+def _stop_capture():
+    prof, scopes = _capture[0]
+    _capture[0] = None
+    try:
+        prof.__exit__(None, None, None)
+    finally:
+        scopes.__exit__(None, None, None)
+    d = _config["xla_trace_dir"]
+    os.makedirs(d, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        d, "mxtpu_%d_%d.pt.trace.json" % (os.getpid(),
+                                          int(time.time() * 1e6))))
+    # the capture is on disk: last_xplane_dir() / op_attribution() read
+    # it without the caller passing the directory again
+    _last_xplane_dir[0] = d
+
+
 def last_xplane_dir():
-    """The JAX package's last device capture directory: not ported."""
-    raise MXNetError("last_xplane_dir: " + _NO_CAPTURE)
+    """The directory of the most recent completed ``xla_trace_dir``
+    capture (``set_config`` + ``set_state('run')`` then ``'stop'``), or
+    None."""
+    return _last_xplane_dir[0]
 
 
 def op_attribution(compiled=None, hlo_text=None, profile_dir=None,
                    **kwargs):
-    """The JAX package's measured per-op attribution: not ported."""
-    raise MXNetError("op_attribution: " + _NO_CAPTURE)
+    """Measured per-op attribution of the last (or given) capture,
+    joined onto a cost ledger of ``compiled`` (a ledger document, an op
+    trace, or a program traced once: see ``profiling.analyze_dir``) or
+    of ``hlo_text``."""
+    from . import profiling
+    profile_dir = profile_dir or last_xplane_dir()
+    if profile_dir is None:
+        raise MXNetError(
+            "no capture recorded: run with set_config(xla_trace_dir=...) "
+            "+ set_state('run'/'stop'), or pass profile_dir=")
+    return profiling.analyze_dir(profile_dir, compiled=compiled,
+                                 hlo_text=hlo_text, **kwargs)
 
 
 def state():

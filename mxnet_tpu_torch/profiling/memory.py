@@ -29,10 +29,20 @@ postmortem (the port of the census and OOM half of
    writes one atomic artifact with the census, each card's
    ``torch.cuda.memory_stats`` and a flight-recorder dump.
 
-The static liveness ledger of the JAX module (HLO buffer intervals, the
-ranked peak-liveness table) waits for its design on ``torch.profiler``:
-its functions raise and name ROADMAP queue 1 item 6b-ii, and the
-postmortem says so in its ``memory_ledger_pending`` field.
+3. **Static liveness ledger**: :func:`build_memory_ledger` sweeps the
+   buffers of a program into its peak live bytes, the instruction at the
+   peak and the ranked table of the buffers live there, each keyed to a
+   framework op (and, for a fused cluster, its ``subgraph/`` rule) as
+   the cost ledger keys its rows. The program is HLO text (priced as
+   the JAX package prices it: def-use intervals over the entry
+   computation, donation included) or the port's op trace
+   (:mod:`.optrace`): a storage is born at the op that first writes it
+   and dies after its last use; a storage the call was given (an input,
+   a parameter, an optimizer state) is an ``argument`` live throughout,
+   and what the call returns is an ``output`` live to its end. A hand
+   kernel's scratch (its plain version's temporaries on the CPU) is not
+   a buffer: only what it hands on is. The OOM postmortem carries the
+   ranked table when its caller gives the program.
 
 Env: ``MXTPU_MEMORY_CENSUS`` (0 turns tagging and the census collector
 off), ``MXTPU_OOM_DUMP_PATH`` (postmortem destination).
@@ -48,6 +58,10 @@ import weakref
 
 import torch
 
+from . import hlo
+from . import ledger as _ledger
+from . import optrace as _optrace
+
 CENSUS_VERSION = 1
 POSTMORTEM_VERSION = 1
 
@@ -55,27 +69,410 @@ POSTMORTEM_VERSION = 1
 ROLES = ("parameter", "gradient", "optimizer_state", "io_buffer",
          "kv_cache", "activation")
 
-_LEDGER_PENDING = ("the liveness ledger waits for its port on "
-                   "torch.profiler (ROADMAP queue 1 item 6b-ii)")
+MEMORY_LEDGER_VERSION = 1
+
+# ---------------------------------------------------------------------------
+# static liveness ledger
+# ---------------------------------------------------------------------------
+
+# opcodes that alias/forward their operand buffers instead of defining
+# storage of their own (XLA buffer assignment gives them no allocation)
+_FORWARDING = {"tuple", "get-tuple-element", "bitcast",
+               "bitcast-convert", "opt-barrier", "after-all"}
+
+_ALIAS_PAIR_RE = re.compile(r"\{\s*(\d*)\s*\}\s*:\s*\(\s*(\d+)\s*[,)]")
 
 
-def _pending_ledger(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError("profiling.memory.%s: %s"
-                                  % (name, _LEDGER_PENDING))
-    fn.__name__ = name
-    fn.__doc__ = "Raises: %s." % _LEDGER_PENDING
-    return fn
+def parse_input_output_aliases(hlo_text):
+    """{output tuple index: parameter number} donation pairs from the
+    HloModule header, e.g.
+    ``input_output_alias={ {0}: (0, {}, may-alias), {1}: (1, {}) }``.
+    The value is brace-nested, so the span is found by depth scan, not
+    regex. Nested output indices ({0,1}) are rare at the entry and
+    skipped."""
+    start = hlo_text.find("input_output_alias={")
+    if start < 0:
+        return {}
+    i = hlo_text.index("{", start)
+    depth = 0
+    for j in range(i, min(len(hlo_text), i + 100000)):
+        c = hlo_text[j]
+        if c == "{":
+            depth += 1
+        elif c == "}":
+            depth -= 1
+            if depth == 0:
+                body = hlo_text[i + 1:j]
+                break
+    else:
+        return {}
+    out = {}
+    for oidx, pnum in _ALIAS_PAIR_RE.findall(body):
+        out[int(oidx) if oidx else 0] = int(pnum)
+    return out
 
 
-buffer_intervals = _pending_ledger("buffer_intervals")
-build_memory_ledger = _pending_ledger("build_memory_ledger")
-from_compiled = _pending_ledger("from_compiled")
-from_fn = _pending_ledger("from_fn")
-summarize = _pending_ledger("summarize")
-diff = _pending_ledger("diff")
-load = _pending_ledger("load")
-dump = _pending_ledger("dump")
+def buffer_intervals(mod, aliases=None):
+    """Def-use liveness intervals: of an op trace's buffers when ``mod``
+    is an :class:`~.optrace.Trace` (``{buffer name: {"def", "last_use",
+    "bytes", "entry", "aliased": False, "kind"}}``, indices into its
+    entries), else over the entry computation of an HLO module, as
+    follows.
+
+    Returns ``{buffer name: {"def": i, "last_use": j, "bytes": b,
+    "instr": Instr, "aliased": bool}}`` where indices are positions in
+    the entry instruction list. Forwarding opcodes (tuple / gte /
+    bitcast / opt-barrier) resolve through to the defining buffer —
+    they own no storage. A fusion's internal producer/consumer buffers
+    never appear at all: only entry instructions allocate (the fused
+    temporaries live in registers/scratch, which is exactly the HBM
+    accounting the cost ledger's bytes column already uses). Donated
+    parameters (``aliases``: output index -> parameter number) keep
+    the donor parameter live through the aliased output's definition
+    and zero the output's own footprint — the output writes into the
+    donor's buffer (the reference's inplace pass, compiler-decided).
+    """
+    if isinstance(mod, _optrace.Trace):
+        return _trace_intervals(mod)
+    instrs = mod.entry_instructions
+    index = {ins.name: i for i, ins in enumerate(instrs)}
+    resolve_cache = {}
+
+    def resolve(name):
+        """Underlying storage-owning buffer names for ``name``."""
+        got = resolve_cache.get(name)
+        if got is not None:
+            return got
+        i = index.get(name)
+        if i is None:
+            out = ()
+        else:
+            ins = instrs[i]
+            if ins.opcode in _FORWARDING:
+                resolve_cache[name] = ()   # cycle guard
+                out = []
+                for op in ins.operands:
+                    out.extend(resolve(op))
+                out = tuple(dict.fromkeys(out))
+            else:
+                out = (name,)
+        resolve_cache[name] = out
+        return out
+
+    bufs = {}
+    end = len(instrs) - 1
+    for i, ins in enumerate(instrs):
+        if ins.opcode in _FORWARDING:
+            continue
+        # non-donated argument buffers are owned by the caller and
+        # stay resident for the WHOLE execution — live [0, end]
+        # regardless of where the parameter instruction sits in the
+        # text. They can never be reused for temporaries, which is why
+        # memory_analysis() sums argument bytes wholesale. Donation is
+        # the exception; the aliased-output bookkeeping below accounts
+        # for it.
+        first, last = (0, end) if ins.opcode == "parameter" else (i, i)
+        bufs[ins.name] = {"def": first, "last_use": last,
+                          "bytes": hlo.shape_bytes(ins.shape),
+                          "instr": ins, "aliased": False}
+    for i, ins in enumerate(instrs):
+        for op in ins.operands:
+            for name in resolve(op):
+                b = bufs.get(name)
+                if b is not None and i > b["last_use"]:
+                    b["last_use"] = i
+    # outputs stay live to the end of the program. is_output marks
+    # reachability from the root — a temp merely CONSUMED by the last
+    # instruction shares its last_use index but is not an output
+    root = next((ins for ins in instrs if ins.is_root), None)
+    root_bufs = resolve(root.name) if root is not None else ()
+    for name in root_bufs:
+        if name in bufs:
+            bufs[name]["last_use"] = end
+            bufs[name]["is_output"] = True
+    # donated params: the aliased output reuses the donor's storage
+    if aliases and root is not None:
+        # output tuple component k = root's k-th operand when the root
+        # is a forwarding tuple, else the root itself for index 0;
+        # parameter numbers follow textual order in XLA dumps
+        comps = (root.operands if root.opcode == "tuple"
+                 else [root.name])
+        pnum_order = [ins.name for ins in instrs
+                      if ins.opcode == "parameter"]
+        for oidx, pnum in aliases.items():
+            if oidx >= len(comps) or pnum >= len(pnum_order):
+                continue
+            donor = pnum_order[pnum]
+            for name in resolve(comps[oidx]):
+                b = bufs.get(name)
+                if b is None or name == donor:
+                    continue
+                b["aliased"] = True
+                b["bytes"] = 0
+                d = bufs.get(donor)
+                if d is not None and b["def"] > d["last_use"]:
+                    d["last_use"] = b["def"]
+    return bufs
+
+
+def _trace_intervals(trace):
+    end = max(len(trace.entries) - 1, 0)
+    out = {}
+    for i, b in enumerate(trace.buffers):
+        kind = ("argument" if b["arg"] else "output" if b["out"]
+                else "temp")
+        first, last = (0, end) if b["arg"] else (b["def"], b["last"])
+        out["b%d" % i] = {"def": first, "last_use": last,
+                          "bytes": b["bytes"], "entry": b["def"],
+                          "aliased": False, "kind": kind}
+    return out
+
+
+def _trace_memory_ledger(trace, rule_map, top):
+    if rule_map is None:
+        rule_map = _ledger.fusion_rule_map()
+    bufs = buffer_intervals(trace)
+    n = len(trace.entries)
+    peak, peak_i = _sweep_peak(bufs, n)
+    totals = {"arg_bytes": 0, "constant_bytes": 0, "output_bytes": 0}
+    rows = []
+    for name, b in bufs.items():
+        if b["kind"] == "argument":
+            totals["arg_bytes"] += b["bytes"]
+        elif b["kind"] == "output":
+            totals["output_bytes"] += b["bytes"]
+        if not (b["def"] <= peak_i <= b["last_use"]) or b["bytes"] == 0:
+            continue
+        e = trace.entries[b["entry"]] if b["kind"] != "argument" \
+            and b["entry"] < n else None
+        scopes = e["scopes"] if e is not None else ()
+        row = {"buffer": name,
+               "hlo_op": e["name"] if e is not None else "parameter",
+               "op": _ledger.scope_op(scopes[-1]) if scopes else None,
+               "bytes": b["bytes"], "kind": b["kind"],
+               "born": b["def"], "dies": b["last_use"]}
+        rule = _ledger._rule_of(scopes, rule_map)
+        if rule:
+            row["rule"] = rule
+        rows.append(row)
+    rows.sort(key=lambda r: (-r["bytes"], r["buffer"]))
+    by_op = group_buffers_by_op(rows)
+    live_at_peak = len(rows)
+    if top is not None:
+        rows = rows[:top]
+    peak_instr = None
+    if 0 <= peak_i < n:
+        peak_instr = "%d:%s" % (peak_i, _ledger.trace_row_name(
+            trace.entries[peak_i]))
+    return {
+        "version": MEMORY_LEDGER_VERSION,
+        "kind": "memory_ledger",
+        "module": trace.module,
+        "program": "optrace",
+        "device": trace.device,
+        "peak_live_bytes": peak,
+        "peak_index": peak_i,
+        "peak_instr": peak_instr,
+        "totals": dict(totals, instructions=n, buffers=len(bufs),
+                       live_at_peak=live_at_peak),
+        "buffers": rows,
+        "by_op": by_op,
+    }
+
+
+def _sweep_peak(bufs, n):
+    """(peak_bytes, peak_index) from interval deltas."""
+    if n <= 0:
+        return 0, 0
+    delta = [0] * (n + 1)
+    for b in bufs.values():
+        delta[b["def"]] += b["bytes"]
+        delta[b["last_use"] + 1] -= b["bytes"]
+    live = peak = 0
+    peak_i = 0
+    for i in range(n):
+        live += delta[i]
+        if live > peak:
+            peak = live
+            peak_i = i
+    return peak, peak_i
+
+
+def build_memory_ledger(hlo_text, fn_map=None, rule_map=None,
+                        module=None, top=None):
+    """A memory-ledger document of a program (optimized HLO text or an
+    :class:`~.optrace.Trace`): peak live bytes, the instruction at the
+    peak, and the ranked table of buffers live at that point, attributed
+    to framework ops (and, for fused clusters, the subgraph rule that
+    made them: the same channels as the cost ledger)."""
+    if isinstance(hlo_text, _optrace.Trace):
+        return _trace_memory_ledger(hlo_text, rule_map, top)
+    mod = module if module is not None else hlo.parse_module(hlo_text)
+    if fn_map is None:
+        fn_map = _ledger.framework_fn_map()
+    if rule_map is None:
+        rule_map = _ledger.fusion_rule_map()
+    aliases = parse_input_output_aliases(hlo_text) if hlo_text else {}
+    bufs = buffer_intervals(mod, aliases=aliases)
+    instrs = mod.entry_instructions
+    n = len(instrs)
+    peak, peak_i = _sweep_peak(bufs, n)
+    rows = []
+    arg_bytes = const_bytes = 0
+    out_bytes = 0
+    for name, b in bufs.items():
+        ins = b["instr"]
+        if ins.opcode == "parameter":
+            arg_bytes += b["bytes"]
+        elif ins.opcode == "constant":
+            const_bytes += b["bytes"]
+        is_out = b.get("is_output") and not b["aliased"] \
+            and ins.opcode != "parameter"
+        if is_out:
+            out_bytes += b["bytes"]
+        if not (b["def"] <= peak_i <= b["last_use"]) or b["bytes"] == 0:
+            continue
+        kind = ("argument" if ins.opcode == "parameter" else
+                "constant" if ins.opcode == "constant" else
+                "output" if is_out else "temp")
+        op = _ledger.attribute_op_name(ins.op_name, fn_map)
+        row = {
+            "buffer": name,
+            "hlo_op": ins.opcode,
+            "op": op,
+            "bytes": b["bytes"],
+            "kind": kind,
+            "born": b["def"],
+            "dies": b["last_use"],
+        }
+        rule = rule_map.get(op)
+        if rule:
+            row["rule"] = rule
+        rows.append(row)
+    rows.sort(key=lambda r: (-r["bytes"], r["buffer"]))
+    # aggregates are computed over the FULL live-at-peak set; `top`
+    # bounds only the stored per-buffer table
+    by_op = group_buffers_by_op(rows)
+    live_at_peak = len(rows)
+    if top is not None:
+        rows = rows[:top]
+    return {
+        "version": MEMORY_LEDGER_VERSION,
+        "kind": "memory_ledger",
+        "module": mod.name,
+        "peak_live_bytes": peak,
+        "peak_index": peak_i,
+        "peak_instr": instrs[peak_i].name if 0 <= peak_i < n else None,
+        "totals": {
+            "instructions": n,
+            "buffers": len(bufs),
+            "live_at_peak": live_at_peak,
+            "arg_bytes": arg_bytes,
+            "constant_bytes": const_bytes,
+            "output_bytes": out_bytes,
+        },
+        "buffers": rows,
+        "by_op": by_op,
+    }
+
+
+def group_buffers_by_op(rows):
+    """Live-at-peak bytes re-aggregated on the framework-op
+    attribution (the ranked answer to "which op's buffers hold the
+    HBM at the worst moment")."""
+    agg = {}
+    for r in rows:
+        key = r.get("op") or r["hlo_op"]
+        a = agg.setdefault(key, {"op": key, "buffers": 0, "bytes": 0})
+        a["buffers"] += 1
+        a["bytes"] += r["bytes"]
+        if r.get("rule"):
+            a["rule"] = r["rule"]
+        kinds = a.setdefault("kinds", {})
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    return sorted(agg.values(), key=lambda a: -a["bytes"])
+
+
+def from_compiled(compiled, hlo_text=None, args=(), **kwargs):
+    """Memory ledger of one call of a compiled program
+    (``ledger.program``: an Executor, a hybridized block, a
+    ``compile_symbol_forward`` result or a callable, on ``args``),
+    traced once; ``hlo_text`` builds it from that text instead, and an
+    :class:`~.optrace.Trace` as recorded. The JAX package cross-checks
+    XLA's ``memory_analysis`` (``peak_vs_xla``): the port has no second
+    count, so the key is absent, as in the JAX document when
+    ``memory_analysis`` fails."""
+    if hlo_text is not None:
+        return build_memory_ledger(hlo_text, **kwargs)
+    if isinstance(compiled, _optrace.Trace):
+        return build_memory_ledger(compiled, **kwargs)
+    trace, _ = _optrace.record(_ledger.program(compiled, args),
+                               module=type(compiled).__name__)
+    return build_memory_ledger(trace, **kwargs)
+
+
+def from_fn(fn, *args, **kwargs):
+    """Run ``fn(*args)`` once under the op trace and build its memory
+    ledger."""
+    trace, _ = _optrace.record(fn, *args)
+    return build_memory_ledger(trace, **kwargs)
+
+
+def summarize(doc, top=5):
+    """Bounded summary for embedding in bench artifacts."""
+    out = {
+        "peak_live_mb": round(doc["peak_live_bytes"] / 1e6, 3),
+        "peak_instr": doc.get("peak_instr"),
+        "top": [{"op": g["op"], "mb": round(g["bytes"] / 1e6, 3)}
+                for g in doc.get("by_op", [])[:top]],
+    }
+    if "peak_vs_xla" in doc:
+        out["peak_vs_xla"] = doc["peak_vs_xla"]
+    return out
+
+
+def diff(before, after):
+    """Ranked per-op delta of live-at-peak bytes between two memory
+    ledgers — the ``memory_report --diff`` payload, mirroring
+    ``telemetry_dump --diff`` / ``mfu_report --diff``."""
+    def index(doc):
+        return {g["op"]: g for g in doc.get("by_op", [])}
+
+    ia, ib = index(before), index(after)
+    out = []
+    for op in sorted(set(ia) | set(ib)):
+        a, b = ia.get(op, {}), ib.get(op, {})
+        out.append({
+            "op": op,
+            "before_bytes": a.get("bytes", 0),
+            "after_bytes": b.get("bytes", 0),
+            "delta_bytes": b.get("bytes", 0) - a.get("bytes", 0),
+        })
+    out.sort(key=lambda r: -abs(r["delta_bytes"]))
+    return {
+        "peak_before": before.get("peak_live_bytes", 0),
+        "peak_after": after.get("peak_live_bytes", 0),
+        "peak_delta": (after.get("peak_live_bytes", 0)
+                       - before.get("peak_live_bytes", 0)),
+        "by_op": out,
+    }
+
+
+def load(path):
+    with open(path, "r", encoding="utf-8") as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict) or "peak_live_bytes" not in doc:
+        raise ValueError("%s is not a memory-ledger document" % path)
+    return doc
+
+
+def dump(doc, path):
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
+    return doc
+
 
 # ---------------------------------------------------------------------------
 # runtime census
@@ -329,12 +726,13 @@ def _device_stats():
 
 def oom_postmortem(error=None, hlo_text=None, compiled=None,
                    source=None, path=None, extra=None):
-    """Write the memory artifact: the census, each card's allocator
-    statistics and a flight-recorder dump. Atomic write; every section
-    guarded: a postmortem never raises over the OOM it documents.
-    ``hlo_text`` / ``compiled`` are accepted for the JAX package's
-    signature; the ranked peak-liveness table they feed waits for
-    ROADMAP queue 1 item 6b-ii (``memory_ledger_pending``)."""
+    """Write the memory artifact: the ranked peak-liveness table (when
+    the caller gives the failing program), the census, each card's
+    allocator statistics and a flight-recorder dump. Atomic write; every
+    section guarded: a postmortem never raises over the OOM it
+    documents. The program: ``hlo_text`` (HLO text, an
+    :class:`~.optrace.Trace`, or a callable returning either, called
+    now) or ``compiled`` (a Trace, or an object with ``as_text()``)."""
     doc = {"version": POSTMORTEM_VERSION, "kind": "oom_postmortem",
            "ts": time.time()}
     if source:
@@ -342,7 +740,25 @@ def oom_postmortem(error=None, hlo_text=None, compiled=None,
     if error is not None:
         doc["error"] = str(error)[:800]
         doc["error_type"] = type(error).__name__
-    doc["memory_ledger_pending"] = _LEDGER_PENDING
+    program = hlo_text
+    if program is None and compiled is not None:
+        try:
+            program = compiled if isinstance(compiled, _optrace.Trace) \
+                else compiled.as_text()
+        except Exception:  # noqa: BLE001
+            pass
+    if callable(program):
+        try:
+            program = program()
+        except Exception:  # noqa: BLE001 — tracing again can fail too
+            program = None
+    if program:
+        try:
+            led = build_memory_ledger(program)
+            led["buffers"] = led["buffers"][:25]
+            doc["memory_ledger"] = led
+        except Exception as e:  # noqa: BLE001
+            doc["memory_ledger_error"] = repr(e)[:200]
     try:
         doc["census"] = live_census(top=10)
     except Exception as e:  # noqa: BLE001

@@ -241,10 +241,9 @@ class Symbol:
         }, indent=2)
 
     def save(self, fname):
-        tmp = f"{fname}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
+        from ..checkpoint import atomic_write
+        with atomic_write(fname, mode="w") as f:
             f.write(self.tojson())
-        os.replace(tmp, fname)
 
     # -- execution ---------------------------------------------------------
     def eval_dict(self, bindings):

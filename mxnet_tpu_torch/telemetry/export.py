@@ -133,13 +133,9 @@ def merge_chrome_trace(snap=None, events=None, spans=None,
     omit them. ``memory`` (a ``live_census`` document, or ``True`` for
     the process's census now) adds the census counter track, ``health``
     (a ``health.snapshot_doc`` document, or ``True``) the model-health
-    tracks. The cost-attribution strip (``attribution``) reads the cost
-    ledger, which waits for ROADMAP queue 1 item 6b-ii: it raises."""
-    if attribution is not None:
-        raise MXNetError(
-            "merge_chrome_trace(attribution=) reads the cost ledger, which "
-            "waits for its port on torch.profiler (ROADMAP queue 1 item "
-            "6b-ii)")
+    tracks, and ``attribution`` (a ``profiling`` ledger or attribution
+    document) its ranked per-op rows as a flame strip on a pid of its
+    own, with the document's totals under metadata."""
     snap = snap if snap is not None else snapshot()
     from .. import profiler
     from .. import tracing as _tracing
@@ -164,6 +160,13 @@ def merge_chrome_trace(snap=None, events=None, spans=None,
             merged.append({"name": ev_name, "ph": "C", "ts": ts,
                            "pid": 0, "args": {name: v}})
     metadata = {"telemetry": snap}
+    if attribution is not None:
+        merged.extend(_tracing.export.attribution_events(attribution))
+        metadata["attribution"] = {
+            k: attribution.get(k)
+            for k in ("kind", "module", "totals", "reconciliation",
+                      "mfu", "peak_tflops", "peak_hbm_gbs")
+            if k in attribution}
     if memory is not None:
         if memory is True:
             from ..profiling import memory as _mem

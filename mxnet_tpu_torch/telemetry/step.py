@@ -39,6 +39,9 @@ class _StepState:
 
 
 _state = _StepState()
+# callables run at every boundary, telemetry on or off (the op trace's
+# scope counts start over there: ``profiling/optrace.py``)
+_on_boundary = []
 
 # unlabeled entries cache the series (reset-safe, one lock and add a
 # record); only the per-source step counter stays a family
@@ -87,6 +90,8 @@ def step_boundary(source="trainer"):
     compile time to it and emit the breakdown. Returns the breakdown
     dict (None for the very first boundary, which only opens the
     interval)."""
+    for fn in _on_boundary:
+        fn()
     if not _metrics.enabled():
         return None
     now = time.perf_counter()

@@ -121,6 +121,34 @@ def pull_server_trace(kv, path, timeout=10.0, poll=0.05):
         % (nonce_path, timeout))
 
 
+def attribution_events(attrib_doc, pid=90, tid=0):
+    """Cost-attribution rows (a ``profiling`` ledger or attribution
+    document) as a chrome-trace flame strip: one 'X' event an op, end
+    to end in rank order on a pid of its own, sized by measured
+    (preferred) or roofline-estimated seconds a step. Not a timeline: a
+    proportional ranking beside the real spans in the same Perfetto
+    view."""
+    events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": tid,
+               "args": {"name": "op attribution (per step)"}}]
+    cursor = 0.0
+    for g in attrib_doc.get("by_op", []):
+        dur_us = (g.get("measured_s") or g.get("est_s") or 0.0) * 1e6
+        if dur_us <= 0:
+            continue
+        args = {"flops": g.get("flops", 0), "bytes": g.get("bytes", 0),
+                "bound": g.get("bound", "?")}
+        if g.get("rule"):
+            args["rule"] = g["rule"]
+        if g.get("mfu") is not None:
+            args["mfu"] = g.get("mfu")
+        events.append({
+            "name": g.get("op") or "?", "cat": "attribution", "ph": "X",
+            "ts": cursor, "dur": dur_us, "pid": pid, "tid": tid,
+            "args": args})
+        cursor += dur_us
+    return events
+
+
 def memory_counter_events(census_doc, pid=91, ts=0.0):
     """A live-tensor census (``profiling.memory.live_census`` document)
     rendered as Perfetto counter tracks: one stacked 'C' counter of live

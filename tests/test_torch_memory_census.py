@@ -324,8 +324,9 @@ def test_is_oom_error_classification_equals_the_jax_packages():
 
 
 def test_oom_postmortem_keys_equal_the_jax_packages(tmp_path):
-    """The same keys as the JAX artifact, the liveness ledger aside (it
-    waits for ROADMAP queue 1 item 6b-ii and says so)."""
+    """The same keys as the JAX artifact, without a program and with
+    one (the ranked peak-liveness table, ``memory_ledger``)."""
+    import jax
     import jax.numpy as jnp
     a = torch.ones(64, 64)
     memory.tag_role(a, "parameter")
@@ -336,8 +337,18 @@ def test_oom_postmortem_keys_equal_the_jax_packages(tmp_path):
                                  path=str(tmp_path / "a.json"))
     theirs = jmemory.oom_postmortem(err, source="seam",
                                     path=str(tmp_path / "b.json"))
-    assert set(mine) - {"memory_ledger_pending"} == set(theirs)
-    assert "6b-ii" in mine["memory_ledger_pending"]
+    assert set(mine) == set(theirs)
+    trace, _ = tmx.profiling.optrace.record(lambda t: (t * 2).sum(), a)
+    mine_p = memory.oom_postmortem(err, source="seam", hlo_text=trace,
+                                   path=str(tmp_path / "c.json"))
+    theirs_p = jmemory.oom_postmortem(
+        err, source="seam", path=str(tmp_path / "d.json"),
+        hlo_text=jax.jit(lambda t: (t * 2).sum()).lower(ja).compile()
+        .as_text())
+    assert set(mine_p) == set(theirs_p) == set(theirs) | {"memory_ledger"}
+    assert set(mine_p["memory_ledger"]) >= \
+        set(theirs_p["memory_ledger"]) - {"xla_memory_analysis",
+                                          "peak_vs_xla"}
     saved = json.loads((tmp_path / "a.json").read_text())
     assert saved["kind"] == "oom_postmortem" and saved["source"] == "seam"
     assert saved["census"]["by_role"]["parameter"]["bytes"] >= 64 * 64 * 4
@@ -401,16 +412,73 @@ def test_oom_seams_write_the_postmortem_and_propagate(seam, monkeypatch):
     assert {"census", "device_stats", "flight"} <= set(saved)
 
 
-def test_liveness_ledger_names_raise_and_name_their_item():
-    for name in ("buffer_intervals", "build_memory_ledger",
-                 "from_compiled", "from_fn", "summarize", "diff", "load",
-                 "dump"):
-        with pytest.raises(NotImplementedError, match="item 6b-ii"):
-            getattr(memory, name)()
-    for name in ("analyze_dir", "attribution_run", "build_ledger",
-                 "from_compiled", "from_fn", "mfu_estimate",
-                 "build_memory_ledger"):
-        with pytest.raises(NotImplementedError, match="item 6b-ii"):
-            getattr(tmx.profiling, name)()
-    with pytest.raises(tmx.base.MXNetError, match="item 6b-ii"):
-        tmx.telemetry.export.merge_chrome_trace(spans=[], attribution={})
+def _chain(x):
+    return torch.relu(x * 2) + 1
+
+
+def _chain_x():
+    return torch.ones(16, 16)
+
+
+def _analyze_dir(trace, doc, path):
+    run = tmx.profiling.attribution_run(
+        _chain, (_chain_x(),), steps=1, profile_dir=os.path.dirname(path))
+    return tmx.profiling.analyze_dir(run["profile_file"], compiled=_chain,
+                                     args=(_chain_x(),), steps=1)
+
+
+def _load(trace, doc, path):
+    memory.dump(doc, path)
+    return memory.load(path)
+
+
+_LEDGER_CALLS = {
+    "memory.buffer_intervals": lambda tr, d, p: memory.buffer_intervals(tr),
+    "memory.build_memory_ledger":
+        lambda tr, d, p: memory.build_memory_ledger(tr),
+    "memory.from_compiled": lambda tr, d, p: memory.from_compiled(
+        _chain, args=(_chain_x(),)),
+    "memory.from_fn": lambda tr, d, p: memory.from_fn(_chain, _chain_x()),
+    "memory.summarize": lambda tr, d, p: memory.summarize(d),
+    "memory.diff": lambda tr, d, p: memory.diff(d, d),
+    "memory.load": _load,
+    "memory.dump": lambda tr, d, p: memory.dump(d, p),
+    "profiling.analyze_dir": _analyze_dir,
+    "profiling.attribution_run":
+        lambda tr, d, p: tmx.profiling.attribution_run(
+            _chain, (_chain_x(),), steps=1, profile_dir=os.path.dirname(p)),
+    "profiling.build_ledger": lambda tr, d, p: tmx.profiling.build_ledger(tr),
+    "profiling.from_compiled":
+        lambda tr, d, p: tmx.profiling.from_compiled(_chain,
+                                                     args=(_chain_x(),)),
+    "profiling.from_fn": lambda tr, d, p: tmx.profiling.from_fn(
+        _chain, _chain_x()),
+    "profiling.mfu_estimate": lambda tr, d, p: tmx.profiling.mfu_estimate(
+        tmx.profiling.build_ledger(tr)),
+    "profiling.build_memory_ledger":
+        lambda tr, d, p: tmx.profiling.build_memory_ledger(tr),
+    "export.merge_chrome_trace": lambda tr, d, p:
+        tmx.telemetry.export.merge_chrome_trace(
+            spans=[], attribution=tmx.profiling.build_ledger(tr)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LEDGER_CALLS))
+def test_liveness_and_cost_ledger_names_work(name, tmp_path):
+    """Every name that refused before the cost ledger's port (the
+    liveness ledger, the cost ledger and its capture, the attribution
+    strip) answers on a small chain: x * 2, relu, + 1 of a 16 x 16 f32
+    input, whose peak holds the input, the product and the relu (3 x
+    1 KiB)."""
+    trace, _ = tmx.profiling.optrace.record(_chain, _chain_x())
+    doc = memory.build_memory_ledger(trace)
+    assert doc["peak_live_bytes"] == 3 * 16 * 16 * 4
+    got = _LEDGER_CALLS[name](trace, doc, str(tmp_path / "doc.json"))
+    assert got is not None
+    if isinstance(got, dict) and "kind" in got:
+        assert got["kind"] in ("memory_ledger", "cost_ledger",
+                               "mfu_attribution", None) or \
+            "traceEvents" in got
+    if isinstance(got, dict) and got.get("kind") in ("cost_ledger",
+                                                      "mfu_attribution"):
+        assert got["totals"]["flops"] == 3 * 16 * 16

@@ -3,7 +3,7 @@
 (tests/test_profiler.py, tests/test_custom_monitor.py): the events of the
 same calls (op dispatch, the executor, the user objects) equal the JAX
 package's in name, ph, cat and args, and ``dumps`` tables have the same
-rows; the device capture raises and names its ROADMAP item; the Monitor's
+rows; the device capture round-trips to ``op_attribution``; the Monitor's
 statistics equal the JAX Monitor's (rtol 1e-5) in the same order, on a
 bound executor, through ``Module.fit`` and over a dp 2 mesh, and its tap
 reads nothing before ``toc``. Last, one 2-worker job of the port's
@@ -226,13 +226,38 @@ def test_counter_is_thread_safe_and_every_event_lands(tmp_path):
     assert sum(e["name"] == "evts" for e in events) == 2000
 
 
-def test_device_capture_raises_and_names_its_roadmap_item():
-    with pytest.raises(MXNetError, match="queue 1 item 6"):
-        profiler.set_config(xla_trace_dir="/nonexistent")
-    with pytest.raises(MXNetError, match="queue 1 item 6"):
-        profiler.last_xplane_dir()
-    with pytest.raises(MXNetError, match="queue 1 item 6"):
-        profiler.op_attribution()
+def test_device_capture_round_trips_to_op_attribution(tmp_path):
+    """``set_config(xla_trace_dir=)`` + run / stop captures a Kineto
+    trace into the directory, ``last_xplane_dir`` names it, and
+    ``op_attribution`` joins it onto the same step's cost ledger: every
+    framework op of the step a measured row, as the JAX package's
+    capture gives."""
+    from mxnet_tpu_torch.profiling import ledger
+    x = tmx.nd.array(np.ones((4, 8), np.float32), ctx=tmx.cpu())
+    w = tmx.nd.array(np.ones((3, 8), np.float32), ctx=tmx.cpu())
+
+    def step():
+        y = tmx.nd.FullyConnected(x, w, no_bias=True, num_hidden=3)
+        return tmx.nd.relu(y)
+    led = ledger.from_fn(step)
+    assert {r["instr"] for r in led["rows"]} == {"FullyConnected#0",
+                                                 "relu#0"}
+    profiler.set_config(xla_trace_dir=str(tmp_path))
+    try:
+        profiler.set_state("run")
+        tmx.telemetry.step.step_boundary("capture_test")
+        step()
+    finally:
+        profiler.set_state("stop")
+        profiler.set_config(xla_trace_dir=None)
+    assert profiler.last_xplane_dir() == str(tmp_path)
+    assert [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
+    doc = profiler.op_attribution(compiled=led, steps=1)
+    assert doc["kind"] == "mfu_attribution"
+    measured = {r["instr"]: r.get("measured_s", 0) for r in doc["rows"]}
+    assert measured["FullyConnected#0"] > 0 and measured["relu#0"] > 0
+    assert doc["measured"]["device_window_s_per_step"] >= \
+        doc["measured"]["named_s_per_step"] > 0
     with pytest.raises(MXNetError, match="unknown profiler config"):
         profiler.set_config(nonsense=1)
     with pytest.raises(MXNetError, match="needs a connected dist"):

@@ -246,13 +246,20 @@ def test_chrome_trace_merge_carries_both_halves():
     trace = export.merge_chrome_trace(events=[], timeline=tl.to_doc())
     assert trace["metadata"]["timeline"]["frames"] == 1
     json.dumps(trace)
-    # the census and health tracks ride along; the cost-attribution
-    # strip waits for the cost ledger and says which item
+    # the census and health tracks ride along, and a cost ledger's
+    # ranked rows fold in as the attribution strip, as the JAX package
+    # folds them
     trace = export.merge_chrome_trace(events=[], memory=True, health=True)
     assert {"memory", "health"} <= set(trace["metadata"])
     json.dumps(trace, allow_nan=False)
-    with pytest.raises(MXNetError, match="queue 1 item 6b-ii"):
-        export.merge_chrome_trace(attribution={})
+    led = tmx.profiling.from_fn(lambda x: (x * 2).sum(), torch.ones(8))
+    trace = export.merge_chrome_trace(events=[], spans=[], attribution=led)
+    strip = [e for e in trace["traceEvents"] if e.get("pid") == 90]
+    assert strip[0]["args"]["name"] == "op attribution (per step)"
+    assert [e["name"] for e in strip[1:]] == \
+        [g["op"] for g in led["by_op"] if g["est_s"] > 0]
+    assert trace["metadata"]["attribution"]["totals"] == led["totals"]
+    json.dumps(trace, allow_nan=False)
 
 
 def test_timeline_and_slo_burn():
